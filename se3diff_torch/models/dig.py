@@ -1,0 +1,418 @@
+"""Distributional-Graphormer score network (DiG) as PyTorch modules.
+
+Counterpart of ``se3diff_tpu/models/dig.py`` (reference
+`bioemu/src/bioemu/models.py` and `bioemu/src/bioemu/structure_module.py`) on
+dense ``[B, L, ...]`` batches. Module names follow the reference, so a
+reference state dict (``model_nn.x1d_proj.0.weight``,
+``model_nn.st_module.encoder.layers.{i}.attn.point_query.weight``, ...)
+loads with ``load_state_dict(strict=True)``.
+
+* ``SAAttention`` is DiG's IPA (structure_module.py:56-220): scalar qkv,
+  4 query/key points, 8 value points, pair bias, learned per-head point
+  weight ``softplus(gamma)``, a ``pair_value`` projection, and point logits
+  that sum Euclidean norms over points. Its attention core always runs
+  through :func:`se3diff_torch.ops.ipa_attention.ipa_attention`, in the
+  kernel layout, with the per-layer pair bias ``pa`` streamed from the
+  conditioning cache.
+* The pair-value projection is the kernel's fused finalize: its weight
+  loads as ``pair_value.weight`` (a :class:`HeadwiseLinear`) and reaches the
+  kernel as ``w_pv [H, Cp, dk]``.
+* Parameters stay float32. With ``dtype=torch.bfloat16`` the projections,
+  residual stream and pair stack run in bf16; layer norms compute their
+  statistics in f32; point aggregation and the score heads stay f32.
+* The translation score is made equivariant via ``IR_perturbed^T @ T_eps``
+  (models.py:305) and the wrapper feeds inverse rotations and ``t * 1000``
+  (models.py:359-384).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from se3diff_torch.ops.ipa_attention import NEG_INF, ipa_attention
+
+# Evoformer embedding dims (models.py:15-16).
+EVOFORMER_NODE_DIM = 384
+EVOFORMER_EDGE_DIM = 128
+
+
+def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``lin`` applied in ``dtype`` (input and weights cast, f32 parameters kept)."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    """Layer norm with f32 statistics, output in ``dtype``."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
+
+
+class SinusoidalPositionEmbedder(nn.Module):
+    """DiG sinusoidal time embedding; input rescaled to [0, 1000] (models.py:19-69)."""
+
+    def __init__(self, dim: int, max_period: int = 10_000, min_input: float = 0.0,
+                 max_input: float = 1000.0):
+        super().__init__()
+        self.dim, self.max_period = dim, max_period
+        self.min_input, self.max_input = min_input, max_input
+        # The reference's fp16-detection sentinel; kept so state dicts match.
+        self.register_buffer("dummy", torch.empty(0))
+
+    def forward(self, time: torch.Tensor) -> torch.Tensor:
+        half_dim = self.dim // 2
+        factor = -math.log(self.max_period) / (half_dim - 1)
+        time = (time - self.min_input) * 1000.0 / (self.max_input - self.min_input)
+        freqs = torch.exp(
+            torch.arange(half_dim, dtype=torch.float32, device=time.device) * factor
+        )
+        args = time[:, None].float() * freqs[None, :]
+        return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+def relative_position_bucket(
+    relative_position: torch.Tensor, num_buckets: int, max_distance: int
+) -> torch.Tensor:
+    """DiG bucketing of relative sequence offsets (models.py:95-126)."""
+    num_buckets //= 2
+    ret = (relative_position < 0).to(torch.int32) * num_buckets
+    rp = relative_position.abs()
+    max_exact = num_buckets // 2
+    is_small = rp < max_exact
+    rp_safe = rp.clamp(min=1)
+    val_if_large = max_exact + (
+        torch.log(rp_safe.float() / max_exact)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).to(torch.int32)
+    val_if_large = val_if_large.clamp(max=num_buckets - 1)
+    return ret + torch.where(is_small, rp.to(torch.int32), val_if_large)
+
+
+class RelativePositionBias(nn.Module):
+    """Learnable embedding of bucketed relative positions (models.py:72-145)."""
+
+    def __init__(self, num_buckets: int = 64, max_distance: int = 256, out_dim: int = 2):
+        super().__init__()
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.relative_attention_bias = nn.Embedding(num_buckets, out_dim)
+
+    def forward(self, relative_position: torch.Tensor) -> torch.Tensor:
+        bucket = relative_position_bucket(relative_position, self.num_buckets, self.max_distance)
+        return self.relative_attention_bias(bucket.long())
+
+
+class FeedForward(nn.Module):
+    """Linear -> GELU -> Dropout -> Linear -> Dropout (structure_module.py:12-26)."""
+
+    def __init__(self, d_model: int, dim_feedforward: int, dropout: float,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.ff = nn.Sequential(
+            nn.Linear(d_model, dim_feedforward), nn.GELU(), nn.Dropout(dropout),
+            nn.Linear(dim_feedforward, d_model), nn.Dropout(dropout),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ff[2](F.gelu(_linear(x, self.ff[0], self.dtype)))
+        return self.ff[4](_linear(x, self.ff[3], self.dtype))
+
+
+class DiffHead(nn.Module):
+    """Two [LN, Linear, ReLU, Linear] heads -> (T_eps, IR_eps) in f32
+    (structure_module.py:29-53)."""
+
+    def __init__(self, ninp: int):
+        super().__init__()
+
+        def head():
+            return nn.Sequential(
+                nn.LayerNorm(ninp), nn.Linear(ninp, ninp), nn.ReLU(), nn.Linear(ninp, 3)
+            )
+
+        self.fc_t = head()
+        self.fc_eps = head()
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x = x.float()
+        return self.fc_t(x), self.fc_eps(x)
+
+
+class HeadwiseLinear(nn.Linear):
+    """Per-head slice of a no-bias Linear: input ``[..., H, Cin]`` -> output
+    ``[..., H, out_features/H]``, head h using weight rows
+    ``[h*dk : (h+1)*dk]``. State-dict compatible with ``nn.Linear`` (the
+    reference's ``pair_value``)."""
+
+    def __init__(self, in_features: int, out_features: int, n_head: int):
+        super().__init__(in_features, out_features, bias=False)
+        self.n_head = n_head
+
+    def head_major_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight as ``[H, Cin, dk]``, contiguous, in ``dtype``."""
+        w = self.weight.to(dtype).reshape(self.n_head, -1, self.in_features)
+        return w.transpose(1, 2).contiguous()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("...hp,hpc->...hc", x, self.head_major_weight(x.dtype))
+
+
+class SAAttention(nn.Module):
+    """DiG invariant point attention (structure_module.py:56-220)."""
+
+    def __init__(self, d_model: int, d_pair: int, n_head: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if d_model % n_head != 0:
+            raise ValueError("d_model must be a multiple of n_head")
+        self.d_model, self.d_pair, self.n_head, self.dtype = d_model, d_pair, n_head, dtype
+        H = n_head
+        self.trained_point_weight = nn.Parameter(torch.rand(H))
+        self.scalar_query = nn.Linear(d_model, d_model, bias=False)
+        self.scalar_key = nn.Linear(d_model, d_model, bias=False)
+        self.scalar_value = nn.Linear(d_model, d_model, bias=False)
+        self.pair_bias = nn.Linear(d_pair, H, bias=False)
+        self.point_query = nn.Linear(d_model, H * 4 * 3, bias=False)
+        self.point_key = nn.Linear(d_model, H * 4 * 3, bias=False)
+        self.point_value = nn.Linear(d_model, H * 8 * 3, bias=False)
+        self.pair_value = HeadwiseLinear(d_pair, d_model, H)
+        self.fc_out = nn.Linear(2 * d_model + H * 8 * 3 + H * 8, d_model)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(
+        self,
+        x1d: torch.Tensor,               # [B, L, C]
+        x2d: torch.Tensor,               # [B, L, L, Cp]
+        pose: tuple[torch.Tensor, torch.Tensor],  # (T [B, L, 3], IR [B, L, 3, 3])
+        bias: torch.Tensor,              # [B, L] f32 column bias (NEG_INF masked)
+        pa: torch.Tensor,                # [B, H, L, L] pair bias x2d @ w_pb, unscaled
+    ) -> torch.Tensor:
+        H, dk, dt = self.n_head, self.d_model // self.n_head, self.dtype
+        B, L, _ = x1d.shape
+        # The module receives inverse rotations; transpose back to rotations.
+        T, R = pose[0].float(), pose[1].transpose(-1, -2).float()
+
+        def head_major(x: torch.Tensor) -> torch.Tensor:  # [B, L, H, c] -> [B, H, L, c]
+            return x.permute(0, 2, 1, 3).contiguous()
+
+        q_s = head_major(_linear(x1d, self.scalar_query, dt).reshape(B, L, H, dk))
+        k_s = head_major(_linear(x1d, self.scalar_key, dt).reshape(B, L, H, dk))
+        v_s = head_major(_linear(x1d, self.scalar_value, dt).reshape(B, L, H, dk))
+
+        def global_points(lin: nn.Linear, npts: int) -> torch.Tensor:
+            # Weight rows are (head, point, xyz); R x + T in f32.
+            p = _linear(x1d, lin, dt).reshape(B, L, H, npts, 3).float()
+            return torch.einsum("blxy,blhpy->blhpx", R, p) + T[:, :, None, None, :]
+
+        point_weight = math.sqrt(2.0 / (3 * 4 * 9)) * F.softplus(self.trained_point_weight)
+        pw = (0.5 * point_weight).float()
+
+        def planes(p: torch.Tensor) -> torch.Tensor:
+            # [B, L, H, 4, 3] -> the kernel's [B, 3, H*4, L], scaled by pw[h].
+            p = p * pw[None, None, :, None, None]
+            return p.permute(0, 4, 2, 3, 1).reshape(B, 3, H * 4, L).contiguous()
+
+        q_p = planes(global_points(self.point_query, 4))
+        k_p = planes(global_points(self.point_key, 4))
+        v_point = global_points(self.point_value, 8)          # [B, L, H, 8, 3] f32
+        v_p = v_point.permute(0, 2, 1, 3, 4).reshape(B, H, L, 24).contiguous()
+        os_hm, op_hm, opr_hm = ipa_attention(
+            q_s, k_s, v_s, q_p, k_p, v_p, x2d, self.pair_value.head_major_weight(dt), bias, pa,
+            scalar_w=1.0 / math.sqrt(3 * dk), pair_w=1.0 / math.sqrt(3),
+        )
+        out_scalar = os_hm.permute(0, 2, 1, 3).reshape(B, L, H * dk).to(dt)
+        out_pair = opr_hm.permute(0, 2, 1, 3).reshape(B, L, H * dk).to(dt)
+        out_point_g = op_hm.permute(0, 2, 1, 3).reshape(B, L, H, 8, 3)  # f32
+
+        # Global -> local frame: R^T (x - T).
+        out_point_local = torch.einsum(
+            "blxy,blhpx->blhpy", R, out_point_g - T[:, :, None, None, :]
+        ).to(dt)
+        out_point_norm = torch.sqrt(out_point_local.square().sum(-1) + 1e-12)
+        out_feat = torch.cat(
+            [
+                out_scalar,
+                out_point_local.reshape(B, L, H * 24),
+                out_pair,
+                out_point_norm.reshape(B, L, H * 8),
+            ],
+            dim=-1,
+        )
+        return self.dropout(_linear(out_feat, self.fc_out, dt))
+
+
+class SAEncoderLayer(nn.Module):
+    """Pre-LN IPA + MLP residual block (structure_module.py:223-249)."""
+
+    def __init__(self, d_model: int, d_pair: int, n_head: int, dim_feedforward: int,
+                 dropout: float, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(d_model)
+        self.attn = SAAttention(d_model, d_pair, n_head, dropout, dtype)
+        self.norm2 = nn.LayerNorm(d_model)
+        self.ffn = FeedForward(d_model, dim_feedforward, dropout, dtype)
+
+    def forward(self, x1d, x2d, pose, bias, pa):
+        x1d = x1d + self.attn(_layer_norm(x1d, self.norm1, self.dtype), x2d, pose, bias, pa)
+        return x1d + self.ffn(_layer_norm(x1d, self.norm2, self.dtype))
+
+
+class SAEncoder(nn.Module):
+    """Holds the layer stack under the reference's ``encoder.layers`` names."""
+
+    def __init__(self, layers: list[SAEncoderLayer]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+class StructureModule(nn.Module):
+    """IPA encoder stack + diff head (structure_module.py:252-287)."""
+
+    def __init__(self, d_model: int, d_pair: int, n_layer: int, n_head: int,
+                 dim_feedforward: int, dropout: float, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_layer = n_layer
+        self.encoder = SAEncoder([
+            SAEncoderLayer(d_model, d_pair, n_head, dim_feedforward, dropout, dtype)
+            for _ in range(n_layer)
+        ])
+        self.diff_head = DiffHead(d_model)
+
+    def forward(self, pose, x1d, x2d, bias, pa):
+        """``pa [n_layer, B, H, L, L]``: the per-layer pair biases."""
+        for i, layer in enumerate(self.encoder.layers):
+            x1d = layer(x1d, x2d, pose, bias, pa[i])
+        return self.diff_head(x1d)
+
+
+class DistributionalGraphormer(nn.Module):
+    """Dense-batch DiG model (models.py:148-322).
+
+    Inputs: noisy translations ``T_perturbed [B, L, 3]``, inverse rotations
+    ``IR_perturbed [B, L, 3, 3]``, times ``t [B]`` (already scaled by 1000),
+    Evoformer ``single [B, L, 384]`` / ``pair [B, L, L, 128]`` and a validity
+    ``mask [B, L]`` (True = real residue). Returns ``(T_eps, IR_eps)``, both
+    ``[B, L, 3]``.
+    """
+
+    def __init__(self, dim_model: int = 512, dim_pair: int = 256, num_layers: int = 8,
+                 num_heads: int = 32, dim_single_rep: int = 64, dim_hidden: int = 1024,
+                 num_buckets: int = 64, max_distance_relative: int = 128,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.x1d_proj = nn.Sequential(
+            nn.LayerNorm(EVOFORMER_NODE_DIM), nn.Linear(EVOFORMER_NODE_DIM, dim_model, bias=False)
+        )
+        self.step_emb = SinusoidalPositionEmbedder(dim_model)
+        self.x2d_proj = nn.Sequential(
+            nn.LayerNorm(EVOFORMER_EDGE_DIM), nn.Linear(EVOFORMER_EDGE_DIM, dim_pair, bias=False)
+        )
+        self.rp_proj = RelativePositionBias(num_buckets, max_distance_relative, dim_pair)
+        self.st_module = StructureModule(
+            dim_model, dim_pair, num_layers, num_heads, dim_hidden, dropout, dtype
+        )
+
+    def embed_conditioning(
+        self, single_repr: torch.Tensor, pair_repr: torch.Tensor,
+        mask: torch.Tensor | None = None,
+    ) -> dict:
+        """Everything the score net needs that does not depend on ``t`` or
+        the pose: projected single/pair conditioning, the column bias and the
+        per-layer pair biases ``pa[i] = x2d @ w_pb[i]`` (unscaled; the kernel
+        applies ``pair_w``). Computed once per batch; the solver replays only
+        :meth:`score_from_cache`."""
+        dt = self.dtype
+        B, L = pair_repr.shape[:2]
+        dev = pair_repr.device
+        if mask is None:
+            mask = torch.ones((B, L), dtype=torch.bool, device=dev)
+
+        x1d = _linear(_layer_norm(single_repr, self.x1d_proj[0], dt), self.x1d_proj[1], dt)
+        x2d = _linear(_layer_norm(pair_repr, self.x2d_proj[0], dt), self.x2d_proj[1], dt)
+        pos_seq = torch.arange(L, device=dev)
+        rel_pos = pos_seq[:, None] - pos_seq[None, :]
+        x2d = (x2d.float() + self.rp_proj(rel_pos)[None]).to(dt).contiguous()
+
+        # Column bias: NEG_INF at masked columns; a fully masked row falls
+        # back to no masking to keep the softmax finite (models.py:286-291).
+        any_real = mask.any(dim=-1, keepdim=True)
+        bias = torch.where(~mask & any_real, NEG_INF, 0.0).to(torch.float32).contiguous()
+
+        pa = torch.stack([
+            torch.einsum("bijp,hp->bhij", x2d, layer.attn.pair_bias.weight.to(dt))
+            for layer in self.st_module.encoder.layers
+        ]).contiguous()                                      # [n_layer, B, H, L, L]
+        return {"x1d": x1d, "x2d": x2d, "bias": bias, "pa": pa}
+
+    def score_from_cache(
+        self, T_perturbed: torch.Tensor, IR_perturbed: torch.Tensor, t: torch.Tensor,
+        cache: dict,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-step score evaluation against a conditioning cache."""
+        x1d = (cache["x1d"].float() + self.step_emb(t)[:, None]).to(self.dtype)
+        T_eps, IR_eps = self.st_module(
+            (T_perturbed, IR_perturbed), x1d, cache["x2d"], cache["bias"], cache["pa"]
+        )
+        # Orientation dependence of the translation score (models.py:305).
+        T_eps = torch.einsum("blyx,bly->blx", IR_perturbed.float(), T_eps)
+        return T_eps, IR_eps
+
+    def forward(self, T_perturbed, IR_perturbed, t, single_repr, pair_repr, mask=None):
+        cache = self.embed_conditioning(single_repr, pair_repr, mask)
+        return self.score_from_cache(T_perturbed, IR_perturbed, t, cache)
+
+
+class DiGConditionalScoreModel(nn.Module):
+    """Wrapper with the DiG conventions (models.py:325-384): ``t`` is scaled
+    by 1000 and rotations are fed transposed (inverse). Returns raw
+    ``(pos_out, rot_out)``: the translation output predicts ``score * std``
+    and the rotation output ``score / score_scaling``."""
+
+    def __init__(self, dim_model: int = 512, dim_pair: int = 256, num_layers: int = 8,
+                 num_heads: int = 32, dim_single_rep: int = 64, dim_hidden: int = 1024,
+                 num_buckets: int = 64, max_distance_relative: int = 128,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.model_nn = DistributionalGraphormer(
+            dim_model, dim_pair, num_layers, num_heads, dim_single_rep, dim_hidden,
+            num_buckets, max_distance_relative, dropout, dtype,
+        )
+
+    def embed_conditioning(self, single_repr, pair_repr, mask=None) -> dict:
+        """The t-invariant conditioning, for :meth:`score_from_cache`."""
+        return self.model_nn.embed_conditioning(single_repr, pair_repr, mask)
+
+    def score_from_cache(self, pos, rot, t, cache):
+        return self.model_nn.score_from_cache(pos, rot.transpose(-1, -2), t * 1000.0, cache)
+
+    def forward(self, pos, rot, t, single_repr, pair_repr, mask=None):
+        return self.model_nn(
+            pos, rot.transpose(-1, -2), t * 1000.0, single_repr, pair_repr, mask
+        )
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every parameter from ``generator`` with the JAX package's
+    initialisers: truncated-normal LeCun for projections, normal(1/sqrt(dim))
+    for embeddings, uniform[0, 1) for point weights, ones/zeros for layer
+    norms and biases. Returns ``model``."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "trained_point_weight":
+                p.uniform_(0.0, 1.0, generator=generator)
+            elif "relative_attention_bias" in name:
+                p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+            elif p.ndim == 1:
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            else:
+                # LeCun normal truncated at 2 sigma (variance-corrected).
+                std = 1.0 / math.sqrt(p.shape[1]) / 0.87962566103423978
+                nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
+    return model

@@ -1,0 +1,78 @@
+"""The IPA attention kernel on the card, against its plain version.
+
+These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip. They
+import neither JAX nor the JAX package, so a machine with only PyTorch runs
+them with ``python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py``.
+
+Tolerances, relative to max|plain| (at least 1): f32 2e-4 (same products,
+summed in another order across online-softmax tiles); bf16 3e-2 (outputs
+round to bf16 at 2^-8, and the kernel rounds the tile's unnormalised
+probabilities where the plain version rounds normalised ones).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from se3diff_torch.ops import ipa_attention as k1
+
+H, DK, CP = 32, 16, 256
+KW = dict(scalar_w=1 / np.sqrt(3 * DK), pair_w=1 / np.sqrt(3))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _args(device, B, Lq, Lk, dtype, masked_cols, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def g(*s, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32)).to(device)
+
+    bias = torch.zeros(B, Lk, device=device)
+    if masked_cols:
+        bias[:, -masked_cols:] = k1.NEG_INF
+    return (
+        g(B, H, Lq, DK).to(dtype), g(B, H, Lk, DK).to(dtype), g(B, H, Lk, DK).to(dtype),
+        g(B, 3, H * 4, Lq, scale=0.3), g(B, 3, H * 4, Lk, scale=0.3), g(B, H, Lk, 24),
+        g(B, Lq, Lk, CP, scale=0.5).to(dtype), g(H, CP, DK, scale=0.06).to(dtype), bias,
+        g(B, H, Lq, Lk).to(dtype),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,Lq,Lk,masked", [
+    (3, 37, 37, 5),     # ragged square, masked columns
+    (2, 5, 70, 0),      # rows != columns, a partial last column tile
+    (1, 1, 1, 0),       # one row, one column
+    (2, 33, 33, 33),    # every column masked: the softmax is uniform
+])
+def test_kernel_matches_plain_on_the_card(cuda_device, dtype, tol, B, Lq, Lk, masked):
+    args = _args(cuda_device, B, Lq, Lk, dtype, masked)
+    before = k1.launches
+    got = k1.ipa_attention(*args, **KW)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    want = k1.ipa_attention_plain(*args, **KW)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    args = list(_args(cuda_device, 1, 8, 8, torch.float32, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        bad = list(args)
+        bad[0] = args[0].transpose(2, 3).contiguous().transpose(2, 3)
+        k1.ipa_attention(*bad, **KW)
+    with pytest.raises(TypeError, match="dtype"):
+        bad = list(args)
+        bad[5] = args[5].double()
+        k1.ipa_attention(*bad, **KW)
