@@ -21,7 +21,26 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    kernel's launch count must be 8 layers x 30 evaluations x 2 batches, and
    the device physicality filter must agree with the numpy filter;
 5. a profile of one main-path batch: device time by kernel;
-6. the ``kernels`` line, the card line, and the final ``ok`` line.
+6. K1's gradient on the card: the autograd Function (kernel forward,
+   row-chunked PyTorch backward) against autograd through the plain version
+   at B=16, L=100 (bf16, f32), L=77 with 9 masked columns, and B=4, L=200
+   (two row chunks of the backward); each gradient's error beside its
+   tolerance, forward and backward ms beside their bounds, peak memory
+   beside the plain autograd's;
+7. one full-width DSM loss and gradient (bioemu-v1.0 widths, seed-0
+   weights, f32) on the card through the kernel and on the CPU through the
+   plain version, on the same injected noise; every parameter must get a
+   nonzero gradient on the card;
+8. the training path: ``python -m se3diff_torch.train``'s ``main`` on the
+   repository's two test ensembles (one L=64 bucket), full width, bf16,
+   batch 16, 30 steps with checkpoints every 10; then 20 steps, interrupted,
+   and a resume to 30, which must give the same weights bit for bit; K1
+   launches and K1 backward passes 8 per step; the export loads through ``load_bundle`` and one
+   score evaluation runs from it;
+9. train-step throughput at ``bench.py --train``'s shape (L=100, B=16, bf16):
+   ``dsm_train_examples_per_hour_L100_B16``, the forward / backward /
+   optimizer split and a profile of one step;
+then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
 Outputs go to ``.work/chip_smoke/`` inside the checkout (listed in .gitignore).
@@ -47,6 +66,22 @@ MAIN_BATCH, MAIN_SAMPLES, MAIN_STEPS, N_LAYERS = 40, 80, 30, 8
 K1_CASES = [(40, 100, "bfloat16", 0), (40, 100, "float32", 0),
             (40, 77, "bfloat16", 9), (40, 77, "float32", 9)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}         # x max(1, max|plain|)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_STOP = 16, 30, 10, 20
+# The last case has two row chunks of the backward (L > 128).
+K1_GRAD_CASES = [(TRAIN_BATCH, 100, "bfloat16", 0), (TRAIN_BATCH, 100, "float32", 0),
+                 (TRAIN_BATCH, 77, "bfloat16", 9), (TRAIN_BATCH, 77, "float32", 9),
+                 (4, 200, "bfloat16", 0)]
+# Gradient tolerances x max|reference| of each gradient, the reference being
+# autograd through the plain version on the same values in f32: f32, sums
+# in another order; bf16, the same plus one rounding of the f32 gradient to
+# bf16 (8 significant bits: at most 2^-8 of the value).
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0**-8 + 1e-4}
+ENSEMBLES = [
+    ("tests/test_data/samples_example/md_emulation/cath1_1bl0A02.xtc",
+     "tests/test_data/samples_example/md_emulation/cath1_1bl0A02.pdb"),
+    ("tests/test_data/samples_example/folding_free_energies/test_1TG0.xtc",
+     "tests/test_data/samples_example/folding_free_energies/test_1TG0.pdb"),
+]
 
 
 def log(msg: str) -> None:
@@ -320,6 +355,403 @@ def phase_profile(bundle):
         log(f"[profile]   {t:9.2f} ms {100 * t / total_ms:5.1f}%  x{n:<5d} {key[:90]}")
 
 
+def kernel_time_ms(fn):
+    """Device kernel time (ms) and kernel count of one warm call of ``fn``,
+    from the profiler: the gaps in which the device waits for the host's
+    launches are left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    return sum(e.self_device_time_total for e in kernels) / 1e3, sum(e.count for e in kernels)
+
+
+def k1_bwd_bound(args, cts, grads):
+    """Least time for one backward call: bytes (inputs and cotangents read
+    once, gradients written once) over the HBM rate vs f32 operations over
+    the f32 peak (the backward computes in f32)."""
+    q_s, k_s, x2d = args[0], args[1], args[6]
+    B, H, Lq, dk = q_s.shape
+    Lk, cp = k_s.shape[2], x2d.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *cts, *grads) if t is not None)
+    # Per (b, h, i, j): logits 2dk + 4 x (6 + 4) points + 8 softmax/bias;
+    # wx2d 2Cp; dphat 2dk + 48 + 2Cp; ds 4; d_qs, d_ks 4dk; distance weights
+    # 20; d_qp, d_kp 48; d_x2d 2Cp; d_pa 1; d_vs 2dk, d_vp 48. Per (b, h, i):
+    # g_wx2d and d_w_pv, 2 Cp dk each.
+    ops = B * H * Lq * Lk * (10 * dk + 6 * cp + 217) + 4 * B * H * Lq * cp * dk
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_OPS_PER_S["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def peak_mb(fn):
+    """Device memory ``fn()`` allocates at its peak beyond what was live, MB."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def phase_kernel_grad(k1):
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
+    names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa")
+    results = {}
+    for B, L, dname, masked in K1_GRAD_CASES:
+        dtype = getattr(torch, dname)
+        args = k1_inputs(B, L, dtype, gen, masked)
+        leaves = [t.clone().requires_grad_(n != "bias") for n, t in zip(names, args)]
+        diff = [t for n, t in zip(names, leaves) if n != "bias"]
+        cts = tuple(
+            torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+            for shape, dt in (((B, 32, L, 16), dtype), ((B, 32, L, 24), torch.float32),
+                              ((B, 32, L, 16), dtype))
+        )
+        before = k1.launches
+        outs = k1.ipa_attention(*leaves, **kw)
+        if k1.launches != before + 1 or any(o.grad_fn is None for o in outs):
+            raise AssertionError("ipa_attention on CUDA tensors did not launch or lost autograd history")
+        got = torch.autograd.grad(outs, diff, cts)
+        ref = [t.detach().float().requires_grad_(n != "bias") for n, t in zip(names, args)]
+        want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **kw),
+                                   [t for n, t in zip(names, ref) if n != "bias"],
+                                   [c.float() for c in cts])
+        torch.cuda.synchronize()
+        rel, abs_err = {}, 0.0  # max |error| / max |reference| of each gradient
+        for name, g, p, w in zip([n for n in names if n != "bias"], got, diff, want):
+            if g.dtype != p.dtype or g.shape != w.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"d_{name}: dtype/shape mismatch or non-finite values")
+            err = (g.float() - w).abs().max().item()
+            rel[name], abs_err = err / w.abs().max().item(), max(abs_err, err)
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= GRAD_TOL[dname]:
+            raise AssertionError(f"d_{worst} disagrees with autograd of the plain version: "
+                                 f"{rel[worst]:.3e} x max|reference| > {GRAD_TOL[dname]:.3e}")
+        del ref, want
+        plain_outs = k1.ipa_attention_plain(*leaves, **kw)
+        plain_args = [t.detach() for t in leaves]
+        with torch.no_grad():
+            fwd_ms = cuda_time_ms(lambda: k1.ipa_attention(*plain_args, **kw), reps=20)
+            grads = k1.ipa_attention_backward(plain_args, cts, **kw)
+            bwd_ms = cuda_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw), reps=10)
+        plain_bwd_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
+        bwd_kernel_ms, bwd_kernels = kernel_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw))
+        fwd_bound, fwd_by, _, _ = k1_bound(plain_args, outs, dname)
+        bwd_bound, bwd_by, nbytes, ops = k1_bwd_bound(plain_args, cts, grads)
+        del plain_outs, outs, got
+        mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention(*leaves, **kw), diff, cts))
+        plain_mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention_plain(*leaves, **kw), diff, cts))
+        log(
+            f"[k1-grad] B={B} L={L} {dname} masked_cols={masked} "
+            f"({len(k1._row_chunks(L, 128))} row chunks): gradient errors x max|f32 reference| "
+            + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
+            + f" (tol {GRAD_TOL[dname]:.2e}); forward "
+            f"ms={fwd_ms:.4f} bound_ms={fwd_bound:.4f} ({fwd_by}); backward ms={bwd_ms:.4f} "
+            f"bound_ms={bwd_bound:.4f} ({bwd_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32), "
+            f"of which device kernel time {bwd_kernel_ms:.4f} ms in {bwd_kernels} kernels; "
+            f"plain autograd backward ms={plain_bwd_ms:.4f}; peak memory of forward + backward "
+            f"{mem:.1f} MB, plain autograd {plain_mem:.1f} MB"
+        )
+        results[(B, L, dname)] = dict(
+            max_abs_err=abs_err, max_rel_err=rel[worst], fwd_ms=fwd_ms, ms=bwd_ms, plain_ms=plain_bwd_ms,
+            bound_ms=bwd_bound, bound_by=bwd_by,
+        )
+        del args, leaves, diff, grads, plain_args
+    return results
+
+
+def phase_dsm_grad(k1):
+    import copy
+
+    import numpy as np
+    import torch
+
+    from se3diff_torch.diffusion.denoise import SDEs
+    from se3diff_torch.models import dig
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, BIOEMU_V1_SO3
+    from se3diff_torch.sde.so3_sde import DiGSO3SDE
+    from se3diff_torch.sde.vpsde import CosineVPSDE
+    from se3diff_torch.training.data import MultiEnsembleDataset
+    from se3diff_torch.training.dsm import draw_noise, dsm_loss
+
+    mds = MultiEnsembleDataset.from_trajectories(
+        [(REPO / a, REPO / b) for a, b in ENSEMBLES], bucket=32, embeds_backend="dummy",
+        cache_embeds_dir=str(OUT / "embeds"),
+    )
+    # cath1: 60 residues in the 64 bucket, so 4 masked rows per frame.
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in mds.batch(0, np.arange(4)).items()}
+    so3 = dict(BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache"))
+    sdes_cpu = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**so3))
+    sdes_gpu = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**so3, device=DEVICE))
+    model = dig.init_weights(dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL), torch.Generator().manual_seed(0))
+    model.eval()
+    model_gpu = copy.deepcopy(model).to(DEVICE)
+    noise = draw_noise(torch.Generator().manual_seed(3), batch, sdes_cpu)
+
+    t0 = time.perf_counter()
+    loss_cpu = dsm_loss(model, batch, noise, sdes_cpu)
+    loss_cpu.backward()
+    cpu_s = time.perf_counter() - t0
+    k1.launches = 0
+    loss_gpu = dsm_loss(model_gpu, {k: v.to(DEVICE) for k, v in batch.items()},
+                        type(noise)(*(x.to(DEVICE) for x in noise)), sdes_gpu)
+    loss_gpu.backward()
+    torch.cuda.synchronize()
+    if k1.launches != N_LAYERS:
+        raise AssertionError(f"DSM forward launched K1 {k1.launches} times, expected {N_LAYERS}")
+    rel_loss = abs(loss_gpu.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    errs, zero = [], []
+    for (name, p_cpu), p_gpu in zip(model.named_parameters(), model_gpu.parameters()):
+        if p_gpu.grad is None or not p_gpu.grad.abs().max().item() > 0:
+            zero.append(name)
+            continue
+        ref = p_cpu.grad.abs().max().item()
+        errs.append(((p_gpu.grad.cpu() - p_cpu.grad).abs().max().item() / ref, name))
+    errs.sort(reverse=True)
+    tol_loss, tol_grad = 1e-5, 1e-3
+    log(f"[dsm-grad] full width f32 B=4 L=64 (4 masked rows): loss card {loss_gpu.item():.6f} "
+        f"cpu {loss_cpu.item():.6f} rel_err={rel_loss:.2e} (tol {tol_loss:.0e}); "
+        f"{len(errs)} parameter tensors with nonzero gradient on the card, {len(zero)} without; "
+        f"max relative gradient error {errs[0][0]:.2e} ({errs[0][1]}), median "
+        f"{errs[len(errs) // 2][0]:.2e} (tol {tol_grad:.0e} x max|cpu grad| per tensor); "
+        f"CPU forward+backward {cpu_s:.1f} s")
+    if zero:
+        raise AssertionError(f"parameters without gradient on the card: {zero[:5]}")
+    if not rel_loss <= tol_loss or not errs[0][0] <= tol_grad:
+        raise AssertionError("DSM loss or gradient on the card disagrees with the CPU")
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def phase_train_path(k1, card):
+    """The train CLI end to end; returns the K1 launches and K1 backward
+    passes of its uninterrupted 30-step run."""
+    import numpy as np
+    import torch
+    from unittest import mock
+
+    from se3diff_torch import train
+    from se3diff_torch.sampling.bundle import load_bundle
+    from se3diff_torch.training.data import MultiEnsembleDataset
+
+    def argv(ckpt_dir):
+        a = [x for traj, top in ENSEMBLES for x in ("--trajectory", str(REPO / traj),
+                                                      "--topology", str(REPO / top))]
+        return a + [
+            "--bucket", "32", "--batch_size", str(TRAIN_BATCH), "--dtype", "bfloat16",
+            "--steps", str(TRAIN_STEPS), "--ckpt_every", str(TRAIN_CKPT_EVERY),
+            "--log_every", "10", "--ckpt_dir", str(ckpt_dir), "--embeds_backend", "dummy",
+            "--cache_embeds_dir", str(OUT / "embeds"), "--so3_cache_dir", str(OUT / "so3_cache"),
+        ]
+
+    full, part = OUT / "train_full", OUT / "train_part"
+    for d in (full, part):
+        shutil.rmtree(d, ignore_errors=True)
+
+    k1.launches = k1.backward_calls = 0
+    t0 = time.perf_counter()
+    train.main(argv(full))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, backwards = k1.launches, k1.backward_calls
+    losses = [json.loads(x)["loss"] for x in (full / "train_log.jsonl").read_text().splitlines()]
+    log(f"[train] train CLI, 2 ensembles (L=64 bucket), bioemu-v1.0 widths, bf16, batch "
+        f"{TRAIN_BATCH}, {TRAIN_STEPS} steps: {wall:.2f} s with set-up; loss at steps 10/20/30 "
+        f"{losses}; K1 launches {launches}, K1 backward passes {backwards} (expected "
+        f"{N_LAYERS * TRAIN_STEPS} each); {card}")
+    if launches != N_LAYERS * TRAIN_STEPS or backwards != N_LAYERS * TRAIN_STEPS:
+        raise AssertionError(f"training launched K1 {launches} times and ran {backwards} backwards")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite training loss")
+
+    orig = MultiEnsembleDataset.batch_fn
+
+    def interrupted(self, *a, **kw):
+        fn = orig(self, *a, **kw)
+
+        def step_fn(step):
+            if step == TRAIN_STOP:
+                raise _Interrupt
+            return fn(step)
+        return step_fn
+
+    k1.launches = 0
+    with mock.patch.object(MultiEnsembleDataset, "batch_fn", interrupted):
+        try:
+            train.main(argv(part))
+            raise AssertionError("the interrupted run was not interrupted")
+        except _Interrupt:
+            pass
+    first = k1.launches
+    k1.launches = 0
+    train.main(argv(part))
+    second = k1.launches
+    with np.load(full / "params.npz") as a, np.load(part / "params.npz") as b:
+        diffs = {k: float(np.abs(a[k] - b[k]).max()) for k in a.files if not np.array_equal(a[k], b[k])}
+    log(f"[train] interrupted at step {TRAIN_STOP} ({first} K1 launches) and resumed to "
+        f"{TRAIN_STEPS} ({second} launches): "
+        + ("weights equal the uninterrupted run's bit for bit" if not diffs else
+           f"{len(diffs)} tensors differ, largest {max(diffs.values()):.3e} "
+           f"({max(diffs, key=diffs.get)})"))
+    if (first, second) != (N_LAYERS * TRAIN_STOP, N_LAYERS * (TRAIN_STEPS - TRAIN_STOP)):
+        raise AssertionError("K1 launches of the interrupted and resumed runs are wrong")
+    if diffs:
+        raise AssertionError("the resumed run differs from the uninterrupted one")
+
+    bundle = load_bundle(full / "params.npz", device=DEVICE, dtype=torch.bfloat16,
+                         so3_cache_dir=str(OUT / "so3_cache"))
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    L = 64
+    with torch.inference_mode():
+        pos, rot = bundle.model(
+            torch.randn(2, L, 3, generator=gen, device=DEVICE), torch.eye(3, device=DEVICE).expand(2, L, 3, 3),
+            torch.full((2,), 0.5, device=DEVICE), torch.randn(2, L, 384, generator=gen, device=DEVICE),
+            torch.randn(2, L, L, 128, generator=gen, device=DEVICE) * 0.2,
+        )
+    if not (pos.shape == rot.shape == (2, L, 3) and torch.isfinite(pos).all() and torch.isfinite(rot).all()):
+        raise AssertionError("score evaluation from the exported weights failed")
+    log(f"[train] export {full.relative_to(REPO)}/params.npz + config.yaml loads through "
+        f"load_bundle; one bf16 score evaluation from it is finite")
+    return launches, backwards
+
+
+def phase_train_throughput(k1, card):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from unittest import mock
+
+    from se3diff_torch.diffusion.denoise import SDEs
+    from se3diff_torch.models import dig
+    from se3diff_torch.ops.so3 import rotvec_to_rotmat
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, BIOEMU_V1_SO3
+    from se3diff_torch.sde.so3_sde import DiGSO3SDE
+    from se3diff_torch.sde.vpsde import CosineVPSDE
+    from se3diff_torch.training.dsm import step_backward, step_loss, step_update, train_step
+    from se3diff_torch.training.loop import TrainConfig, make_optimizer, step_generator
+
+    B, L = TRAIN_BATCH, 100
+    rng = np.random.default_rng(0)  # bench.py:219-231
+    pos0 = (rng.standard_normal((B, L, 3)) * 0.5).astype(np.float32)
+    rot0 = rotvec_to_rotmat(torch.from_numpy((rng.standard_normal((B, L, 3)) * 0.4).astype(np.float32)))
+    batch = {
+        "pos": torch.from_numpy(pos0), "rot": rot0,
+        "single": torch.from_numpy((rng.standard_normal((B, L, 384)) * 0.5).astype(np.float32)),
+        "pair": torch.from_numpy((rng.standard_normal((B, L, L, 128)) * 0.2).astype(np.float32)),
+    }
+    batch = {k: v.to(DEVICE) for k, v in batch.items()}
+    sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(
+        **dict(BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache")), device=DEVICE))
+    model = dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL, dtype=torch.bfloat16)
+    dig.init_weights(model, torch.Generator().manual_seed(0)).to(DEVICE)
+    cfg = TrainConfig(lr=1e-4)
+    opt = make_optimizer(cfg, model.parameters())
+
+    def gen(i):
+        return step_generator(0, i, torch.device(DEVICE))
+
+    def step(i):
+        return train_step(model, opt, batch, gen(i), sdes, lr=cfg.lr, grad_clip=cfg.grad_clip)
+
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3, 13):
+        t0 = time.perf_counter()
+        loss = step(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = float(np.median(times))
+    log(f"[train-step] L={L} B={B} bf16 full width, 10 timed steps: median {med * 1e3:.2f} ms, "
+        f"min {min(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms; loss {loss.item():.4f}; "
+        f"peak device memory {peak_gb:.2f} GB; {card}")
+
+    # Forward / backward / optimizer split, by CUDA events, over 5 steps:
+    # the three parts train_step is made of, called in its order.
+    split = {"noise+forward": [], "backward": [], "optimizer": []}
+    for i in range(13, 18):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = step_loss(model, batch, gen(i), sdes)
+        ev[1].record()
+        step_backward(opt, loss)
+        ev[2].record()
+        step_update(model, opt, lr=cfg.lr, grad_clip=cfg.grad_clip)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for key, a, b in zip(split, ev[:-1], ev[1:]):
+            split[key].append(a.elapsed_time(b))
+    split_ms = {k: float(np.median(v)) for k, v in split.items()}
+    log("[train-step] split of one step (median of 5, CUDA events): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in split_ms.items()))
+
+    # One profiled step, train_step's three parts with labels; the K1
+    # backward is labelled without touching the library. A CPU-side label's
+    # device time is the kernel time of what was launched under it.
+    bwd = k1.ipa_attention_backward
+
+    def labelled(*a, **kw):
+        with record_function("ipa_attention_backward"):
+            return bwd(*a, **kw)
+
+    with mock.patch.object(k1, "ipa_attention_backward", labelled):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("forward"):
+                loss = step_loss(model, batch, gen(18), sdes)
+            step_backward(opt, loss)
+            with record_function("optimizer"):
+                step_update(model, opt, lr=cfg.lr, grad_clip=cfg.grad_clip)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in events
+         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+         and e.self_device_time_total > 0),
+        key=lambda x: -x[1],
+    )
+    total = sum(t for _, t, _ in kernels)
+    if not total > 0:
+        raise AssertionError("the profiler recorded no device time for the train step")
+
+    def label_ms(name):
+        return sum(e.device_time_total for e in events
+                   if e.key == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+
+    k1_fwd = sum(t for k, t, _ in kernels if "ipa_attention" in k)
+    fwd, opt_ms, k1_bwd = label_ms("forward"), label_ms("optimizer"), label_ms("ipa_attention_backward")
+    bwd_ms = total - fwd - opt_ms
+    log(f"[train-profile] one step: device kernel time {total:.2f} ms in "
+        f"{sum(n for _, _, n in kernels)} kernels, busy "
+        f"{100 * total / (med * 1e3):.1f}% of the median unprofiled step; forward (noise "
+        f"included) {fwd:.2f} ms, backward {bwd_ms:.2f} ms ({100 * bwd_ms / total:.1f}%), "
+        f"optimizer {opt_ms:.2f} ms; K1 forward kernel {k1_fwd:.2f} ms ({100 * k1_fwd / total:.1f}%), "
+        f"K1 backward (8 calls, PyTorch) {k1_bwd:.2f} ms ({100 * k1_bwd / total:.1f}%)")
+    for key, t, n in kernels[:12]:
+        log(f"[train-profile]   {t:8.2f} ms {100 * t / total:5.1f}%  x{n:<5d} {key[:90]}")
+    value = B * 3600.0 / med
+    log(f"[train-step] dsm_train_examples_per_hour_L{L}_B{B} = {value:.1f} "
+        f"(median step; {B * 3600.0 / min(times):.1f} from the fastest step)")
+    return value
+
+
 def main() -> int:
     try:
         import torch
@@ -349,16 +781,24 @@ def main() -> int:
     k1 = phase_build()
     k1_results = phase_kernel(k1)
     phase_score_eval()
-    bundle, launches, _ = phase_main_path(k1, card)
+    bundle, sample_launches, _ = phase_main_path(k1, card)
     phase_profile(bundle)
+    del bundle
+    grad_results = phase_kernel_grad(k1)
+    phase_dsm_grad(k1)
+    train_launches, train_backwards = phase_train_path(k1, card)
+    phase_train_throughput(k1, card)
 
     main_case = k1_results[K1_CASES[0][:3]]
+    bwd_case = grad_results[K1_GRAD_CASES[0][:3]]
+    log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}; "
+        f"backward passes: training path {train_backwards}")
     kernels = {"kernels": [{
         "name": "ipa_attention",
         "route": "cuda",
         "source": "se3diff_torch/csrc/ipa_attention.cu",
         "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
-        "launches": launches,
+        "launches": sample_launches + train_launches,
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -366,6 +806,18 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": None,
         "verdict": "pass",
+        # The backward (B=16, L=100, bf16) is PyTorch: the JAX package's is XLA
+        # code. backward_calls: autograd's backward passes in the training run.
+        "backward_route": "torch",
+        "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "backward_calls": train_backwards,
+        "backward_max_abs_err": bwd_case["max_abs_err"],
+        "backward_max_rel_err": bwd_case["max_rel_err"],
+        "backward_ms": bwd_case["ms"],
+        "backward_plain_ms": bwd_case["plain_ms"],
+        "backward_bound_ms": bwd_case["bound_ms"],
+        "backward_bound_by": bwd_case["bound_by"],
     }]}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels))

@@ -102,7 +102,12 @@ class RelativePositionBias(nn.Module):
 
     def forward(self, relative_position: torch.Tensor) -> torch.Tensor:
         bucket = relative_position_bucket(relative_position, self.num_buckets, self.max_distance)
-        return self.relative_attention_bias(bucket.long())
+        # A one-hot product, not an index lookup: the same values exactly,
+        # but its weight gradient is a matmul, where the embedding's CUDA
+        # backward adds rows with atomics in no fixed order (exact resume of
+        # training needs every step to be bit-reproducible).
+        weight = self.relative_attention_bias.weight
+        return F.one_hot(bucket.long(), self.num_buckets).to(weight.dtype) @ weight
 
 
 class FeedForward(nn.Module):

@@ -1,8 +1,9 @@
-"""Fused IPA attention core: the CUDA kernel for Hopper and its plain version.
+"""Fused IPA attention core: the CUDA kernel for Hopper, its plain version,
+and its row-chunked backward.
 
-Counterpart of ``se3diff_tpu/ops/pallas_ipa.py::fused_ipa_attention`` with the
-streamed pair bias (``has_pa=True``), whose Pallas body is ``_kernel``. For
-query rows i, key columns j and heads h:
+Counterpart of ``se3diff_tpu/ops/pallas_ipa.py::fused_ipa_attention_diff``
+with the streamed pair bias (``has_pa=True``), whose forward is the Pallas
+body ``_kernel``. For query rows i, key columns j and heads h:
 
     s[h,i,j] = scalar_w <q_s, k_s> - sum_{p<4} |q_p - k_p| + pair_w pa + bias[j]
     a        = softmax_j(s)                         (f32)
@@ -16,11 +17,15 @@ point weight, ``v_p [B, H, Lk, 24]`` f32, ``x2d [B, Lq, Lk, Cp]`` and
 ``pa [B, H, Lq, Lk]`` (model dtype), ``w_pv [H, Cp, dk]`` (model dtype) and a
 column ``bias [B, Lk]`` f32 holding :data:`NEG_INF` at masked columns.
 
-:func:`ipa_attention` dispatches on the device of its operands alone: CPU
-tensors go through :func:`ipa_attention_plain`; CUDA tensors launch the
-kernel in ``csrc/ipa_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at
-first use, bound through ``ctypes``) or raise. The kernel takes 32 heads of
-width 16 and ``Cp <= 256`` (the bioemu-v1.0 widths).
+:func:`ipa_attention` is differentiable. Its forward dispatches on the
+device of its operands alone: CPU tensors go through
+:func:`ipa_attention_plain`; CUDA tensors launch the kernel in
+``csrc/ipa_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first use,
+bound through ``ctypes``) or raise. The kernel takes 32 heads of width 16
+and ``Cp <= 256`` (the bioemu-v1.0 widths). Its backward is
+:func:`ipa_attention_backward` on both devices: the JAX package's backward
+is XLA code (``_fused_backward_chunked``), not a Pallas kernel, so the port's
+is PyTorch.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 __all__ = [
     "NEG_INF",
     "ipa_attention",
+    "ipa_attention_backward",
     "ipa_attention_plain",
     "build_library",
 ]
@@ -53,8 +59,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Kernel launches made through ipa_attention (plain-version calls do not count).
+# Forward kernel launches made through ipa_attention (plain-version calls and
+# backward passes do not count).
 launches = 0
+# Backward passes of ipa_attention run by autograd, on either device (direct
+# calls of ipa_attention_backward do not count).
+backward_calls = 0
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
@@ -173,23 +183,9 @@ def _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa) -> None:
         raise ValueError("the kernel needs Cp % 4 == 0 and 16-byte aligned x2d and k_s")
 
 
-def ipa_attention(
-    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *, scalar_w: float, pair_w: float
-):
-    """Fused IPA attention core. Returns ``(out_s, out_p, out_pair)``.
-
-    CPU operands run :func:`ipa_attention_plain`. CUDA operands launch the
-    Hopper kernel on the current stream, or raise if it cannot be built,
-    does not take these shapes, or fails to launch.
-    """
+def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w, pair_w):
+    """Launch the Hopper kernel on the current stream; raise if it cannot."""
     global launches
-    if q_s.device.type == "cpu":
-        return ipa_attention_plain(
-            q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa,
-            scalar_w=scalar_w, pair_w=pair_w,
-        )
-    if q_s.device.type != "cuda":
-        raise ValueError(f"ipa_attention runs on cpu or cuda, not {q_s.device}")
     _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa)
     lib = _library()
     B, H, Lq, dk = q_s.shape
@@ -218,3 +214,157 @@ def ipa_attention(
         )
     launches += 1
     return out_s, out_p, out_pair
+
+
+def _row_chunks(Lq: int, target: int) -> list[tuple[int, int]]:
+    """Row ranges of the backward: ``ceil(Lq / target)`` chunks of near-equal
+    size. JAX's ``_row_chunk`` takes the largest divisor of ``Lq`` that is at
+    most ``target`` (its scan needs equal chunks), which falls to one row a
+    chunk at a prime ``Lq``; a Python loop takes a ragged last chunk instead."""
+    n = -(-Lq // target)
+    size = -(-Lq // n)
+    return [(r0, min(r0 + size, Lq)) for r0 in range(0, Lq, size)]
+
+
+def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: float,
+                           row_chunk: int = 128):
+    """Input gradients of :func:`ipa_attention`, recomputing the attention a
+    chunk of query rows at a time.
+
+    Port of ``_fused_backward_chunked`` (``pallas_ipa.py:1036-1181``) for the
+    streamed pair bias. No ``[B, H(*4), Lq, Lk]`` tensor larger than one row
+    chunk is alive; ``d_x2d`` and ``d_pa``, gradients of L^2 inputs, are L^2
+    themselves. The JAX function's two deliberate choices are kept: the
+    attention weights stay f32 where the forward rounds them to the model
+    dtype (at most 1 bf16 ulp), and the distance gradient is exactly zero
+    wherever ``d2 <= 0``, the clamp's true subgradient (coincident bf16
+    points are common; dividing by ``sqrt(1e-24)`` there made bf16 training
+    diverge). All arithmetic is f32; each gradient is cast to its input's
+    dtype at the end.
+
+    ``inputs``: the ten operands of :func:`ipa_attention`; ``grad_outputs``:
+    ``(d_out_s, d_out_p, d_out_pair)``. Returns one gradient per operand, in
+    order, with ``None`` for the column ``bias`` (a constant mask).
+    """
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs
+    ct_s, ct_p, ct_pr = grad_outputs
+    f32 = torch.float32
+    B, H, Lq, dk = q_s.shape
+    Lk = k_s.shape[2]
+    H4 = q_p.shape[2]
+    scalar_w, pair_w = float(scalar_w), float(pair_w)
+
+    ks, vs = k_s.to(f32), v_s.to(f32)
+    kp, vp = k_p.to(f32), v_p.to(f32)                 # [B, 3, H4, Lk], [B, H, Lk, 24]
+    k2 = (kp * kp).sum(1)                             # [B, H4, Lk]
+    wpv = w_pv.to(f32)
+    bias_row = bias.to(f32)[:, None, None, :]
+
+    d_ks, d_kp = torch.zeros_like(ks), torch.zeros_like(kp)
+    d_vs, d_vp = torch.zeros_like(vs), torch.zeros_like(vp)
+    d_wpv = torch.zeros_like(wpv)
+    d_qs = torch.empty_like(q_s)
+    d_qp = torch.empty_like(q_p, dtype=f32)
+    d_x2d = torch.empty_like(x2d)
+    d_pa = torch.empty_like(pa)
+
+    for r0, r1 in _row_chunks(Lq, row_chunk):
+        R = r1 - r0
+        qs_i = q_s[:, :, r0:r1].to(f32)               # [B, H, R, dk]
+        qp_i = q_p[..., r0:r1].to(f32)                # [B, 3, H4, R]
+        x2f_i = x2d[:, r0:r1].to(f32)                 # [B, R, Lk, Cp]
+        ct_s_i = ct_s[:, :, r0:r1].to(f32)
+        ct_p_i = ct_p[:, :, r0:r1].to(f32)
+        ct_pr_i = ct_pr[:, :, r0:r1].to(f32)
+
+        # Recompute the chunk's attention rows.
+        s = torch.einsum("bhid,bhjd->bhij", qs_i, ks) * scalar_w
+        q2_i = (qp_i * qp_i).sum(1)                   # [B, H4, R]
+        qk = torch.einsum("bxpi,bxpj->bpij", qp_i, kp)
+        d2 = (q2_i[..., :, None] + k2[..., None, :] - 2.0 * qk).clamp_min(0.0)
+        dist = torch.sqrt(d2 + 1e-24)                 # [B, H4, R, Lk]
+        s = s - dist.reshape(B, H, 4, R, Lk).sum(2)
+        s = s + pair_w * pa[:, :, r0:r1].to(f32) + bias_row
+        a = torch.softmax(s, dim=-1)                  # [B, H, R, Lk]
+
+        # Pair-value path: wx2d for d_w_pv; g_wx2d = d(out_pair)/d(wx2d).
+        wx2d_i = torch.einsum("bhij,bijp->bhip", a, x2f_i)
+        g_wx2d = torch.einsum("bhid,hpd->bhip", ct_pr_i, wpv)
+        d_wpv += torch.einsum("bhip,bhid->hpd", wx2d_i, ct_pr_i)
+
+        # Softmax backward over a's three consumers.
+        dphat = (
+            torch.einsum("bhid,bhjd->bhij", ct_s_i, vs)
+            + torch.einsum("bhic,bhjc->bhij", ct_p_i, vp)
+            + torch.einsum("bhip,bijp->bhij", g_wx2d, x2f_i)
+        )
+        ds = a * (dphat - (dphat * a).sum(-1, keepdim=True))
+
+        d_qs[:, :, r0:r1] = scalar_w * torch.einsum("bhij,bhjd->bhid", ds, ks)
+        d_ks += scalar_w * torch.einsum("bhij,bhid->bhjd", ds, qs_i)
+
+        # Point distances in matmul form: d dist / d qp = (qp - kp) / dist,
+        # summed against w = d_pdist / dist as qp * rowsum(w) - w @ kp, so
+        # no [.., R, Lk, 3] difference tensor is made. Zero where d2 <= 0.
+        inv_dist = torch.where(d2 > 0.0, 1.0 / dist, torch.zeros_like(dist))
+        w = (-ds)[:, :, None] * inv_dist.reshape(B, H, 4, R, Lk)
+        w = w.reshape(B, H4, R, Lk)
+        d_qp[..., r0:r1] = qp_i * w.sum(-1)[:, None] - torch.einsum("bpij,bxpj->bxpi", w, kp)
+        d_kp += kp * w.sum(-2)[:, None] - torch.einsum("bpij,bxpi->bxpj", w, qp_i)
+
+        d_x2d[:, r0:r1] = torch.einsum("bhip,bhij->bijp", g_wx2d, a)
+        d_pa[:, :, r0:r1] = pair_w * ds
+        d_vs += torch.einsum("bhij,bhid->bhjd", a, ct_s_i)
+        d_vp += torch.einsum("bhij,bhic->bhjc", a, ct_p_i)
+
+    return (
+        d_qs, d_ks.to(k_s.dtype), d_vs.to(v_s.dtype),
+        d_qp, d_kp.to(k_p.dtype), d_vp.to(v_p.dtype),
+        d_x2d, d_wpv.to(w_pv.dtype), None, d_pa,
+    )
+
+
+class _IPAAttention(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain version) forward and
+    :func:`ipa_attention_backward`. The operands are saved by reference:
+    ``x2d``, shared by every layer, is not copied."""
+
+    @staticmethod
+    def forward(ctx, q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w, pair_w):
+        args = (q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa)
+        if q_s.device.type == "cpu":
+            outs = ipa_attention_plain(*args, scalar_w=scalar_w, pair_w=pair_w)
+        elif q_s.device.type == "cuda":
+            outs = _launch_kernel(*args, scalar_w, pair_w)
+        else:
+            raise ValueError(f"ipa_attention runs on cpu or cuda, not {q_s.device}")
+        ctx.save_for_backward(*args)
+        ctx.scalar_w, ctx.pair_w = scalar_w, pair_w
+        return outs
+
+    @staticmethod
+    def backward(ctx, ct_s, ct_p, ct_pr):
+        global backward_calls
+        backward_calls += 1
+        grads = ipa_attention_backward(
+            ctx.saved_tensors, (ct_s, ct_p, ct_pr), scalar_w=ctx.scalar_w, pair_w=ctx.pair_w
+        )
+        return (
+            *(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+            None, None,
+        )
+
+
+def ipa_attention(
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *, scalar_w: float, pair_w: float
+):
+    """Fused IPA attention core. Returns ``(out_s, out_p, out_pair)``.
+
+    CPU operands run :func:`ipa_attention_plain`. CUDA operands launch the
+    Hopper kernel on the current stream, or raise if it cannot be built,
+    does not take these shapes, or fails to launch. Differentiable in every
+    operand but ``bias``, through :func:`ipa_attention_backward`.
+    """
+    return _IPAAttention.apply(
+        q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w, pair_w
+    )

@@ -1,6 +1,12 @@
-"""Structure layer: frames -> atom37, PDB I/O, native XTC codec, physics filter."""
+"""Structure layer: frames <-> atom37, PDB I/O, native XTC codec, physics filter."""
 
-from se3diff_torch.struct.atoms import adjust_oxygen_pos, atom37_from_frames, atom37_mask
+from se3diff_torch.struct.atoms import (
+    adjust_oxygen_pos,
+    atom37_from_frames,
+    atom37_mask,
+    frames_from_atom37,
+    frames_from_backbone,
+)
 from se3diff_torch.struct.pdb import Structure, from_pdb_string, read_pdb, to_pdb, write_pdb
 from se3diff_torch.struct.physics import (
     filter_unphysical_masks,
@@ -13,6 +19,8 @@ __all__ = [
     "adjust_oxygen_pos",
     "atom37_from_frames",
     "atom37_mask",
+    "frames_from_atom37",
+    "frames_from_backbone",
     "from_pdb_string",
     "read_pdb",
     "to_pdb",

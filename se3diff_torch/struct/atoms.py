@@ -1,10 +1,11 @@
-"""Frames -> backbone atom37 coordinates (batched tensor functions).
+"""Frames <-> backbone atom37 coordinates.
 
 Counterpart of ``se3diff_tpu/struct/atoms.py`` (reference
 `bioemu/src/bioemu/convert_chemgraph.py:19-293`). N/CA/C/CB are placed
 directly from the backbone frame (``global = R @ local + t``) and the
 carbonyl O is imputed from adjacent frames, which gives the reference's
-group-0 outputs without its 8-rigid-group torsion machinery.
+group-0 outputs without its 8-rigid-group torsion machinery. The inverse,
+:func:`frames_from_backbone`, is host-side numpy for the training data.
 """
 
 from __future__ import annotations
@@ -66,6 +67,46 @@ def atom37_from_frames(
 
     mask = torch.as_tensor(atom37_mask(aatype), device=pos.device)
     return atom37, mask
+
+
+def frames_from_backbone(
+    n: np.ndarray, ca: np.ndarray, c: np.ndarray, tol: float = 1e-8
+) -> tuple[np.ndarray, np.ndarray]:
+    """Rigid frames from global backbone atoms, the inverse of
+    :func:`atom37_from_frames`.
+
+    Gram-Schmidt with CA at the origin, C on the +x axis and N in the
+    xy-plane (openfold's ``Rigid.from_3_points``, the convention of
+    ``BACKBONE_LOCAL_POSITIONS``). Host-side numpy, any leading batch shape.
+
+    Args:
+        n, ca, c: ``[..., 3]`` global atom positions in Angstroms.
+
+    Returns:
+        ``pos [..., 3]`` frame translations in nm and ``rot [..., 3, 3]``
+        rotations (float32), with ``global = R @ local + t``.
+    """
+    n = np.asarray(n, np.float64)
+    ca = np.asarray(ca, np.float64)
+    c = np.asarray(c, np.float64)
+
+    def unit(v):
+        return v / (np.linalg.norm(v, axis=-1, keepdims=True) + tol)
+
+    e1 = unit(c - ca)
+    u = n - ca
+    e2 = unit(u - np.sum(u * e1, axis=-1, keepdims=True) * e1)
+    e3 = np.cross(e1, e2)
+    rot = np.stack([e1, e2, e3], axis=-1)  # columns = images of x, y, z
+    return (ca / NM_TO_ANG).astype(np.float32), rot.astype(np.float32)
+
+
+def frames_from_atom37(atom37: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`frames_from_backbone` on ``[..., N, 37, 3]`` atom37 arrays."""
+    atom37 = np.asarray(atom37)
+    return frames_from_backbone(
+        atom37[..., ATOM37_N, :], atom37[..., ATOM37_CA, :], atom37[..., ATOM37_C, :]
+    )
 
 
 def adjust_oxygen_pos(atom37: torch.Tensor, tol: float = 1e-7) -> torch.Tensor:

@@ -1,0 +1,190 @@
+"""CLI: train an SE(3) score network on structure ensembles.
+
+Counterpart of ``python -m se3diff_tpu.train``: DSM training over PDB/XTC
+ensembles (`training/data.py`), warmup + cosine AdamW with checkpoints and
+exact resume (`training/loop.py`), on one device.
+
+    python -m se3diff_torch.train \\
+        --trajectory sys1.xtc --topology sys1.pdb \\
+        --trajectory sys2.xtc --topology sys2.pdb \\
+        --steps 10000 --batch_size 8 --ckpt_dir ckpts/ [--device cuda]
+
+Runs on the GPU unless ``--device cpu`` is given. There is no ``--kernel``
+choice: on the GPU the IPA attention core always runs as the CUDA kernel,
+with its row-chunked PyTorch backward; on the CPU it runs its plain version.
+There is no ``--mesh`` either: training runs on one device.
+
+Re-running with the same ``--ckpt_dir`` resumes from the latest checkpoint
+and reproduces the uninterrupted run (batches and noise are functions of the
+step index). The final weights are exported as ``{ckpt_dir}/params.npz`` in
+the reference state-dict layout, with a ``config.yaml`` beside it; both this
+package's and the JAX package's ``load_bundle`` read the pair.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+logger = logging.getLogger(__name__)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m se3diff_torch.train", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    p.add_argument("--trajectory", action="append", required=True,
+                   help=".xtc (with --topology) or multi-model .pdb; repeat for "
+                        "multi-system training (length-bucketed, masked batches)")
+    p.add_argument("--topology", action="append", default=None,
+                   help="topology .pdb per .xtc --trajectory (same order)")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--bucket", type=int, default=32,
+                   help="pad lengths to multiples of this (train-step shapes = "
+                        "occupied buckets)")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup_steps", type=int, default=0)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--min_t", type=float, default=0.001,
+                   help="needs l_max*sigma(min_t) >> 3; the default matches the "
+                        "production tables (l_max=2000)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt_dir", default=None,
+                   help="checkpoint directory; reuse it to resume exactly")
+    p.add_argument("--ckpt_every", type=int, default=500)
+    p.add_argument("--log_every", type=int, default=50)
+    p.add_argument("--model_config_path", default=None,
+                   help="reference-format config.yaml defining the score net "
+                        "(default: the bioemu-v1.0 architecture)")
+    p.add_argument("--init_ckpt_path", default=None,
+                   help="warm-start from a torch/npz checkpoint instead of "
+                        "random init (continued training)")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="model compute dtype (parameters stay f32)")
+    p.add_argument("--so3_cache_dir", default=None)
+    p.add_argument("--embeds_backend", default="dummy", choices=["colabfold", "dummy"],
+                   help="conditioning embeddings for the training sequences")
+    p.add_argument("--cache_embeds_dir", default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where training runs; cuda raises when no GPU is visible")
+    return p
+
+
+def _default_config_yaml(model_cfg: dict, sdes) -> str:
+    """Reference-format config.yaml for the trained model (the keys
+    ``load_bundle`` reads), written by ``yaml.safe_dump`` so every float
+    reads back as a float."""
+    import yaml
+
+    so3 = sdes.node_orientations
+    cfg = {
+        "score_model": {
+            "_target_": "bioemu.shortcuts.DiGConditionalScoreModel",
+            **{k: model_cfg[k] for k in (
+                "dim_hidden", "dim_model", "dim_pair", "dropout", "num_heads", "num_layers"
+            )},
+        },
+        "sdes": {
+            "node_orientations": {
+                "_target_": "bioemu.shortcuts.DiGSO3SDE",
+                "eps_t": float(so3.eps_t),
+                "l_max": int(so3.l_max),
+                "num_omega": len(so3.omega_grid),
+                "num_sigma": len(so3.sigma_grid),
+                "sigma_max": float(so3.sigma_max),
+                "sigma_min": float(so3.sigma_min),
+                "tol": float(so3.tol),
+            },
+            "pos": {"_target_": "bioemu.shortcuts.CosineVPSDE", "s": float(sdes.pos.s)},
+        },
+    }
+    return yaml.safe_dump(cfg, sort_keys=False)
+
+
+def main(argv: list[str] | None = None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from se3diff_torch.diffusion.denoise import SDEs
+    from se3diff_torch.models.convert import load_checkpoint
+    from se3diff_torch.models.dig import DiGConditionalScoreModel, init_weights
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, instantiate, resolve_device
+    from se3diff_torch.sde.so3_sde import DiGSO3SDE
+    from se3diff_torch.sde.vpsde import CosineVPSDE
+    from se3diff_torch.training.data import MultiEnsembleDataset
+    from se3diff_torch.training.loop import TrainConfig, train_dsm
+
+    device = resolve_device(args.device)
+    tops = args.topology or [None] * len(args.trajectory)
+    if len(tops) != len(args.trajectory):
+        raise SystemExit("--topology count must match --trajectory count")
+    mds = MultiEnsembleDataset.from_trajectories(
+        list(zip(args.trajectory, tops)), bucket=args.bucket,
+        embeds_backend=args.embeds_backend, cache_embeds_dir=args.cache_embeds_dir,
+    )
+    logger.info("%d ensembles, %d frames, buckets %s",
+                len(mds.datasets), mds.num_frames, mds.occupied_buckets())
+    # One device: the per-system conditioning goes to it once, unbatched.
+    batch_fn = mds.batch_fn(args.batch_size, seed=args.seed, device=device)
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    so3_kw = {"device": device}
+    if args.so3_cache_dir:
+        so3_kw["cache_dir"] = args.so3_cache_dir
+    if args.model_config_path:
+        with open(args.model_config_path) as f:
+            cfg_yaml = yaml.safe_load(f)
+        model_cfg = {k: v for k, v in cfg_yaml["score_model"].items() if k != "_target_"}
+        model = instantiate(cfg_yaml["score_model"], dtype=dtype)
+        sdes = SDEs(
+            pos=instantiate(cfg_yaml["sdes"]["pos"]),
+            node_orientations=instantiate(cfg_yaml["sdes"]["node_orientations"], **so3_kw),
+        )
+    else:
+        model_cfg = dict(BIOEMU_V1_MODEL)
+        model = DiGConditionalScoreModel(**model_cfg, dtype=dtype)
+        sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(sigma_max=2.33, **so3_kw))
+
+    if args.init_ckpt_path:
+        model.load_state_dict(load_checkpoint(args.init_ckpt_path), strict=True)
+        logger.info("warm start from %s", args.init_ckpt_path)
+    else:
+        init_weights(model, torch.Generator().manual_seed(args.seed))
+    model.to(device)
+    logger.info("score net: %.1fM params", sum(p.numel() for p in model.parameters()) / 1e6)
+
+    cfg = TrainConfig(
+        num_steps=args.steps, lr=args.lr, warmup_steps=args.warmup_steps,
+        weight_decay=args.weight_decay, min_t=args.min_t,
+        ckpt_every=args.ckpt_every if args.ckpt_dir else 0,
+        ckpt_dir=args.ckpt_dir, log_every=args.log_every, seed=args.seed,
+    )
+    model, history = train_dsm(sdes, model, batch_fn, cfg)
+    if history:
+        logger.info("loss: %.4f -> %.4f", history[0], history[-1])
+
+    if args.ckpt_dir:
+        out = Path(args.ckpt_dir) / "params.npz"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(out, **{k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()})
+        # config.yaml beside it: load_bundle reads the pair with no extra flags.
+        cfg_out = out.parent / "config.yaml"
+        if args.model_config_path:
+            if Path(args.model_config_path).resolve() != cfg_out.resolve():
+                shutil.copy(args.model_config_path, cfg_out)
+        else:
+            cfg_out.write_text(_default_config_yaml(model_cfg, sdes))
+        logger.info("exported %s + config.yaml (reference state-dict layout)", out)
+
+
+if __name__ == "__main__":
+    main()

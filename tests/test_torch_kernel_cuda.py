@@ -66,6 +66,28 @@ def test_kernel_matches_plain_on_the_card(cuda_device, dtype, tol, B, Lq, Lk, ma
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0**-8 + 1e-4)])
+def test_gradients_on_the_card_match_autograd_of_plain(cuda_device, dtype, tol):
+    """The autograd Function on CUDA tensors (kernel forward, row-chunked
+    backward) against autograd through the plain version on the same values
+    in f32, each gradient within ``tol`` of its own largest entry (bf16: plus
+    one rounding of the f32 gradient to bf16's 8 significant bits, 2^-8)."""
+    names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa")
+    args = [t.requires_grad_(n != "bias") for n, t in zip(names, _args(cuda_device, 2, 37, 37, dtype, 5))]
+    diff = [t for n, t in zip(names, args) if n != "bias"]
+    outs = k1.ipa_attention(*args, **KW)
+    assert all(o.grad_fn is not None for o in outs)
+    cts = [torch.randn_like(o) for o in outs]
+    got = torch.autograd.grad(outs, diff, cts)
+    ref = [t.detach().float().requires_grad_(n != "bias") for n, t in zip(names, args)]
+    want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **KW),
+                               [t for n, t in zip(names, ref) if n != "bias"], [c.float() for c in cts])
+    for g, p, w in zip(got, diff, want):
+        assert g.dtype == p.dtype and torch.isfinite(g).all()
+        assert (g.float() - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     args = list(_args(cuda_device, 1, 8, 8, torch.float32, 0))
     with pytest.raises(ValueError, match="contiguous"):
