@@ -40,6 +40,22 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 9. train-step throughput at ``bench.py --train``'s shape (L=100, B=16, bf16):
    ``dsm_train_examples_per_hour_L100_B16``, the forward / backward /
    optimizer split and a profile of one step;
+10. sequence- and data-parallel sampling (``se3diff_torch.parallel``):
+   (a) ``sp_ipa_attention``'s row-slab launches, concatenated, against
+   ``ipa_attention_plain`` over all rows at B=4, L=300 on 2 and 4 slabs and
+   L=301 with 9 masked columns (ragged slabs), bf16 and f32; ms per slab
+   launch beside its bound, the plain slab's time and the full-rows launch;
+   then 2 gloo ranks spawned on the one card (NCCL refuses two ranks on one
+   device) run, in one group, (b) one full-width score evaluation at L=300,
+   B=4, f32 and bf16, against the same evaluation in this process; (c) the
+   SP sampling path, ``sampling.pipeline.sample`` through an SP bundle for
+   GYDPETGTWG x30 (L=300), bf16, dpm_2m 30 steps, batch 4, 8 samples:
+   rank 0 writes finite outputs, each rank launches K1 8 x 30 x 2 times
+   through ``sp_ipa_attention``; wall, structures/hr and peak memory per
+   rank beside the same run in this process; (d) DP sampling at L=100,
+   B=8, f32, dpm_2m 30 steps from t=0.5, against this process's batch of
+   the same seed. Two ranks on one card show correctness and per-rank
+   memory, not multi-GPU speed;
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -76,6 +92,18 @@ K1_GRAD_CASES = [(TRAIN_BATCH, 100, "bfloat16", 0), (TRAIN_BATCH, 100, "float32"
 # in another order; bf16, the same plus one rounding of the f32 gradient to
 # bf16 (8 significant bits: at most 2^-8 of the value).
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0**-8 + 1e-4}
+SP_SEQ = "GYDPETGTWG" * 30                       # L=300
+SP_RANKS, SP_BATCH, SP_SAMPLES = 2, 4, 8
+# (B, L, dtype, masked columns, slabs); the first is the SP path's shape.
+SLAB_CASES = [(4, 300, dt, 0, n) for dt in ("bfloat16", "float32") for n in (2, 4)] + [
+    (4, 301, dt, 9, n) for dt in ("bfloat16", "float32") for n in (2, 4)]
+DP_L, DP_BATCH, DP_SEED = 100, 8, 5
+# DP runs dpm_2m-30 from t=0.5: from the production t=0.99, random weights
+# end at positions of some 260 nm (about 1/alpha(0.99) = 64 times the
+# prior's), where an absolute tolerance of 2e-4 is a relative one of 1e-6;
+# from t=0.5 they stay within a few nm.
+DP_DENOISER = {"_target_": "dpm_solver_pp2m", "num_steps": 30, "max_t": 0.5, "min_t": 0.001}
+DP_TOL = 2e-4
 ENSEMBLES = [
     ("tests/test_data/samples_example/md_emulation/cath1_1bl0A02.xtc",
      "tests/test_data/samples_example/md_emulation/cath1_1bl0A02.pdb"),
@@ -190,7 +218,7 @@ def phase_score_eval():
     from unittest import mock
 
     from se3diff_torch.models import dig
-    from se3diff_torch.ops.ipa_attention import ipa_attention_plain
+    from se3diff_torch.ops import ipa_attention as k1
     from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL
 
     from se3diff_torch.ops.so3 import rotquat_to_rotmat
@@ -212,7 +240,8 @@ def phase_score_eval():
         cu = [x.to(DEVICE) for x in inputs]
         got = model(*cu)
         torch.cuda.synchronize()
-        with mock.patch.object(dig, "ipa_attention", ipa_attention_plain):
+        # The model's attention core (sp_ipa_attention) calls k1.ipa_attention.
+        with mock.patch.object(k1, "ipa_attention", k1.ipa_attention_plain):
             plain = model(*cu)
         for name, want, tol in (("plain core on the card", plain, 1e-3), ("CPU", ref_cpu, 1e-3)):
             err, scale = max_err(got, want)
@@ -224,7 +253,7 @@ def phase_score_eval():
         model16.to(DEVICE).eval()
         model16.load_state_dict(model.state_dict())
         got16 = model16(*cu)
-        with mock.patch.object(dig, "ipa_attention", ipa_attention_plain):
+        with mock.patch.object(k1, "ipa_attention", k1.ipa_attention_plain):
             plain16 = model16(*cu)
         err, scale = max_err(got16, plain16)
         log(f"[score] bf16 full width: kernel vs plain core: max_abs_err={err:.3e} "
@@ -752,6 +781,217 @@ def phase_train_throughput(k1, card):
     return value
 
 
+def phase_sp_kernel(k1):
+    """Slab launches of sp_ipa_attention, concatenated, against the plain
+    version over all rows; returns per-case results."""
+    import torch
+
+    from se3diff_torch.parallel.mesh import row_slabs
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
+    results = {}
+    for B, L, dname, masked, n in SLAB_CASES:
+        args = k1_inputs(B, L, getattr(torch, dname), gen, masked)
+        q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = args
+        want = k1.ipa_attention_plain(*args, **kw)
+        full_ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **kw), reps=20)
+        got, slabs = [], []
+        for r0, r1 in row_slabs(L, n):
+            slab = (q_s[:, :, r0:r1].contiguous(), k_s, v_s, q_p[..., r0:r1].contiguous(), k_p,
+                    v_p, x2d[:, r0:r1].contiguous(), w_pv, bias, pa[:, :, r0:r1].contiguous())
+            before = k1.launches
+            outs = k1.sp_ipa_attention((r0, r1), *slab, **kw)
+            if k1.launches != before + 1:
+                raise AssertionError("sp_ipa_attention on CUDA tensors did not launch the kernel")
+            torch.cuda.synchronize()
+            ms = cuda_time_ms(lambda: k1.sp_ipa_attention((r0, r1), *slab, **kw), reps=20)
+            plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*slab, **kw), reps=5)
+            bound_ms, bound_by, nbytes, _ = k1_bound(slab, outs, dname)
+            got.append(outs)
+            slabs.append(dict(rows=r1 - r0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, mb=nbytes / 1e6))
+            del slab
+        got = [torch.cat([o[i] for o in got], dim=2) for i in range(3)]
+        err, scale = max_err(got, want)
+        tol = TOL[dname] * scale
+        def each(key, fmt=".4f"):
+            return "/".join(format(sl[key], fmt) for sl in slabs)
+
+        log(f"[sp-k1] B={B} L={L} {dname} masked_cols={masked} {n} slabs ({each('rows', 'd')} "
+            f"rows): max_abs_err={err:.3e} (tol {tol:.3e}); per slab launch ms={each('ms')} "
+            f"bound_ms={each('bound_ms')} ({slabs[0]['bound_by']}; {each('mb', '.1f')} MB) "
+            f"plain_ms={each('plain_ms')}; "
+            f"full-rows launch ms={full_ms:.4f}; library_ms=null (no single PyTorch call "
+            "computes this function)")
+        if not err <= tol:
+            raise AssertionError(f"slab launches disagree with the plain version: {err} > {tol}")
+        results[(B, L, dname, masked, n)] = dict(max_abs_err=err, full_ms=full_ms, **slabs[0])
+        del args, want, got
+    return results
+
+
+def _sp_score_inputs(B, L, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, L, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    w, x, y, z = np.moveaxis(q, -1, 0)
+    rot = np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], axis=-1).reshape(B, L, 3, 3)
+    return (
+        rng.standard_normal((B, L, 3)).astype(np.float32), rot.astype(np.float32),
+        rng.uniform(0.05, 0.95, B).astype(np.float32),
+        rng.standard_normal((B, L, 384)).astype(np.float32),
+        (rng.standard_normal((B, L, L, 128)) * 0.5).astype(np.float32),
+    )
+
+
+def phase_parallel(k1, card):
+    """(b)-(d): one spawn of SP_RANKS gloo ranks on the card, held against
+    this process. Returns the per-rank SP sampling launch counts."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from se3diff_torch.diffusion import denoise
+    from se3diff_torch.models import dig
+    from se3diff_torch.parallel import programs, run_ranks
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, BIOEMU_V1_SO3, random_bundle
+    from se3diff_torch.sampling.embeds import get_embeds, load_embeds
+    from se3diff_torch.sampling.pipeline import sample, stage_conditioning
+
+    # This process's references.
+    L = len(SP_SEQ)
+    inputs = _sp_score_inputs(SP_BATCH, L, seed=8)
+    ref = {}
+    with torch.inference_mode():
+        for dname in ("float32", "bfloat16"):
+            model = dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL, dtype=getattr(torch, dname))
+            dig.init_weights(model, torch.Generator().manual_seed(1)).to(DEVICE).eval()
+            ref[dname] = [o.float().cpu().numpy()
+                          for o in model(*(torch.from_numpy(x).to(DEVICE) for x in inputs))]
+            del model
+    so3 = dict(BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache"))
+    bundle_kw = dict(denoiser="dpm_2m", dtype=torch.bfloat16, seed=0, so3_kwargs=so3)
+    for d in ("sp_warmup", "sp_main", "one_warmup", "one_main"):
+        shutil.rmtree(OUT / d, ignore_errors=True)
+    sample_kw = dict(sequence=SP_SEQ, num_samples=SP_SAMPLES, batch_size=SP_BATCH,
+                     embeds_backend="dummy", cache_embeds_dir=str(OUT / "embeds"),
+                     filter_samples=False)
+    bundle = random_bundle(**bundle_kw, device=DEVICE)
+    sample(**{**sample_kw, "num_samples": SP_BATCH, "output_dir": str(OUT / "one_warmup")},
+           bundle=bundle)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    sample(**sample_kw, output_dir=str(OUT / "one_main"), bundle=bundle)
+    torch.cuda.synchronize()
+    one_wall, one_launches = time.perf_counter() - t0, k1.launches
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    del bundle
+    dp_kw = dict(denoiser=DP_DENOISER, dtype=torch.float32, seed=0, so3_kwargs=so3)
+    single, pair = load_embeds(*get_embeds(MAIN_SEQ, str(OUT / "embeds"), backend="dummy"))
+    bundle = random_bundle(**dp_kw, device=DEVICE)
+    s_d, p_d, _, _ = stage_conditioning(single, pair, bundle.device)
+    with torch.inference_mode():
+        dp_ref = [t.cpu().numpy() for t in bundle.sampler(DP_BATCH, DP_L)(
+            torch.Generator(device=DEVICE).manual_seed(DP_SEED), s_d, p_d)]
+        # Each rank's rows replayed here at the rank's batch size, from the
+        # same prior rows: the DP run must give exactly these.
+        pos0, rot0 = denoise._prior(torch.Generator(device=DEVICE).manual_seed(DP_SEED),
+                                    bundle.sdes, DP_BATCH, DP_L)
+        per = DP_BATCH // SP_RANKS
+        cache = bundle.model.embed_conditioning(s_d.expand(per, *s_d.shape),
+                                                p_d.expand(per, *p_d.shape))
+        replay = [denoise.solve_from(
+            bundle.denoiser, bundle.sdes,
+            lambda x, r, t: bundle.model.score_from_cache(x, r, t, cache),
+            pos0[i * per:(i + 1) * per], rot0[i * per:(i + 1) * per]) for i in range(SP_RANKS)]
+        dp_replay = [torch.cat([o[k] for o in replay]).cpu().numpy() for k in range(2)]
+    del bundle, cache, replay
+    torch.cuda.empty_cache()
+
+    steps = [
+        (programs.sp_score, (BIOEMU_V1_MODEL, 1, inputs, "float32")),
+        (programs.sp_score, (BIOEMU_V1_MODEL, 1, inputs, "bfloat16")),
+        (programs.sp_sample, (bundle_kw, {**sample_kw, "output_dir": str(OUT / "sp_main")},
+                              str(OUT / "sp_warmup"))),
+        (programs.dp_sample, (dp_kw, single, pair, DP_BATCH, DP_SEED)),
+    ]
+    t0 = time.perf_counter()
+    ranks = run_ranks(programs.in_turn, SP_RANKS, [DEVICE + ":0"] * SP_RANKS, args=(steps,),
+                      timeout=900.0, group_timeout=timedelta(seconds=300))
+    log(f"[parallel] {SP_RANKS} gloo ranks spawned on cuda:0 ran (b)-(d) in "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+
+    # (b) SP score against one process.
+    for i, (dname, tol) in enumerate((("float32", 1e-3), ("bfloat16", 5e-2))):
+        for r, res in enumerate(ranks):
+            out = res[i]
+            err = max(float(np.abs(out["pos"] - ref[dname][0]).max()),
+                      float(np.abs(out["rot"] - ref[dname][1]).max()))
+            scale = max(1.0, max(float(np.abs(x).max()) for x in ref[dname]))
+            log(f"[sp-score] {dname} full width B={SP_BATCH} L={L} rank {r} rows {out['rows']}: "
+                f"vs one process max_abs_err={err:.3e} (tol {tol * scale:.3e}); K1 launches "
+                f"{out['launches']} (expected {N_LAYERS})")
+            if not err <= tol * scale or out["launches"] != N_LAYERS:
+                raise AssertionError(f"SP score evaluation ({dname}, rank {r}) is wrong")
+
+    # (c) SP sampling path.
+    expect = N_LAYERS * MAIN_STEPS * (SP_SAMPLES // SP_BATCH)
+    sp_runs = [res[2] for res in ranks]
+    wall = max(run["wall_s"] for run in sp_runs)
+    for run in sp_runs:
+        peak = "not measured" if run["peak_bytes"] is None else f"{run['peak_bytes'] / 1e9:.3f} GB"
+        log(f"[sp-main] rank {run['rank']}: L={L} bf16 dpm_2m-{MAIN_STEPS} batch {SP_BATCH}, "
+            f"{SP_SAMPLES} samples in {run['wall_s']:.3f} s = "
+            f"{SP_SAMPLES / run['wall_s'] * 3600:.1f} structures/hr; peak device memory "
+            f"{peak}; K1 launches {run['launches']} (expected {expect}; on this path every "
+            "one is a slab launch of sp_ipa_attention)")
+        if run["launches"] != expect:
+            raise AssertionError(f"rank {run['rank']} launched K1 {run['launches']} times")
+    log(f"[sp-main] one process, same run: {one_wall:.3f} s = "
+        f"{SP_SAMPLES / one_wall * 3600:.1f} structures/hr; peak device memory {one_peak:.3f} GB; "
+        f"K1 launches {one_launches}; {card}")
+    files = sorted((OUT / "sp_main").glob("batch_*.npz"))
+    if len(files) != SP_SAMPLES // SP_BATCH or not (OUT / "sp_main" / "topology.pdb").exists():
+        raise AssertionError("rank 0 did not write the SP run's outputs")
+    diff = 0.0
+    for f in files:
+        with np.load(f) as a, np.load(OUT / "one_main" / f.name) as b:
+            if a["pos"].shape != (SP_BATCH, L, 3) or not (
+                    np.isfinite(a["pos"]).all() and np.isfinite(a["node_orientations"]).all()):
+                raise AssertionError(f"{f.name}: bad shape or non-finite coordinates")
+            diff = max(diff, float(np.abs(a["pos"] - b["pos"]).max()))
+    log(f"[sp-main] rank 0 wrote {len(files)} batch files, topology and trajectory; finite "
+        f"coordinates; largest position difference from the one-process run {diff:.3e} nm (bf16)")
+
+    # (d) DP rows: exactly this process's replay of each rank's rows at the
+    # rank's batch size; within DP_TOL of the batch of DP_BATCH, whose GEMMs
+    # have other shapes and so sum in another order.
+    largest = float(np.abs(dp_ref[0]).max())
+    for r, res in enumerate(ranks):
+        got = (res[3]["pos"], res[3]["node_orientations"])
+        replay_err = max(float(np.abs(g - w).max()) for g, w in zip(got, dp_replay))
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, dp_ref))
+        log(f"[dp] rank {r}: {DP_BATCH} samples at L={DP_L}, f32 dpm_2m-"
+            f"{DP_DENOISER['num_steps']} from t={DP_DENOISER['max_t']} over {SP_RANKS} ranks, "
+            f"same seed: against this process's replay of the ranks' rows (batch "
+            f"{DP_BATCH // SP_RANKS}) max_abs_err={replay_err:.3e} (tol 1e-6); against the "
+            f"batch of {DP_BATCH} max_abs_err={err:.3e} (tol {DP_TOL:.1e}); largest position "
+            f"{largest:.3f} nm")
+        if not replay_err <= 1e-6 or not err <= DP_TOL:
+            raise AssertionError("DP rows differ from the single-device rows")
+    return [run["launches"] for run in sp_runs]
+
+
 def main() -> int:
     try:
         import torch
@@ -788,9 +1028,12 @@ def main() -> int:
     phase_dsm_grad(k1)
     train_launches, train_backwards = phase_train_path(k1, card)
     phase_train_throughput(k1, card)
+    slab_results = phase_sp_kernel(k1)
+    sp_rank_launches = phase_parallel(k1, card)
 
     main_case = k1_results[K1_CASES[0][:3]]
     bwd_case = grad_results[K1_GRAD_CASES[0][:3]]
+    sp_case = slab_results[SLAB_CASES[0]]
     log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}; "
         f"backward passes: training path {train_backwards}")
     kernels = {"kernels": [{
@@ -818,6 +1061,24 @@ def main() -> int:
         "backward_plain_ms": bwd_case["plain_ms"],
         "backward_bound_ms": bwd_case["bound_ms"],
         "backward_bound_by": bwd_case["bound_by"],
+    }, {
+        "name": "sp_ipa_attention",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:874",
+        # K1's launches in the SP sampling run, summed over its ranks;
+        # launches_per_rank holds each.
+        "launches": sum(sp_rank_launches),
+        "launches_per_rank": sp_rank_launches,
+        # The SP path's shape: B=4, L=300, bf16, one of 2 slabs (150 rows).
+        "max_abs_err": sp_case["max_abs_err"],
+        "ms": sp_case["ms"],
+        "plain_ms": sp_case["plain_ms"],
+        "bound_ms": sp_case["bound_ms"],
+        "bound_by": sp_case["bound_by"],
+        "library_ms": None,
+        "verdict": "pass",
+        "full_rows_ms": sp_case["full_ms"],
     }]}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels))

@@ -13,8 +13,10 @@ Model interface: ``model_fn(pos, rot, t) -> (pos_raw, rot_raw)`` with
 
 from __future__ import annotations
 
+import inspect
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable
 
 import torch
@@ -215,3 +217,25 @@ def _dpm_solver_pp2m_loop(sdes, model_fn, pos, rot, num_steps, max_t, min_t, dty
         rot = ode_rot.mean_update(rot, dts[idx], drift_rot)
         pos, x0_prev, h_prev = pos_next, x0, h_scalar
     return pos, rot
+
+
+_LOOPS = {dpm_solver: _dpm_solver_loop, dpm_solver_pp2m: _dpm_solver_pp2m_loop}
+
+
+def solve_from(
+    denoiser: partial, sdes: SDEs, model_fn: ModelFn, pos: torch.Tensor, rot: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run ``denoiser`` (a partial of :func:`dpm_solver` or
+    :func:`dpm_solver_pp2m`, as bundles hold them) from the state
+    ``(pos, rot)`` in place of its prior draw. Data-parallel sampling draws
+    the whole batch's prior and solves its own rows with this."""
+    if denoiser.func not in _LOOPS:
+        raise ValueError(f"no solver loop for {denoiser.func.__name__}")
+    kw = {
+        k: p.default for k, p in inspect.signature(denoiser.func).parameters.items()
+        if p.default is not inspect.Parameter.empty
+    }
+    kw.update(denoiser.keywords)
+    return _LOOPS[denoiser.func](
+        sdes, model_fn, pos, rot, kw["num_steps"], kw["max_t"], kw["min_t"], kw["dtype"]
+    )

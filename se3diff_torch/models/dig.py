@@ -11,8 +11,9 @@ loads with ``load_state_dict(strict=True)``.
   4 query/key points, 8 value points, pair bias, learned per-head point
   weight ``softplus(gamma)``, a ``pair_value`` projection, and point logits
   that sum Euclidean norms over points. Its attention core always runs
-  through :func:`se3diff_torch.ops.ipa_attention.ipa_attention`, in the
-  kernel layout, with the per-layer pair bias ``pa`` streamed from the
+  through :func:`se3diff_torch.ops.ipa_attention.sp_ipa_attention` (the
+  kernel on a slab of query rows, all of them without SP), in the kernel
+  layout, with the per-layer pair bias ``pa`` streamed from the
   conditioning cache.
 * The pair-value projection is the kernel's fused finalize: its weight
   loads as ``pair_value.weight`` (a :class:`HeadwiseLinear`) and reaches the
@@ -23,6 +24,16 @@ loads with ``load_state_dict(strict=True)``.
 * The translation score is made equivariant via ``IR_perturbed^T @ T_eps``
   (models.py:305) and the wrapper feeds inverse rotations and ``t * 1000``
   (models.py:359-384).
+* Sequence parallelism (SP), the counterpart of the JAX model's
+  ``pair_sharding``: a model built with ``sp`` (a
+  :class:`~se3diff_torch.parallel.mesh.RankContext`) holds only its rank's
+  row slab ``r0:r1`` of the ``[B, L, L, ·]`` pair tensors (``x2d`` and every
+  layer's ``pa``). Each layer computes queries, attention, ``fc_out`` and
+  the FFN for the slab's rows only, keys and values for all rows, and
+  rebuilds the full residual stream with one
+  :func:`~se3diff_torch.parallel.mesh.gather_rows`. ``x1d``, the column
+  bias and the diff head stay full. Without ``sp`` the model computes what
+  it always did.
 """
 
 from __future__ import annotations
@@ -33,7 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from se3diff_torch.ops.ipa_attention import NEG_INF, ipa_attention
+from se3diff_torch.ops.ipa_attention import NEG_INF, sp_ipa_attention
+from se3diff_torch.parallel.mesh import RankContext, gather_rows
 
 # Evoformer embedding dims (models.py:15-16).
 EVOFORMER_NODE_DIM = 384
@@ -191,59 +203,67 @@ class SAAttention(nn.Module):
     def forward(
         self,
         x1d: torch.Tensor,               # [B, L, C]
-        x2d: torch.Tensor,               # [B, L, L, Cp]
+        x2d: torch.Tensor,               # [B, n, L, Cp]
         pose: tuple[torch.Tensor, torch.Tensor],  # (T [B, L, 3], IR [B, L, 3, 3])
         bias: torch.Tensor,              # [B, L] f32 column bias (NEG_INF masked)
-        pa: torch.Tensor,                # [B, H, L, L] pair bias x2d @ w_pb, unscaled
+        pa: torch.Tensor,                # [B, H, n, L] pair bias x2d @ w_pb, unscaled
+        rows: tuple[int, int],
     ) -> torch.Tensor:
+        """Attention output ``[B, n, C]`` for the query rows ``rows = (r0,
+        r1)``, ``n = r1 - r0``: the rows that ``x2d`` and ``pa`` hold (the
+        rank's slab under SP, else ``(0, L)``). Keys and values are all
+        ``L`` rows of ``x1d``."""
         H, dk, dt = self.n_head, self.d_model // self.n_head, self.dtype
         B, L, _ = x1d.shape
         # The module receives inverse rotations; transpose back to rotations.
         T, R = pose[0].float(), pose[1].transpose(-1, -2).float()
+        r0, r1 = rows
+        xq, Tq, Rq = x1d[:, r0:r1], T[:, r0:r1], R[:, r0:r1]
+        n = r1 - r0
 
         def head_major(x: torch.Tensor) -> torch.Tensor:  # [B, L, H, c] -> [B, H, L, c]
             return x.permute(0, 2, 1, 3).contiguous()
 
-        q_s = head_major(_linear(x1d, self.scalar_query, dt).reshape(B, L, H, dk))
+        q_s = head_major(_linear(xq, self.scalar_query, dt).reshape(B, n, H, dk))
         k_s = head_major(_linear(x1d, self.scalar_key, dt).reshape(B, L, H, dk))
         v_s = head_major(_linear(x1d, self.scalar_value, dt).reshape(B, L, H, dk))
 
-        def global_points(lin: nn.Linear, npts: int) -> torch.Tensor:
+        def global_points(x, rot, trans, lin: nn.Linear, npts: int) -> torch.Tensor:
             # Weight rows are (head, point, xyz); R x + T in f32.
-            p = _linear(x1d, lin, dt).reshape(B, L, H, npts, 3).float()
-            return torch.einsum("blxy,blhpy->blhpx", R, p) + T[:, :, None, None, :]
+            p = _linear(x, lin, dt).reshape(B, x.shape[1], H, npts, 3).float()
+            return torch.einsum("blxy,blhpy->blhpx", rot, p) + trans[:, :, None, None, :]
 
         point_weight = math.sqrt(2.0 / (3 * 4 * 9)) * F.softplus(self.trained_point_weight)
         pw = (0.5 * point_weight).float()
 
         def planes(p: torch.Tensor) -> torch.Tensor:
-            # [B, L, H, 4, 3] -> the kernel's [B, 3, H*4, L], scaled by pw[h].
+            # [B, l, H, 4, 3] -> the kernel's [B, 3, H*4, l], scaled by pw[h].
             p = p * pw[None, None, :, None, None]
-            return p.permute(0, 4, 2, 3, 1).reshape(B, 3, H * 4, L).contiguous()
+            return p.permute(0, 4, 2, 3, 1).reshape(B, 3, H * 4, p.shape[1]).contiguous()
 
-        q_p = planes(global_points(self.point_query, 4))
-        k_p = planes(global_points(self.point_key, 4))
-        v_point = global_points(self.point_value, 8)          # [B, L, H, 8, 3] f32
+        q_p = planes(global_points(xq, Rq, Tq, self.point_query, 4))
+        k_p = planes(global_points(x1d, R, T, self.point_key, 4))
+        v_point = global_points(x1d, R, T, self.point_value, 8)  # [B, L, H, 8, 3] f32
         v_p = v_point.permute(0, 2, 1, 3, 4).reshape(B, H, L, 24).contiguous()
-        os_hm, op_hm, opr_hm = ipa_attention(
-            q_s, k_s, v_s, q_p, k_p, v_p, x2d, self.pair_value.head_major_weight(dt), bias, pa,
-            scalar_w=1.0 / math.sqrt(3 * dk), pair_w=1.0 / math.sqrt(3),
+        args = (q_s, k_s, v_s, q_p, k_p, v_p, x2d, self.pair_value.head_major_weight(dt), bias, pa)
+        os_hm, op_hm, opr_hm = sp_ipa_attention(
+            rows, *args, scalar_w=1.0 / math.sqrt(3 * dk), pair_w=1.0 / math.sqrt(3)
         )
-        out_scalar = os_hm.permute(0, 2, 1, 3).reshape(B, L, H * dk).to(dt)
-        out_pair = opr_hm.permute(0, 2, 1, 3).reshape(B, L, H * dk).to(dt)
-        out_point_g = op_hm.permute(0, 2, 1, 3).reshape(B, L, H, 8, 3)  # f32
+        out_scalar = os_hm.permute(0, 2, 1, 3).reshape(B, n, H * dk).to(dt)
+        out_pair = opr_hm.permute(0, 2, 1, 3).reshape(B, n, H * dk).to(dt)
+        out_point_g = op_hm.permute(0, 2, 1, 3).reshape(B, n, H, 8, 3)  # f32
 
         # Global -> local frame: R^T (x - T).
         out_point_local = torch.einsum(
-            "blxy,blhpx->blhpy", R, out_point_g - T[:, :, None, None, :]
+            "blxy,blhpx->blhpy", Rq, out_point_g - Tq[:, :, None, None, :]
         ).to(dt)
         out_point_norm = torch.sqrt(out_point_local.square().sum(-1) + 1e-12)
         out_feat = torch.cat(
             [
                 out_scalar,
-                out_point_local.reshape(B, L, H * 24),
+                out_point_local.reshape(B, n, H * 24),
                 out_pair,
-                out_point_norm.reshape(B, L, H * 8),
+                out_point_norm.reshape(B, n, H * 8),
             ],
             dim=-1,
         )
@@ -262,9 +282,16 @@ class SAEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model)
         self.ffn = FeedForward(d_model, dim_feedforward, dropout, dtype)
 
-    def forward(self, x1d, x2d, pose, bias, pa):
-        x1d = x1d + self.attn(_layer_norm(x1d, self.norm1, self.dtype), x2d, pose, bias, pa)
-        return x1d + self.ffn(_layer_norm(x1d, self.norm2, self.dtype))
+    def forward(self, x1d, x2d, pose, bias, pa, sp: RankContext | None = None):
+        """Attention, the residuals and the FFN on the query rows: all of
+        them, or under ``sp`` the rank's row slab, after which the full
+        residual stream is gathered from every rank's slab."""
+        L = x1d.shape[1]
+        r0, r1 = (0, L) if sp is None else sp.rows(L)
+        h = _layer_norm(x1d, self.norm1, self.dtype)
+        x = x1d[:, r0:r1] + self.attn(h, x2d, pose, bias, pa, (r0, r1))
+        x = x + self.ffn(_layer_norm(x, self.norm2, self.dtype))
+        return x if sp is None else gather_rows(x, r0, r1, L, dim=1, group=sp.group)
 
 
 class SAEncoder(nn.Module):
@@ -288,10 +315,11 @@ class StructureModule(nn.Module):
         ])
         self.diff_head = DiffHead(d_model)
 
-    def forward(self, pose, x1d, x2d, bias, pa):
-        """``pa [n_layer, B, H, L, L]``: the per-layer pair biases."""
+    def forward(self, pose, x1d, x2d, bias, pa, sp: RankContext | None = None):
+        """``pa [n_layer, B, H, n, L]``: the per-layer pair biases of the
+        query rows (all ``L``, or the rank's slab under ``sp``)."""
         for i, layer in enumerate(self.encoder.layers):
-            x1d = layer(x1d, x2d, pose, bias, pa[i])
+            x1d = layer(x1d, x2d, pose, bias, pa[i], sp)
         return self.diff_head(x1d)
 
 
@@ -308,9 +336,11 @@ class DistributionalGraphormer(nn.Module):
     def __init__(self, dim_model: int = 512, dim_pair: int = 256, num_layers: int = 8,
                  num_heads: int = 32, dim_single_rep: int = 64, dim_hidden: int = 1024,
                  num_buckets: int = 64, max_distance_relative: int = 128,
-                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 sp: RankContext | None = None):
         super().__init__()
         self.dtype = dtype
+        self.sp = sp
         self.x1d_proj = nn.Sequential(
             nn.LayerNorm(EVOFORMER_NODE_DIM), nn.Linear(EVOFORMER_NODE_DIM, dim_model, bias=False)
         )
@@ -331,17 +361,24 @@ class DistributionalGraphormer(nn.Module):
         the pose: projected single/pair conditioning, the column bias and the
         per-layer pair biases ``pa[i] = x2d @ w_pb[i]`` (unscaled; the kernel
         applies ``pair_w``). Computed once per batch; the solver replays only
-        :meth:`score_from_cache`."""
+        :meth:`score_from_cache`.
+
+        Under SP only the rank's row slab ``r0:r1`` of ``x2d`` and ``pa`` is
+        built, from ``pair_repr[:, r0:r1]``."""
         dt = self.dtype
         B, L = pair_repr.shape[:2]
         dev = pair_repr.device
         if mask is None:
             mask = torch.ones((B, L), dtype=torch.bool, device=dev)
+        pos_seq = torch.arange(L, device=dev)
+        query_seq = pos_seq
+        if self.sp is not None:
+            r0, r1 = self.sp.rows(L)
+            pair_repr, query_seq = pair_repr[:, r0:r1], pos_seq[r0:r1]
 
         x1d = _linear(_layer_norm(single_repr, self.x1d_proj[0], dt), self.x1d_proj[1], dt)
         x2d = _linear(_layer_norm(pair_repr, self.x2d_proj[0], dt), self.x2d_proj[1], dt)
-        pos_seq = torch.arange(L, device=dev)
-        rel_pos = pos_seq[:, None] - pos_seq[None, :]
+        rel_pos = query_seq[:, None] - pos_seq[None, :]
         x2d = (x2d.float() + self.rp_proj(rel_pos)[None]).to(dt).contiguous()
 
         # Column bias: NEG_INF at masked columns; a fully masked row falls
@@ -352,7 +389,7 @@ class DistributionalGraphormer(nn.Module):
         pa = torch.stack([
             torch.einsum("bijp,hp->bhij", x2d, layer.attn.pair_bias.weight.to(dt))
             for layer in self.st_module.encoder.layers
-        ]).contiguous()                                      # [n_layer, B, H, L, L]
+        ]).contiguous()                                      # [n_layer, B, H, n, L]
         return {"x1d": x1d, "x2d": x2d, "bias": bias, "pa": pa}
 
     def score_from_cache(
@@ -362,7 +399,7 @@ class DistributionalGraphormer(nn.Module):
         """Per-step score evaluation against a conditioning cache."""
         x1d = (cache["x1d"].float() + self.step_emb(t)[:, None]).to(self.dtype)
         T_eps, IR_eps = self.st_module(
-            (T_perturbed, IR_perturbed), x1d, cache["x2d"], cache["bias"], cache["pa"]
+            (T_perturbed, IR_perturbed), x1d, cache["x2d"], cache["bias"], cache["pa"], self.sp,
         )
         # Orientation dependence of the translation score (models.py:305).
         T_eps = torch.einsum("blyx,bly->blx", IR_perturbed.float(), T_eps)
@@ -382,11 +419,12 @@ class DiGConditionalScoreModel(nn.Module):
     def __init__(self, dim_model: int = 512, dim_pair: int = 256, num_layers: int = 8,
                  num_heads: int = 32, dim_single_rep: int = 64, dim_hidden: int = 1024,
                  num_buckets: int = 64, max_distance_relative: int = 128,
-                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 sp: RankContext | None = None):
         super().__init__()
         self.model_nn = DistributionalGraphormer(
             dim_model, dim_pair, num_layers, num_heads, dim_single_rep, dim_hidden,
-            num_buckets, max_distance_relative, dropout, dtype,
+            num_buckets, max_distance_relative, dropout, dtype, sp,
         )
 
     def embed_conditioning(self, single_repr, pair_repr, mask=None) -> dict:

@@ -26,6 +26,9 @@ and ``Cp <= 256`` (the bioemu-v1.0 widths). Its backward is
 :func:`ipa_attention_backward` on both devices: the JAX package's backward
 is XLA code (``_fused_backward_chunked``), not a Pallas kernel, so the port's
 is PyTorch.
+
+:func:`sp_ipa_attention` is the sequence-parallel form: one rank's slab of
+query rows against every column, the same kernel launched on the slab.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ __all__ = [
     "ipa_attention",
     "ipa_attention_backward",
     "ipa_attention_plain",
+    "sp_ipa_attention",
     "build_library",
 ]
 
@@ -367,4 +371,34 @@ def ipa_attention(
     """
     return _IPAAttention.apply(
         q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w, pair_w
+    )
+
+
+def sp_ipa_attention(
+    rows: tuple[int, int], q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *,
+    scalar_w: float, pair_w: float,
+):
+    """Sequence-parallel IPA attention on one rank: query rows ``r0:r1`` of
+    ``Lk`` against every column. Counterpart of
+    ``se3diff_tpu/ops/pallas_ipa.py::sp_fused_ipa_attention``, whose
+    ``shard_map`` hands each device the same operands.
+
+    ``q_s``, ``q_p``, ``x2d`` and ``pa`` are the slab's rows (``r1 - r0`` of
+    them); ``k_s``, ``v_s``, ``k_p``, ``v_p`` and ``bias`` hold all ``Lk``
+    columns. The slab goes through :func:`ipa_attention` as it is: the kernel
+    takes ``Lq != Lk`` and masks a ragged last row tile itself, so no row is
+    padded. Returns the slab's three outputs. ``rows = (0, Lk)`` (one rank)
+    is plain :func:`ipa_attention`, as the JAX function falls back when the
+    row axis is unsharded. No collective runs here: the ranks' output rows
+    are disjoint.
+    """
+    r0, r1 = rows
+    Lk = k_s.shape[2]
+    if not 0 <= r0 < r1 <= Lk:
+        raise ValueError(f"row slab {rows} is not inside the {Lk} columns")
+    for name, t, dim in (("q_s", q_s, 2), ("q_p", q_p, 3), ("x2d", x2d, 1), ("pa", pa, 2)):
+        if t.shape[dim] != r1 - r0:
+            raise ValueError(f"{name} has {t.shape[dim]} rows, the slab {rows} {r1 - r0}")
+    return ipa_attention(
+        q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w=scalar_w, pair_w=pair_w
     )

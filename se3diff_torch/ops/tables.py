@@ -225,8 +225,12 @@ class SO3LookupCache:
             return {k: np.asarray(data[k]) for k in data.files}
 
     def save_cache(self, data: dict[str, np.ndarray]) -> None:
+        # Written under a private name and renamed, so a process that builds
+        # the same tables at the same time never reads a partial file.
         os.makedirs(self.cache_dir, exist_ok=True)
-        np.savez(self.path, **data)
+        tmp = f"{self.path}.{os.getpid()}.tmp.npz"
+        np.savez(tmp, **data)
+        os.replace(tmp, self.path)
 
 
 def _cache_name(

@@ -1,0 +1,135 @@
+"""Process groups, row slabs and the batch helpers of multi-rank sampling.
+
+Counterpart of ``se3diff_tpu/parallel/mesh.py`` on ``torch.distributed``.
+The JAX package lays its chips out as a ``("data", "model")`` mesh and lets
+XLA place the shards; here every rank is a process that owns one device and
+the port moves rows itself:
+
+* :func:`init_group` joins a rank to its group: NCCL when every rank has a
+  CUDA device of its own, gloo otherwise (on the CPU, or when ranks share a
+  card, which NCCL refuses).
+* :func:`row_slabs` cuts ``L`` rows into near-equal contiguous ranges, one a
+  rank. The port does not pad: the kernel masks ragged rows itself, so JAX's
+  ``row_padded_len`` shard padding has no counterpart.
+* :func:`gather_rows` is the all-gather of row slabs, written as an
+  ``all_reduce`` of a zero-filled full-length buffer into which each rank
+  copies its slab: one code path for both backends (gloo documents only
+  broadcast and all_reduce for CUDA tensors), exact in f32 and bf16 because
+  every entry is one slab's value plus zeros.
+
+The pure helpers (``round_up_batch``, ``good_batch_size``,
+``largest_pow2_leq``, ``pick_model_parallel``) are copies of the JAX
+package's.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+# How long a rank waits for the others (rendezvous and every collective)
+# before it fails instead of hanging.
+DEFAULT_TIMEOUT = timedelta(minutes=30)
+
+
+def round_up_batch(batch: int, n_data: int) -> int:
+    """Smallest multiple of the data-axis size >= batch."""
+    return -(-batch // n_data) * n_data
+
+
+def good_batch_size(n_data: int, per_device: int) -> int:
+    """Global batch divisible by the data axis."""
+    return n_data * per_device
+
+
+def largest_pow2_leq(n: int) -> int:
+    return 1 << (int(math.log2(n)) if n > 0 else 0)
+
+
+def pick_model_parallel(n_devices: int, n_heads: int) -> int:
+    """Largest power-of-two model-parallel degree that divides both the
+    device count and the head count (TP shards attention heads)."""
+    mp = 1
+    while mp * 2 <= n_devices and n_devices % (mp * 2) == 0 and n_heads % (mp * 2) == 0:
+        mp *= 2
+    return mp
+
+
+def row_slabs(L: int, world: int) -> list[tuple[int, int]]:
+    """``world`` contiguous row ranges ``(r0, r1)`` covering ``range(L)``:
+    the first ``L % world`` one row longer than the rest (L=10 on 4 ranks:
+    3, 3, 2, 2 rows)."""
+    if world < 1 or L < world:
+        raise ValueError(f"cannot cut {L} rows into {world} non-empty slabs")
+    base, extra = divmod(L, world)
+    bounds = [0]
+    for r in range(world):
+        bounds.append(bounds[-1] + base + (r < extra))
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+@dataclass(frozen=True)
+class RankContext:
+    """One rank's place in its group: the sequence-parallel (SP) context
+    that the model carries, and the data-parallel (DP) sampler's group.
+    ``group`` is the process group the collectives run on; the rank's row
+    slab of a length-``L`` protein is :meth:`rows`."""
+
+    group: dist.ProcessGroup
+    rank: int
+    world: int
+    device: torch.device
+
+    def rows(self, L: int) -> tuple[int, int]:
+        return row_slabs(L, self.world)[self.rank]
+
+
+def _device(d: str | torch.device) -> torch.device:
+    d = torch.device(d)
+    return torch.device("cuda", 0) if d.type == "cuda" and d.index is None else d
+
+
+def init_group(
+    rank: int,
+    world: int,
+    init_method: str,
+    devices: Sequence[str | torch.device],
+    timeout: timedelta = DEFAULT_TIMEOUT,
+) -> RankContext:
+    """Join rank ``rank`` of ``world`` to the default process group and give
+    it the device ``devices[rank]``. The backend is NCCL when the ranks'
+    devices are distinct CUDA devices, gloo otherwise. ``timeout`` bounds the
+    rendezvous and every collective, so a hung rank fails the others."""
+    devs = [_device(d) for d in devices]
+    if len(devs) != world:
+        raise ValueError(f"{len(devs)} devices for {world} ranks")
+    device = devs[rank]
+    own_cards = all(d.type == "cuda" for d in devs) and len(set(devs)) == world
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "nccl" if own_cards else "gloo", init_method=init_method, rank=rank,
+        world_size=world, timeout=timeout,
+    )
+    return RankContext(group=dist.group.WORLD, rank=rank, world=world, device=device)
+
+
+def gather_rows(
+    x: torch.Tensor, r0: int, r1: int, L: int, dim: int, group: dist.ProcessGroup | None = None
+) -> torch.Tensor:
+    """The full-length tensor from every rank's slab ``x`` (rows ``r0:r1``
+    of ``L`` along ``dim``): zeros with the slab copied in, summed over the
+    group. Every rank gets the same result, bit for bit."""
+    if x.shape[dim] != r1 - r0:
+        raise ValueError(f"slab has {x.shape[dim]} rows along dim {dim}, expected {r1 - r0}")
+    shape = list(x.shape)
+    shape[dim] = L
+    full = x.new_zeros(shape)
+    full.narrow(dim, r0, r1 - r0).copy_(x)
+    dist.all_reduce(full, group=group)
+    return full

@@ -10,6 +10,11 @@ Runs on the GPU unless ``--device cpu`` is given. Checkpoints are local
 paths; the bioemu-v1.0 ``config.yaml`` format drives model/SDE
 construction. ``--embeds_backend dummy`` substitutes deterministic
 embeddings when no ColabFold install is available.
+
+``--sp N`` runs sequence-parallel over N local ranks, spawned processes
+joined by a ``file://`` rendezvous: with ``--device cuda`` one GPU each
+(NCCL; N GPUs must be visible), with ``--device cpu`` N gloo ranks on the
+CPU. Rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -58,24 +63,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs; cuda raises when no GPU is visible")
+    p.add_argument("--sp", type=int, default=0,
+                   help="sequence-parallel degree: N local ranks, each holding a slab "
+                        "of the query rows of the LxL pair tensors (one GPU each with "
+                        "--device cuda; gloo ranks with --device cpu)")
     return p
 
 
 def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-
-    import torch
-
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-
-    denoiser: str | dict = args.denoiser
-    if args.denoiser_config_path:
-        import yaml
-
-        with open(args.denoiser_config_path) as f:
-            denoiser = yaml.safe_load(f)
-
     if args.ckpt_path is None and args.model_name is not None:
         from se3diff_torch.sampling.bundle import maybe_download_checkpoint
 
@@ -84,12 +81,47 @@ def main(argv: list[str] | None = None) -> None:
         if args.model_config_path is None:
             args.model_config_path = hub_cfg
 
+    if args.sp > 1:
+        import torch
+
+        from se3diff_torch.parallel import launch
+
+        if args.device == "cuda":
+            visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if visible < args.sp:
+                raise SystemExit(f"--sp {args.sp} requested but only {visible} GPUs are visible")
+            devices = [f"cuda:{r}" for r in range(args.sp)]
+        else:
+            devices = ["cpu"] * args.sp
+        logging.info("sequence parallelism over %d ranks (%s)", args.sp, ", ".join(devices))
+        launch.run_ranks(_run, args.sp, devices, args=(args,))
+        return
+    _run(None, args)
+
+
+def _run(sp, args: argparse.Namespace) -> None:
+    """Build the bundle and sample; ``sp`` is the rank's context under
+    ``--sp`` (the spawned ranks call this), None otherwise."""
+    import torch
+
+    if sp is not None:
+        logging.basicConfig(level=logging.INFO)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    device = args.device if sp is None else sp.device
+
+    denoiser: str | dict = args.denoiser
+    if args.denoiser_config_path:
+        import yaml
+
+        with open(args.denoiser_config_path) as f:
+            denoiser = yaml.safe_load(f)
+
     if args.ckpt_path is None:
         logging.warning(
             "No --ckpt_path given: using a randomly initialised bioemu-v1.0-sized "
             "model (useful only for smoke tests)."
         )
-        bundle = random_bundle(denoiser=args.denoiser, dtype=dtype, device=args.device)
+        bundle = random_bundle(denoiser=args.denoiser, dtype=dtype, device=device, sp=sp)
         if not isinstance(denoiser, str):
             bundle.denoiser = make_denoiser(denoiser)
     else:
@@ -99,7 +131,8 @@ def main(argv: list[str] | None = None) -> None:
             denoiser=denoiser,
             so3_cache_dir=args.so3_cache_dir,
             dtype=dtype,
-            device=args.device,
+            device=device,
+            sp=sp,
         )
 
     sample(

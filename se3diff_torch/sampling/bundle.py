@@ -5,6 +5,9 @@ Counterpart of ``se3diff_tpu/sampling/bundle.py`` (reference
 ``_target_`` strings map onto this package's classes, so the same
 checkpoint ``config.yaml`` drives both packages. A bundle lives on one
 device, chosen by the caller: ``"cuda"`` unless ``device="cpu"`` is asked for.
+A bundle given a rank's ``sp`` context (the counterpart of the JAX bundle's
+``pair_sharding``) builds a sequence-parallel model: each rank loads the same
+weights and holds its row slab of the pair tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import yaml
 from se3diff_torch.diffusion import denoise
 from se3diff_torch.models.convert import load_checkpoint
 from se3diff_torch.models.dig import DiGConditionalScoreModel, init_weights
+from se3diff_torch.parallel.mesh import RankContext
 from se3diff_torch.sde.so3_sde import DiGSO3SDE
 from se3diff_torch.sde.vpsde import CosineVPSDE
 
@@ -129,6 +133,11 @@ class Bundle:
     config: dict[str, Any]
     device: torch.device
 
+    @property
+    def sp(self) -> RankContext | None:
+        """The rank's context when the model is sequence-parallel."""
+        return self.model.model_nn.sp
+
     def sampler(self, batch_size: int, length: int) -> Callable:
         """``run(generator, single [L, 384], pair [L, L, 128][, mask [L]]) ->
         (pos, rot)``: embed the conditioning once for the batch, then denoise
@@ -175,11 +184,13 @@ def load_bundle(
     model_key: str = "score_model",
     dtype: torch.dtype = torch.float32,
     device: str | torch.device = "cuda",
+    sp: RankContext | None = None,
 ) -> Bundle:
     """Load (model, sdes, denoiser) from a checkpoint and its config.yaml.
 
     ``model_key`` selects ``score_model`` or ``finetune_model``; the state
-    dict must match the model's reference-named keys exactly.
+    dict must match the model's reference-named keys exactly. ``sp`` makes
+    the model sequence-parallel over the rank's group.
     """
     device = resolve_device(device)
     checkpoint_path = Path(checkpoint_path)
@@ -188,7 +199,7 @@ def load_bundle(
     with open(config_path) as f:
         config = yaml.safe_load(f)
 
-    model: DiGConditionalScoreModel = instantiate(dict(config[model_key]), dtype=dtype)
+    model: DiGConditionalScoreModel = instantiate(dict(config[model_key]), dtype=dtype, sp=sp)
     model.load_state_dict(load_checkpoint(str(checkpoint_path)), strict=True)
     sde_overrides = {"device": device}
     if so3_cache_dir is not None:
@@ -205,11 +216,12 @@ def load_bundle(
 
 def random_bundle(
     model_cfg: dict[str, Any] | None = None,
-    denoiser: str = "dpm",
+    denoiser: str | dict[str, Any] = "dpm",
     seed: int = 0,
     so3_kwargs: dict[str, Any] | None = None,
     dtype: torch.dtype = torch.float32,
     device: str | torch.device = "cuda",
+    sp: RankContext | None = None,
 ) -> Bundle:
     """Bundle with weights drawn from ``seed`` (tests, benchmarks, smoke runs).
 
@@ -219,7 +231,7 @@ def random_bundle(
     device = resolve_device(device)
     cfg = dict(BIOEMU_V1_MODEL)
     cfg.update(model_cfg or {})
-    model = DiGConditionalScoreModel(**cfg, dtype=dtype)
+    model = DiGConditionalScoreModel(**cfg, dtype=dtype, sp=sp)
     init_weights(model, torch.Generator().manual_seed(seed))
 
     so3 = dict(num_sigma=100, num_omega=500, l_max=500)

@@ -18,6 +18,12 @@ The conditioning is copied to the device once per run. The batch loop is
 double-buffered: batch N's device chain is enqueued, its results are copied
 to pinned host memory behind an event, and the host finalises batch N-1
 while the device works on N.
+
+With a sequence-parallel bundle (``bundle.sp``) every rank runs the same
+batches with the same seeds and ends each with the same samples. Rank 0
+stages the embeddings and writes every output file; the others write
+nothing and read the embeddings only after a barrier, so never from a
+half-written cache.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from se3diff_torch.sampling.bundle import Bundle
 from se3diff_torch.sampling.embeds import get_embeds, load_embeds
@@ -132,19 +139,31 @@ def sample(
     Resumable: re-running with the same ``output_dir`` continues from the
     existing batch files (seed = start index). ``batch_size`` overrides the
     ``batch_size_100`` heuristic with an exact per-batch count. Logs a
-    stage/loop/write wall breakdown at debug level.
+    stage/loop/write wall breakdown at debug level. Under SP only rank 0
+    writes; every rank returns ``output_dir``.
     """
+    sp = bundle.sp
+    writer = sp is None or sp.rank == 0
     out = Path(output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-
     seq = parse_sequence(sequence)
     check_protein_valid(seq)
     L = len(seq)
+    # Counted by every rank before any rank can write.
+    existing = count_samples_in_output_dir(out)
 
-    single_file, pair_file = get_embeds(
-        seq, cache_embeds_dir, backend=embeds_backend,
-        msa_file=msa_file, msa_host_url=msa_host_url,
-    )
+    def embeds():
+        return get_embeds(
+            seq, cache_embeds_dir, backend=embeds_backend,
+            msa_file=msa_file, msa_host_url=msa_host_url,
+        )
+
+    if writer:
+        out.mkdir(parents=True, exist_ok=True)
+        single_file, pair_file = embeds()
+    if sp is not None:
+        dist.barrier(group=sp.group)
+    if not writer:
+        single_file, pair_file = embeds()
     single, pair = load_embeds(single_file, pair_file)
 
     if batch_size is None:
@@ -152,7 +171,6 @@ def sample(
     elif batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
 
-    existing = count_samples_in_output_dir(out)
     if existing >= num_samples:
         logger.info("Found %d samples >= requested %d; skipping.", existing, num_samples)
 
@@ -164,7 +182,7 @@ def sample(
     # keeps batch order.
     kept_chunks: list[np.ndarray] = []
     total = 0
-    for f in sorted(out.glob("batch_*.npz")):
+    for f in sorted(out.glob("batch_*.npz")) if writer else ():
         total += _append_npz_chunk(kept_chunks, f, seq, aatype, mask, filter_samples, device)
 
     t0 = time.perf_counter()
@@ -181,6 +199,8 @@ def sample(
             pos_d, rot_d = _dispatch_batch(
                 bundle, single_d, pair_d, mask_d, true_len, seed=start, batch_size=n
             )
+            if not writer:
+                continue
             atom37_d, _ = atom37_from_frames(pos_d, rot_d, aatype)
             outputs = (pos_d, rot_d, atom37_d)
             if filter_samples:
@@ -193,6 +213,10 @@ def sample(
         total += _finalize_batch(out, seq, mask, kept_chunks, *pending)
 
     t_loop = time.perf_counter()
+    if not writer:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out
     result = _write_ensemble(out, seq, aatype, mask, kept_chunks, total, filter_samples)
     logger.debug(
         "wall breakdown: stage=%.2fs loop=%.2fs write=%.2fs",
