@@ -56,6 +56,23 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    B=8, f32, dpm_2m 30 steps from t=0.5, against this process's batch of
    the same seed. Two ranks on one card show correctness and per-rank
    memory, not multi-GPU speed;
+11. ``[k1-inkernel]``: K1 with the pair bias computed in the kernel
+   (``w_pb``, has_pa=False) against the plain version at full width (B=40,
+   L=100, 32 heads, Cp=256, bf16 and f32), at the PPFT control net's width
+   (B=256, L=56, 4 heads, Cp=32, f32) and ragged and masked at L=57; the
+   streamed variant at 4 heads; in-kernel row slabs at 4 heads; the
+   Function's gradients with ``w_pb`` against autograd of the plain version;
+12. ``[ppft]``: ``python -m se3diff_torch.finetune``'s main on the card at
+   bioemu-v1.0 widths (score model seed 0, bf16; near-zero 2-layer d64
+   control net, f32), 2 training and 1 validation GRB2-SH3 mutants, dummy
+   embeddings, heun_finetune cut to batch 64 and 25 steps, 1 epoch: finite
+   losses and gradients, moved control-net weights, checkpoints and
+   history.json, K1 launches by variant and backward passes as counted;
+13. ``[ppft-step]``: one PPFT step at ``bench.py --finetune``'s shape (L=56,
+   path batch 256, heun_finetune 100 steps): path generation, replay
+   gradient and step seconds, ``finetune_steps_per_hour_L56_B256_heun100``,
+   peak memory, K1 launches by variant, and the device's busy share from a
+   profile of a step cut to 10 heun steps;
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -104,6 +121,26 @@ DP_L, DP_BATCH, DP_SEED = 100, 8, 5
 # from t=0.5 they stay within a few nm.
 DP_DENOISER = {"_target_": "dpm_solver_pp2m", "num_steps": 30, "max_t": 0.5, "min_t": 0.001}
 DP_TOL = 2e-4
+# K1 with the pair bias computed in the kernel (has_pa=False), and K1 at the
+# control net's 4 heads: (B, L, heads, Cp, dtype, masked columns, in-kernel).
+# (a) full width, (b) the control net's width at the PPFT path's batch, (c)
+# ragged and masked; then the streamed variant at 4 heads.
+INKERNEL_CASES = [(40, 100, 32, 256, "bfloat16", 0, True), (40, 100, 32, 256, "float32", 0, True),
+                  (256, 56, 4, 32, "float32", 0, True), (40, 57, 32, 256, "bfloat16", 5, True),
+                  (256, 57, 4, 32, "float32", 5, True), (256, 56, 4, 32, "float32", 0, False),
+                  (256, 57, 4, 32, "float32", 5, False)]
+INKERNEL_GRAD_CASES = [(256, 56, 4, 32, "float32", 0), (16, 100, 32, 256, "bfloat16", 0),
+                       (16, 77, 32, 256, "float32", 9)]
+# PPFT (python -m se3diff_torch.finetune): GRB2-SH3 (L=56) mutants from the
+# repository's CSV, bioemu-v1.0's 2-layer d64 control net (bench.py:63-67).
+GRB2_CSV = "assets/reference_h/GRB2_SH3_high_confidence.csv"
+FT_MODEL = dict(dim_model=64, dim_pair=32, num_layers=2, num_heads=4, dim_hidden=128, dropout=0.1)
+FT_LAYERS = FT_MODEL["num_layers"]
+# The CLI run is cut to fit the time: path batch 64 (of 256), heun 25 steps
+# (of 100), one epoch over 2 training mutants and 1 validation mutant.
+PPFT_CLI_BATCH, PPFT_CLI_STEPS = 64, 25
+# bench.py --finetune's shape: L=56, path batch 256, heun_finetune 100 steps.
+PPFT_BATCH, PPFT_STEPS = 256, 100
 ENSEMBLES = [
     ("tests/test_data/samples_example/md_emulation/cath1_1bl0A02.xtc",
      "tests/test_data/samples_example/md_emulation/cath1_1bl0A02.pdb"),
@@ -132,33 +169,41 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_inputs(B, L, dtype, gen, masked_cols=0):
-    """Kernel-layout operands at the model's scales (q/k/v ~ 1, planes ~ nm)."""
+def k1_inputs(B, L, dtype, gen, masked_cols=0, H=32, cp=256, in_kernel=False):
+    """Kernel-layout operands at the model's scales (q/k/v ~ 1, planes ~ nm):
+    the ten of the streamed pair bias, or with ``in_kernel`` eleven, ``pa``
+    None and ``w_pb [cp, H]`` f32 last."""
     import torch
 
-    H, dk, cp, dev = 32, 16, 256, DEVICE
+    dk, dev = 16, DEVICE
     g = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale
     bias = torch.zeros(B, L, device=dev)
     if masked_cols:
         bias[:, -masked_cols:] = -1e30
-    return (
+    args = (
         g(B, H, L, dk).to(dtype), g(B, H, L, dk).to(dtype), g(B, H, L, dk).to(dtype),
         g(B, 3, H * 4, L, scale=0.3), g(B, 3, H * 4, L, scale=0.3), g(B, H, L, 24, scale=2.0),
-        g(B, L, L, cp, scale=0.5).to(dtype), g(H, cp, dk, scale=0.06).to(dtype), bias,
-        g(B, H, L, L).to(dtype),
+        g(B, L, L, cp, scale=0.5).to(dtype), g(H, cp, dk, scale=0.06 * (256 / cp) ** 0.5).to(dtype),
+        bias,
     )
+    if in_kernel:
+        return (*args, None, g(cp, H, scale=cp**-0.5))
+    return (*args, g(B, H, L, L).to(dtype))
 
 
 def k1_bound(args, outs, dtype_name):
     """Least time for one call: bytes (each input read once, each output
     written once) over HBM rate vs operations over the type's peak."""
-    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = args
+    q_s, k_s, x2d = args[0], args[1], args[6]
+    in_kernel = len(args) == 11 and args[10] is not None
     B, H, Lq, dk = q_s.shape
     Lk, cp = k_s.shape[2], x2d.shape[-1]
-    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs) if t is not None)
     # Per (b, h, i, j): scalar logit 2dk, 4 point distances ~11 each, softmax
-    # and bias ~8, v_s 2dk, v_p 48, x2d 2Cp; finalize 2 Cp dk per (b, h, i).
-    ops = B * H * Lq * Lk * (4 * dk + 44 + 8 + 48 + 2 * cp) + 2 * B * H * Lq * cp * dk
+    # and bias ~8, v_s 2dk, v_p 48, x2d 2Cp, and 2Cp more for the in-kernel
+    # pair bias; finalize 2 Cp dk per (b, h, i).
+    ops = (B * H * Lq * Lk * (4 * dk + 44 + 8 + 48 + 2 * cp * (2 if in_kernel else 1))
+           + 2 * B * H * Lq * cp * dk)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_OPS_PER_S[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
@@ -406,14 +451,17 @@ def k1_bwd_bound(args, cts, grads):
     once, gradients written once) over the HBM rate vs f32 operations over
     the f32 peak (the backward computes in f32)."""
     q_s, k_s, x2d = args[0], args[1], args[6]
+    in_kernel = len(args) == 11 and args[10] is not None
     B, H, Lq, dk = q_s.shape
     Lk, cp = k_s.shape[2], x2d.shape[-1]
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *cts, *grads) if t is not None)
     # Per (b, h, i, j): logits 2dk + 4 x (6 + 4) points + 8 softmax/bias;
     # wx2d 2Cp; dphat 2dk + 48 + 2Cp; ds 4; d_qs, d_ks 4dk; distance weights
-    # 20; d_qp, d_kp 48; d_x2d 2Cp; d_pa 1; d_vs 2dk, d_vp 48. Per (b, h, i):
-    # g_wx2d and d_w_pv, 2 Cp dk each.
-    ops = B * H * Lq * Lk * (10 * dk + 6 * cp + 217) + 4 * B * H * Lq * cp * dk
+    # 20; d_qp, d_kp 48; d_x2d 2Cp; d_pa 1; d_vs 2dk, d_vp 48; the in-kernel
+    # pair bias adds its recompute, d_w_pb and its d_x2d term, 2Cp each. Per
+    # (b, h, i): g_wx2d and d_w_pv, 2 Cp dk each.
+    ops = (B * H * Lq * Lk * (10 * dk + (12 if in_kernel else 6) * cp + 217)
+           + 4 * B * H * Lq * cp * dk)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_OPS_PER_S["float32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
@@ -992,6 +1040,324 @@ def phase_parallel(k1, card):
     return [run["launches"] for run in sp_runs]
 
 
+def phase_inkernel(k1):
+    """K1 with the pair bias computed in the kernel (has_pa=False) and K1 at
+    the control net's 4 heads, against the plain version; row slabs of the
+    in-kernel variant at 4 heads; the Function's gradients with ``w_pb``
+    against autograd of the plain version. Returns per-case results."""
+    import torch
+
+    from se3diff_torch.parallel.mesh import row_slabs
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
+    results = {}
+    for B, L, H, cp, dname, masked, in_kernel in INKERNEL_CASES:
+        args = k1_inputs(B, L, getattr(torch, dname), gen, masked, H=H, cp=cp, in_kernel=in_kernel)
+        variant = "w_pb" if in_kernel else "pa"
+        before = k1.launches_by_variant[variant]
+        got = k1.ipa_attention(*args, **kw)
+        torch.cuda.synchronize()
+        if k1.launches_by_variant[variant] != before + 1:
+            raise AssertionError(f"ipa_attention ({variant}) on CUDA tensors did not launch")
+        want = k1.ipa_attention_plain(*args, **kw)
+        err, scale = max_err(got, want)
+        tol = TOL[dname] * scale
+        ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **kw), reps=20)
+        plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **kw), reps=5)
+        bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
+        log(f"[k1-inkernel] {'has_pa=False' if in_kernel else 'has_pa=True'} B={B} L={L} H={H} "
+            f"Cp={cp} {dname} masked_cols={masked}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+            f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) library_ms=null (no single PyTorch "
+            "call computes this function)")
+        if not err <= tol:
+            raise AssertionError(f"kernel disagrees with its plain version: {err} > {tol}")
+        results[(B, L, H, dname, in_kernel)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del args, got, want
+
+    # Row slabs (sp_ipa_attention with pa=None) at the control net's width.
+    B, L, H, cp = PPFT_BATCH, 56, 4, 32
+    args = k1_inputs(B, L, torch.float32, gen, 0, H=H, cp=cp, in_kernel=True)
+    want = k1.ipa_attention_plain(*args, **kw)
+    got, slab_ms = [], []
+    for r0, r1 in row_slabs(L, 2):
+        slab = list(args)
+        slab[0], slab[3], slab[6] = (args[0][:, :, r0:r1].contiguous(), args[3][..., r0:r1].contiguous(),
+                                     args[6][:, r0:r1].contiguous())
+        got.append(k1.sp_ipa_attention((r0, r1), *slab, **kw))
+        slab_ms.append(cuda_time_ms(lambda: k1.sp_ipa_attention((r0, r1), *slab, **kw), reps=20))
+        slab_bound = k1_bound(slab, got[-1], "float32")[0]
+        slab_plain = cuda_time_ms(lambda: k1.ipa_attention_plain(*slab, **kw), reps=5)
+    got = [torch.cat([o[i] for o in got], dim=2) for i in range(3)]
+    err, scale = max_err(got, want)
+    log(f"[k1-inkernel] sp_ipa_attention has_pa=False B={B} L={L} H={H} f32, 2 slabs: "
+        f"max_abs_err={err:.3e} (tol {TOL['float32'] * scale:.3e}); per slab launch ms="
+        + "/".join(f"{t:.4f}" for t in slab_ms) + f" bound_ms={slab_bound:.4f} "
+        f"plain_ms={slab_plain:.4f}")
+    if not err <= TOL["float32"] * scale:
+        raise AssertionError("in-kernel slab launches disagree with the plain version")
+    results["sp_h4"] = dict(max_abs_err=err, ms=slab_ms[0], plain_ms=slab_plain, bound_ms=slab_bound)
+    del args, want, got
+
+    names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa", "w_pb")
+    for B, L, H, cp, dname, masked in INKERNEL_GRAD_CASES:
+        dtype = getattr(torch, dname)
+        args = k1_inputs(B, L, dtype, gen, masked, H=H, cp=cp, in_kernel=True)
+        leaves = [None if t is None else t.clone().requires_grad_(n != "bias") for n, t in zip(names, args)]
+        grad_names = [n for n, t in zip(names, leaves) if t is not None and n != "bias"]
+        diff = [leaves[names.index(n)] for n in grad_names]
+        cts = tuple(torch.randn(shape, generator=gen, device=DEVICE).to(dt) for shape, dt in (
+            ((B, H, L, 16), dtype), ((B, H, L, 24), torch.float32), ((B, H, L, 16), dtype)))
+        outs = k1.ipa_attention(*leaves, **kw)
+        got = torch.autograd.grad(outs, diff, cts)
+        ref = [None if t is None else t.detach().float().requires_grad_(n != "bias")
+               for n, t in zip(names, args)]
+        want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **kw),
+                                   [ref[names.index(n)] for n in grad_names], [c.float() for c in cts])
+        torch.cuda.synchronize()
+        rel, abs_err = {}, 0.0
+        for name, g, prm, w in zip(grad_names, got, diff, want):
+            if g.dtype != prm.dtype or g.shape != w.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"d_{name}: dtype/shape mismatch or non-finite values")
+            err = (g.float() - w).abs().max().item()
+            rel[name], abs_err = err / w.abs().max().item(), max(abs_err, err)
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= GRAD_TOL[dname]:
+            raise AssertionError(f"d_{worst} disagrees with autograd of the plain version: "
+                                 f"{rel[worst]:.3e} x max|reference| > {GRAD_TOL[dname]:.3e}")
+        del ref, want, outs, got
+        plain_args = [None if t is None else t.detach() for t in leaves]
+        plain_outs = k1.ipa_attention_plain(*leaves, **kw)
+        with torch.no_grad():
+            grads = k1.ipa_attention_backward(plain_args, cts, **kw)
+            bwd_ms = cuda_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw), reps=10)
+        plain_bwd_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
+        bwd_bound, bwd_by, nbytes, ops = k1_bwd_bound(plain_args, cts, grads)
+        log(f"[k1-inkernel] gradients has_pa=False B={B} L={L} H={H} {dname} masked_cols={masked}: "
+            "errors x max|f32 reference| " + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
+            + f" (tol {GRAD_TOL[dname]:.2e}); backward ms={bwd_ms:.4f} bound_ms={bwd_bound:.4f} "
+            f"({bwd_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32); plain autograd "
+            f"backward ms={plain_bwd_ms:.4f}")
+        results[("grad", B, L, H, dname)] = dict(
+            max_abs_err=abs_err, max_rel_err=rel[worst], ms=bwd_ms, plain_ms=plain_bwd_ms,
+            bound_ms=bwd_bound, bound_by=bwd_by)
+        del args, leaves, diff, grads, plain_args, plain_outs
+    return results
+
+
+def phase_ppft_files():
+    """Inputs of the PPFT phases in OUT/ppft: seed-0 score weights at
+    bioemu-v1.0 widths, a config.yaml with score_model and finetune_model
+    blocks and the production SDEs, a near-zero control net (seed 1), and
+    2 training + 1 validation GRB2-SH3 mutants from the repository's CSV."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from se3diff_torch.models import dig
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, BIOEMU_V1_SO3, initialize_weights_to_near_zero
+
+    d = OUT / "ppft"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    score = dig.init_weights(dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL), torch.Generator().manual_seed(0))
+    np.savez(d / "score.npz", **{k: v.numpy() for k, v in score.state_dict().items()})
+    ft = dig.init_weights(dig.DiGConditionalScoreModel(**FT_MODEL), torch.Generator().manual_seed(1))
+    initialize_weights_to_near_zero(ft)
+    np.savez(d / "ft0.npz", **{k: v.numpy() for k, v in ft.state_dict().items()})
+    target = "bioemu.shortcuts.DiGConditionalScoreModel"
+    cfg = {
+        "score_model": {"_target_": target, **BIOEMU_V1_MODEL},
+        "finetune_model": {"_target_": target, **FT_MODEL},
+        "sdes": {
+            "node_orientations": {"_target_": "bioemu.shortcuts.DiGSO3SDE", **BIOEMU_V1_SO3},
+            "pos": {"_target_": "bioemu.shortcuts.CosineVPSDE", "s": 0.008},
+        },
+    }
+    (d / "config.yaml").write_text(yaml.safe_dump(cfg, sort_keys=False))
+    lines = (REPO / GRB2_CSV).read_text().splitlines()
+    (d / "train.csv").write_text("\n".join(lines[:3]) + "\n")
+    (d / "val.csv").write_text("\n".join([lines[0], lines[3]]) + "\n")
+    return d
+
+
+def _reset_k1(k1):
+    k1.launches = k1.backward_calls = 0
+    k1.launches_by_variant.update(pa=0, w_pb=0)
+
+
+def phase_ppft_cli(k1, files, card):
+    """``python -m se3diff_torch.finetune``'s main on the card at full widths,
+    cut in batch and steps. Returns K1's launches by variant and its
+    backward passes in the run."""
+    import numpy as np
+    import torch
+    from unittest import mock
+
+    from se3diff_torch import finetune
+    from se3diff_torch.models import dig
+    from se3diff_torch.ppft import trainer
+
+    out = OUT / "ppft_out"
+    shutil.rmtree(out, ignore_errors=True)
+    finite = []
+    make = trainer.make_finetune_step_fns
+
+    def checked(*a, **kw):
+        grad_fn, val_fn = make(*a, **kw)
+
+        def grad_fn_checked(*args):
+            grads, loss = grad_fn(*args)
+            finite.append(all(bool(torch.isfinite(g).all()) for g in grads.values())
+                          and any(bool(g.abs().max() > 0) for g in grads.values()))
+            return grads, loss
+        return grad_fn_checked, val_fn
+
+    argv = [
+        "--csv_path", str(files / "train.csv"), "--csv_path_val", str(files / "val.csv"),
+        "--sequence_col", "seq", "--h_stars_cols", "f_dg_pred", "--h_stars_from_dg",
+        "--ckpt_path", str(files / "score.npz"), "--model_config_path", str(files / "config.yaml"),
+        "--finetune_ckpt_path", str(files / "ft0.npz"), "--denoiser_type", "heun_finetune",
+        "--num_steps", str(PPFT_CLI_STEPS), "--batch_size", str(PPFT_CLI_BATCH), "--num_epochs", "1",
+        "--output_dir", str(out), "--cache_embeds_dir", str(OUT / "embeds"), "--embeds_backend", "dummy",
+        "--so3_cache_dir", str(OUT / "so3_cache"), "--dtype", "bfloat16", "--device", DEVICE,
+    ]
+    _reset_k1(k1)
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer, "make_finetune_step_fns", checked):
+        finetune.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, backwards = dict(k1.launches_by_variant), k1.backward_calls
+    hist = json.loads((out / "history.json").read_text())
+    losses = [e["loss"] for e in hist["train"]] + [e["val_loss"] for e in hist["val"]]
+    with np.load(out / "finetune_model_0.npz") as a, np.load(out / "finetune_model_1.npz") as b:
+        moved = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        finite_params = all(np.isfinite(b[k]).all() for k in b.files)
+        n_params = len([k for k in a.files if a[k].size])
+    model = dig.DiGConditionalScoreModel(**FT_MODEL)
+    model.load_state_dict(trainer.load_finetune_params(out / "finetune_model.npz"), strict=True)
+    # Paths: validation at epochs 0 and 1 (1 mutant each) and 2 training paths.
+    paths, train = 4, 2
+    expect = {"pa": paths * 3 * PPFT_CLI_STEPS * N_LAYERS,
+              "w_pb": paths * 3 * PPFT_CLI_STEPS * FT_LAYERS + train * 2 * PPFT_CLI_STEPS * FT_LAYERS}
+    expect_bwd = train * PPFT_CLI_STEPS * FT_LAYERS
+    log(f"[ppft] finetune CLI on the card: GRB2-SH3 (L=56) 2 training + 1 validation mutants, "
+        f"h*=sigmoid(-dG), FoldingStability on 2vwf_trimmed_SH3.pdb, bioemu-v1.0 score model "
+        f"(seed 0, bf16) + 2-layer d64 control net (near-zero, f32), heun_finetune; cut to path "
+        f"batch {PPFT_CLI_BATCH} (of 256), {PPFT_CLI_STEPS} steps (of 100), 1 epoch: {wall:.2f} s "
+        f"with set-up; losses (train, val e0, val e1) {losses}; {len(moved)}/{n_params} control-net "
+        f"tensors moved; K1 launches by variant {launches} (expected {expect}), K1 backward "
+        f"passes {backwards} (expected {expect_bwd}); gradients finite and nonzero on "
+        f"{sum(finite)}/{len(finite)} replays; {card}")
+    if not all(np.isfinite(losses)) or not finite or not all(finite) or not finite_params:
+        raise AssertionError("non-finite PPFT loss, gradient or parameter")
+    if not moved:
+        raise AssertionError("the control net's parameters did not move")
+    for name in ("finetune_model.npz", "finetune_model_0.npz", "finetune_model_1.npz", "history.json"):
+        if not (out / name).exists():
+            raise AssertionError(f"{name} missing")
+    if launches != expect or backwards != expect_bwd:
+        raise AssertionError("PPFT K1 launches or backward passes are not the expected counts")
+    return launches, backwards
+
+
+def phase_ppft_step(k1, files, card):
+    """One PPFT step at bench.py --finetune's shape: path generation, replay
+    gradient and AdamW update, timed, with launches by variant and peak
+    memory; then a profile of a step cut to 10 heun steps for the device's
+    busy share and the split of kernel time."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from se3diff_torch.ppft import trainer
+
+    L = 56
+    bundle = trainer.load_finetune_bundle(
+        files / "score.npz", model_config_path=files / "config.yaml",
+        finetune_ckpt_path=files / "ft0.npz", denoiser_type="heun_finetune",
+        so3_cache_dir=str(OUT / "so3_cache"), dtype=torch.bfloat16, device=DEVICE,
+    )
+    rng = np.random.default_rng(0)  # bench.py --finetune's conditioning
+    single = torch.from_numpy((rng.standard_normal((L, 384)) * 0.5).astype(np.float32)).to(DEVICE)
+    pair = torch.from_numpy((rng.standard_normal((L, L, 128)) * 0.2).astype(np.float32)).to(DEVICE)
+    h_stars = torch.full((PPFT_BATCH, 1), 0.7, device=DEVICE)
+    model = bundle.finetune_model
+    opt = torch.optim.AdamW(model.parameters(), lr=5e-4, eps=1e-8)
+    grad_fn, _ = trainer.make_finetune_step_fns(bundle)
+
+    def one_step(num_steps, seed):
+        sampler = trainer.make_path_sampler(
+            bundle._replace(denoiser=partial(bundle.denoiser, num_steps=num_steps)), PPFT_BATCH, L)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = sampler(torch.Generator(device=DEVICE).manual_seed(seed), single, pair)
+        hs = bundle.h_func(path.pos_path[-1], "")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads, val = grad_fn(path, single, pair, hs, h_stars)
+        for name, p in model.named_parameters():
+            p.grad = grads[name]
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1, float(val), path
+
+    one_step(5, 0)  # warm-up: allocator, library loads
+    _reset_k1(k1)
+    torch.cuda.reset_peak_memory_stats()
+    t_path, t_grad, val, path = one_step(PPFT_STEPS, 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches, backwards = dict(k1.launches_by_variant), k1.backward_calls
+    finite = all(bool(torch.isfinite(x).all()) for x in (path.pos_path, path.rot_path, *path.us.values(),
+                                                        *path.dWs.values()))
+    del path
+    step_s = t_path + t_grad
+    value = 3600.0 / step_s
+    expect = {"pa": 3 * PPFT_STEPS * N_LAYERS, "w_pb": 3 * PPFT_STEPS * FT_LAYERS + 2 * PPFT_STEPS * FT_LAYERS}
+    log(f"[ppft-step] L={L} B={PPFT_BATCH} heun_finetune-{PPFT_STEPS}, score model bf16, control "
+        f"net f32: path generation {t_path:.3f} s, replay gradient + update {t_grad:.3f} s, step "
+        f"{step_s:.3f} s; val loss {val:.5f}; peak device memory {peak_gb:.2f} GB; K1 launches by "
+        f"variant {launches} (expected {expect}), K1 backward passes {backwards} (expected "
+        f"{PPFT_STEPS * FT_LAYERS}); {card}")
+    if not finite or not np.isfinite(val):
+        raise AssertionError("non-finite PPFT path or loss")
+    if launches != expect or backwards != PPFT_STEPS * FT_LAYERS:
+        raise AssertionError("PPFT step K1 launches or backward passes are not the expected counts")
+
+    cut = 10
+    t_path_c, t_grad_c, _, _ = one_step(cut, 2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_step(cut, 2)
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+         and e.self_device_time_total > 0),
+        key=lambda x: -x[1],
+    )
+    total = sum(t for _, t, _ in kernels)
+    if not total > 0:
+        raise AssertionError("the profiler recorded no device time for the PPFT step")
+    k1_split = {tag: sum(t for k, t, _ in kernels if "ipa_attention_kernel" in k and tag in k)
+                for tag in (", 32, true", ", 4, false")}
+    wall_ms = (t_path_c + t_grad_c) * 1e3
+    log(f"[ppft-step] profile of a step cut to heun {cut} steps: device kernel time {total:.1f} ms "
+        f"in {sum(n for _, _, n in kernels)} kernels against an unprofiled wall of {wall_ms:.1f} ms, "
+        f"so the device is busy {100 * total / wall_ms:.1f}%; K1 score model (32 heads, streamed) "
+        f"{k1_split[', 32, true']:.1f} ms, K1 control net (4 heads, in-kernel) "
+        f"{k1_split[', 4, false']:.1f} ms")
+    for key, t, n in kernels[:10]:
+        log(f"[ppft-profile]   {t:9.2f} ms {100 * t / total:5.1f}%  x{n:<6d} {key[:90]}")
+    log(f"[ppft-step] finetune_steps_per_hour_L{L}_B{PPFT_BATCH}_heun{PPFT_STEPS} = {value:.1f}")
+    return dict(value=value, launches=launches, backwards=backwards, busy=total / wall_ms)
+
+
 def main() -> int:
     try:
         import torch
@@ -1030,12 +1396,21 @@ def main() -> int:
     phase_train_throughput(k1, card)
     slab_results = phase_sp_kernel(k1)
     sp_rank_launches = phase_parallel(k1, card)
+    inkernel = phase_inkernel(k1)
+    files = phase_ppft_files()
+    ppft_launches, ppft_backwards = phase_ppft_cli(k1, files, card)
+    step = phase_ppft_step(k1, files, card)
 
     main_case = k1_results[K1_CASES[0][:3]]
     bwd_case = grad_results[K1_GRAD_CASES[0][:3]]
     sp_case = slab_results[SLAB_CASES[0]]
-    log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}; "
-        f"backward passes: training path {train_backwards}")
+    h4_case = inkernel[(PPFT_BATCH, 56, 4, "float32", False)]
+    ft_case = inkernel[(PPFT_BATCH, 56, 4, "float32", True)]
+    ft32_case = inkernel[(40, 100, 32, "bfloat16", True)]
+    ft_bwd = inkernel[("grad",) + INKERNEL_GRAD_CASES[0][:3] + INKERNEL_GRAD_CASES[0][4:5]]
+    log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}, PPFT "
+        f"CLI {ppft_launches}, PPFT step {step['launches']}; backward passes: training path "
+        f"{train_backwards}, PPFT CLI {ppft_backwards}, PPFT step {step['backwards']}")
     kernels = {"kernels": [{
         "name": "ipa_attention",
         "route": "cuda",
@@ -1049,6 +1424,14 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": None,
         "verdict": "pass",
+        # Streamed launches of the PPFT CLI run's score model, counted apart.
+        "launches_ppft": ppft_launches["pa"],
+        # At the control net's 4 heads: B=256, L=56, Cp=32, f32.
+        "h4_max_abs_err": h4_case["max_abs_err"],
+        "h4_ms": h4_case["ms"],
+        "h4_plain_ms": h4_case["plain_ms"],
+        "h4_bound_ms": h4_case["bound_ms"],
+        "h4_bound_by": h4_case["bound_by"],
         # The backward (B=16, L=100, bf16) is PyTorch: the JAX package's is XLA
         # code. backward_calls: autograd's backward passes in the training run.
         "backward_route": "torch",
@@ -1079,6 +1462,43 @@ def main() -> int:
         "library_ms": None,
         "verdict": "pass",
         "full_rows_ms": sp_case["full_ms"],
+        # In-kernel pair bias at 4 heads: B=256, L=56, f32, one of 2 slabs.
+        "h4_max_abs_err": inkernel["sp_h4"]["max_abs_err"],
+        "h4_ms": inkernel["sp_h4"]["ms"],
+        "h4_plain_ms": inkernel["sp_h4"]["plain_ms"],
+        "h4_bound_ms": inkernel["sp_h4"]["bound_ms"],
+    }, {
+        "name": "ipa_attention_in_kernel_pair_bias",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:399",
+        # has_pa=False launches of the PPFT CLI run (control net: recording
+        # and replay).
+        "launches": ppft_launches["w_pb"],
+        "launches_ppft_step": step["launches"]["w_pb"],
+        # The control net's shape on the PPFT path: B=256, L=56, 4 heads, Cp=32, f32.
+        "max_abs_err": ft_case["max_abs_err"],
+        "ms": ft_case["ms"],
+        "plain_ms": ft_case["plain_ms"],
+        "bound_ms": ft_case["bound_ms"],
+        "bound_by": ft_case["bound_by"],
+        "library_ms": None,
+        "verdict": "pass",
+        # Full width: B=40, L=100, 32 heads, Cp=256, bf16.
+        "h32_max_abs_err": ft32_case["max_abs_err"],
+        "h32_ms": ft32_case["ms"],
+        "h32_plain_ms": ft32_case["plain_ms"],
+        "h32_bound_ms": ft32_case["bound_ms"],
+        "backward_route": "torch",
+        "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "backward_calls": ppft_backwards,
+        "backward_max_abs_err": ft_bwd["max_abs_err"],
+        "backward_max_rel_err": ft_bwd["max_rel_err"],
+        "backward_ms": ft_bwd["ms"],
+        "backward_plain_ms": ft_bwd["plain_ms"],
+        "backward_bound_ms": ft_bwd["bound_ms"],
+        "backward_bound_by": ft_bwd["bound_by"],
     }]}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels))

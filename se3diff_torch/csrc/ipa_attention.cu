@@ -1,7 +1,7 @@
-// Fused IPA attention core (forward, streamed pair bias) for Hopper, sm_90a.
+// Fused IPA attention core (forward) for Hopper, sm_90a.
 //
-// Replaces the TPU kernel se3diff_tpu/ops/pallas_ipa.py::_kernel (launched by
-// fused_ipa_attention with `has_pa=True`). For batch b, query row i, key
+// Replaces the TPU kernel se3diff_tpu/ops/pallas_ipa.py::_kernel, launched by
+// fused_ipa_attention, in both of its variants. For batch b, query row i, key
 // column j and head h it computes
 //
 //   s[h,i,j] = scalar_w <q_s, k_s> - sum_{p<4} sqrt(max(|q_p - k_p|^2, 0) + 1e-24)
@@ -11,21 +11,27 @@
 //   out_p    = sum_j a v_p                        [B,H,Lq,24]   f32
 //   out_pair = (sum_j a x2d[i,j,:]) @ w_pv[h]     [B,H,Lq,dk]   model dtype
 //
+// with the pair bias pa either streamed from device memory (`has_pa=True`,
+// pa [B,H,Lq,Lk]) or computed here from the tile's x2d as
+// pa[h,i,j] = sum_p x2d[i,j,p] w_pb[p,h] (`has_pa=False`, pallas_ipa.py:399-406:
+// w_pb [Cp,H] f32 rounded to x2d's dtype, f32 sums, pa itself never rounded).
+//
 // Layouts (the JAX kernel's): q/k/v_s [B,H,L,dk]; point planes [B,3,H*4,L] f32,
 // pre-scaled by 0.5*point_weight[h]; v_p [B,H,Lk,24] f32; x2d [B,Lq,Lk,Cp];
 // pa [B,H,Lq,Lk]; w_pv [H,Cp,dk]; bias [B,Lk] f32 (NEG_INF = -1e30 at masked
-// columns, so the online softmax never meets inf - inf).
+// columns, so the online softmax never meets inf - inf). Heads: 32 (the score
+// model) or 4 (the PPFT control net), of width 16.
 //
 // Bound on an H100: bytes. At the sampling shape (B=40, L=100, H=32, dk=16,
 // Cp=256, bf16) a launch must read 204.8 MB of x2d, 25.6 MB of pa and about
 // 37 MB of everything else and write 20 MB: 288 MB, 86 us at 3.35 TB/s.
 // Design, and why:
 // * x2d is read from device memory once: a block owns TI=4 query rows of one
-//   batch element for ALL 32 heads, so each x2d row segment serves every
-//   head. The TPU program keeps an f32 [ti, H, Cp] aggregate (4 MiB at
-//   ti=128) in VMEM; here the aggregate of the 4 rows (128 KB) lives in the
-//   registers of 512 threads (4 rows x 4 heads x 4 channels each), so it
-//   never touches shared or device memory until the finalize.
+//   batch element for ALL heads, so each x2d row segment serves every head.
+//   The TPU program keeps an f32 [ti, H, Cp] aggregate (4 MiB at ti=128) in
+//   VMEM; here the aggregate of the 4 rows (128 KB at 32 heads) lives in the
+//   registers of the block's 16*H threads (4 rows x 4 heads x 4 channels
+//   each), so it never touches shared or device memory until the finalize.
 // * Every block also reads the key side of its batch element (k_s, v_s, key
 //   points, v_p: ~0.66 MB at L=100, from L2). Four rows a block amortise
 //   that four ways; the register budget of the aggregate caps TI at 4.
@@ -34,12 +40,20 @@
 //   warp-shuffle max/sum for the online softmax, and the v_s/v_p sums for
 //   its heads. Phase B: all threads accumulate the x2d aggregate from the
 //   tile's probabilities in shared memory.
+// * has_pa=False: w_pb (at most 32 KB) is staged in shared memory once per
+//   block, and before phase A the block computes the tile's [TJ, TI, H] pair
+//   bias from x2d into shared memory, each thread one (column, row) and up to
+//   8 heads. The logits need x2d before the softmax and phase B needs it
+//   after, so this version reads each x2d tile twice, the second time from
+//   L2 (prefetched); staging the tile once is later work.
 // * The finalize stages the aggregate in shared memory and multiplies by
 //   w_pv, read once per block for its 4 rows.
 // Point distances are explicit differences in f32 on the CUDA cores (no
 // TF32). In bf16 mode the probabilities that multiply v_s and x2d are
 // rounded to bf16 first, as the TPU kernel does; every sum is f32. Ragged
-// tails (j >= Lk, i >= Lq) are masked here, so callers never pad.
+// tails (j >= Lk, i >= Lq) are masked here, so callers never pad. At 4 heads
+// a block is 64 threads and phase B keeps only Cp/4 of them busy: correct,
+// slow per byte.
 // This version uses CUDA-core FMAs; tensor cores, TMA and wgmma are later work.
 
 #include <cuda_bf16.h>
@@ -49,7 +63,6 @@
 
 namespace {
 
-constexpr int kH = 32;         // heads
 constexpr int kDK = 16;        // scalar channels per head
 constexpr int kNpts = 4;       // query/key points per head
 constexpr int kVp = 24;        // value-point channels per head: 8 points x xyz
@@ -57,15 +70,35 @@ constexpr int kSV = kDK + kVp; // value channels a phase-A warp sums per head
 constexpr int kTI = 4;         // query rows per block
 constexpr int kTJ = 32;        // key columns per tile: one per lane in phase A
 constexpr int kMaxCp = 256;
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kHeadsPerWarp = kH / kWarps;  // phase A
-constexpr int kHQ = 4;                      // heads per phase-B thread
-constexpr int kCQ = 4;                      // channels per phase-B thread
-constexpr int kCG = kThreads / (kH / kHQ);  // channel quads per head group
-constexpr int kPS = kTI * kH + 4;           // padded column stride of p tiles
-static_assert(kCG * kCQ == kMaxCp, "phase B covers Cp <= 256");
-static_assert(kHeadsPerWarp * kWarps == kH, "phase A covers all heads");
+constexpr int kHQ = 4;         // heads per phase-B thread
+constexpr int kCQ = 4;         // channels per phase-B thread
+
+// Shape constants of the kernel for kH heads: 16 threads a head, so phase A
+// has two heads a warp, phase B 64 channel quads a head group of 4, and the
+// finalize one thread per (head, channel).
+template <int kH>
+struct Heads {
+  static constexpr int kThreads = kDK * kH;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kHeadsPerWarp = kH / kWarps;  // phase A
+  static constexpr int kCG = kThreads / (kH / kHQ);  // channel quads per head group
+  static constexpr int kPS = kTI * kH + 4;           // padded column stride of p tiles
+  static constexpr int kPAS = kTI * kH + 1;          // ... of the pair-bias tile
+  static constexpr int kHP = kH < 8 ? kH : 8;        // heads per pair-bias item
+  static_assert(kCG * kCQ == kMaxCp, "phase B covers Cp <= 256");
+  static_assert(kHeadsPerWarp * kWarps == kH, "phase A covers all heads");
+  static_assert(kH % kHQ == 0 && kHP % 4 == 0 && kH % kHP == 0, "head groups");
+
+  // Floats of the loop-time shared buffers (the finalize reuses them).
+  __host__ __device__ static constexpr int loop_floats(int Cp, bool has_pa) {
+    return kH * kDK * kTI + kH * kNpts * 3 * kTI + 3 * kTJ * kPS +
+           (has_pa ? 0 : kTJ * kPAS + Cp * kH);
+  }
+  __host__ __device__ static constexpr int region_floats(int Cp, bool has_pa) {
+    return loop_floats(Cp, has_pa) > kTI * kH * (Cp + 4) ? loop_floats(Cp, has_pa)
+                                                         : kTI * kH * (Cp + 4);
+  }
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -111,26 +144,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, int kH, bool kHasPa>
+__global__ void __launch_bounds__(kDK * kH, 1)
 ipa_attention_kernel(const T* __restrict__ q_s, const T* __restrict__ k_s,
                      const T* __restrict__ v_s, const float* __restrict__ q_p,
                      const float* __restrict__ k_p, const float* __restrict__ v_p,
                      const T* __restrict__ x2d, const T* __restrict__ w_pv,
                      const float* __restrict__ bias, const T* __restrict__ pa,
-                     T* __restrict__ out_s, float* __restrict__ out_p,
-                     T* __restrict__ out_pair, int Lq, int Lk, int Cp,
-                     float scalar_w, float pair_w) {
+                     const float* __restrict__ w_pb, T* __restrict__ out_s,
+                     float* __restrict__ out_p, T* __restrict__ out_pair, int Lq, int Lk,
+                     int Cp, float scalar_w, float pair_w) {
+  using K = Heads<kH>;
+  constexpr int kThreads = K::kThreads, kWarps = K::kWarps;
+  constexpr int kHeadsPerWarp = K::kHeadsPerWarp, kCG = K::kCG;
+  constexpr int kPS = K::kPS, kPAS = K::kPAS, kHP = K::kHP, kNHG = kH / kHP;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int wxs = Cp + 4;  // padded channel stride of the finalize buffer
-  const int loop_floats = kH * kDK * kTI + kH * kNpts * 3 * kTI + 3 * kTJ * kPS;
-  const int region = max(loop_floats, kTI * kH * wxs);
+  const int region = K::region_floats(Cp, kHasPa);
   float* q_sm = smem;                            // [H][DK][TI]   q_s * scalar_w
   float* qp_sm = q_sm + kH * kDK * kTI;          // [H*4][3][TI]  query points
   float* pb_sm = qp_sm + kH * kNpts * 3 * kTI;   // [TJ][TI][H]   p rounded (x2d)
   float* pr_sm = pb_sm + kTJ * kPS;              // [TJ][H][TI]   p rounded (v_s)
   float* pf_sm = pr_sm + kTJ * kPS;              // [TJ][H][TI]   p (v_p)
+  float* pa_sm = pf_sm + kTJ * kPS;              // [TJ][TI][H]   x2d @ w_pb (has_pa=False)
+  float* wpb_sm = pa_sm + kTJ * kPAS;            // [Cp][H]       w_pb rounded (has_pa=False)
   float* wx_sm = smem;                           // [TI][H][wxs]  after the loop
   float* corr_sm = smem + region;                // [TI][H]; 1/l after the loop
   float* m_sm = corr_sm + kTI * kH;              // [TI][H]
@@ -156,6 +194,9 @@ ipa_attention_kernel(const T* __restrict__ q_s, const T* __restrict__ k_s,
     l_sm[e] = 0.f;
   }
   for (int e = tid; e < kTI * kH * kSV; e += kThreads) acc_sm[e] = 0.f;
+  if constexpr (!kHasPa) {
+    for (int e = tid; e < Cp * kH; e += kThreads) wpb_sm[e] = to_f(from_f<T>(w_pb[e]));
+  }
 
   // Phase-B identity: heads hg*4 .. +3, channels c0 .. c0+3, all TI rows.
   const int hg = tid / kCG;
@@ -200,6 +241,40 @@ ipa_attention_kernel(const T* __restrict__ q_s, const T* __restrict__ k_s,
       }
     }
 
+    // -------- has_pa=False: the tile's pair bias x2d @ w_pb --------
+    if constexpr (!kHasPa) {
+      for (int e = tid; e < kTJ * kTI * kNHG; e += kThreads) {
+        const int g = e % kNHG, r = (e / kNHG) % kTI, jj = e / (kNHG * kTI);
+        float sum[kHP];
+#pragma unroll
+        for (int a = 0; a < kHP; ++a) sum[a] = 0.f;
+        if (jj < ncols) {
+          const T* xr = x2d + (((size_t)b * Lq + min(i0 + r, Lq - 1)) * Lk + j0 + jj) * Cp;
+          const float* wg = wpb_sm + g * kHP;
+#pragma unroll 2
+          for (int c = 0; c < Cp; c += 4) {
+            const float4 xv = load4(xr + c);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float x = lds(xv, k);
+              const float* w = wg + (c + k) * kH;
+#pragma unroll
+              for (int a = 0; a < kHP; a += 4) {
+                const float4 w4 = *reinterpret_cast<const float4*>(w + a);
+                sum[a] = fmaf(x, w4.x, sum[a]);
+                sum[a + 1] = fmaf(x, w4.y, sum[a + 1]);
+                sum[a + 2] = fmaf(x, w4.z, sum[a + 2]);
+                sum[a + 3] = fmaf(x, w4.w, sum[a + 3]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < kHP; ++a) pa_sm[jj * kPAS + r * kH + g * kHP + a] = sum[a];
+      }
+      __syncthreads();
+    }
+
     // -------- phase A: logits, online softmax, v_s / v_p sums --------
 #pragma unroll 1
     for (int hh = 0; hh < kHeadsPerWarp; ++hh) {
@@ -242,8 +317,13 @@ ipa_attention_kernel(const T* __restrict__ q_s, const T* __restrict__ k_s,
       }
 #pragma unroll
       for (int r = 0; r < kTI; ++r) {
-        const int i = min(i0 + r, Lq - 1);
-        s[r] += pair_w * to_f(pa[(bh * Lq + i) * Lk + jc]) + bias_j;
+        float pair;
+        if constexpr (kHasPa) {
+          pair = to_f(pa[(bh * Lq + min(i0 + r, Lq - 1)) * Lk + jc]);
+        } else {
+          pair = pa_sm[lane * kPAS + r * kH + h];
+        }
+        s[r] += pair_w * pair + bias_j;
         if (!j_ok) s[r] = -INFINITY;
       }
 
@@ -399,27 +479,48 @@ ipa_attention_kernel(const T* __restrict__ q_s, const T* __restrict__ k_s,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q_s, const void* k_s, const void* v_s, const float* q_p,
-                   const float* k_p, const float* v_p, const void* x2d, const void* w_pv,
-                   const float* bias, const void* pa, void* out_s, float* out_p,
-                   void* out_pair, int B, int Lq, int Lk, int Cp, float scalar_w,
-                   float pair_w, cudaStream_t stream) {
-  auto kernel = ipa_attention_kernel<T>;
-  const int loop_floats = kH * kDK * kTI + kH * kNpts * 3 * kTI + 3 * kTJ * kPS;
-  const int wx_floats = kTI * kH * (Cp + 4);
-  const int region = loop_floats > wx_floats ? loop_floats : wx_floats;
-  const size_t smem = sizeof(float) * (size_t)(region + 3 * kTI * kH + kTI * kH * kSV);
+struct Args {
+  const void *q_s, *k_s, *v_s;
+  const float *q_p, *k_p, *v_p;
+  const void *x2d, *w_pv;
+  const float* bias;
+  const void* pa;
+  const float* w_pb;
+  void* out_s;
+  float* out_p;
+  void* out_pair;
+  int B, Lq, Lk, Cp;
+  float scalar_w, pair_w;
+};
+
+template <typename T, int kH, bool kHasPa>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using K = Heads<kH>;
+  auto kernel = ipa_attention_kernel<T, kH, kHasPa>;
+  const size_t smem = sizeof(float) * (size_t)(K::region_floats(a.Cp, kHasPa) +
+                                               3 * kTI * kH + kTI * kH * kSV);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + kTI - 1) / kTI, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q_s), static_cast<const T*>(k_s), static_cast<const T*>(v_s),
-      q_p, k_p, v_p, static_cast<const T*>(x2d), static_cast<const T*>(w_pv), bias,
-      static_cast<const T*>(pa), static_cast<T*>(out_s), out_p, static_cast<T*>(out_pair),
-      Lq, Lk, Cp, scalar_w, pair_w);
+  dim3 grid((a.Lq + kTI - 1) / kTI, a.B);
+  kernel<<<grid, K::kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q_s), static_cast<const T*>(a.k_s),
+      static_cast<const T*>(a.v_s), a.q_p, a.k_p, a.v_p, static_cast<const T*>(a.x2d),
+      static_cast<const T*>(a.w_pv), a.bias, static_cast<const T*>(a.pa), a.w_pb,
+      static_cast<T*>(a.out_s), a.out_p, static_cast<T*>(a.out_pair), a.Lq, a.Lk, a.Cp,
+      a.scalar_w, a.pair_w);
   return cudaGetLastError();
+}
+
+template <typename T, int kH>
+cudaError_t launch_variant(const Args& a, bool has_pa, cudaStream_t stream) {
+  return has_pa ? launch<T, kH, true>(a, stream) : launch<T, kH, false>(a, stream);
+}
+
+template <int kH>
+cudaError_t launch_heads(const Args& a, bool is_bf16, bool has_pa, cudaStream_t stream) {
+  return is_bf16 ? launch_variant<__nv_bfloat16, kH>(a, has_pa, stream)
+                 : launch_variant<float, kH>(a, has_pa, stream);
 }
 
 }  // namespace
@@ -428,32 +529,36 @@ extern "C" {
 
 // Returns a cudaError_t (0 on success). The caller has validated shapes,
 // dtypes, contiguity and alignment; unsupported head shapes are refused here.
+// has_pa != 0 streams pa [B,H,Lq,Lk]; has_pa == 0 computes it from x2d and
+// w_pb [Cp,H] f32.
 int ipa_attention_fwd(const void* q_s, const void* k_s, const void* v_s, const void* q_p,
                       const void* k_p, const void* v_p, const void* x2d, const void* w_pv,
-                      const void* bias, const void* pa, void* out_s, void* out_p,
-                      void* out_pair, int B, int H, int Lq, int Lk, int DK, int Cp,
-                      int is_bf16, float scalar_w, float pair_w, void* stream) {
-  if (H != kH || DK != kDK || Cp < kCQ || Cp > kMaxCp || Cp % kCQ != 0 || B < 1 || Lq < 1 ||
-      Lk < 1)
+                      const void* bias, const void* pa, const void* w_pb, void* out_s,
+                      void* out_p, void* out_pair, int B, int H, int Lq, int Lk, int DK,
+                      int Cp, int is_bf16, int has_pa, float scalar_w, float pair_w,
+                      void* stream) {
+  if (DK != kDK || Cp < kCQ || Cp > kMaxCp || Cp % kCQ != 0 || B < 1 || Lq < 1 || Lk < 1 ||
+      (has_pa ? pa == nullptr : w_pb == nullptr))
     return (int)cudaErrorInvalidValue;
+  const Args a{q_s, k_s, v_s,
+               static_cast<const float*>(q_p), static_cast<const float*>(k_p),
+               static_cast<const float*>(v_p), x2d, w_pv, static_cast<const float*>(bias),
+               pa, static_cast<const float*>(w_pb), out_s, static_cast<float*>(out_p),
+               out_pair, B, Lq, Lk, Cp, scalar_w, pair_w};
   auto st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const float*>(q_p);
-  const auto* kp = static_cast<const float*>(k_p);
-  const auto* vp = static_cast<const float*>(v_p);
-  const auto* bs = static_cast<const float*>(bias);
-  auto* op = static_cast<float*>(out_p);
-  if (is_bf16)
-    return (int)launch<__nv_bfloat16>(q_s, k_s, v_s, qp, kp, vp, x2d, w_pv, bs, pa, out_s,
-                                      op, out_pair, B, Lq, Lk, Cp, scalar_w, pair_w, st);
-  return (int)launch<float>(q_s, k_s, v_s, qp, kp, vp, x2d, w_pv, bs, pa, out_s, op,
-                            out_pair, B, Lq, Lk, Cp, scalar_w, pair_w, st);
+  switch (H) {
+    case 4: return (int)launch_heads<4>(a, is_bf16 != 0, has_pa != 0, st);
+    case 32: return (int)launch_heads<32>(a, is_bf16 != 0, has_pa != 0, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* ipa_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int ipa_attention_heads() { return kH; }
+// 1 when the kernel is built for H heads (4 and 32), else 0.
+int ipa_attention_takes_heads(int H) { return H == 4 || H == 32; }
 int ipa_attention_head_dim() { return kDK; }
 
 }  // extern "C"

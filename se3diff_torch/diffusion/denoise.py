@@ -1,9 +1,13 @@
-"""Reverse-diffusion samplers: DPM-Solver-2 and DPM-Solver++(2M).
+"""Reverse-diffusion samplers: DPM-Solver-2 and DPM-Solver++(2M), and the
+PPFT path recorders (Euler–Maruyama and Heun with a finetune control).
 
 Counterpart of ``se3diff_tpu/diffusion/denoise.py`` (reference
 `bioemu/src/bioemu/denoiser.py:206-777`). Each solver draws the prior and
 then runs a Python loop over the time grid; every step stays on the device
 of the prior's generator, with no host synchronisation inside the loop.
+The recorders draw their per-step standard normals from the same generator
+(positions, then rotations, each step); their private loops also take the
+draws as tensors, so tests can feed both packages the same noise.
 
 Model interface: ``model_fn(pos, rot, t) -> (pos_raw, rot_raw)`` with
 ``pos [B, L, 3]`` (nm), ``rot [B, L, 3, 3]``, ``t [B]``. ``pos_raw`` predicts
@@ -17,8 +21,9 @@ import inspect
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from se3diff_torch.diffusion.predictors import EulerMaruyamaPredictor
@@ -37,6 +42,21 @@ class SDEs:
 
     pos: CosineVPSDE
     node_orientations: SO3SDE
+
+
+class DenoisedSDEPath(NamedTuple):
+    """Recorded finetune path (denoiser.py:23-27), densely stacked.
+
+    ``pos_path [T+1, B, L, 3]``, ``rot_path [T+1, B, L, 3, 3]`` include the
+    prior sample at index 0; ``timesteps [T+1]``. ``us``/``dWs`` are dicts
+    with keys ``pos`` and ``node_orientations``, each ``[T, B, L, 3]``.
+    """
+
+    pos_path: torch.Tensor
+    rot_path: torch.Tensor
+    timesteps: torch.Tensor
+    us: dict[str, torch.Tensor]
+    dWs: dict[str, torch.Tensor]
 
 
 def get_score(
@@ -239,3 +259,161 @@ def solve_from(
     return _LOOPS[denoiser.func](
         sdes, model_fn, pos, rot, kw["num_steps"], kw["max_t"], kw["min_t"], kw["dtype"]
     )
+
+
+# Noise of a recorder's loop: a generator (draws positions then rotations at
+# each step) or the draws themselves, ``(z_pos [T, B, L, 3], z_rot [T, B, L, 3])``.
+StepNoise = torch.Generator | tuple[torch.Tensor, torch.Tensor]
+
+
+def _noise_at(noise: StepNoise, idx: int):
+    if isinstance(noise, torch.Generator):
+        return noise, noise
+    return noise[0][idx], noise[1][idx]
+
+
+def _recorded_path(pos_path, rot_path, timesteps, us, dWs, like) -> DenoisedSDEPath:
+    return DenoisedSDEPath(
+        pos_path=torch.stack(pos_path),
+        rot_path=torch.stack(rot_path),
+        timesteps=torch.tensor(timesteps, dtype=like.dtype, device=like.device),
+        us={"pos": torch.stack(us[0]), "node_orientations": torch.stack(us[1])},
+        dWs={"pos": torch.stack(dWs[0]), "node_orientations": torch.stack(dWs[1])},
+    )
+
+
+def euler_maruyama_finetune(
+    generator: torch.Generator,
+    sdes: SDEs,
+    model_fn: ModelFn,
+    finetune_model_fn: ModelFn,
+    batch: int,
+    length: int,
+    num_steps: int = 200,
+    max_t: float = 0.99,
+    min_t: float = 0.001,
+    dtype=torch.float32,
+) -> DenoisedSDEPath:
+    """EM sampling with the finetune control in the drift, recording the
+    path (denoiser.py:267-348): per step the control ``u_t`` (the raw
+    finetune-model output) and the Brownian increment ``dW_t`` of both
+    channels, and the whole state trajectory."""
+    pos, rot = _prior(generator, sdes, batch, length, dtype)
+    return _euler_maruyama_finetune_loop(
+        sdes, model_fn, finetune_model_fn, pos, rot, generator, num_steps, max_t, min_t, dtype
+    )
+
+
+def _euler_maruyama_finetune_loop(
+    sdes, model_fn, finetune_model_fn, pos, rot, noise: StepNoise, num_steps, max_t, min_t, dtype
+) -> DenoisedSDEPath:
+    timesteps, dts = _timegrid(num_steps, max_t, min_t, dtype)
+    batch = pos.shape[0]
+    em_pos = EulerMaruyamaPredictor(sdes.pos, 1.0, 1.0)
+    em_rot = EulerMaruyamaPredictor(sdes.node_orientations, 1.0, 1.0)
+    pos_path, rot_path, us, dWs = [pos], [rot], ([], []), ([], [])
+    for idx in range(num_steps):
+        t = torch.full((batch,), timesteps[idx], dtype=dtype, device=pos.device)
+        pos_score, rot_score = get_score(sdes, model_fn, pos, rot, t)
+        u_pos, u_rot = finetune_model_fn(pos, rot, t)
+        n_pos, n_rot = _noise_at(noise, idx)
+        pos, _, dW_pos = em_pos.update_given_score(n_pos, pos, t, dts[idx], pos_score, u_pos)
+        rot, _, dW_rot = em_rot.update_given_score(n_rot, rot, t, dts[idx], rot_score, u_rot)
+        pos_path.append(pos)
+        rot_path.append(rot)
+        us[0].append(u_pos)
+        us[1].append(u_rot)
+        dWs[0].append(dW_pos)
+        dWs[1].append(dW_rot)
+    return _recorded_path(pos_path, rot_path, timesteps, us, dWs, pos)
+
+
+def heun_finetune(
+    generator: torch.Generator,
+    sdes: SDEs,
+    model_fn: ModelFn,
+    finetune_model_fn: ModelFn,
+    batch: int,
+    length: int,
+    num_steps: int = 100,
+    max_t: float = 0.99,
+    min_t: float = 0.001,
+    noise: float = 0.5,
+    dtype=torch.float32,
+) -> DenoisedSDEPath:
+    """Heun sampling with the finetune control and path recording
+    (denoiser.py:464-620): churn to ``t_hat``, a probability-flow step to
+    ``t_next`` with the drift averaged against the one at the endpoint; three
+    base and three control evaluations a step. The Brownian increments are
+    recovered with :meth:`EulerMaruyamaPredictor.traceback_brownian_motion`
+    against the EM reverse drift at the pre-churn state ``(x, t)``, as the
+    reference does."""
+    pos, rot = _prior(generator, sdes, batch, length, dtype)
+    return _heun_finetune_loop(
+        sdes, model_fn, finetune_model_fn, pos, rot, generator, num_steps, max_t, min_t, noise,
+        dtype,
+    )
+
+
+def _heun_finetune_loop(
+    sdes, model_fn, finetune_model_fn, pos, rot, noise: StepNoise, num_steps, max_t, min_t,
+    churn_noise, dtype,
+) -> DenoisedSDEPath:
+    timesteps, dts = _timegrid(num_steps, max_t, min_t, dtype)
+    batch = pos.shape[0]
+    ode_pos = EulerMaruyamaPredictor(sdes.pos, 0.0, 1.0)
+    ode_rot = EulerMaruyamaPredictor(sdes.node_orientations, 0.0, 1.0)
+    em_pos = EulerMaruyamaPredictor(sdes.pos, 1.0, 1.0)
+    em_rot = EulerMaruyamaPredictor(sdes.node_orientations, 1.0, 1.0)
+    # Host scalars in the grid's precision, as the JAX scan computes them.
+    f = np.dtype(str(dtype).removeprefix("torch."))
+    pos_path, rot_path, us, dWs = [pos], [rot], ([], []), ([], [])
+
+    def full(value):
+        return torch.full((batch,), float(value), dtype=dtype, device=pos.device)
+
+    for idx in range(num_steps):
+        t_val, dt = f.type(timesteps[idx]), f.type(dts[idx])
+        t_next = t_val + dt
+        churn = idx > 0 and 0.0 < t_val < 1.0
+        t_hat = t_val - f.type(churn_noise) * dt if churn else t_val
+        dt_fwd, dt_step = float(t_hat - t_val), float(t_next - t_hat)
+        t, th, tn = full(t_val), full(t_hat), full(t_next)
+
+        n_pos, n_rot = _noise_at(noise, idx)
+        pos_hat = em_pos.forward_sde_step(n_pos, pos, t, dt_fwd)[0]
+        rot_hat = em_rot.forward_sde_step(n_rot, rot, t, dt_fwd)[0]
+
+        pos_score_hat, rot_score_hat = get_score(sdes, model_fn, pos_hat, rot_hat, th)
+        u_pos_hat, u_rot_hat = finetune_model_fn(pos_hat, rot_hat, th)
+        # Scores and controls at the pre-churn state, for the dW traceback.
+        pos_score_pre, rot_score_pre = get_score(sdes, model_fn, pos, rot, t)
+        u_pos_pre, u_rot_pre = finetune_model_fn(pos, rot, t)
+
+        drift_pos, _ = ode_pos.reverse_drift_and_diffusion(pos_hat, th, pos_score_hat, u_pos_hat)
+        drift_rot, _ = ode_rot.reverse_drift_and_diffusion(rot_hat, th, rot_score_hat, u_rot_hat)
+        pos_1 = ode_pos.mean_update(pos_hat, dt_step, drift_pos)
+        rot_1 = ode_rot.mean_update(rot_hat, dt_step, drift_rot)
+
+        pos_score_n, rot_score_n = get_score(sdes, model_fn, pos_1, rot_1, tn)
+        u_pos_n, u_rot_n = finetune_model_fn(pos_1, rot_1, tn)
+        if t_next > 0.0:  # second-order correction, skipped at t_next == 0
+            drift_pos_n, _ = ode_pos.reverse_drift_and_diffusion(pos_1, tn, pos_score_n, u_pos_n)
+            drift_rot_n, _ = ode_rot.reverse_drift_and_diffusion(rot_1, tn, rot_score_n, u_rot_n)
+            pos_new = ode_pos.mean_update(pos_hat, dt_step, (drift_pos + drift_pos_n) / 2)
+            rot_new = ode_rot.mean_update(rot_hat, dt_step, (drift_rot + drift_rot_n) / 2)
+        else:
+            pos_new, rot_new = pos_1, rot_1
+
+        dW_pos = em_pos.traceback_brownian_motion(
+            pos_new, pos, t, float(dt), pos_score_pre, u_pos_pre)
+        dW_rot = em_rot.traceback_brownian_motion(
+            rot_new, rot, t, float(dt), rot_score_pre, u_rot_pre)
+        pos, rot = pos_new, rot_new
+        pos_path.append(pos)
+        rot_path.append(rot)
+        us[0].append(u_pos_pre)
+        us[1].append(u_rot_pre)
+        dWs[0].append(dW_pos)
+        dWs[1].append(dW_rot)
+    return _recorded_path(pos_path, rot_path, timesteps, us, dWs, pos)

@@ -14,7 +14,9 @@ loads with ``load_state_dict(strict=True)``.
   through :func:`se3diff_torch.ops.ipa_attention.sp_ipa_attention` (the
   kernel on a slab of query rows, all of them without SP), in the kernel
   layout, with the per-layer pair bias ``pa`` streamed from the
-  conditioning cache.
+  conditioning cache, or, for a cache built ``with_pa=False`` (the PPFT
+  control net, as the JAX package's unfused path), computed inside the
+  kernel from ``x2d`` and the layer's ``pair_bias`` weight.
 * The pair-value projection is the kernel's fused finalize: its weight
   loads as ``pair_value.weight`` (a :class:`HeadwiseLinear`) and reaches the
   kernel as ``w_pv [H, Cp, dk]``.
@@ -206,13 +208,14 @@ class SAAttention(nn.Module):
         x2d: torch.Tensor,               # [B, n, L, Cp]
         pose: tuple[torch.Tensor, torch.Tensor],  # (T [B, L, 3], IR [B, L, 3, 3])
         bias: torch.Tensor,              # [B, L] f32 column bias (NEG_INF masked)
-        pa: torch.Tensor,                # [B, H, n, L] pair bias x2d @ w_pb, unscaled
+        pa: torch.Tensor | None,         # [B, H, n, L] pair bias x2d @ w_pb, unscaled
         rows: tuple[int, int],
     ) -> torch.Tensor:
         """Attention output ``[B, n, C]`` for the query rows ``rows = (r0,
         r1)``, ``n = r1 - r0``: the rows that ``x2d`` and ``pa`` hold (the
         rank's slab under SP, else ``(0, L)``). Keys and values are all
-        ``L`` rows of ``x1d``."""
+        ``L`` rows of ``x1d``. With ``pa`` None the kernel computes the pair
+        bias from ``x2d`` and ``pair_bias.weight``."""
         H, dk, dt = self.n_head, self.d_model // self.n_head, self.dtype
         B, L, _ = x1d.shape
         # The module receives inverse rotations; transpose back to rotations.
@@ -245,7 +248,9 @@ class SAAttention(nn.Module):
         k_p = planes(global_points(x1d, R, T, self.point_key, 4))
         v_point = global_points(x1d, R, T, self.point_value, 8)  # [B, L, H, 8, 3] f32
         v_p = v_point.permute(0, 2, 1, 3, 4).reshape(B, H, L, 24).contiguous()
-        args = (q_s, k_s, v_s, q_p, k_p, v_p, x2d, self.pair_value.head_major_weight(dt), bias, pa)
+        w_pb = None if pa is not None else self.pair_bias.weight.float().t().contiguous()
+        args = (q_s, k_s, v_s, q_p, k_p, v_p, x2d, self.pair_value.head_major_weight(dt), bias,
+                pa, w_pb)
         os_hm, op_hm, opr_hm = sp_ipa_attention(
             rows, *args, scalar_w=1.0 / math.sqrt(3 * dk), pair_w=1.0 / math.sqrt(3)
         )
@@ -317,9 +322,10 @@ class StructureModule(nn.Module):
 
     def forward(self, pose, x1d, x2d, bias, pa, sp: RankContext | None = None):
         """``pa [n_layer, B, H, n, L]``: the per-layer pair biases of the
-        query rows (all ``L``, or the rank's slab under ``sp``)."""
+        query rows (all ``L``, or the rank's slab under ``sp``), or None for
+        the in-kernel pair bias."""
         for i, layer in enumerate(self.encoder.layers):
-            x1d = layer(x1d, x2d, pose, bias, pa[i], sp)
+            x1d = layer(x1d, x2d, pose, bias, None if pa is None else pa[i], sp)
         return self.diff_head(x1d)
 
 
@@ -355,13 +361,15 @@ class DistributionalGraphormer(nn.Module):
 
     def embed_conditioning(
         self, single_repr: torch.Tensor, pair_repr: torch.Tensor,
-        mask: torch.Tensor | None = None,
+        mask: torch.Tensor | None = None, with_pa: bool = True,
     ) -> dict:
         """Everything the score net needs that does not depend on ``t`` or
         the pose: projected single/pair conditioning, the column bias and the
         per-layer pair biases ``pa[i] = x2d @ w_pb[i]`` (unscaled; the kernel
         applies ``pair_w``). Computed once per batch; the solver replays only
-        :meth:`score_from_cache`.
+        :meth:`score_from_cache`. With ``with_pa=False`` the cache holds no
+        ``"pa"`` and every layer's kernel computes its pair bias from ``x2d``
+        (the JAX package's cache without ``pa``, dig.py:707-751).
 
         Under SP only the rank's row slab ``r0:r1`` of ``x2d`` and ``pa`` is
         built, from ``pair_repr[:, r0:r1]``."""
@@ -386,11 +394,13 @@ class DistributionalGraphormer(nn.Module):
         any_real = mask.any(dim=-1, keepdim=True)
         bias = torch.where(~mask & any_real, NEG_INF, 0.0).to(torch.float32).contiguous()
 
-        pa = torch.stack([
-            torch.einsum("bijp,hp->bhij", x2d, layer.attn.pair_bias.weight.to(dt))
-            for layer in self.st_module.encoder.layers
-        ]).contiguous()                                      # [n_layer, B, H, n, L]
-        return {"x1d": x1d, "x2d": x2d, "bias": bias, "pa": pa}
+        cache = {"x1d": x1d, "x2d": x2d, "bias": bias}
+        if with_pa:
+            cache["pa"] = torch.stack([
+                torch.einsum("bijp,hp->bhij", x2d, layer.attn.pair_bias.weight.to(dt))
+                for layer in self.st_module.encoder.layers
+            ]).contiguous()                                  # [n_layer, B, H, n, L]
+        return cache
 
     def score_from_cache(
         self, T_perturbed: torch.Tensor, IR_perturbed: torch.Tensor, t: torch.Tensor,
@@ -399,7 +409,7 @@ class DistributionalGraphormer(nn.Module):
         """Per-step score evaluation against a conditioning cache."""
         x1d = (cache["x1d"].float() + self.step_emb(t)[:, None]).to(self.dtype)
         T_eps, IR_eps = self.st_module(
-            (T_perturbed, IR_perturbed), x1d, cache["x2d"], cache["bias"], cache["pa"], self.sp,
+            (T_perturbed, IR_perturbed), x1d, cache["x2d"], cache["bias"], cache.get("pa"), self.sp,
         )
         # Orientation dependence of the translation score (models.py:305).
         T_eps = torch.einsum("blyx,bly->blx", IR_perturbed.float(), T_eps)
@@ -427,9 +437,9 @@ class DiGConditionalScoreModel(nn.Module):
             num_buckets, max_distance_relative, dropout, dtype, sp,
         )
 
-    def embed_conditioning(self, single_repr, pair_repr, mask=None) -> dict:
+    def embed_conditioning(self, single_repr, pair_repr, mask=None, with_pa: bool = True) -> dict:
         """The t-invariant conditioning, for :meth:`score_from_cache`."""
-        return self.model_nn.embed_conditioning(single_repr, pair_repr, mask)
+        return self.model_nn.embed_conditioning(single_repr, pair_repr, mask, with_pa)
 
     def score_from_cache(self, pos, rot, t, cache):
         return self.model_nn.score_from_cache(pos, rot.transpose(-1, -2), t * 1000.0, cache)

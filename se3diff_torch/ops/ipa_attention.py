@@ -1,9 +1,11 @@
 """Fused IPA attention core: the CUDA kernel for Hopper, its plain version,
 and its row-chunked backward.
 
-Counterpart of ``se3diff_tpu/ops/pallas_ipa.py::fused_ipa_attention_diff``
-with the streamed pair bias (``has_pa=True``), whose forward is the Pallas
-body ``_kernel``. For query rows i, key columns j and heads h:
+Counterpart of ``se3diff_tpu/ops/pallas_ipa.py::fused_ipa_attention_diff``,
+whose forward is the Pallas body ``_kernel``, in both of its variants: the
+pair bias ``pa`` streamed (``has_pa=True``), or computed inside the kernel
+as ``pa = x2d @ w_pb`` (``has_pa=False``). For query rows i, key columns j
+and heads h:
 
     s[h,i,j] = scalar_w <q_s, k_s> - sum_{p<4} |q_p - k_p| + pair_w pa + bias[j]
     a        = softmax_j(s)                         (f32)
@@ -15,14 +17,18 @@ Operands keep the JAX kernel's layout: q/k/v_s ``[B, H, L, dk]`` (model
 dtype), point planes ``[B, 3, H*4, L]`` f32 pre-scaled by half the per-head
 point weight, ``v_p [B, H, Lk, 24]`` f32, ``x2d [B, Lq, Lk, Cp]`` and
 ``pa [B, H, Lq, Lk]`` (model dtype), ``w_pv [H, Cp, dk]`` (model dtype) and a
-column ``bias [B, Lk]`` f32 holding :data:`NEG_INF` at masked columns.
+column ``bias [B, Lk]`` f32 holding :data:`NEG_INF` at masked columns. In
+place of ``pa`` a caller may give ``w_pb [Cp, H]`` f32: ``pa = x2d @ w_pb``
+is then computed with ``w_pb`` rounded to ``x2d``'s dtype and f32 sums, and
+never rounded itself (``pallas_ipa.py:399-406``).
 
 :func:`ipa_attention` is differentiable. Its forward dispatches on the
 device of its operands alone: CPU tensors go through
 :func:`ipa_attention_plain`; CUDA tensors launch the kernel in
 ``csrc/ipa_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first use,
-bound through ``ctypes``) or raise. The kernel takes 32 heads of width 16
-and ``Cp <= 256`` (the bioemu-v1.0 widths). Its backward is
+bound through ``ctypes``) or raise. The kernel takes 32 heads (the score
+model) or 4 (the PPFT control net) of width 16, and ``Cp <= 256``. Its
+backward is
 :func:`ipa_attention_backward` on both devices: the JAX package's backward
 is XLA code (``_fused_backward_chunked``), not a Pallas kernel, so the port's
 is PyTorch.
@@ -64,8 +70,10 @@ NVCC_FLAGS = (
 )
 
 # Forward kernel launches made through ipa_attention (plain-version calls and
-# backward passes do not count).
+# backward passes do not count), in all and by variant: "pa" streams the
+# pair bias, "w_pb" computes it in the kernel.
 launches = 0
+launches_by_variant = {"pa": 0, "w_pb": 0}
 # Backward passes of ipa_attention run by autograd, on either device (direct
 # calls of ipa_attention_backward do not count).
 backward_calls = 0
@@ -112,25 +120,34 @@ def _library() -> ctypes.CDLL:
             path, _ = build_library()
             lib = ctypes.CDLL(str(path))
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.ipa_attention_fwd.argtypes = [vp] * 13 + [ci] * 7 + [cf, cf, vp]
+            lib.ipa_attention_fwd.argtypes = [vp] * 14 + [ci] * 8 + [cf, cf, vp]
             lib.ipa_attention_fwd.restype = ci
             lib.ipa_attention_error_string.argtypes = [ci]
             lib.ipa_attention_error_string.restype = ctypes.c_char_p
-            lib.ipa_attention_heads.restype = ci
+            lib.ipa_attention_takes_heads.argtypes = [ci]
+            lib.ipa_attention_takes_heads.restype = ci
             lib.ipa_attention_head_dim.restype = ci
             _lib = lib
         return _lib
 
 
+def _pair_bias(x2d, w_pb):
+    """``x2d @ w_pb`` as ``[B, H, Lq, Lk]`` f32, with ``w_pb`` rounded to
+    ``x2d``'s dtype first (pallas_ipa.py:402-405)."""
+    return torch.einsum("bijp,ph->bhij", x2d.float(), w_pb.to(x2d.dtype).float())
+
+
 def ipa_attention_plain(
-    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *, scalar_w: float, pair_w: float
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa=None, w_pb=None, *,
+    scalar_w: float, pair_w: float,
 ):
     """Plain PyTorch version, counterpart of ``_fused_semantics_jnp``.
 
     Model-dtype operands are upcast to f32 before each contraction, which for
     bf16 is exact (bf16 products fit in f32): bf16 operands, f32 sums. The
     softmax weights that multiply ``v_s`` and ``x2d`` are rounded to the
-    model dtype first, as in the kernel.
+    model dtype first, as in the kernel. With ``pa=None`` the pair bias is
+    ``x2d @ w_pb`` in f32.
     """
     f32 = torch.float32
     B, H, Lq, _ = q_s.shape
@@ -143,7 +160,8 @@ def ipa_attention_plain(
     d2 = q2[..., :, None] + k2[..., None, :] - 2.0 * qk
     d2 = torch.where(d2 > 0.0, d2, torch.full_like(d2, 1e-24))
     pdist = torch.sqrt(d2).reshape(B, H, 4, Lq, -1).sum(2)  # [B, H, Lq, Lk]
-    s = s - pdist + pair_w * pa.to(f32) + bias.to(f32)[:, None, None, :]
+    pair = _pair_bias(x2d, w_pb) if pa is None else pa.to(f32)
+    s = s - pdist + pair_w * pair + bias.to(f32)[:, None, None, :]
 
     a = torch.softmax(s, dim=-1)
     a16 = a.to(v_s.dtype).to(f32)
@@ -154,7 +172,7 @@ def ipa_attention_plain(
     return out_s, out_p, out_pair
 
 
-def _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa) -> None:
+def _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb) -> None:
     B, H, Lq, dk = q_s.shape
     Lk = k_s.shape[2]
     Cp = x2d.shape[-1]
@@ -169,8 +187,11 @@ def _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa) -> None:
         "x2d": (x2d, (B, Lq, Lk, Cp), dt),
         "w_pv": (w_pv, (H, Cp, dk), dt),
         "bias": (bias, (B, Lk), torch.float32),
-        "pa": (pa, (B, H, Lq, Lk), dt),
     }
+    if pa is not None:
+        expect["pa"] = (pa, (B, H, Lq, Lk), dt)
+    else:
+        expect["w_pb"] = (w_pb, (Cp, H), torch.float32)
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"model dtype must be float32 or bfloat16, got {dt}")
     for name, (t, shape, dtype) in expect.items():
@@ -187,17 +208,17 @@ def _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa) -> None:
         raise ValueError("the kernel needs Cp % 4 == 0 and 16-byte aligned x2d and k_s")
 
 
-def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w, pair_w):
+def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scalar_w, pair_w):
     """Launch the Hopper kernel on the current stream; raise if it cannot."""
     global launches
-    _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa)
+    _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb)
     lib = _library()
     B, H, Lq, dk = q_s.shape
     Lk, Cp = k_s.shape[2], x2d.shape[-1]
-    if (H, dk) != (lib.ipa_attention_heads(), lib.ipa_attention_head_dim()) or Cp > 256:
+    if not lib.ipa_attention_takes_heads(H) or dk != lib.ipa_attention_head_dim() or Cp > 256:
         raise ValueError(
-            f"the kernel takes {lib.ipa_attention_heads()} heads of width "
-            f"{lib.ipa_attention_head_dim()} and Cp <= 256; got H={H}, dk={dk}, Cp={Cp}"
+            f"the kernel takes 4 or 32 heads of width {lib.ipa_attention_head_dim()} and "
+            f"Cp <= 256; got H={H}, dk={dk}, Cp={Cp}"
         )
     out_s = torch.empty_like(q_s)
     out_p = torch.empty((B, H, Lq, 24), dtype=torch.float32, device=q_s.device)
@@ -206,9 +227,10 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w, 
         err = lib.ipa_attention_fwd(
             q_s.data_ptr(), k_s.data_ptr(), v_s.data_ptr(), q_p.data_ptr(),
             k_p.data_ptr(), v_p.data_ptr(), x2d.data_ptr(), w_pv.data_ptr(),
-            bias.data_ptr(), pa.data_ptr(), out_s.data_ptr(), out_p.data_ptr(),
+            bias.data_ptr(), None if pa is None else pa.data_ptr(),
+            None if w_pb is None else w_pb.data_ptr(), out_s.data_ptr(), out_p.data_ptr(),
             out_pair.data_ptr(), B, H, Lq, Lk, dk, Cp,
-            int(q_s.dtype == torch.bfloat16), float(scalar_w), float(pair_w),
+            int(q_s.dtype == torch.bfloat16), int(pa is not None), float(scalar_w), float(pair_w),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -217,6 +239,7 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w, 
             + lib.ipa_attention_error_string(err).decode()
         )
     launches += 1
+    launches_by_variant["pa" if pa is not None else "w_pb"] += 1
     return out_s, out_p, out_pair
 
 
@@ -235,10 +258,12 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
     """Input gradients of :func:`ipa_attention`, recomputing the attention a
     chunk of query rows at a time.
 
-    Port of ``_fused_backward_chunked`` (``pallas_ipa.py:1036-1181``) for the
-    streamed pair bias. No ``[B, H(*4), Lq, Lk]`` tensor larger than one row
-    chunk is alive; ``d_x2d`` and ``d_pa``, gradients of L^2 inputs, are L^2
-    themselves. The JAX function's two deliberate choices are kept: the
+    Port of ``_fused_backward_chunked`` (``pallas_ipa.py:1036-1181``), both
+    variants. No ``[B, H(*4), Lq, Lk]`` tensor larger than one row chunk is
+    alive; ``d_x2d`` and ``d_pa``, gradients of L^2 inputs, are L^2
+    themselves. With the in-kernel pair bias (``pa`` None) the chunk's bias
+    is ``x2d @ w_pb`` in f32 (``w_pb`` not rounded, as in JAX), ``w_pb``
+    gets ``sum pair_w ds x2d`` and ``d_x2d`` adds ``pair_w ds @ w_pb^T``. The JAX function's two deliberate choices are kept: the
     attention weights stay f32 where the forward rounds them to the model
     dtype (at most 1 bf16 ulp), and the distance gradient is exactly zero
     wherever ``d2 <= 0``, the clamp's true subgradient (coincident bf16
@@ -246,11 +271,14 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
     diverge). All arithmetic is f32; each gradient is cast to its input's
     dtype at the end.
 
-    ``inputs``: the ten operands of :func:`ipa_attention`; ``grad_outputs``:
+    ``inputs``: the operands of :func:`ipa_attention` up to ``pa``, and
+    optionally ``w_pb`` after it (ten or eleven); ``grad_outputs``:
     ``(d_out_s, d_out_p, d_out_pair)``. Returns one gradient per operand, in
-    order, with ``None`` for the column ``bias`` (a constant mask).
+    order, with ``None`` for the column ``bias`` (a constant mask) and for
+    whichever of ``pa`` / ``w_pb`` is None.
     """
-    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *rest = inputs
+    w_pb = rest[0] if rest else None
     ct_s, ct_p, ct_pr = grad_outputs
     f32 = torch.float32
     B, H, Lq, dk = q_s.shape
@@ -270,7 +298,11 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
     d_qs = torch.empty_like(q_s)
     d_qp = torch.empty_like(q_p, dtype=f32)
     d_x2d = torch.empty_like(x2d)
-    d_pa = torch.empty_like(pa)
+    if pa is not None:
+        d_pa, d_wpb = torch.empty_like(pa), None
+    else:
+        wpb = w_pb.to(f32)
+        d_pa, d_wpb = None, torch.zeros_like(wpb)
 
     for r0, r1 in _row_chunks(Lq, row_chunk):
         R = r1 - r0
@@ -288,7 +320,11 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
         d2 = (q2_i[..., :, None] + k2[..., None, :] - 2.0 * qk).clamp_min(0.0)
         dist = torch.sqrt(d2 + 1e-24)                 # [B, H4, R, Lk]
         s = s - dist.reshape(B, H, 4, R, Lk).sum(2)
-        s = s + pair_w * pa[:, :, r0:r1].to(f32) + bias_row
+        if pa is not None:
+            pa_i = pa[:, :, r0:r1].to(f32)
+        else:
+            pa_i = torch.einsum("bijp,ph->bhij", x2f_i, wpb)
+        s = s + pair_w * pa_i + bias_row
         a = torch.softmax(s, dim=-1)                  # [B, H, R, Lk]
 
         # Pair-value path: wx2d for d_w_pv; g_wx2d = d(out_pair)/d(wx2d).
@@ -316,8 +352,16 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
         d_qp[..., r0:r1] = qp_i * w.sum(-1)[:, None] - torch.einsum("bpij,bxpj->bxpi", w, kp)
         d_kp += kp * w.sum(-2)[:, None] - torch.einsum("bpij,bxpi->bxpj", w, qp_i)
 
-        d_x2d[:, r0:r1] = torch.einsum("bhip,bhij->bijp", g_wx2d, a)
-        d_pa[:, :, r0:r1] = pair_w * ds
+        # Pair-bias branch: the streamed pa gets its own gradient; the
+        # in-kernel variant routes through x2d and w_pb instead.
+        ds_pw = pair_w * ds
+        d_x2d_i = torch.einsum("bhip,bhij->bijp", g_wx2d, a)
+        if pa is not None:
+            d_pa[:, :, r0:r1] = ds_pw
+        else:
+            d_wpb += torch.einsum("bhij,bijp->ph", ds_pw, x2f_i)
+            d_x2d_i = d_x2d_i + torch.einsum("bhij,ph->bijp", ds_pw, wpb)
+        d_x2d[:, r0:r1] = d_x2d_i
         d_vs += torch.einsum("bhij,bhid->bhjd", a, ct_s_i)
         d_vp += torch.einsum("bhij,bhic->bhjc", a, ct_p_i)
 
@@ -325,17 +369,18 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
         d_qs, d_ks.to(k_s.dtype), d_vs.to(v_s.dtype),
         d_qp, d_kp.to(k_p.dtype), d_vp.to(v_p.dtype),
         d_x2d, d_wpv.to(w_pv.dtype), None, d_pa,
-    )
+    ) + ((d_wpb,) if rest else ())
 
 
 class _IPAAttention(torch.autograd.Function):
     """The kernel (or, on the CPU, the plain version) forward and
     :func:`ipa_attention_backward`. The operands are saved by reference:
-    ``x2d``, shared by every layer, is not copied."""
+    ``x2d``, shared by every layer, is not copied. One of ``pa`` and
+    ``w_pb`` is None."""
 
     @staticmethod
-    def forward(ctx, q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w, pair_w):
-        args = (q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa)
+    def forward(ctx, q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scalar_w, pair_w):
+        args = (q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb)
         if q_s.device.type == "cpu":
             outs = ipa_attention_plain(*args, scalar_w=scalar_w, pair_w=pair_w)
         elif q_s.device.type == "cuda":
@@ -360,23 +405,29 @@ class _IPAAttention(torch.autograd.Function):
 
 
 def ipa_attention(
-    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *, scalar_w: float, pair_w: float
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa=None, w_pb=None, *,
+    scalar_w: float, pair_w: float,
 ):
     """Fused IPA attention core. Returns ``(out_s, out_p, out_pair)``.
 
-    CPU operands run :func:`ipa_attention_plain`. CUDA operands launch the
-    Hopper kernel on the current stream, or raise if it cannot be built,
-    does not take these shapes, or fails to launch. Differentiable in every
-    operand but ``bias``, through :func:`ipa_attention_backward`.
+    Exactly one of ``pa`` (the streamed pair bias) and ``w_pb`` (the pair
+    bias computed in the kernel as ``x2d @ w_pb``) is given, as in JAX's
+    ``fused_ipa_attention``. CPU operands run :func:`ipa_attention_plain`.
+    CUDA operands launch the Hopper kernel on the current stream, or raise
+    if it cannot be built, does not take these shapes, or fails to launch.
+    Differentiable in every operand but ``bias``, through
+    :func:`ipa_attention_backward`.
     """
+    if (pa is None) == (w_pb is None):
+        raise ValueError("give exactly one of pa (streamed pair bias) and w_pb (in-kernel)")
     return _IPAAttention.apply(
-        q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w, pair_w
+        q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scalar_w, pair_w
     )
 
 
 def sp_ipa_attention(
-    rows: tuple[int, int], q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *,
-    scalar_w: float, pair_w: float,
+    rows: tuple[int, int], q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa=None,
+    w_pb=None, *, scalar_w: float, pair_w: float,
 ):
     """Sequence-parallel IPA attention on one rank: query rows ``r0:r1`` of
     ``Lk`` against every column. Counterpart of
@@ -385,7 +436,8 @@ def sp_ipa_attention(
 
     ``q_s``, ``q_p``, ``x2d`` and ``pa`` are the slab's rows (``r1 - r0`` of
     them); ``k_s``, ``v_s``, ``k_p``, ``v_p`` and ``bias`` hold all ``Lk``
-    columns. The slab goes through :func:`ipa_attention` as it is: the kernel
+    columns. With ``w_pb`` in place of ``pa`` (``pa=None``, as JAX's
+    function accepts) the kernel computes the slab's pair bias itself. The slab goes through :func:`ipa_attention` as it is: the kernel
     takes ``Lq != Lk`` and masks a ragged last row tile itself, so no row is
     padded. Returns the slab's three outputs. ``rows = (0, Lk)`` (one rank)
     is plain :func:`ipa_attention`, as the JAX function falls back when the
@@ -397,8 +449,8 @@ def sp_ipa_attention(
     if not 0 <= r0 < r1 <= Lk:
         raise ValueError(f"row slab {rows} is not inside the {Lk} columns")
     for name, t, dim in (("q_s", q_s, 2), ("q_p", q_p, 3), ("x2d", x2d, 1), ("pa", pa, 2)):
-        if t.shape[dim] != r1 - r0:
+        if t is not None and t.shape[dim] != r1 - r0:
             raise ValueError(f"{name} has {t.shape[dim]} rows, the slab {rows} {r1 - r0}")
     return ipa_attention(
-        q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, scalar_w=scalar_w, pair_w=pair_w
+        q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scalar_w=scalar_w, pair_w=pair_w
     )

@@ -97,6 +97,9 @@ _TARGETS: dict[str, Callable] = {
     "CosineVPSDE": CosineVPSDE,
     "dpm_solver": denoise.dpm_solver,
     "dpm_solver_pp2m": denoise.dpm_solver_pp2m,
+    # PPFT path recorders (config/denoiser/*_finetune.yaml).
+    "euler_maruyama_predictor_finetune": denoise.euler_maruyama_finetune,
+    "heun_denoiser_finetune": denoise.heun_finetune,
 }
 
 # Scientific notation without a decimal dot: YAML 1.1 reads it as a string.
@@ -225,8 +228,8 @@ def random_bundle(
 ) -> Bundle:
     """Bundle with weights drawn from ``seed`` (tests, benchmarks, smoke runs).
 
-    The model defaults to the bioemu-v1.0 widths, the only head shape the
-    attention kernel takes; the SO(3) tables default to a small grid.
+    The model defaults to the bioemu-v1.0 widths; the SO(3) tables default
+    to a small grid.
     """
     device = resolve_device(device)
     cfg = dict(BIOEMU_V1_MODEL)
@@ -241,3 +244,15 @@ def random_bundle(
         model=model.to(device).eval(), sdes=sdes, denoiser=make_denoiser(denoiser),
         config={"score_model": cfg}, device=device,
     )
+
+
+def initialize_weights_to_near_zero(model: torch.nn.Module, scale: float = 1e-6) -> torch.nn.Module:
+    """Scale weight matrices, embeddings and point weights toward zero and
+    keep layer norms and biases (finetune.py:102-122), in place; returns
+    ``model``. A finetune model so scaled starts as a (near-)zero control,
+    so fine-tuning starts from the base model's distribution."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim == 2 or name.endswith("trained_point_weight"):
+                p.mul_(scale)
+    return model

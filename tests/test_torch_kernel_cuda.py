@@ -1,4 +1,6 @@
-"""The IPA attention kernel on the card, against its plain version.
+"""The IPA attention kernel on the card, against its plain version, at 32
+heads (the score model, Cp=256) and 4 heads (the PPFT control net, Cp=32),
+with the pair bias streamed (``pa``) or computed in the kernel (``w_pb``).
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip. They
 import neither JAX nor the JAX package, so a machine with only PyTorch runs
@@ -16,8 +18,11 @@ import torch
 
 from se3diff_torch.ops import ipa_attention as k1
 
-H, DK, CP = 32, 16, 256
+DK = 16
 KW = dict(scalar_w=1 / np.sqrt(3 * DK), pair_w=1 / np.sqrt(3))
+NAMES = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa", "w_pb")
+# (heads, Cp, pair-bias variant)
+SHAPES = [(32, 256, "pa"), (32, 256, "w_pb"), (4, 32, "pa"), (4, 32, "w_pb")]
 
 
 @pytest.fixture
@@ -27,7 +32,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _args(device, B, Lq, Lk, dtype, masked_cols, seed=0):
+def _args(device, B, Lq, Lk, dtype, masked_cols, seed=0, H=32, CP=256, variant="pa"):
+    """The eleven operands of ``ipa_attention``: ``pa`` or ``w_pb`` is None."""
     rng = np.random.default_rng(seed)
 
     def g(*s, scale=1.0):
@@ -40,11 +46,13 @@ def _args(device, B, Lq, Lk, dtype, masked_cols, seed=0):
         g(B, H, Lq, DK).to(dtype), g(B, H, Lk, DK).to(dtype), g(B, H, Lk, DK).to(dtype),
         g(B, 3, H * 4, Lq, scale=0.3), g(B, 3, H * 4, Lk, scale=0.3), g(B, H, Lk, 24),
         g(B, Lq, Lk, CP, scale=0.5).to(dtype), g(H, CP, DK, scale=0.06).to(dtype), bias,
-        g(B, H, Lq, Lk).to(dtype),
+        g(B, H, Lq, Lk).to(dtype) if variant == "pa" else None,
+        g(CP, H, scale=0.1) if variant == "w_pb" else None,
     )
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,CP,variant", SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("B,Lq,Lk,masked", [
     (3, 37, 37, 5),     # ragged square, masked columns
@@ -52,12 +60,13 @@ def _args(device, B, Lq, Lk, dtype, masked_cols, seed=0):
     (1, 1, 1, 0),       # one row, one column
     (2, 33, 33, 33),    # every column masked: the softmax is uniform
 ])
-def test_kernel_matches_plain_on_the_card(cuda_device, dtype, tol, B, Lq, Lk, masked):
-    args = _args(cuda_device, B, Lq, Lk, dtype, masked)
-    before = k1.launches
+def test_kernel_matches_plain_on_the_card(cuda_device, dtype, tol, B, Lq, Lk, masked, H, CP,
+                                          variant):
+    args = _args(cuda_device, B, Lq, Lk, dtype, masked, H=H, CP=CP, variant=variant)
+    before, by_variant = k1.launches, k1.launches_by_variant[variant]
     got = k1.ipa_attention(*args, **KW)
     torch.cuda.synchronize()
-    assert k1.launches == before + 1
+    assert k1.launches == before + 1 and k1.launches_by_variant[variant] == by_variant + 1
     want = k1.ipa_attention_plain(*args, **KW)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -66,22 +75,25 @@ def test_kernel_matches_plain_on_the_card(cuda_device, dtype, tol, B, Lq, Lk, ma
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,CP,variant", SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0**-8 + 1e-4)])
-def test_gradients_on_the_card_match_autograd_of_plain(cuda_device, dtype, tol):
+def test_gradients_on_the_card_match_autograd_of_plain(cuda_device, dtype, tol, H, CP, variant):
     """The autograd Function on CUDA tensors (kernel forward, row-chunked
     backward) against autograd through the plain version on the same values
     in f32, each gradient within ``tol`` of its own largest entry (bf16: plus
     one rounding of the f32 gradient to bf16's 8 significant bits, 2^-8)."""
-    names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa")
-    args = [t.requires_grad_(n != "bias") for n, t in zip(names, _args(cuda_device, 2, 37, 37, dtype, 5))]
-    diff = [t for n, t in zip(names, args) if n != "bias"]
+    args = _args(cuda_device, 2, 37, 37, dtype, 5, H=H, CP=CP, variant=variant)
+    args = [None if t is None else t.requires_grad_(n != "bias") for n, t in zip(NAMES, args)]
+    grad_names = [n for n, t in zip(NAMES, args) if t is not None and n != "bias"]
+    diff = [args[NAMES.index(n)] for n in grad_names]
     outs = k1.ipa_attention(*args, **KW)
     assert all(o.grad_fn is not None for o in outs)
     cts = [torch.randn_like(o) for o in outs]
     got = torch.autograd.grad(outs, diff, cts)
-    ref = [t.detach().float().requires_grad_(n != "bias") for n, t in zip(names, args)]
+    ref = [None if t is None else t.detach().float().requires_grad_(n != "bias")
+           for n, t in zip(NAMES, args)]
     want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **KW),
-                               [t for n, t in zip(names, ref) if n != "bias"], [c.float() for c in cts])
+                               [ref[NAMES.index(n)] for n in grad_names], [c.float() for c in cts])
     for g, p, w in zip(got, diff, want):
         assert g.dtype == p.dtype and torch.isfinite(g).all()
         assert (g.float() - w).abs().max().item() <= tol * w.abs().max().item()
