@@ -7,18 +7,24 @@ from the root of a checkout, on a machine with one NVIDIA H100 (Hopper,
 sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 
 1. device and build: the card's name and power limit; build the IPA
-   attention kernel from ``se3diff_torch/csrc`` with nvcc (time, ptxas report);
+   attention kernels from ``se3diff_torch/csrc`` with nvcc, one process a
+   source (time, ptxas report);
 2. the kernel against its plain PyTorch version on the card, at the main
    path's shape (B=40, L=100, 32 heads of 16, Cp=256, streamed pair bias) in
-   bf16 and f32 and at a ragged L=77 with masked columns; error beside its
-   tolerance, kernel / plain / bound times;
+   bf16 and f32, at a ragged L=77 with masked columns, and in bf16 at the
+   PPFT score model's B=256, L=56 and the train forward's B=16, L=100;
+   error beside its tolerance, kernel / plain / bound times. Every bf16 case
+   takes the tensor-core design (route "tc"); beside it the CUDA-core design on
+   the same inputs (``prev_ms``, its error against the new one) and ptxas's
+   registers and spills for the new kernel;
 3. one full-width score evaluation (bioemu-v1.0 widths, weights from a
    seed) through the kernel, through the plain core on the card, and on the
    CPU;
 4. the main path: ``se3diff_torch.sampling.pipeline.sample`` for
    GYDPETGTWG x10 (L=100), bf16, dpm_2m 30 steps, batch 40, 80 samples,
    dummy embeddings; output files and finite coordinates are checked, the
-   kernel's launch count must be 8 layers x 30 evaluations x 2 batches, and
+   kernel's launch count must be 8 layers x 30 evaluations x 2 batches, all
+   on the "tc" route, and
    the device physicality filter must agree with the numpy filter;
 5. a profile of one main-path batch: device time by kernel;
 6. K1's gradient on the card: the autograd Function (kernel forward,
@@ -35,7 +41,7 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    repository's two test ensembles (one L=64 bucket), full width, bf16,
    batch 16, 30 steps with checkpoints every 10; then 20 steps, interrupted,
    and a resume to 30, which must give the same weights bit for bit; K1
-   launches and K1 backward passes 8 per step; the export loads through ``load_bundle`` and one
+   launches (all "tc") and K1 backward passes 8 per step; the export loads through ``load_bundle`` and one
    score evaluation runs from it;
 9. train-step throughput at ``bench.py --train``'s shape (L=100, B=16, bf16):
    ``dsm_train_examples_per_hour_L100_B16``, the forward / backward /
@@ -51,7 +57,7 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    SP sampling path, ``sampling.pipeline.sample`` through an SP bundle for
    GYDPETGTWG x30 (L=300), bf16, dpm_2m 30 steps, batch 4, 8 samples:
    rank 0 writes finite outputs, each rank launches K1 8 x 30 x 2 times
-   through ``sp_ipa_attention``; wall, structures/hr and peak memory per
+   through ``sp_ipa_attention``, all "tc"; wall, structures/hr and peak memory per
    rank beside the same run in this process; (d) DP sampling at L=100,
    B=8, f32, dpm_2m 30 steps from t=0.5, against this process's batch of
    the same seed. Two ranks on one card show correctness and per-rank
@@ -60,14 +66,16 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    (``w_pb``, has_pa=False) against the plain version at full width (B=40,
    L=100, 32 heads, Cp=256, bf16 and f32), at the PPFT control net's width
    (B=256, L=56, 4 heads, Cp=32, f32) and ragged and masked at L=57; the
-   streamed variant at 4 heads; in-kernel row slabs at 4 heads; the
+   streamed variant at 4 heads, and at 8 and 16 heads (bf16 and f32);
+   in-kernel row slabs at 4 heads; the
    Function's gradients with ``w_pb`` against autograd of the plain version;
 12. ``[ppft]``: ``python -m se3diff_torch.finetune``'s main on the card at
    bioemu-v1.0 widths (score model seed 0, bf16; near-zero 2-layer d64
    control net, f32), 2 training and 1 validation GRB2-SH3 mutants, dummy
    embeddings, heun_finetune cut to batch 64 and 25 steps, 1 epoch: finite
    losses and gradients, moved control-net weights, checkpoints and
-   history.json, K1 launches by variant and backward passes as counted;
+   history.json, K1 launches by variant and by route (streamed "tc",
+   in-kernel "simt") and backward passes as counted;
 13. ``[ppft-step]``: one PPFT step at ``bench.py --finetune``'s shape (L=56,
    path batch 256, heun_finetune 100 steps): path generation, replay
    gradient and step seconds, ``finetune_steps_per_hour_L56_B256_heun100``,
@@ -97,7 +105,8 @@ DEVICE = "cuda"
 MAIN_SEQ = "GYDPETGTWG" * 10
 MAIN_BATCH, MAIN_SAMPLES, MAIN_STEPS, N_LAYERS = 40, 80, 30, 8
 K1_CASES = [(40, 100, "bfloat16", 0), (40, 100, "float32", 0),
-            (40, 77, "bfloat16", 9), (40, 77, "float32", 9)]
+            (40, 77, "bfloat16", 9), (40, 77, "float32", 9),
+            (256, 56, "bfloat16", 0), (16, 100, "bfloat16", 0)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}         # x max(1, max|plain|)
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_STOP = 16, 30, 10, 20
 # The last case has two row chunks of the backward (L > 128).
@@ -128,7 +137,9 @@ DP_TOL = 2e-4
 INKERNEL_CASES = [(40, 100, 32, 256, "bfloat16", 0, True), (40, 100, 32, 256, "float32", 0, True),
                   (256, 56, 4, 32, "float32", 0, True), (40, 57, 32, 256, "bfloat16", 5, True),
                   (256, 57, 4, 32, "float32", 5, True), (256, 56, 4, 32, "float32", 0, False),
-                  (256, 57, 4, 32, "float32", 5, False)]
+                  (256, 57, 4, 32, "float32", 5, False),
+                  (40, 100, 8, 256, "bfloat16", 0, False), (40, 100, 8, 256, "float32", 0, False),
+                  (40, 77, 16, 256, "bfloat16", 9, False), (40, 77, 16, 256, "float32", 9, False)]
 INKERNEL_GRAD_CASES = [(256, 56, 4, 32, "float32", 0), (16, 100, 32, 256, "bfloat16", 0),
                        (16, 77, 32, 256, "float32", 9)]
 # PPFT (python -m se3diff_torch.finetune): GRB2-SH3 (L=56) mutants from the
@@ -215,6 +226,18 @@ def max_err(got, want):
     return err, scale
 
 
+def ptxas_summary(report: str, kernel: str) -> str:
+    """ptxas's spill and register lines for the entry functions whose
+    mangled name holds ``kernel``."""
+    lines = report.splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            found += [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                      if "registers" in x or "spill" in x]
+    return "; ".join(found) or "not reported"
+
+
 def phase_build():
     from se3diff_torch.ops import ipa_attention as k1
 
@@ -224,36 +247,57 @@ def phase_build():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"[build] ptxas: {line.strip()}")
-    return k1
+    return k1, ptxas_summary(report, "ipa_attention_tc_kernel")
 
 
-def phase_kernel(k1):
+def phase_kernel(k1, tc_ptxas):
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     results = {}
     kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
     for B, L, dname, masked in K1_CASES:
-        args = k1_inputs(B, L, getattr(torch, dname), gen, masked)
+        dtype = getattr(torch, dname)
+        args = k1_inputs(B, L, dtype, gen, masked)
+        route = k1.kernel_route(dtype, 32, 16, 256, True)
+        before = k1.launches_by_route[route]
         got = k1.ipa_attention(*args, **kw)
         torch.cuda.synchronize()
+        if k1.launches_by_route[route] != before + 1:
+            raise AssertionError(f"ipa_attention did not launch the {route!r} design")
         want = k1.ipa_attention_plain(*args, **kw)
         err, scale = max_err(got, want)
         tol = TOL[dname] * scale
-        ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **kw), reps=20)
         plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **kw), reps=5)
         bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
+        res = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   design=route)
+        if route == "tc":
+            # The CUDA-core design on the same inputs, timed in turns with the route's.
+            def prev():
+                return k1._launch_design("simt", *args, **kw)
+
+            prev_err = max_err(got, prev())[0]
+            times = [cuda_time_ms(fn, reps=20) for fn in
+                     (lambda: k1.ipa_attention(*args, **kw), prev) * 2]
+            ms, prev_ms = (times[0] + times[2]) / 2, (times[1] + times[3]) / 2
+            res.update(ms=ms, prev_ms=prev_ms, err_vs_prev=prev_err)
+            detail = (f"route tc ms={ms:.4f} ({times[0]:.4f}, {times[2]:.4f}) prev_ms={prev_ms:.4f} "
+                      f"({times[1]:.4f}, {times[3]:.4f}; the CUDA-core design, {prev_ms / ms:.2f}x) "
+                      f"max_abs_err vs the CUDA-core design {prev_err:.3e}; ptxas (tc): {tc_ptxas}")
+        else:
+            ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **kw), reps=20)
+            res.update(ms=ms)
+            detail = f"route {route} ms={ms:.4f}"
         log(
             f"[k1] B={B} L={L} {dname} masked_cols={masked}: max_abs_err={err:.3e} "
-            f"(tol {tol:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"(tol {tol:.3e}) {detail} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
             f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) "
             "library_ms=null (no single PyTorch call computes this function)"
         )
         if not err <= tol:
             raise AssertionError(f"kernel disagrees with its plain version: {err} > {tol}")
-        results[(B, L, dname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by
-        )
+        results[(B, L, dname)] = res
         del args, got, want
     return results
 
@@ -354,18 +398,20 @@ def phase_main_path(k1, card):
     log(f"[main] warm-up batch: {time.perf_counter() - t0:.2f} s")
 
     out = OUT / "main"
-    k1.launches = 0
+    _reset_k1(k1)
     t0 = time.perf_counter()
     sample(MAIN_SEQ, MAIN_SAMPLES, str(out), **kw)
     wall = time.perf_counter() - t0
-    launches = k1.launches
+    launches, routes = k1.launches, dict(k1.launches_by_route)
 
     expect = N_LAYERS * MAIN_STEPS * (MAIN_SAMPLES // MAIN_BATCH)
     log(f"[main] L={len(MAIN_SEQ)} bf16 dpm_2m-{MAIN_STEPS} batch {MAIN_BATCH}: {MAIN_SAMPLES} samples "
         f"in {wall:.3f} s = {MAIN_SAMPLES / wall * 3600:.1f} structures/hr; "
-        f"{handler.lines[-1]}; ipa_attention launches {launches} (expected {expect}); {card}")
-    if launches != expect:
-        raise AssertionError(f"ipa_attention launched {launches} times, expected {expect}")
+        f"{handler.lines[-1]}; ipa_attention launches {launches} (expected {expect}), by route "
+        f"{routes}; {card}")
+    if launches != expect or routes != {"tc": expect, "simt": 0}:
+        raise AssertionError(f"ipa_attention launched {launches} times ({routes}), expected "
+                             f"{expect}, all on the tensor-core route")
     if not (out / "topology.pdb").exists():
         raise AssertionError("topology.pdb missing")
     if not ((out / "samples.xtc").exists() or (out / "samples.pdb").exists()):
@@ -640,19 +686,21 @@ def phase_train_path(k1, card):
     for d in (full, part):
         shutil.rmtree(d, ignore_errors=True)
 
-    k1.launches = k1.backward_calls = 0
+    _reset_k1(k1)
     t0 = time.perf_counter()
     train.main(argv(full))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, backwards = k1.launches, k1.backward_calls
+    launches, backwards, routes = k1.launches, k1.backward_calls, dict(k1.launches_by_route)
     losses = [json.loads(x)["loss"] for x in (full / "train_log.jsonl").read_text().splitlines()]
     log(f"[train] train CLI, 2 ensembles (L=64 bucket), bioemu-v1.0 widths, bf16, batch "
         f"{TRAIN_BATCH}, {TRAIN_STEPS} steps: {wall:.2f} s with set-up; loss at steps 10/20/30 "
-        f"{losses}; K1 launches {launches}, K1 backward passes {backwards} (expected "
-        f"{N_LAYERS * TRAIN_STEPS} each); {card}")
+        f"{losses}; K1 launches {launches} (by route {routes}), K1 backward passes {backwards} "
+        f"(expected {N_LAYERS * TRAIN_STEPS} each, every launch on the tensor-core route); {card}")
     if launches != N_LAYERS * TRAIN_STEPS or backwards != N_LAYERS * TRAIN_STEPS:
         raise AssertionError(f"training launched K1 {launches} times and ran {backwards} backwards")
+    if routes != {"tc": launches, "simt": 0}:
+        raise AssertionError(f"bf16 training launches left the tensor-core route: {routes}")
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite training loss")
 
@@ -848,10 +896,11 @@ def phase_sp_kernel(k1):
         for r0, r1 in row_slabs(L, n):
             slab = (q_s[:, :, r0:r1].contiguous(), k_s, v_s, q_p[..., r0:r1].contiguous(), k_p,
                     v_p, x2d[:, r0:r1].contiguous(), w_pv, bias, pa[:, :, r0:r1].contiguous())
-            before = k1.launches
+            route = k1.kernel_route(getattr(torch, dname), 32, 16, 256, True)
+            before = k1.launches_by_route[route]
             outs = k1.sp_ipa_attention((r0, r1), *slab, **kw)
-            if k1.launches != before + 1:
-                raise AssertionError("sp_ipa_attention on CUDA tensors did not launch the kernel")
+            if k1.launches_by_route[route] != before + 1:
+                raise AssertionError(f"sp_ipa_attention did not launch the {route!r} design")
             torch.cuda.synchronize()
             ms = cuda_time_ms(lambda: k1.sp_ipa_attention((r0, r1), *slab, **kw), reps=20)
             plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*slab, **kw), reps=5)
@@ -1002,9 +1051,10 @@ def phase_parallel(k1, card):
             f"{SP_SAMPLES} samples in {run['wall_s']:.3f} s = "
             f"{SP_SAMPLES / run['wall_s'] * 3600:.1f} structures/hr; peak device memory "
             f"{peak}; K1 launches {run['launches']} (expected {expect}; on this path every "
-            "one is a slab launch of sp_ipa_attention)")
-        if run["launches"] != expect:
-            raise AssertionError(f"rank {run['rank']} launched K1 {run['launches']} times")
+            f"one is a slab launch of sp_ipa_attention), by route {run['launches_by_route']}")
+        if run["launches"] != expect or run["launches_by_route"] != {"tc": expect, "simt": 0}:
+            raise AssertionError(f"rank {run['rank']} launched K1 {run['launches']} times "
+                                 f"({run['launches_by_route']})")
     log(f"[sp-main] one process, same run: {one_wall:.3f} s = "
         f"{SP_SAMPLES / one_wall * 3600:.1f} structures/hr; peak device memory {one_peak:.3f} GB; "
         f"K1 launches {one_launches}; {card}")
@@ -1187,6 +1237,16 @@ def phase_ppft_files():
 def _reset_k1(k1):
     k1.launches = k1.backward_calls = 0
     k1.launches_by_variant.update(pa=0, w_pb=0)
+    k1.launches_by_route.update(tc=0, simt=0)
+
+
+def _check_ppft_routes(k1, launches):
+    """The score model's streamed bf16 launches take the tensor-core route,
+    the control net's in-kernel f32 launches the CUDA-core design."""
+    routes = dict(k1.launches_by_route)
+    if routes != {"tc": launches["pa"], "simt": launches["w_pb"]}:
+        raise AssertionError(f"PPFT launches by route {routes} do not follow their variants {launches}")
+    return routes
 
 
 def phase_ppft_cli(k1, files, card):
@@ -1232,6 +1292,7 @@ def phase_ppft_cli(k1, files, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, backwards = dict(k1.launches_by_variant), k1.backward_calls
+    routes = _check_ppft_routes(k1, launches)
     hist = json.loads((out / "history.json").read_text())
     losses = [e["loss"] for e in hist["train"]] + [e["val_loss"] for e in hist["val"]]
     with np.load(out / "finetune_model_0.npz") as a, np.load(out / "finetune_model_1.npz") as b:
@@ -1250,7 +1311,8 @@ def phase_ppft_cli(k1, files, card):
         f"(seed 0, bf16) + 2-layer d64 control net (near-zero, f32), heun_finetune; cut to path "
         f"batch {PPFT_CLI_BATCH} (of 256), {PPFT_CLI_STEPS} steps (of 100), 1 epoch: {wall:.2f} s "
         f"with set-up; losses (train, val e0, val e1) {losses}; {len(moved)}/{n_params} control-net "
-        f"tensors moved; K1 launches by variant {launches} (expected {expect}), K1 backward "
+        f"tensors moved; K1 launches by variant {launches} (expected {expect}), by route "
+        f"{routes}, K1 backward "
         f"passes {backwards} (expected {expect_bwd}); gradients finite and nonzero on "
         f"{sum(finite)}/{len(finite)} replays; {card}")
     if not all(np.isfinite(losses)) or not finite or not all(finite) or not finite_params:
@@ -1315,6 +1377,7 @@ def phase_ppft_step(k1, files, card):
     t_path, t_grad, val, path = one_step(PPFT_STEPS, 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches, backwards = dict(k1.launches_by_variant), k1.backward_calls
+    routes = _check_ppft_routes(k1, launches)
     finite = all(bool(torch.isfinite(x).all()) for x in (path.pos_path, path.rot_path, *path.us.values(),
                                                         *path.dWs.values()))
     del path
@@ -1324,7 +1387,8 @@ def phase_ppft_step(k1, files, card):
     log(f"[ppft-step] L={L} B={PPFT_BATCH} heun_finetune-{PPFT_STEPS}, score model bf16, control "
         f"net f32: path generation {t_path:.3f} s, replay gradient + update {t_grad:.3f} s, step "
         f"{step_s:.3f} s; val loss {val:.5f}; peak device memory {peak_gb:.2f} GB; K1 launches by "
-        f"variant {launches} (expected {expect}), K1 backward passes {backwards} (expected "
+        f"variant {launches} (expected {expect}), by route {routes}, K1 backward passes "
+        f"{backwards} (expected "
         f"{PPFT_STEPS * FT_LAYERS}); {card}")
     if not finite or not np.isfinite(val):
         raise AssertionError("non-finite PPFT path or loss")
@@ -1344,14 +1408,14 @@ def phase_ppft_step(k1, files, card):
     total = sum(t for _, t, _ in kernels)
     if not total > 0:
         raise AssertionError("the profiler recorded no device time for the PPFT step")
-    k1_split = {tag: sum(t for k, t, _ in kernels if "ipa_attention_kernel" in k and tag in k)
-                for tag in (", 32, true", ", 4, false")}
+    k1_split = {"tc": sum(t for k, t, _ in kernels if "ipa_attention_tc_kernel" in k),
+                "h4": sum(t for k, t, _ in kernels if "ipa_attention_kernel" in k and ", 4, false" in k)}
     wall_ms = (t_path_c + t_grad_c) * 1e3
     log(f"[ppft-step] profile of a step cut to heun {cut} steps: device kernel time {total:.1f} ms "
         f"in {sum(n for _, _, n in kernels)} kernels against an unprofiled wall of {wall_ms:.1f} ms, "
-        f"so the device is busy {100 * total / wall_ms:.1f}%; K1 score model (32 heads, streamed) "
-        f"{k1_split[', 32, true']:.1f} ms, K1 control net (4 heads, in-kernel) "
-        f"{k1_split[', 4, false']:.1f} ms")
+        f"so the device is busy {100 * total / wall_ms:.1f}%; K1 score model (32 heads, streamed, "
+        f"tensor-core design) {k1_split['tc']:.1f} ms, K1 control net (4 heads, in-kernel) "
+        f"{k1_split['h4']:.1f} ms")
     for key, t, n in kernels[:10]:
         log(f"[ppft-profile]   {t:9.2f} ms {100 * t / total:5.1f}%  x{n:<6d} {key[:90]}")
     log(f"[ppft-step] finetune_steps_per_hour_L{L}_B{PPFT_BATCH}_heun{PPFT_STEPS} = {value:.1f}")
@@ -1384,8 +1448,8 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
 
     t_all = time.perf_counter()
-    k1 = phase_build()
-    k1_results = phase_kernel(k1)
+    k1, tc_ptxas = phase_build()
+    k1_results = phase_kernel(k1, tc_ptxas)
     phase_score_eval()
     bundle, sample_launches, _ = phase_main_path(k1, card)
     phase_profile(bundle)
@@ -1402,6 +1466,7 @@ def main() -> int:
     step = phase_ppft_step(k1, files, card)
 
     main_case = k1_results[K1_CASES[0][:3]]
+    ppft_case = k1_results[(256, 56, "bfloat16")]
     bwd_case = grad_results[K1_GRAD_CASES[0][:3]]
     sp_case = slab_results[SLAB_CASES[0]]
     h4_case = inkernel[(PPFT_BATCH, 56, 4, "float32", False)]
@@ -1414,7 +1479,7 @@ def main() -> int:
     kernels = {"kernels": [{
         "name": "ipa_attention",
         "route": "cuda",
-        "source": "se3diff_torch/csrc/ipa_attention.cu",
+        "source": "se3diff_torch/csrc/ipa_attention_tc.cu",
         "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
         "launches": sample_launches + train_launches,
         "max_abs_err": main_case["max_abs_err"],
@@ -1424,6 +1489,18 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": None,
         "verdict": "pass",
+        # bf16, 32 heads, streamed pa: the tensor-core design; prev_ms is the
+        # CUDA-core design (se3diff_torch/csrc/ipa_attention.cu) on the same inputs.
+        "design": main_case["design"],
+        "prev_source": "se3diff_torch/csrc/ipa_attention.cu",
+        "prev_ms": main_case["prev_ms"],
+        "max_abs_err_vs_prev": main_case["err_vs_prev"],
+        # The PPFT score model's shape: B=256, L=56, bf16.
+        "B256_L56_ms": ppft_case["ms"],
+        "B256_L56_prev_ms": ppft_case["prev_ms"],
+        "B256_L56_bound_ms": ppft_case["bound_ms"],
+        "B256_L56_plain_ms": ppft_case["plain_ms"],
+        "B256_L56_max_abs_err": ppft_case["max_abs_err"],
         # Streamed launches of the PPFT CLI run's score model, counted apart.
         "launches_ppft": ppft_launches["pa"],
         # At the control net's 4 heads: B=256, L=56, Cp=32, f32.
@@ -1447,7 +1524,7 @@ def main() -> int:
     }, {
         "name": "sp_ipa_attention",
         "route": "cuda",
-        "source": "se3diff_torch/csrc/ipa_attention.cu",
+        "source": "se3diff_torch/csrc/ipa_attention_tc.cu",
         "replaces": "se3diff_tpu/ops/pallas_ipa.py:874",
         # K1's launches in the SP sampling run, summed over its ranks;
         # launches_per_rank holds each.

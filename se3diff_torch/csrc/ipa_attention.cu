@@ -20,7 +20,9 @@
 // pre-scaled by 0.5*point_weight[h]; v_p [B,H,Lk,24] f32; x2d [B,Lq,Lk,Cp];
 // pa [B,H,Lq,Lk]; w_pv [H,Cp,dk]; bias [B,Lk] f32 (NEG_INF = -1e30 at masked
 // columns, so the online softmax never meets inf - inf). Heads: 32 (the score
-// model) or 4 (the PPFT control net), of width 16.
+// model), 4 (the PPFT control net), 8 or 16, of width 16. For bf16 at 32
+// heads with the streamed pair bias, ipa_attention_tc.cu is the route; this
+// design stays compiled for that shape as its yardstick.
 //
 // Bound on an H100: bytes. At the sampling shape (B=40, L=100, H=32, dk=16,
 // Cp=256, bf16) a launch must read 204.8 MB of x2d, 25.6 MB of pa and about
@@ -54,7 +56,8 @@
 // tails (j >= Lk, i >= Lq) are masked here, so callers never pad. At 4 heads
 // a block is 64 threads and phase B keeps only Cp/4 of them busy: correct,
 // slow per byte.
-// This version uses CUDA-core FMAs; tensor cores, TMA and wgmma are later work.
+// This version uses CUDA-core FMAs. ipa_attention_tc.cu stages x2d by
+// cp.async and runs phase B on tensor cores, for bf16 at 32 heads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -548,6 +551,8 @@ int ipa_attention_fwd(const void* q_s, const void* k_s, const void* v_s, const v
   auto st = static_cast<cudaStream_t>(stream);
   switch (H) {
     case 4: return (int)launch_heads<4>(a, is_bf16 != 0, has_pa != 0, st);
+    case 8: return (int)launch_heads<8>(a, is_bf16 != 0, has_pa != 0, st);
+    case 16: return (int)launch_heads<16>(a, is_bf16 != 0, has_pa != 0, st);
     case 32: return (int)launch_heads<32>(a, is_bf16 != 0, has_pa != 0, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -557,8 +562,8 @@ const char* ipa_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// 1 when the kernel is built for H heads (4 and 32), else 0.
-int ipa_attention_takes_heads(int H) { return H == 4 || H == 32; }
+// 1 when the kernel is built for H heads (4, 8, 16 and 32), else 0.
+int ipa_attention_takes_heads(int H) { return H == 4 || H == 8 || H == 16 || H == 32; }
 int ipa_attention_head_dim() { return kDK; }
 
 }  // extern "C"

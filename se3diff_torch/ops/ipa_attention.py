@@ -24,11 +24,21 @@ never rounded itself (``pallas_ipa.py:399-406``).
 
 :func:`ipa_attention` is differentiable. Its forward dispatches on the
 device of its operands alone: CPU tensors go through
-:func:`ipa_attention_plain`; CUDA tensors launch the kernel in
-``csrc/ipa_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first use,
-bound through ``ctypes``) or raise. The kernel takes 32 heads (the score
-model) or 4 (the PPFT control net) of width 16, and ``Cp <= 256``. Its
-backward is
+:func:`ipa_attention_plain`, which takes any width; CUDA tensors launch a
+kernel or raise. The card takes the widths in :data:`CARD_WIDTHS` (4, 8,
+16 or 32 heads of width 16, ``Cp <= 256``, ``Cp % 4 == 0``);
+:func:`check_card_widths` holds a model config against them before a model
+is bound to the card. Two kernel designs, both built with ``nvcc`` for
+``sm_90a`` at first use into one library bound through ``ctypes``, and a
+static rule on the widths (:func:`kernel_route`) picks one:
+
+- ``"tc"`` (``csrc/ipa_attention_tc.cu``): bf16, 32 heads, the streamed
+  pair bias and ``Cp % 32 == 0``, the score model's bf16 launches: x2d and
+  pa tiles staged by ``cp.async``, the x2d aggregate on tensor cores;
+- ``"simt"`` (``csrc/ipa_attention.cu``): every other card width, f32, and
+  the in-kernel pair bias, on CUDA-core FMAs.
+
+Nothing falls back at run time. Its backward is
 :func:`ipa_attention_backward` on both devices: the JAX package's backward
 is XLA code (``_fused_backward_chunked``), not a Pallas kernel, so the port's
 is PyTorch.
@@ -56,30 +66,80 @@ __all__ = [
     "ipa_attention_plain",
     "sp_ipa_attention",
     "build_library",
+    "CARD_WIDTHS",
+    "check_card_widths",
+    "kernel_route",
 ]
 
 # Finite mask value for column biases: the online softmax never meets inf-inf.
 NEG_INF = -1e30
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "ipa_attention.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Attention widths the card's kernels take; the plain version (any CPU
+# tensor) takes every width, as the JAX package does.
+CARD_WIDTHS = {"heads": (4, 8, 16, 32), "head_dim": 16, "max_cp": 256, "cp_multiple": 4}
+# The kernel design each route launches, by C symbol.
+_ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "simt": "ipa_attention_fwd"}
+
 # Forward kernel launches made through ipa_attention (plain-version calls and
-# backward passes do not count), in all and by variant: "pa" streams the
-# pair bias, "w_pb" computes it in the kernel.
+# backward passes do not count), in all, by variant ("pa" streams the pair
+# bias, "w_pb" computes it in the kernel) and by route (see kernel_route).
 launches = 0
 launches_by_variant = {"pa": 0, "w_pb": 0}
+launches_by_route = {"tc": 0, "simt": 0}
 # Backward passes of ipa_attention run by autograd, on either device (direct
 # calls of ipa_attention_backward do not count).
 backward_calls = 0
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
+
+
+def _widths_error(H: int, dk: int, cp: int) -> str | None:
+    w = CARD_WIDTHS
+    if H in w["heads"] and dk == w["head_dim"] and 0 < cp <= w["max_cp"] and cp % w["cp_multiple"] == 0:
+        return None
+    return (f"the card's IPA attention kernels take {', '.join(map(str, w['heads']))} heads of "
+            f"width {w['head_dim']} and a pair width Cp <= {w['max_cp']} with Cp % "
+            f"{w['cp_multiple']} == 0; got {H} heads of width {dk}, Cp={cp} (the CPU takes any "
+            "width)")
+
+
+def check_card_widths(model_cfg, device) -> None:
+    """Raise ``ValueError``, naming the supported widths, when ``device`` is
+    a CUDA device and the card's kernels do not take the attention widths of
+    the DiG model config ``model_cfg`` (``num_heads``, ``dim_model /
+    num_heads``, ``dim_pair``; missing keys take the model's defaults).
+    Other devices take any width. Reads no device state, so callers run it
+    before resolving the device."""
+    if torch.device(device).type != "cuda":
+        return
+    heads = int(model_cfg.get("num_heads", 32))
+    dim_model, cp = int(model_cfg.get("dim_model", 512)), int(model_cfg.get("dim_pair", 256))
+    err = _widths_error(heads, dim_model // heads if dim_model % heads == 0 else -1, cp)
+    if err is not None:
+        raise ValueError(f"model config (dim_model={dim_model}, num_heads={heads}, "
+                         f"dim_pair={cp}): {err}")
+
+
+def kernel_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -> str:
+    """The kernel design that CUDA operands of these widths launch: ``"tc"``
+    for bf16, 32 heads, the streamed pair bias and ``Cp % 32 == 0``;
+    ``"simt"`` for every other width in :data:`CARD_WIDTHS`. Raises
+    ``ValueError`` for widths neither takes."""
+    err = _widths_error(H, dk, cp)
+    if err is not None:
+        raise ValueError(err)
+    if dtype == torch.bfloat16 and H == 32 and has_pa and cp % 32 == 0:
+        return "tc"
+    return "simt"
 
 
 def _nvcc() -> str:
@@ -93,24 +153,41 @@ def _nvcc() -> str:
 
 
 def build_library() -> tuple[Path, str]:
-    """Compile ``csrc/ipa_attention.cu`` into ``_build/`` unless a library of
-    the same source is already there. Returns ``(path, compiler log)``; the
-    log holds ptxas's register and shared-memory report after a fresh build."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libipa_attention_{tag}.so"
+    """Compile every ``csrc/*.cu`` into one library in ``_build/`` unless a
+    library of the same sources is already there: one ``nvcc`` a source, all
+    started together, then one link. Returns ``(path, compiler log)``; the
+    log holds ptxas's register, shared-memory and spill report after a fresh
+    build."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    out = BUILD_DIR / f"libipa_attention_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {SOURCE}:\n{res.stdout}{res.stderr}"
-        )
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for src, p, text in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) building {src}:\n{text}")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}) linking {out.name}:\n"
+                               f"{res.stdout}{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    return out, res.stdout + res.stderr
+    return out, "".join(logs)
 
 
 def _library() -> ctypes.CDLL:
@@ -120,8 +197,10 @@ def _library() -> ctypes.CDLL:
             path, _ = build_library()
             lib = ctypes.CDLL(str(path))
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.ipa_attention_fwd.argtypes = [vp] * 14 + [ci] * 8 + [cf, cf, vp]
-            lib.ipa_attention_fwd.restype = ci
+            for name in _ROUTE_SYMBOLS.values():
+                fn = getattr(lib, name)
+                fn.argtypes = [vp] * 14 + [ci] * 8 + [cf, cf, vp]
+                fn.restype = ci
             lib.ipa_attention_error_string.argtypes = [ci]
             lib.ipa_attention_error_string.restype = ctypes.c_char_p
             lib.ipa_attention_takes_heads.argtypes = [ci]
@@ -208,23 +287,29 @@ def _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb) -> None:
         raise ValueError("the kernel needs Cp % 4 == 0 and 16-byte aligned x2d and k_s")
 
 
-def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scalar_w, pair_w):
-    """Launch the Hopper kernel on the current stream; raise if it cannot."""
+def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scalar_w, pair_w,
+                   design: str | None = None):
+    """Launch a Hopper kernel on the current stream; raise if it cannot.
+    ``design`` None launches :func:`kernel_route`'s design and counts the
+    launch; a named design is :func:`_launch_design`'s uncounted launch."""
     global launches
     _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb)
-    lib = _library()
     B, H, Lq, dk = q_s.shape
     Lk, Cp = k_s.shape[2], x2d.shape[-1]
-    if not lib.ipa_attention_takes_heads(H) or dk != lib.ipa_attention_head_dim() or Cp > 256:
-        raise ValueError(
-            f"the kernel takes 4 or 32 heads of width {lib.ipa_attention_head_dim()} and "
-            f"Cp <= 256; got H={H}, dk={dk}, Cp={Cp}"
-        )
+    route = kernel_route(q_s.dtype, H, dk, Cp, pa is not None)
+    if design is not None and design != route and design != "simt":
+        raise ValueError(f"the {design!r} design does not take these widths (route {route!r})")
+    counted, design = design is None, design or route
+    if design == "tc" and pa.data_ptr() % 16:
+        raise ValueError("the tensor-core design needs a 16-byte aligned pa")
+    lib = _library()
+    if not lib.ipa_attention_takes_heads(H) or dk != lib.ipa_attention_head_dim():
+        raise ValueError(_widths_error(H, dk, Cp) or f"the library does not take H={H}, dk={dk}")
     out_s = torch.empty_like(q_s)
     out_p = torch.empty((B, H, Lq, 24), dtype=torch.float32, device=q_s.device)
     out_pair = torch.empty_like(q_s)
     with torch.cuda.device(q_s.device):
-        err = lib.ipa_attention_fwd(
+        err = getattr(lib, _ROUTE_SYMBOLS[design])(
             q_s.data_ptr(), k_s.data_ptr(), v_s.data_ptr(), q_p.data_ptr(),
             k_p.data_ptr(), v_p.data_ptr(), x2d.data_ptr(), w_pv.data_ptr(),
             bias.data_ptr(), None if pa is None else pa.data_ptr(),
@@ -235,12 +320,27 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scal
         )
     if err != 0:
         raise RuntimeError(
-            "ipa_attention kernel launch failed: "
+            f"ipa_attention kernel launch ({design}) failed: "
             + lib.ipa_attention_error_string(err).decode()
         )
-    launches += 1
-    launches_by_variant["pa" if pa is not None else "w_pb"] += 1
+    if counted:
+        launches += 1
+        launches_by_variant["pa" if pa is not None else "w_pb"] += 1
+        launches_by_route[route] += 1
     return out_s, out_p, out_pair
+
+
+def _launch_design(design: str, q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa=None,
+                   w_pb=None, *, scalar_w: float, pair_w: float):
+    """Launch the named kernel design on CUDA operands whatever
+    :func:`kernel_route` picks (``"simt"`` takes every card width, ``"tc"``
+    its own), counting nothing: the yardstick that ``chip_smoke.py`` and the
+    card tests time and compare beside the route's design. No model path
+    calls it."""
+    if design not in _ROUTE_SYMBOLS:
+        raise ValueError(f"design must be one of {sorted(_ROUTE_SYMBOLS)}, got {design!r}")
+    return _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb,
+                          scalar_w, pair_w, design=design)
 
 
 def _row_chunks(Lq: int, target: int) -> list[tuple[int, int]]:

@@ -49,6 +49,7 @@ def sp_score(
     or a seed for :func:`~se3diff_torch.models.dig.init_weights`. Returns
     the full ``pos``/``rot`` outputs, the rank's row slab, and its K1
     launches."""
+    k1.check_card_widths(model_cfg, ctx.device)
     model = DiGConditionalScoreModel(**model_cfg, dtype=getattr(torch, dtype), sp=ctx)
     if isinstance(weights, int):
         init_weights(model, torch.Generator().manual_seed(weights))
@@ -73,8 +74,9 @@ def sp_sample(
     """``sampling.pipeline.sample`` through an SP bundle
     (``random_bundle(**bundle_kwargs)`` on the rank's device). With
     ``warmup_dir``, one batch runs there first. Returns the rank's K1
-    launches in the measured run (the count is zeroed just before it),
-    its wall time and its peak device memory (None on the CPU)."""
+    launches in the measured run, in all and by route (the counts are
+    zeroed just before it), its wall time and its peak device memory (None
+    on the CPU)."""
     bundle = random_bundle(**bundle_kwargs, device=ctx.device, sp=ctx)
     if warmup_dir is not None:
         sample(**{**sample_kwargs, "num_samples": sample_kwargs["batch_size"],
@@ -83,12 +85,14 @@ def sp_sample(
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
     k1.launches = 0
+    k1.launches_by_route.update(dict.fromkeys(k1.launches_by_route, 0))
     t0 = time.perf_counter()
     sample(**sample_kwargs, bundle=bundle)
     _synchronize(ctx)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(ctx.device) if ctx.device.type == "cuda" else None
-    return {"launches": k1.launches, "wall_s": wall, "peak_bytes": peak, "rank": ctx.rank}
+    return {"launches": k1.launches, "launches_by_route": dict(k1.launches_by_route),
+            "wall_s": wall, "peak_bytes": peak, "rank": ctx.rank}
 
 
 def dp_sample(

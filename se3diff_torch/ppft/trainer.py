@@ -41,7 +41,8 @@ from se3diff_torch.models.convert import load_checkpoint
 from se3diff_torch.models.dig import DiGConditionalScoreModel, init_weights
 from se3diff_torch.ppft.h_functions import H_FUNCTIONS
 from se3diff_torch.ppft.losses import compute_ev_loss, compute_kl_loss
-from se3diff_torch.sampling.bundle import Bundle, instantiate, load_bundle
+from se3diff_torch.ops.ipa_attention import check_card_widths
+from se3diff_torch.sampling.bundle import Bundle, instantiate, load_bundle, read_config
 from se3diff_torch.sampling.embeds import get_embeds, load_embeds
 from se3diff_torch.sampling.seq_io import check_protein_valid
 from se3diff_torch.training.loop import TrainConfig, make_schedule, step_generator
@@ -115,12 +116,16 @@ def load_finetune_bundle(
     """Score model (frozen, in ``dtype``) and control net (f32, weights from
     ``seed`` or ``finetune_ckpt_path``) and the finetune recorder
     (finetune.py:125-196), on ``device``."""
+    config = read_config(ckpt_path, model_config_path)
+    if "finetune_model" not in config:
+        raise ValueError("model config must contain 'finetune_model'")
+    # load_bundle checks the score model's widths; the control net's here,
+    # both before the device is resolved.
+    check_card_widths(config["finetune_model"], device)
     base = load_bundle(
         ckpt_path, config_path=model_config_path, so3_cache_dir=so3_cache_dir, dtype=dtype,
         device=device,
     )
-    if "finetune_model" not in base.config:
-        raise ValueError("model config must contain 'finetune_model'")
     base.model.requires_grad_(False)
 
     ft_model: DiGConditionalScoreModel = instantiate(dict(base.config["finetune_model"]))

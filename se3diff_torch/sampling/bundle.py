@@ -26,6 +26,7 @@ import yaml
 from se3diff_torch.diffusion import denoise
 from se3diff_torch.models.convert import load_checkpoint
 from se3diff_torch.models.dig import DiGConditionalScoreModel, init_weights
+from se3diff_torch.ops.ipa_attention import check_card_widths
 from se3diff_torch.parallel.mesh import RankContext
 from se3diff_torch.sde.so3_sde import DiGSO3SDE
 from se3diff_torch.sde.vpsde import CosineVPSDE
@@ -179,6 +180,16 @@ def make_denoiser(name_or_cfg: str | dict[str, Any]) -> Callable:
     return instantiate({**name_or_cfg, "_partial_": True})
 
 
+def read_config(checkpoint_path: str | os.PathLike,
+                config_path: str | os.PathLike | None = None) -> dict[str, Any]:
+    """The reference-format config: ``config_path``, else the
+    ``config.yaml`` beside the checkpoint."""
+    if config_path is None:
+        config_path = Path(checkpoint_path).parent / "config.yaml"
+    with open(config_path) as f:
+        return yaml.safe_load(f)
+
+
 def load_bundle(
     checkpoint_path: str | os.PathLike,
     config_path: str | os.PathLike | None = None,
@@ -193,15 +204,13 @@ def load_bundle(
 
     ``model_key`` selects ``score_model`` or ``finetune_model``; the state
     dict must match the model's reference-named keys exactly. ``sp`` makes
-    the model sequence-parallel over the rank's group.
+    the model sequence-parallel over the rank's group. On a CUDA device
+    the model's attention widths are held against the card's kernels
+    (``ValueError``) before the device or the checkpoint is touched.
     """
+    config = read_config(checkpoint_path, config_path)
+    check_card_widths(config[model_key], device)
     device = resolve_device(device)
-    checkpoint_path = Path(checkpoint_path)
-    if config_path is None:
-        config_path = checkpoint_path.parent / "config.yaml"
-    with open(config_path) as f:
-        config = yaml.safe_load(f)
-
     model: DiGConditionalScoreModel = instantiate(dict(config[model_key]), dtype=dtype, sp=sp)
     model.load_state_dict(load_checkpoint(str(checkpoint_path)), strict=True)
     sde_overrides = {"device": device}
@@ -231,9 +240,10 @@ def random_bundle(
     The model defaults to the bioemu-v1.0 widths; the SO(3) tables default
     to a small grid.
     """
-    device = resolve_device(device)
     cfg = dict(BIOEMU_V1_MODEL)
     cfg.update(model_cfg or {})
+    check_card_widths(cfg, device)
+    device = resolve_device(device)
     model = DiGConditionalScoreModel(**cfg, dtype=dtype, sp=sp)
     init_weights(model, torch.Generator().manual_seed(seed))
 

@@ -117,12 +117,21 @@ def main(argv: list[str] | None = None) -> None:
     from se3diff_torch.diffusion.denoise import SDEs
     from se3diff_torch.models.convert import load_checkpoint
     from se3diff_torch.models.dig import DiGConditionalScoreModel, init_weights
+    from se3diff_torch.ops.ipa_attention import check_card_widths
     from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, instantiate, resolve_device
     from se3diff_torch.sde.so3_sde import DiGSO3SDE
     from se3diff_torch.sde.vpsde import CosineVPSDE
     from se3diff_torch.training.data import MultiEnsembleDataset
     from se3diff_torch.training.loop import TrainConfig, train_dsm
 
+    if args.model_config_path:
+        with open(args.model_config_path) as f:
+            cfg_yaml = yaml.safe_load(f)
+        model_cfg = {k: v for k, v in cfg_yaml["score_model"].items() if k != "_target_"}
+    else:
+        model_cfg = dict(BIOEMU_V1_MODEL)
+    # Widths the card's kernels refuse fail here, not at the first launch.
+    check_card_widths(model_cfg, args.device)
     device = resolve_device(args.device)
     tops = args.topology or [None] * len(args.trajectory)
     if len(tops) != len(args.trajectory):
@@ -141,16 +150,12 @@ def main(argv: list[str] | None = None) -> None:
     if args.so3_cache_dir:
         so3_kw["cache_dir"] = args.so3_cache_dir
     if args.model_config_path:
-        with open(args.model_config_path) as f:
-            cfg_yaml = yaml.safe_load(f)
-        model_cfg = {k: v for k, v in cfg_yaml["score_model"].items() if k != "_target_"}
         model = instantiate(cfg_yaml["score_model"], dtype=dtype)
         sdes = SDEs(
             pos=instantiate(cfg_yaml["sdes"]["pos"]),
             node_orientations=instantiate(cfg_yaml["sdes"]["node_orientations"], **so3_kw),
         )
     else:
-        model_cfg = dict(BIOEMU_V1_MODEL)
         model = DiGConditionalScoreModel(**model_cfg, dtype=dtype)
         sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(sigma_max=2.33, **so3_kw))
 

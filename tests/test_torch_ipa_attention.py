@@ -149,3 +149,41 @@ def test_cpu_tensors_take_the_plain_version(rng):
     before = k1.launches
     _port(a, _pa(a), "float32")
     assert k1.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [8, 16])
+def test_plain_matches_jnp_twin_at_more_card_head_counts(rng, dtype, heads):
+    """8 and 16 heads of width 16 (the card takes 4, 8, 16 and 32): the
+    plain version against ``_fused_semantics_jnp``, ragged with masked
+    columns, rows != columns."""
+    B, Lq, Lk, dk, cp = 2, 11, 13, 16, 64
+    g = lambda *shape, scale=1.0: (rng.standard_normal(shape) * scale).astype(np.float32)
+    bias = np.zeros((B, Lk), np.float32)
+    bias[:, -3:] = NEG_INF
+    a = dict(
+        q_s=g(B, heads, Lq, dk), k_s=g(B, heads, Lk, dk), v_s=g(B, heads, Lk, dk),
+        q_p=g(B, 3, heads * 4, Lq, scale=0.6), k_p=g(B, 3, heads * 4, Lk, scale=0.6),
+        v_p=g(B, heads, Lk, 24), x2d=g(B, Lq, Lk, cp, scale=0.5), w_pb=g(cp, heads, scale=0.3),
+        w_pv=g(heads, cp, dk, scale=0.3), bias=bias,
+    )
+    pa = _pa(a)
+    md = getattr(torch, dtype)
+    t = lambda name: torch.from_numpy(a[name])
+    scalar_w = 1.0 / np.sqrt(3 * dk)
+    got = k1.ipa_attention(
+        t("q_s").to(md), t("k_s").to(md), t("v_s").to(md), t("q_p"), t("k_p"), t("v_p"),
+        t("x2d").to(md), t("w_pv").to(md), t("bias"), torch.from_numpy(pa).to(md),
+        scalar_w=scalar_w, pair_w=PAIR_W,
+    )
+    args = _jax_args(a, dtype)
+    jpa = jnp.asarray(pa).astype(args[0].dtype)
+    per_b = [
+        _fused_semantics_jnp(
+            *[x if i in (7, 8) else x[b:b + 1] for i, x in enumerate(args)], jpa[b:b + 1],
+            scalar_w=scalar_w, pair_w=PAIR_W,
+        )
+        for b in range(B)
+    ]
+    want = [np.concatenate([np.asarray(o[k], np.float32) for o in per_b]) for k in range(3)]
+    _check([o.float().numpy() for o in got], want, dtype, Lq)

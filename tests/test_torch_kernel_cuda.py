@@ -1,6 +1,8 @@
-"""The IPA attention kernel on the card, against its plain version, at 32
-heads (the score model, Cp=256) and 4 heads (the PPFT control net, Cp=32),
-with the pair bias streamed (``pa``) or computed in the kernel (``w_pb``).
+"""The IPA attention kernels on the card, against their plain version, at 32
+heads (the score model, Cp=256), 4 heads (the PPFT control net, Cp=32) and 8
+and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
+(``w_pb``); and the tensor-core design (bf16, 32 heads, streamed ``pa``)
+against the plain version and against the CUDA-core design on the same inputs.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip. They
 import neither JAX nor the JAX package, so a machine with only PyTorch runs
@@ -22,7 +24,12 @@ DK = 16
 KW = dict(scalar_w=1 / np.sqrt(3 * DK), pair_w=1 / np.sqrt(3))
 NAMES = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa", "w_pb")
 # (heads, Cp, pair-bias variant)
-SHAPES = [(32, 256, "pa"), (32, 256, "w_pb"), (4, 32, "pa"), (4, 32, "w_pb")]
+SHAPES = [(32, 256, "pa"), (32, 256, "w_pb"), (4, 32, "pa"), (4, 32, "w_pb"),
+          (8, 64, "pa"), (8, 64, "w_pb"), (16, 128, "pa"), (16, 128, "w_pb")]
+# Shapes of the tensor-core route: the ragged cases above, an SP slab of 150
+# rows of 300 columns, and the PPFT score model's batch.
+TC_CASES = [(3, 37, 37, 5), (2, 5, 70, 0), (1, 1, 1, 0), (2, 33, 33, 33), (4, 150, 300, 0),
+            (256, 56, 56, 0)]
 
 
 @pytest.fixture
@@ -100,6 +107,27 @@ def test_gradients_on_the_card_match_autograd_of_plain(cuda_device, dtype, tol, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("CP", [256, 96, 32])
+@pytest.mark.parametrize("B,Lq,Lk,masked", TC_CASES)
+def test_tensor_core_route_matches_plain_and_the_cuda_core_design(cuda_device, B, Lq, Lk, masked, CP):
+    """bf16, 32 heads, streamed pa: ipa_attention launches the tensor-core
+    design; within 3e-2 x max|plain| of the plain version and of the CUDA-core
+    design (``_launch_design("simt")``) on the same inputs."""
+    args = _args(cuda_device, B, Lq, Lk, torch.bfloat16, masked, CP=CP)
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **KW)
+    prev = k1._launch_design("simt", *args, **KW)
+    torch.cuda.synchronize()
+    assert k1.launches_by_route == {**before, "tc": before["tc"] + 1}
+    want = k1.ipa_attention_plain(*args, **KW)
+    for g, p, w in zip(got, prev, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+        scale = max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= 3e-2 * scale
+        assert (g.float() - p.float()).abs().max().item() <= 3e-2 * scale
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     args = list(_args(cuda_device, 1, 8, 8, torch.float32, 0))
     with pytest.raises(ValueError, match="contiguous"):
@@ -110,3 +138,5 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         bad = list(args)
         bad[5] = args[5].double()
         k1.ipa_attention(*bad, **KW)
+    with pytest.raises(ValueError, match="take 4, 8, 16, 32 heads"):
+        k1.ipa_attention(*_args(cuda_device, 1, 8, 8, torch.float32, 0, H=12, CP=32), **KW)
