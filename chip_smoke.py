@@ -11,12 +11,13 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    source (time, ptxas report);
 2. the kernel against its plain PyTorch version on the card, at the main
    path's shape (B=40, L=100, 32 heads of 16, Cp=256, streamed pair bias) in
-   bf16 and f32, at a ragged L=77 with masked columns, and in bf16 at the
-   PPFT score model's B=256, L=56 and the train forward's B=16, L=100;
-   error beside its tolerance, kernel / plain / bound times. Every bf16 case
-   takes the tensor-core design (route "tc"); beside it the CUDA-core design on
-   the same inputs (``prev_ms``, its error against the new one) and ptxas's
-   registers and spills for the new kernel;
+   bf16 and f32, at a ragged L=77 with masked columns, and at the PPFT score
+   model's B=256, L=56 and the train forward's B=16, L=100, each in bf16 and
+   f32; error beside its tolerance, kernel / plain / bound times. Every case
+   takes a tensor-core design (route "tc" in bf16, "tc_f32" in f32); beside
+   it the CUDA-core design on the same inputs, timed in turns with it
+   (``prev_ms``, its error against the new one), and ptxas's registers and
+   spills for the route's kernel (and the f32 design's shared memory);
 3. one full-width score evaluation (bioemu-v1.0 widths, weights from a
    seed) through the kernel, through the plain core on the card, and on the
    CPU;
@@ -25,7 +26,10 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    dummy embeddings; output files and finite coordinates are checked, the
    kernel's launch count must be 8 layers x 30 evaluations x 2 batches, all
    on the "tc" route, and
-   the device physicality filter must agree with the numpy filter;
+   the device physicality filter must agree with the numpy filter; then one
+   batch of the same path in f32, the sample CLI's default dtype: 240
+   launches, all on "tc_f32", finite coordinates, its wall beside the bf16
+   run's;
 5. a profile of one main-path batch: device time by kernel;
 6. K1's gradient on the card: the autograd Function (kernel forward,
    row-chunked PyTorch backward) against autograd through the plain version
@@ -60,7 +64,7 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    through ``sp_ipa_attention``, all "tc"; wall, structures/hr and peak memory per
    rank beside the same run in this process; (d) DP sampling at L=100,
    B=8, f32, dpm_2m 30 steps from t=0.5, against this process's batch of
-   the same seed. Two ranks on one card show correctness and per-rank
+   the same seed. The f32 score and DP launches all take "tc_f32". Two ranks on one card show correctness and per-rank
    memory, not multi-GPU speed;
 11. ``[k1-inkernel]``: K1 with the pair bias computed in the kernel
    (``w_pb``, has_pa=False) against the plain version at full width (B=40,
@@ -106,7 +110,8 @@ MAIN_SEQ = "GYDPETGTWG" * 10
 MAIN_BATCH, MAIN_SAMPLES, MAIN_STEPS, N_LAYERS = 40, 80, 30, 8
 K1_CASES = [(40, 100, "bfloat16", 0), (40, 100, "float32", 0),
             (40, 77, "bfloat16", 9), (40, 77, "float32", 9),
-            (256, 56, "bfloat16", 0), (16, 100, "bfloat16", 0)]
+            (256, 56, "bfloat16", 0), (256, 56, "float32", 0),
+            (16, 100, "bfloat16", 0), (16, 100, "float32", 0)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}         # x max(1, max|plain|)
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_STOP = 16, 30, 10, 20
 # The last case has two row chunks of the backward (L > 128).
@@ -247,10 +252,14 @@ def phase_build():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"[build] ptxas: {line.strip()}")
-    return k1, ptxas_summary(report, "ipa_attention_tc_kernel")
+    smem = k1._library().ipa_attention_tc_f32_smem_bytes(256)
+    ptxas = {"tc": ptxas_summary(report, "ipa_attention_tc_kernel"),
+             "tc_f32": ptxas_summary(report, "ipa_attention_tc_f32_kernel")
+             + f"; dynamic shared memory {smem} bytes at Cp=256"}
+    return k1, ptxas
 
 
-def phase_kernel(k1, tc_ptxas):
+def phase_kernel(k1, ptxas):
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -272,7 +281,7 @@ def phase_kernel(k1, tc_ptxas):
         bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
         res = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    design=route)
-        if route == "tc":
+        if route != "simt":
             # The CUDA-core design on the same inputs, timed in turns with the route's.
             def prev():
                 return k1._launch_design("simt", *args, **kw)
@@ -282,9 +291,10 @@ def phase_kernel(k1, tc_ptxas):
                      (lambda: k1.ipa_attention(*args, **kw), prev) * 2]
             ms, prev_ms = (times[0] + times[2]) / 2, (times[1] + times[3]) / 2
             res.update(ms=ms, prev_ms=prev_ms, err_vs_prev=prev_err)
-            detail = (f"route tc ms={ms:.4f} ({times[0]:.4f}, {times[2]:.4f}) prev_ms={prev_ms:.4f} "
-                      f"({times[1]:.4f}, {times[3]:.4f}; the CUDA-core design, {prev_ms / ms:.2f}x) "
-                      f"max_abs_err vs the CUDA-core design {prev_err:.3e}; ptxas (tc): {tc_ptxas}")
+            detail = (f"route {route} ms={ms:.4f} ({times[0]:.4f}, {times[2]:.4f}) prev_ms="
+                      f"{prev_ms:.4f} ({times[1]:.4f}, {times[3]:.4f}; the CUDA-core design, "
+                      f"{prev_ms / ms:.2f}x) max_abs_err vs the CUDA-core design {prev_err:.3e}; "
+                      f"ptxas ({route}): {ptxas[route]}")
         else:
             ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **kw), reps=20)
             res.update(ms=ms)
@@ -409,7 +419,7 @@ def phase_main_path(k1, card):
         f"in {wall:.3f} s = {MAIN_SAMPLES / wall * 3600:.1f} structures/hr; "
         f"{handler.lines[-1]}; ipa_attention launches {launches} (expected {expect}), by route "
         f"{routes}; {card}")
-    if launches != expect or routes != {"tc": expect, "simt": 0}:
+    if launches != expect or routes != {"tc": expect, "tc_f32": 0, "simt": 0}:
         raise AssertionError(f"ipa_attention launched {launches} times ({routes}), expected "
                              f"{expect}, all on the tensor-core route")
     if not (out / "topology.pdb").exists():
@@ -434,7 +444,48 @@ def phase_main_path(k1, card):
         kept += int(keep.sum())
     log(f"[main] outputs ok: finite coordinates; physicality filter on the card agrees with "
         f"numpy ({kept}/{MAIN_SAMPLES} frames physical with random weights)")
-    return bundle, launches, wall
+    f32_launches = _main_path_f32(k1, card, wall)
+    return bundle, launches, f32_launches
+
+
+def _main_path_f32(k1, card, bf16_wall):
+    """One batch of the main path in f32, the sample CLI's default dtype:
+    every K1 launch on the "tc_f32" route. Returns its launches."""
+    import numpy as np
+    import torch
+
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_SO3, random_bundle
+    from se3diff_torch.sampling.pipeline import sample
+
+    bundle = random_bundle(
+        denoiser="dpm_2m", dtype=torch.float32, device=DEVICE, seed=0,
+        so3_kwargs=dict(BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache")),
+    )
+    out = OUT / "main_f32"
+    shutil.rmtree(out, ignore_errors=True)
+    _reset_k1(k1)
+    t0 = time.perf_counter()
+    sample(MAIN_SEQ, MAIN_BATCH, str(out), bundle=bundle, batch_size=MAIN_BATCH,
+           embeds_backend="dummy", cache_embeds_dir=str(OUT / "embeds"), filter_samples=False)
+    wall = time.perf_counter() - t0
+    launches, routes = k1.launches, dict(k1.launches_by_route)
+    expect = N_LAYERS * MAIN_STEPS
+    log(f"[main] L={len(MAIN_SEQ)} f32 dpm_2m-{MAIN_STEPS} one batch of {MAIN_BATCH} (no warm-up "
+        f"in f32): {wall:.3f} s = {MAIN_BATCH / wall * 3600:.1f} structures/hr (bf16 run above: "
+        f"{MAIN_SAMPLES / bf16_wall * 3600:.1f}); ipa_attention launches {launches} (expected "
+        f"{expect}), by route {routes}; {card}")
+    if launches != expect or routes != {"tc": 0, "tc_f32": expect, "simt": 0}:
+        raise AssertionError(f"f32 sampling launched K1 {launches} times ({routes}), expected "
+                             f"{expect}, all on the f32 tensor-core route")
+    files = sorted(out.glob("batch_*.npz"))
+    if len(files) != 1:
+        raise AssertionError(f"f32 sampling wrote {len(files)} batch files, expected 1")
+    with np.load(files[0]) as d:
+        pos, rot = d["pos"], d["node_orientations"]
+    if pos.shape != (MAIN_BATCH, len(MAIN_SEQ), 3) or not (np.isfinite(pos).all() and np.isfinite(rot).all()):
+        raise AssertionError(f"f32 sampling: bad shape {pos.shape} or non-finite coordinates")
+    log("[main] f32 outputs ok: one batch file, finite coordinates")
+    return launches
 
 
 def phase_profile(bundle):
@@ -699,7 +750,7 @@ def phase_train_path(k1, card):
         f"(expected {N_LAYERS * TRAIN_STEPS} each, every launch on the tensor-core route); {card}")
     if launches != N_LAYERS * TRAIN_STEPS or backwards != N_LAYERS * TRAIN_STEPS:
         raise AssertionError(f"training launched K1 {launches} times and ran {backwards} backwards")
-    if routes != {"tc": launches, "simt": 0}:
+    if routes != {"tc": launches, "tc_f32": 0, "simt": 0}:
         raise AssertionError(f"bf16 training launches left the tensor-core route: {routes}")
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite training loss")
@@ -1029,7 +1080,7 @@ def phase_parallel(k1, card):
         f"{time.perf_counter() - t0:.1f} s with start-up")
 
     # (b) SP score against one process.
-    for i, (dname, tol) in enumerate((("float32", 1e-3), ("bfloat16", 5e-2))):
+    for i, (dname, tol, route) in enumerate((("float32", 1e-3, "tc_f32"), ("bfloat16", 5e-2, "tc"))):
         for r, res in enumerate(ranks):
             out = res[i]
             err = max(float(np.abs(out["pos"] - ref[dname][0]).max()),
@@ -1037,8 +1088,10 @@ def phase_parallel(k1, card):
             scale = max(1.0, max(float(np.abs(x).max()) for x in ref[dname]))
             log(f"[sp-score] {dname} full width B={SP_BATCH} L={L} rank {r} rows {out['rows']}: "
                 f"vs one process max_abs_err={err:.3e} (tol {tol * scale:.3e}); K1 launches "
-                f"{out['launches']} (expected {N_LAYERS})")
-            if not err <= tol * scale or out["launches"] != N_LAYERS:
+                f"{out['launches']} (expected {N_LAYERS}), by route {out['launches_by_route']}")
+            want_routes = {"tc": 0, "tc_f32": 0, "simt": 0, route: N_LAYERS}
+            if not err <= tol * scale or out["launches"] != N_LAYERS \
+                    or out["launches_by_route"] != want_routes:
                 raise AssertionError(f"SP score evaluation ({dname}, rank {r}) is wrong")
 
     # (c) SP sampling path.
@@ -1052,7 +1105,8 @@ def phase_parallel(k1, card):
             f"{SP_SAMPLES / run['wall_s'] * 3600:.1f} structures/hr; peak device memory "
             f"{peak}; K1 launches {run['launches']} (expected {expect}; on this path every "
             f"one is a slab launch of sp_ipa_attention), by route {run['launches_by_route']}")
-        if run["launches"] != expect or run["launches_by_route"] != {"tc": expect, "simt": 0}:
+        if run["launches"] != expect or run["launches_by_route"] != {"tc": expect, "tc_f32": 0,
+                                                                     "simt": 0}:
             raise AssertionError(f"rank {run['rank']} launched K1 {run['launches']} times "
                                  f"({run['launches_by_route']})")
     log(f"[sp-main] one process, same run: {one_wall:.3f} s = "
@@ -1079,14 +1133,19 @@ def phase_parallel(k1, card):
         got = (res[3]["pos"], res[3]["node_orientations"])
         replay_err = max(float(np.abs(g - w).max()) for g, w in zip(got, dp_replay))
         err = max(float(np.abs(g - w).max()) for g, w in zip(got, dp_ref))
+        routes = res[3]["launches_by_route"]
         log(f"[dp] rank {r}: {DP_BATCH} samples at L={DP_L}, f32 dpm_2m-"
             f"{DP_DENOISER['num_steps']} from t={DP_DENOISER['max_t']} over {SP_RANKS} ranks, "
             f"same seed: against this process's replay of the ranks' rows (batch "
             f"{DP_BATCH // SP_RANKS}) max_abs_err={replay_err:.3e} (tol 1e-6); against the "
             f"batch of {DP_BATCH} max_abs_err={err:.3e} (tol {DP_TOL:.1e}); largest position "
-            f"{largest:.3f} nm")
+            f"{largest:.3f} nm; K1 launches by route {routes}")
         if not replay_err <= 1e-6 or not err <= DP_TOL:
             raise AssertionError("DP rows differ from the single-device rows")
+        dp_launches = N_LAYERS * DP_DENOISER["num_steps"]
+        if routes != {"tc": 0, "tc_f32": dp_launches, "simt": 0}:
+            raise AssertionError(f"DP rank {r} launched K1 {routes}, expected {dp_launches} "
+                                 "on the f32 tensor-core route")
     return [run["launches"] for run in sp_runs]
 
 
@@ -1237,14 +1296,14 @@ def phase_ppft_files():
 def _reset_k1(k1):
     k1.launches = k1.backward_calls = 0
     k1.launches_by_variant.update(pa=0, w_pb=0)
-    k1.launches_by_route.update(tc=0, simt=0)
+    k1.launches_by_route.update(tc=0, tc_f32=0, simt=0)
 
 
 def _check_ppft_routes(k1, launches):
     """The score model's streamed bf16 launches take the tensor-core route,
     the control net's in-kernel f32 launches the CUDA-core design."""
     routes = dict(k1.launches_by_route)
-    if routes != {"tc": launches["pa"], "simt": launches["w_pb"]}:
+    if routes != {"tc": launches["pa"], "tc_f32": 0, "simt": launches["w_pb"]}:
         raise AssertionError(f"PPFT launches by route {routes} do not follow their variants {launches}")
     return routes
 
@@ -1448,10 +1507,10 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
 
     t_all = time.perf_counter()
-    k1, tc_ptxas = phase_build()
-    k1_results = phase_kernel(k1, tc_ptxas)
+    k1, ptxas = phase_build()
+    k1_results = phase_kernel(k1, ptxas)
     phase_score_eval()
-    bundle, sample_launches, _ = phase_main_path(k1, card)
+    bundle, sample_launches, f32_sample_launches = phase_main_path(k1, card)
     phase_profile(bundle)
     del bundle
     grad_results = phase_kernel_grad(k1)
@@ -1467,6 +1526,7 @@ def main() -> int:
 
     main_case = k1_results[K1_CASES[0][:3]]
     ppft_case = k1_results[(256, 56, "bfloat16")]
+    f32_case, f32_ppft, f32_train = (k1_results[(B, L, "float32")] for B, L in ((40, 100), (256, 56), (16, 100)))
     bwd_case = grad_results[K1_GRAD_CASES[0][:3]]
     sp_case = slab_results[SLAB_CASES[0]]
     h4_case = inkernel[(PPFT_BATCH, 56, 4, "float32", False)]
@@ -1521,6 +1581,37 @@ def main() -> int:
         "backward_plain_ms": bwd_case["plain_ms"],
         "backward_bound_ms": bwd_case["bound_ms"],
         "backward_bound_by": bwd_case["bound_by"],
+    }, {
+        # f32, 32 heads, streamed pa (every CLI's default dtype): the f32
+        # tensor-core design; prev_ms is the CUDA-core design on the same inputs.
+        "name": "ipa_attention_f32",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_tc_f32.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
+        # The f32 batch of the sampling path (phase 4).
+        "launches": f32_sample_launches,
+        "max_abs_err": f32_case["max_abs_err"],
+        "ms": f32_case["ms"],
+        "plain_ms": f32_case["plain_ms"],
+        "bound_ms": f32_case["bound_ms"],
+        "bound_by": f32_case["bound_by"],
+        "library_ms": None,
+        "verdict": "pass",
+        "design": f32_case["design"],
+        "prev_source": "se3diff_torch/csrc/ipa_attention.cu",
+        "prev_ms": f32_case["prev_ms"],
+        "max_abs_err_vs_prev": f32_case["err_vs_prev"],
+        # The PPFT score model's shape at the finetune CLI's default f32.
+        "B256_L56_ms": f32_ppft["ms"],
+        "B256_L56_prev_ms": f32_ppft["prev_ms"],
+        "B256_L56_bound_ms": f32_ppft["bound_ms"],
+        "B256_L56_plain_ms": f32_ppft["plain_ms"],
+        "B256_L56_max_abs_err": f32_ppft["max_abs_err"],
+        # The train forward's shape at the train CLI's default f32.
+        "B16_L100_ms": f32_train["ms"],
+        "B16_L100_prev_ms": f32_train["prev_ms"],
+        "B16_L100_bound_ms": f32_train["bound_ms"],
+        "B16_L100_max_abs_err": f32_train["max_abs_err"],
     }, {
         "name": "sp_ipa_attention",
         "route": "cuda",

@@ -28,15 +28,18 @@ device of its operands alone: CPU tensors go through
 kernel or raise. The card takes the widths in :data:`CARD_WIDTHS` (4, 8,
 16 or 32 heads of width 16, ``Cp <= 256``, ``Cp % 4 == 0``);
 :func:`check_card_widths` holds a model config against them before a model
-is bound to the card. Two kernel designs, both built with ``nvcc`` for
+is bound to the card. Three kernel designs, all built with ``nvcc`` for
 ``sm_90a`` at first use into one library bound through ``ctypes``, and a
 static rule on the widths (:func:`kernel_route`) picks one:
 
 - ``"tc"`` (``csrc/ipa_attention_tc.cu``): bf16, 32 heads, the streamed
   pair bias and ``Cp % 32 == 0``, the score model's bf16 launches: x2d and
   pa tiles staged by ``cp.async``, the x2d aggregate on tensor cores;
-- ``"simt"`` (``csrc/ipa_attention.cu``): every other card width, f32, and
-  the in-kernel pair bias, on CUDA-core FMAs.
+- ``"tc_f32"`` (``csrc/ipa_attention_tc_f32.cu``): the same widths in f32,
+  the score model's launches at every CLI's default dtype: f32 tiles staged
+  by ``cp.async``, the x2d aggregate on 3xTF32 ``mma.sync`` (f32 accuracy);
+- ``"simt"`` (``csrc/ipa_attention.cu``): every other card width and the
+  in-kernel pair bias, on CUDA-core FMAs.
 
 Nothing falls back at run time. Its backward is
 :func:`ipa_attention_backward` on both devices: the JAX package's backward
@@ -66,6 +69,7 @@ __all__ = [
     "ipa_attention_plain",
     "sp_ipa_attention",
     "build_library",
+    "library_path",
     "CARD_WIDTHS",
     "check_card_widths",
     "kernel_route",
@@ -86,14 +90,15 @@ NVCC_FLAGS = (
 # tensor) takes every width, as the JAX package does.
 CARD_WIDTHS = {"heads": (4, 8, 16, 32), "head_dim": 16, "max_cp": 256, "cp_multiple": 4}
 # The kernel design each route launches, by C symbol.
-_ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "simt": "ipa_attention_fwd"}
+_ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "tc_f32": "ipa_attention_tc_f32_fwd",
+                  "simt": "ipa_attention_fwd"}
 
 # Forward kernel launches made through ipa_attention (plain-version calls and
 # backward passes do not count), in all, by variant ("pa" streams the pair
 # bias, "w_pb" computes it in the kernel) and by route (see kernel_route).
 launches = 0
 launches_by_variant = {"pa": 0, "w_pb": 0}
-launches_by_route = {"tc": 0, "simt": 0}
+launches_by_route = dict.fromkeys(_ROUTE_SYMBOLS, 0)
 # Backward passes of ipa_attention run by autograd, on either device (direct
 # calls of ipa_attention_backward do not count).
 backward_calls = 0
@@ -130,15 +135,15 @@ def check_card_widths(model_cfg, device) -> None:
 
 
 def kernel_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -> str:
-    """The kernel design that CUDA operands of these widths launch: ``"tc"``
-    for bf16, 32 heads, the streamed pair bias and ``Cp % 32 == 0``;
-    ``"simt"`` for every other width in :data:`CARD_WIDTHS`. Raises
-    ``ValueError`` for widths neither takes."""
+    """The kernel design that CUDA operands of these widths launch: for 32
+    heads, the streamed pair bias and ``Cp % 32 == 0``, ``"tc"`` in bf16 and
+    ``"tc_f32"`` in f32; ``"simt"`` for every other width in
+    :data:`CARD_WIDTHS`. Raises ``ValueError`` for widths none takes."""
     err = _widths_error(H, dk, cp)
     if err is not None:
         raise ValueError(err)
-    if dtype == torch.bfloat16 and H == 32 and has_pa and cp % 32 == 0:
-        return "tc"
+    if H == 32 and has_pa and cp % 32 == 0:
+        return "tc" if dtype == torch.bfloat16 else "tc_f32"
     return "simt"
 
 
@@ -152,17 +157,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the IPA attention kernel cannot be built")
 
 
-def build_library() -> tuple[Path, str]:
-    """Compile every ``csrc/*.cu`` into one library in ``_build/`` unless a
-    library of the same sources is already there: one ``nvcc`` a source, all
-    started together, then one link. Returns ``(path, compiler log)``; the
-    log holds ptxas's register, shared-memory and spill report after a fresh
-    build."""
-    sources = sorted(CSRC.glob("*.cu"))
+def library_path() -> Path:
+    """Where :func:`build_library` puts the library: named by a digest of
+    the flags, every ``csrc/*.cu`` and every header beside them
+    (``*.cuh``, ``*.h``), so an edit to any of them builds anew."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h")):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    out = BUILD_DIR / f"libipa_attention_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libipa_attention_{digest.hexdigest()[:16]}.so"
+
+
+def build_library() -> tuple[Path, str]:
+    """Compile every ``csrc/*.cu`` into one library at :func:`library_path`
+    unless it is already there: one ``nvcc`` a source, all started together,
+    then one link. Returns ``(path, compiler log)``; the log holds ptxas's
+    register, shared-memory and spill report after a fresh build."""
+    sources = sorted(CSRC.glob("*.cu"))
+    out = library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -206,6 +217,8 @@ def _library() -> ctypes.CDLL:
             lib.ipa_attention_takes_heads.argtypes = [ci]
             lib.ipa_attention_takes_heads.restype = ci
             lib.ipa_attention_head_dim.restype = ci
+            lib.ipa_attention_tc_f32_smem_bytes.argtypes = [ci]
+            lib.ipa_attention_tc_f32_smem_bytes.restype = ci
             _lib = lib
         return _lib
 
@@ -300,8 +313,10 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scal
     if design is not None and design != route and design != "simt":
         raise ValueError(f"the {design!r} design does not take these widths (route {route!r})")
     counted, design = design is None, design or route
-    if design == "tc" and pa.data_ptr() % 16:
-        raise ValueError("the tensor-core design needs a 16-byte aligned pa")
+    if design in ("tc", "tc_f32") and pa.data_ptr() % 16:
+        raise ValueError("the tensor-core designs need a 16-byte aligned pa")
+    if design == "tc_f32" and w_pv.data_ptr() % 16:
+        raise ValueError("the f32 tensor-core design needs a 16-byte aligned w_pv")
     lib = _library()
     if not lib.ipa_attention_takes_heads(H) or dk != lib.ipa_attention_head_dim():
         raise ValueError(_widths_error(H, dk, Cp) or f"the library does not take H={H}, dk={dk}")
@@ -334,9 +349,9 @@ def _launch_design(design: str, q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, p
                    w_pb=None, *, scalar_w: float, pair_w: float):
     """Launch the named kernel design on CUDA operands whatever
     :func:`kernel_route` picks (``"simt"`` takes every card width, ``"tc"``
-    its own), counting nothing: the yardstick that ``chip_smoke.py`` and the
-    card tests time and compare beside the route's design. No model path
-    calls it."""
+    and ``"tc_f32"`` their own), counting nothing: the yardstick that
+    ``chip_smoke.py`` and the card tests time and compare beside the
+    route's design. No model path calls it."""
     if design not in _ROUTE_SYMBOLS:
         raise ValueError(f"design must be one of {sorted(_ROUTE_SYMBOLS)}, got {design!r}")
     return _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb,

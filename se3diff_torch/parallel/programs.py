@@ -48,7 +48,7 @@ def sp_score(
     ``score_from_cache`` at ``(pos, rot, t)``. ``weights`` is a state dict,
     or a seed for :func:`~se3diff_torch.models.dig.init_weights`. Returns
     the full ``pos``/``rot`` outputs, the rank's row slab, and its K1
-    launches."""
+    launches, in all and by route."""
     k1.check_card_widths(model_cfg, ctx.device)
     model = DiGConditionalScoreModel(**model_cfg, dtype=getattr(torch, dtype), sp=ctx)
     if isinstance(weights, int):
@@ -57,7 +57,7 @@ def sp_score(
         model.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()}, strict=True)
     model.to(ctx.device).eval()
     pos, rot, t, single, pair, *mask = (torch.as_tensor(x).to(ctx.device) for x in inputs)
-    launches = k1.launches
+    launches, routes = k1.launches, dict(k1.launches_by_route)
     with torch.inference_mode():
         cache = model.embed_conditioning(single, pair, *mask)
         out = model.score_from_cache(pos, rot, t, cache)
@@ -65,7 +65,12 @@ def sp_score(
     return {
         "pos": out[0].float().cpu().numpy(), "rot": out[1].float().cpu().numpy(),
         "rows": ctx.rows(pos.shape[1]), "launches": k1.launches - launches,
+        "launches_by_route": _routes_since(routes),
     }
+
+
+def _routes_since(before: dict[str, int]) -> dict[str, int]:
+    return {k: n - before[k] for k, n in k1.launches_by_route.items()}
 
 
 def sp_sample(
@@ -98,8 +103,11 @@ def sp_sample(
 def dp_sample(
     ctx: RankContext, bundle_kwargs: dict, single: np.ndarray, pair: np.ndarray,
     batch: int, seed: int,
-) -> dict[str, np.ndarray]:
+) -> dict[str, Any]:
     """One DP batch (``parallel.sample.sample_batch_sharded``) from a bundle
-    ``random_bundle(**bundle_kwargs)`` on the rank's device."""
+    ``random_bundle(**bundle_kwargs)`` on the rank's device, with the rank's
+    K1 launches by route in it."""
     bundle = random_bundle(**bundle_kwargs, device=ctx.device)
-    return sample_batch_sharded(bundle, ctx, single, pair, batch, seed)
+    routes = dict(k1.launches_by_route)
+    out = sample_batch_sharded(bundle, ctx, single, pair, batch, seed)
+    return {**out, "launches_by_route": _routes_since(routes)}

@@ -1,15 +1,17 @@
 """The IPA attention kernels on the card, against their plain version, at 32
 heads (the score model, Cp=256), 4 heads (the PPFT control net, Cp=32) and 8
 and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
-(``w_pb``); and the tensor-core design (bf16, 32 heads, streamed ``pa``)
-against the plain version and against the CUDA-core design on the same inputs.
+(``w_pb``); and the tensor-core designs (32 heads, streamed ``pa``: route
+"tc" in bf16, "tc_f32" in f32) against the plain version and against the
+CUDA-core design on the same inputs.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip. They
 import neither JAX nor the JAX package, so a machine with only PyTorch runs
 them with ``python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py``.
 
 Tolerances, relative to max|plain| (at least 1): f32 2e-4 (same products,
-summed in another order across online-softmax tiles); bf16 3e-2 (outputs
+summed in another order across online-softmax tiles; "tc_f32" carries each
+x2d and w_pv product to about 2^-22 of it by 3xTF32); bf16 3e-2 (outputs
 round to bf16 at 2^-8, and the kernel rounds the tile's unnormalised
 probabilities where the plain version rounds normalised ones).
 """
@@ -26,7 +28,7 @@ NAMES = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa", 
 # (heads, Cp, pair-bias variant)
 SHAPES = [(32, 256, "pa"), (32, 256, "w_pb"), (4, 32, "pa"), (4, 32, "w_pb"),
           (8, 64, "pa"), (8, 64, "w_pb"), (16, 128, "pa"), (16, 128, "w_pb")]
-# Shapes of the tensor-core route: the ragged cases above, an SP slab of 150
+# Shapes of the tensor-core routes: the ragged cases above, an SP slab of 150
 # rows of 300 columns, and the PPFT score model's batch.
 TC_CASES = [(3, 37, 37, 5), (2, 5, 70, 0), (1, 1, 1, 0), (2, 33, 33, 33), (4, 150, 300, 0),
             (256, 56, 56, 0)]
@@ -107,24 +109,40 @@ def test_gradients_on_the_card_match_autograd_of_plain(cuda_device, dtype, tol, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route,tol", [(torch.bfloat16, "tc", 3e-2),
+                                             (torch.float32, "tc_f32", 2e-4)])
 @pytest.mark.parametrize("CP", [256, 96, 32])
 @pytest.mark.parametrize("B,Lq,Lk,masked", TC_CASES)
-def test_tensor_core_route_matches_plain_and_the_cuda_core_design(cuda_device, B, Lq, Lk, masked, CP):
-    """bf16, 32 heads, streamed pa: ipa_attention launches the tensor-core
-    design; within 3e-2 x max|plain| of the plain version and of the CUDA-core
-    design (``_launch_design("simt")``) on the same inputs."""
-    args = _args(cuda_device, B, Lq, Lk, torch.bfloat16, masked, CP=CP)
+def test_tensor_core_route_matches_plain_and_the_cuda_core_design(cuda_device, B, Lq, Lk, masked, CP,
+                                                                  dtype, route, tol):
+    """32 heads, streamed pa: ipa_attention launches the tensor-core design
+    of the dtype ("tc" for bf16, "tc_f32" for f32); within ``tol`` x
+    max|plain| of the plain version and of the CUDA-core design
+    (``_launch_design("simt")``) on the same inputs."""
+    args = _args(cuda_device, B, Lq, Lk, dtype, masked, CP=CP)
     before = dict(k1.launches_by_route)
     got = k1.ipa_attention(*args, **KW)
     prev = k1._launch_design("simt", *args, **KW)
     torch.cuda.synchronize()
-    assert k1.launches_by_route == {**before, "tc": before["tc"] + 1}
+    assert k1.launches_by_route == {**before, route: before[route] + 1}
     want = k1.ipa_attention_plain(*args, **KW)
     for g, p, w in zip(got, prev, want):
         assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
         scale = max(1.0, w.float().abs().max().item())
-        assert (g.float() - w.float()).abs().max().item() <= 3e-2 * scale
-        assert (g.float() - p.float()).abs().max().item() <= 3e-2 * scale
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+        assert (g.float() - p.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_f32_design_uses_the_shared_memory_its_source_states(cuda_device):
+    """The library's layout at Cp=256 is the total the source's header
+    states (held within Hopper's 232,448 bytes by the route tests)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(k1.__file__).resolve().parents[1] / "csrc" / "ipa_attention_tc_f32.cu").read_text()
+    stated = int(re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes", src).group(1).replace(",", ""))
+    assert k1._library().ipa_attention_tc_f32_smem_bytes(256) == stated
 
 
 @pytest.mark.cuda

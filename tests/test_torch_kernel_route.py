@@ -32,7 +32,12 @@ REFUSED = [dict(dim_model=32, dim_pair=32, num_heads=4), dict(dim_model=192, dim
     (BF16, 32, 16, 96, True, "tc"),
     (BF16, 32, 16, 32, True, "tc"),
     (BF16, 32, 16, 36, True, "simt"),    # Cp not a multiple of 32
-    (F32, 32, 16, 256, True, "simt"),    # f32 keeps the CUDA-core design (no TF32)
+    (F32, 32, 16, 256, True, "tc_f32"),  # the score model in f32, every CLI's default
+    (F32, 32, 16, 128, True, "tc_f32"),
+    (F32, 32, 16, 96, True, "tc_f32"),
+    (F32, 32, 16, 32, True, "tc_f32"),
+    (F32, 32, 16, 36, True, "simt"),     # Cp not a multiple of 32
+    (F32, 32, 16, 256, False, "simt"),   # the in-kernel pair bias
     (BF16, 32, 16, 256, False, "simt"),  # the in-kernel pair bias
     (F32, 4, 16, 32, False, "simt"),     # the PPFT control net
     (BF16, 4, 16, 32, True, "simt"),
@@ -65,10 +70,31 @@ def test_card_widths_name_what_the_cuda_sources_instantiate():
     takes = {int(h) for h in re.findall(r"H == (\d+)", takes[:takes.index("}")])}
     assert cases == takes == set(k1.CARD_WIDTHS["heads"])
     tc = (CSRC / "ipa_attention_tc.cu").read_text()
-    for text in (src, tc):
+    tc_f32 = (CSRC / "ipa_attention_tc_f32.cu").read_text()
+    for text in (src, tc, tc_f32):
         assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in text
         assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in text
-    assert "constexpr int kH = 32;" in tc
+    for text in (tc, tc_f32):
+        assert "constexpr int kH = 32;" in text
+    # The f32 design states its shared memory at Cp=256, within what a block
+    # may opt into on Hopper (232,448 bytes).
+    stated = re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes", tc_f32)
+    assert stated is not None
+    assert int(stated.group(1).replace(",", "")) <= 232_448
+
+
+def test_every_route_names_an_entry_the_cuda_sources_define():
+    """Each route's C symbol is a 25-argument entry of one ``csrc/*.cu``,
+    and the launch counts hold one entry a route."""
+    sources = {p.name: p.read_text() for p in CSRC.glob("*.cu")}
+    for route, symbol in k1._ROUTE_SYMBOLS.items():
+        defined = [name for name, text in sources.items() if re.search(rf"\bint {symbol}\(", text)]
+        assert len(defined) == 1, (route, symbol, defined)
+        text = sources[defined[0]]
+        signature = text[text.index(f"int {symbol}("):]
+        assert signature[:signature.index(")")].count(",") == 24
+    assert set(k1.launches_by_route) == set(k1._ROUTE_SYMBOLS) == {"tc", "tc_f32", "simt"}
+    assert k1._ROUTE_SYMBOLS["tc_f32"] == "ipa_attention_tc_f32_fwd"
 
 
 def test_check_card_widths():
@@ -142,3 +168,44 @@ def test_launch_design_refuses_what_it_does_not_take():
         k1._launch_design("wgmma", *args, **kw)
     with pytest.raises(ValueError, match="does not take these widths"):
         k1._launch_design("tc", *args, **kw)
+    # The f32 tensor-core design refuses bf16 operands at its own widths.
+    H, cp = 32, 32
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)
+    args = (bf(B, H, L, dk), bf(B, H, L, dk), bf(B, H, L, dk), z(B, 3, H * 4, L), z(B, 3, H * 4, L),
+            z(B, H, L, 24), bf(B, L, L, cp), bf(H, cp, dk), z(B, L), bf(B, H, L, L))
+    assert k1.kernel_route(torch.bfloat16, H, dk, cp, True) == "tc"
+    with pytest.raises(ValueError, match="'tc_f32' design does not take these widths"):
+        k1._launch_design("tc_f32", *args, **kw)
+    # At its widths it needs 16-byte aligned pa and w_pv (views 4 bytes in).
+    f32 = [a.float() for a in args]
+    shifted = lambda t: torch.zeros(t.numel() + 1)[1:].view(t.shape)
+    for i, name in ((9, "pa"), (7, "w_pv")):
+        bad = list(f32)
+        bad[i] = shifted(f32[i])
+        assert bad[i].is_contiguous() and bad[i].data_ptr() % 16
+        with pytest.raises(ValueError, match=f"16-byte aligned {name}"):
+            k1._launch_design("tc_f32", *bad, **kw)
+
+
+def test_library_name_follows_every_source_and_header(tmp_path, monkeypatch):
+    """The library's name is a digest of the flags, the ``.cu`` sources and
+    the headers beside them, computed before any build: an edit to a header
+    a source includes names a new library, so a stale one is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("constexpr int kH = 32;\n")
+    (csrc / "notes.txt").write_text("not a source")
+    monkeypatch.setattr(k1, "CSRC", csrc)
+    monkeypatch.setattr(k1, "BUILD_DIR", tmp_path / "_build")
+    first = k1.library_path()
+    assert first.parent == tmp_path / "_build" and first.name.startswith("libipa_attention_")
+    (csrc / "notes.txt").write_text("other text")
+    assert k1.library_path() == first
+    (csrc / "common.cuh").write_text("constexpr int kH = 16;\n")
+    second = k1.library_path()
+    assert second != first
+    (csrc / "common.h").write_text("// a plain header\n")
+    assert k1.library_path() not in (first, second)
+    (csrc / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert k1.library_path() != second
