@@ -8,7 +8,8 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 
 1. device and build: the card's name and power limit; build the IPA
    attention kernels from ``se3diff_torch/csrc`` with nvcc, one process a
-   source (time, ptxas report);
+   source (time, ptxas report: registers, spills and shared memory of the
+   "tc", "tc_f32" and "h4" kernels);
 2. the kernel against its plain PyTorch version on the card, at the main
    path's shape (B=40, L=100, 32 heads of 16, Cp=256, streamed pair bias) in
    bf16 and f32, at a ragged L=77 with masked columns, and at the PPFT score
@@ -71,7 +72,9 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    L=100, 32 heads, Cp=256, bf16 and f32), at the PPFT control net's width
    (B=256, L=56, 4 heads, Cp=32, f32) and ragged and masked at L=57; the
    streamed variant at 4 heads, and at 8 and 16 heads (bf16 and f32);
-   in-kernel row slabs at 4 heads; the
+   in-kernel row slabs at 4 heads; every 4-head in-kernel f32 case and
+   slab takes the "h4" design, timed in turns with the CUDA-core design
+   ("simt", ``prev_ms``) on the same inputs, with its error against it; the
    Function's gradients with ``w_pb`` against autograd of the plain version;
 12. ``[ppft]``: ``python -m se3diff_torch.finetune``'s main on the card at
    bioemu-v1.0 widths (score model seed 0, bf16; near-zero 2-layer d64
@@ -79,12 +82,13 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    embeddings, heun_finetune cut to batch 64 and 25 steps, 1 epoch: finite
    losses and gradients, moved control-net weights, checkpoints and
    history.json, K1 launches by variant and by route (streamed "tc",
-   in-kernel "simt") and backward passes as counted;
+   in-kernel "h4") and backward passes as counted;
 13. ``[ppft-step]``: one PPFT step at ``bench.py --finetune``'s shape (L=56,
    path batch 256, heun_finetune 100 steps): path generation, replay
    gradient and step seconds, ``finetune_steps_per_hour_L56_B256_heun100``,
-   peak memory, K1 launches by variant, and the device's busy share from a
-   profile of a step cut to 10 heun steps;
+   peak memory, K1 launches by variant and by route, and the device's busy
+   share from a profile of a step cut to 10 heun steps, with the score
+   model's and the control net's K1 time;
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -138,10 +142,12 @@ DP_TOL = 2e-4
 # K1 with the pair bias computed in the kernel (has_pa=False), and K1 at the
 # control net's 4 heads: (B, L, heads, Cp, dtype, masked columns, in-kernel).
 # (a) full width, (b) the control net's width at the PPFT path's batch, (c)
-# ragged and masked; then the streamed variant at 4 heads.
+# ragged and masked, (d) at the PPFT CLI run's path batch of 64 and at the
+# "h4" design's largest Cp; then the streamed variant at 4 heads.
 INKERNEL_CASES = [(40, 100, 32, 256, "bfloat16", 0, True), (40, 100, 32, 256, "float32", 0, True),
                   (256, 56, 4, 32, "float32", 0, True), (40, 57, 32, 256, "bfloat16", 5, True),
-                  (256, 57, 4, 32, "float32", 5, True), (256, 56, 4, 32, "float32", 0, False),
+                  (256, 57, 4, 32, "float32", 5, True), (64, 56, 4, 32, "float32", 0, True),
+                  (256, 56, 4, 64, "float32", 0, True), (256, 56, 4, 32, "float32", 0, False),
                   (256, 57, 4, 32, "float32", 5, False),
                   (40, 100, 8, 256, "bfloat16", 0, False), (40, 100, 8, 256, "float32", 0, False),
                   (40, 77, 16, 256, "bfloat16", 9, False), (40, 77, 16, 256, "float32", 9, False)]
@@ -170,12 +176,20 @@ def log(msg: str) -> None:
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
+    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events. A
+    spin kernel holds the stream while the calls are enqueued, so a call
+    shorter than the host's time to launch it is timed back to back on the
+    device, not at the host's launch rate."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0  # the host's time to enqueue one call
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((1.5 * reps * host_s + 1e-3) * 2e9))  # cycles at up to 2 GHz
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -252,11 +266,37 @@ def phase_build():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"[build] ptxas: {line.strip()}")
-    smem = k1._library().ipa_attention_tc_f32_smem_bytes(256)
+    lib = k1._library()
     ptxas = {"tc": ptxas_summary(report, "ipa_attention_tc_kernel"),
              "tc_f32": ptxas_summary(report, "ipa_attention_tc_f32_kernel")
-             + f"; dynamic shared memory {smem} bytes at Cp=256"}
+             + f"; dynamic shared memory {lib.ipa_attention_tc_f32_smem_bytes(256)} bytes at Cp=256",
+             # Two instantiations: Cp <= 32 (every path) and Cp <= 64.
+             "h4": f"Cp <= 32: {ptxas_summary(report, 'ipa_attention_h4_kernelILi32E')}; dynamic "
+                   f"shared memory {lib.ipa_attention_h4_smem_bytes(32)} bytes at Cp=32 | Cp <= 64: "
+                   f"{ptxas_summary(report, 'ipa_attention_h4_kernelILi64E')}"}
+    for route in ("tc_f32", "h4"):
+        log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
+
+
+def _timed_with_simt(k1, launch, args, kw, route, ptxas):
+    """The route's launch ``launch()`` and the CUDA-core design on the same
+    inputs: a non-"simt" route is timed in turns with ``simt`` (route,
+    simt, route, simt). Returns the result keys and the log's detail."""
+    if route == "simt":
+        ms = cuda_time_ms(launch, reps=20)
+        return dict(ms=ms, design=route), f"route {route} ms={ms:.4f}"
+
+    def prev():
+        return k1._launch_design("simt", *args, **kw)
+
+    prev_err = max_err(launch(), prev())[0]
+    times = [cuda_time_ms(fn, reps=20) for fn in (launch, prev) * 2]
+    ms, prev_ms = (times[0] + times[2]) / 2, (times[1] + times[3]) / 2
+    return dict(ms=ms, prev_ms=prev_ms, err_vs_prev=prev_err, design=route), (
+        f"route {route} ms={ms:.4f} ({times[0]:.4f}, {times[2]:.4f}) prev_ms={prev_ms:.4f} "
+        f"({times[1]:.4f}, {times[3]:.4f}; the CUDA-core design, {prev_ms / ms:.2f}x) "
+        f"max_abs_err vs the CUDA-core design {prev_err:.3e}; ptxas ({route}): {ptxas[route]}")
 
 
 def phase_kernel(k1, ptxas):
@@ -279,26 +319,9 @@ def phase_kernel(k1, ptxas):
         tol = TOL[dname] * scale
         plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **kw), reps=5)
         bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
-        res = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   design=route)
-        if route != "simt":
-            # The CUDA-core design on the same inputs, timed in turns with the route's.
-            def prev():
-                return k1._launch_design("simt", *args, **kw)
-
-            prev_err = max_err(got, prev())[0]
-            times = [cuda_time_ms(fn, reps=20) for fn in
-                     (lambda: k1.ipa_attention(*args, **kw), prev) * 2]
-            ms, prev_ms = (times[0] + times[2]) / 2, (times[1] + times[3]) / 2
-            res.update(ms=ms, prev_ms=prev_ms, err_vs_prev=prev_err)
-            detail = (f"route {route} ms={ms:.4f} ({times[0]:.4f}, {times[2]:.4f}) prev_ms="
-                      f"{prev_ms:.4f} ({times[1]:.4f}, {times[3]:.4f}; the CUDA-core design, "
-                      f"{prev_ms / ms:.2f}x) max_abs_err vs the CUDA-core design {prev_err:.3e}; "
-                      f"ptxas ({route}): {ptxas[route]}")
-        else:
-            ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **kw), reps=20)
-            res.update(ms=ms)
-            detail = f"route {route} ms={ms:.4f}"
+        res, detail = _timed_with_simt(k1, lambda: k1.ipa_attention(*args, **kw), args, kw, route,
+                                       ptxas)
+        res.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         log(
             f"[k1] B={B} L={L} {dname} masked_cols={masked}: max_abs_err={err:.3e} "
             f"(tol {tol:.3e}) {detail} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
@@ -419,7 +442,7 @@ def phase_main_path(k1, card):
         f"in {wall:.3f} s = {MAIN_SAMPLES / wall * 3600:.1f} structures/hr; "
         f"{handler.lines[-1]}; ipa_attention launches {launches} (expected {expect}), by route "
         f"{routes}; {card}")
-    if launches != expect or routes != {"tc": expect, "tc_f32": 0, "simt": 0}:
+    if launches != expect or routes != {"tc": expect, "tc_f32": 0, "h4": 0, "simt": 0}:
         raise AssertionError(f"ipa_attention launched {launches} times ({routes}), expected "
                              f"{expect}, all on the tensor-core route")
     if not (out / "topology.pdb").exists():
@@ -474,7 +497,7 @@ def _main_path_f32(k1, card, bf16_wall):
         f"in f32): {wall:.3f} s = {MAIN_BATCH / wall * 3600:.1f} structures/hr (bf16 run above: "
         f"{MAIN_SAMPLES / bf16_wall * 3600:.1f}); ipa_attention launches {launches} (expected "
         f"{expect}), by route {routes}; {card}")
-    if launches != expect or routes != {"tc": 0, "tc_f32": expect, "simt": 0}:
+    if launches != expect or routes != {"tc": 0, "tc_f32": expect, "h4": 0, "simt": 0}:
         raise AssertionError(f"f32 sampling launched K1 {launches} times ({routes}), expected "
                              f"{expect}, all on the f32 tensor-core route")
     files = sorted(out.glob("batch_*.npz"))
@@ -750,7 +773,7 @@ def phase_train_path(k1, card):
         f"(expected {N_LAYERS * TRAIN_STEPS} each, every launch on the tensor-core route); {card}")
     if launches != N_LAYERS * TRAIN_STEPS or backwards != N_LAYERS * TRAIN_STEPS:
         raise AssertionError(f"training launched K1 {launches} times and ran {backwards} backwards")
-    if routes != {"tc": launches, "tc_f32": 0, "simt": 0}:
+    if routes != {"tc": launches, "tc_f32": 0, "h4": 0, "simt": 0}:
         raise AssertionError(f"bf16 training launches left the tensor-core route: {routes}")
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite training loss")
@@ -1089,7 +1112,7 @@ def phase_parallel(k1, card):
             log(f"[sp-score] {dname} full width B={SP_BATCH} L={L} rank {r} rows {out['rows']}: "
                 f"vs one process max_abs_err={err:.3e} (tol {tol * scale:.3e}); K1 launches "
                 f"{out['launches']} (expected {N_LAYERS}), by route {out['launches_by_route']}")
-            want_routes = {"tc": 0, "tc_f32": 0, "simt": 0, route: N_LAYERS}
+            want_routes = {"tc": 0, "tc_f32": 0, "h4": 0, "simt": 0, route: N_LAYERS}
             if not err <= tol * scale or out["launches"] != N_LAYERS \
                     or out["launches_by_route"] != want_routes:
                 raise AssertionError(f"SP score evaluation ({dname}, rank {r}) is wrong")
@@ -1106,7 +1129,7 @@ def phase_parallel(k1, card):
             f"{peak}; K1 launches {run['launches']} (expected {expect}; on this path every "
             f"one is a slab launch of sp_ipa_attention), by route {run['launches_by_route']}")
         if run["launches"] != expect or run["launches_by_route"] != {"tc": expect, "tc_f32": 0,
-                                                                     "simt": 0}:
+                                                                     "h4": 0, "simt": 0}:
             raise AssertionError(f"rank {run['rank']} launched K1 {run['launches']} times "
                                  f"({run['launches_by_route']})")
     log(f"[sp-main] one process, same run: {one_wall:.3f} s = "
@@ -1143,17 +1166,18 @@ def phase_parallel(k1, card):
         if not replay_err <= 1e-6 or not err <= DP_TOL:
             raise AssertionError("DP rows differ from the single-device rows")
         dp_launches = N_LAYERS * DP_DENOISER["num_steps"]
-        if routes != {"tc": 0, "tc_f32": dp_launches, "simt": 0}:
+        if routes != {"tc": 0, "tc_f32": dp_launches, "h4": 0, "simt": 0}:
             raise AssertionError(f"DP rank {r} launched K1 {routes}, expected {dp_launches} "
                                  "on the f32 tensor-core route")
     return [run["launches"] for run in sp_runs]
 
 
-def phase_inkernel(k1):
+def phase_inkernel(k1, ptxas):
     """K1 with the pair bias computed in the kernel (has_pa=False) and K1 at
     the control net's 4 heads, against the plain version; row slabs of the
-    in-kernel variant at 4 heads; the Function's gradients with ``w_pb``
-    against autograd of the plain version. Returns per-case results."""
+    in-kernel variant at 4 heads; the "h4" route timed in turns with the
+    CUDA-core design; the Function's gradients with ``w_pb`` against
+    autograd of the plain version. Returns per-case results."""
     import torch
 
     from se3diff_torch.parallel.mesh import row_slabs
@@ -1162,52 +1186,63 @@ def phase_inkernel(k1):
     kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
     results = {}
     for B, L, H, cp, dname, masked, in_kernel in INKERNEL_CASES:
-        args = k1_inputs(B, L, getattr(torch, dname), gen, masked, H=H, cp=cp, in_kernel=in_kernel)
+        dtype = getattr(torch, dname)
+        args = k1_inputs(B, L, dtype, gen, masked, H=H, cp=cp, in_kernel=in_kernel)
         variant = "w_pb" if in_kernel else "pa"
-        before = k1.launches_by_variant[variant]
+        route = k1.kernel_route(dtype, H, 16, cp, not in_kernel)
+        before, by_route = k1.launches_by_variant[variant], k1.launches_by_route[route]
         got = k1.ipa_attention(*args, **kw)
         torch.cuda.synchronize()
-        if k1.launches_by_variant[variant] != before + 1:
-            raise AssertionError(f"ipa_attention ({variant}) on CUDA tensors did not launch")
+        if k1.launches_by_variant[variant] != before + 1 or k1.launches_by_route[route] != by_route + 1:
+            raise AssertionError(f"ipa_attention ({variant}) on CUDA tensors did not launch the "
+                                 f"{route!r} design")
+        if (H, dname, in_kernel) == (4, "float32", True) and route != "h4":
+            raise AssertionError(f"the control net's width took route {route!r}, not 'h4'")
         want = k1.ipa_attention_plain(*args, **kw)
         err, scale = max_err(got, want)
         tol = TOL[dname] * scale
-        ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **kw), reps=20)
+        res, detail = _timed_with_simt(k1, lambda: k1.ipa_attention(*args, **kw), args, kw, route,
+                                       ptxas)
         plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **kw), reps=5)
         bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
         log(f"[k1-inkernel] {'has_pa=False' if in_kernel else 'has_pa=True'} B={B} L={L} H={H} "
             f"Cp={cp} {dname} masked_cols={masked}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+            f"{detail} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
             f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) library_ms=null (no single PyTorch "
             "call computes this function)")
         if not err <= tol:
             raise AssertionError(f"kernel disagrees with its plain version: {err} > {tol}")
-        results[(B, L, H, dname, in_kernel)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        results[(B, L, H, cp, dname, in_kernel)] = dict(
+            max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, **res)
         del args, got, want
 
     # Row slabs (sp_ipa_attention with pa=None) at the control net's width.
     B, L, H, cp = PPFT_BATCH, 56, 4, 32
     args = k1_inputs(B, L, torch.float32, gen, 0, H=H, cp=cp, in_kernel=True)
     want = k1.ipa_attention_plain(*args, **kw)
-    got, slab_ms = [], []
+    got, slabs = [], []
     for r0, r1 in row_slabs(L, 2):
         slab = list(args)
         slab[0], slab[3], slab[6] = (args[0][:, :, r0:r1].contiguous(), args[3][..., r0:r1].contiguous(),
                                      args[6][:, r0:r1].contiguous())
+        before = k1.launches_by_route["h4"]
         got.append(k1.sp_ipa_attention((r0, r1), *slab, **kw))
-        slab_ms.append(cuda_time_ms(lambda: k1.sp_ipa_attention((r0, r1), *slab, **kw), reps=20))
-        slab_bound = k1_bound(slab, got[-1], "float32")[0]
-        slab_plain = cuda_time_ms(lambda: k1.ipa_attention_plain(*slab, **kw), reps=5)
+        if k1.launches_by_route["h4"] != before + 1:
+            raise AssertionError("an in-kernel 4-head slab did not launch the 'h4' design")
+        res, detail = _timed_with_simt(
+            k1, lambda: k1.sp_ipa_attention((r0, r1), *slab, **kw), slab, kw, "h4", ptxas)
+        res.update(bound_ms=k1_bound(slab, got[-1], "float32")[0],
+                   plain_ms=cuda_time_ms(lambda: k1.ipa_attention_plain(*slab, **kw), reps=5))
+        log(f"[k1-inkernel] sp_ipa_attention has_pa=False B={B} L={L} H={H} f32, slab rows "
+            f"{r0}:{r1}: {detail} bound_ms={res['bound_ms']:.4f} plain_ms={res['plain_ms']:.4f}")
+        slabs.append(res)
     got = [torch.cat([o[i] for o in got], dim=2) for i in range(3)]
     err, scale = max_err(got, want)
     log(f"[k1-inkernel] sp_ipa_attention has_pa=False B={B} L={L} H={H} f32, 2 slabs: "
-        f"max_abs_err={err:.3e} (tol {TOL['float32'] * scale:.3e}); per slab launch ms="
-        + "/".join(f"{t:.4f}" for t in slab_ms) + f" bound_ms={slab_bound:.4f} "
-        f"plain_ms={slab_plain:.4f}")
+        f"max_abs_err={err:.3e} (tol {TOL['float32'] * scale:.3e})")
     if not err <= TOL["float32"] * scale:
         raise AssertionError("in-kernel slab launches disagree with the plain version")
-    results["sp_h4"] = dict(max_abs_err=err, ms=slab_ms[0], plain_ms=slab_plain, bound_ms=slab_bound)
+    results["sp_h4"] = dict(max_abs_err=err, **slabs[0])
     del args, want, got
 
     names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa", "w_pb")
@@ -1296,14 +1331,14 @@ def phase_ppft_files():
 def _reset_k1(k1):
     k1.launches = k1.backward_calls = 0
     k1.launches_by_variant.update(pa=0, w_pb=0)
-    k1.launches_by_route.update(tc=0, tc_f32=0, simt=0)
+    k1.launches_by_route.update(tc=0, tc_f32=0, h4=0, simt=0)
 
 
 def _check_ppft_routes(k1, launches):
     """The score model's streamed bf16 launches take the tensor-core route,
-    the control net's in-kernel f32 launches the CUDA-core design."""
+    the control net's in-kernel f32 launches at 4 heads the "h4" design."""
     routes = dict(k1.launches_by_route)
-    if routes != {"tc": launches["pa"], "tc_f32": 0, "simt": launches["w_pb"]}:
+    if routes != {"tc": launches["pa"], "tc_f32": 0, "h4": launches["w_pb"], "simt": 0}:
         raise AssertionError(f"PPFT launches by route {routes} do not follow their variants {launches}")
     return routes
 
@@ -1468,17 +1503,18 @@ def phase_ppft_step(k1, files, card):
     if not total > 0:
         raise AssertionError("the profiler recorded no device time for the PPFT step")
     k1_split = {"tc": sum(t for k, t, _ in kernels if "ipa_attention_tc_kernel" in k),
-                "h4": sum(t for k, t, _ in kernels if "ipa_attention_kernel" in k and ", 4, false" in k)}
+                "h4": sum(t for k, t, _ in kernels if "ipa_attention_h4_kernel" in k)}
     wall_ms = (t_path_c + t_grad_c) * 1e3
     log(f"[ppft-step] profile of a step cut to heun {cut} steps: device kernel time {total:.1f} ms "
         f"in {sum(n for _, _, n in kernels)} kernels against an unprofiled wall of {wall_ms:.1f} ms, "
         f"so the device is busy {100 * total / wall_ms:.1f}%; K1 score model (32 heads, streamed, "
-        f"tensor-core design) {k1_split['tc']:.1f} ms, K1 control net (4 heads, in-kernel) "
-        f"{k1_split['h4']:.1f} ms")
+        f"tensor-core design) {k1_split['tc']:.1f} ms, K1 control net (4 heads, in-kernel, "
+        f"h4 design) {k1_split['h4']:.1f} ms")
     for key, t, n in kernels[:10]:
         log(f"[ppft-profile]   {t:9.2f} ms {100 * t / total:5.1f}%  x{n:<6d} {key[:90]}")
     log(f"[ppft-step] finetune_steps_per_hour_L{L}_B{PPFT_BATCH}_heun{PPFT_STEPS} = {value:.1f}")
-    return dict(value=value, launches=launches, backwards=backwards, busy=total / wall_ms)
+    return dict(value=value, launches=launches, backwards=backwards, busy=total / wall_ms,
+                control_net_k1_ms=k1_split["h4"])
 
 
 def main() -> int:
@@ -1519,7 +1555,7 @@ def main() -> int:
     phase_train_throughput(k1, card)
     slab_results = phase_sp_kernel(k1)
     sp_rank_launches = phase_parallel(k1, card)
-    inkernel = phase_inkernel(k1)
+    inkernel = phase_inkernel(k1, ptxas)
     files = phase_ppft_files()
     ppft_launches, ppft_backwards = phase_ppft_cli(k1, files, card)
     step = phase_ppft_step(k1, files, card)
@@ -1529,9 +1565,10 @@ def main() -> int:
     f32_case, f32_ppft, f32_train = (k1_results[(B, L, "float32")] for B, L in ((40, 100), (256, 56), (16, 100)))
     bwd_case = grad_results[K1_GRAD_CASES[0][:3]]
     sp_case = slab_results[SLAB_CASES[0]]
-    h4_case = inkernel[(PPFT_BATCH, 56, 4, "float32", False)]
-    ft_case = inkernel[(PPFT_BATCH, 56, 4, "float32", True)]
-    ft32_case = inkernel[(40, 100, 32, "bfloat16", True)]
+    h4_case = inkernel[(PPFT_BATCH, 56, 4, 32, "float32", False)]
+    ft_case = inkernel[(PPFT_BATCH, 56, 4, 32, "float32", True)]
+    ft57_case = inkernel[(PPFT_BATCH, 57, 4, 32, "float32", True)]
+    ft32_case = inkernel[(40, 100, 32, 256, "bfloat16", True)]
     ft_bwd = inkernel[("grad",) + INKERNEL_GRAD_CASES[0][:3] + INKERNEL_GRAD_CASES[0][4:5]]
     log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}, PPFT "
         f"CLI {ppft_launches}, PPFT step {step['launches']}; backward passes: training path "
@@ -1635,10 +1672,11 @@ def main() -> int:
         "h4_ms": inkernel["sp_h4"]["ms"],
         "h4_plain_ms": inkernel["sp_h4"]["plain_ms"],
         "h4_bound_ms": inkernel["sp_h4"]["bound_ms"],
+        "h4_prev_ms": inkernel["sp_h4"]["prev_ms"],
     }, {
         "name": "ipa_attention_in_kernel_pair_bias",
         "route": "cuda",
-        "source": "se3diff_torch/csrc/ipa_attention.cu",
+        "source": "se3diff_torch/csrc/ipa_attention_h4.cu",
         "replaces": "se3diff_tpu/ops/pallas_ipa.py:399",
         # has_pa=False launches of the PPFT CLI run (control net: recording
         # and replay).
@@ -1652,7 +1690,20 @@ def main() -> int:
         "bound_by": ft_case["bound_by"],
         "library_ms": None,
         "verdict": "pass",
-        # Full width: B=40, L=100, 32 heads, Cp=256, bf16.
+        # f32, 4 heads, in-kernel pa: the h4 design; prev_ms is the CUDA-core
+        # design (its source, prev_source) on the same inputs, timed in turns.
+        "design": ft_case["design"],
+        "prev_source": "se3diff_torch/csrc/ipa_attention.cu",
+        "prev_ms": ft_case["prev_ms"],
+        "max_abs_err_vs_prev": ft_case["err_vs_prev"],
+        # L=57 with 5 masked columns, the same widths.
+        "L57_masked_ms": ft57_case["ms"],
+        "L57_masked_prev_ms": ft57_case["prev_ms"],
+        "L57_masked_bound_ms": ft57_case["bound_ms"],
+        "L57_masked_max_abs_err": ft57_case["max_abs_err"],
+        # The control net's K1 device time in the PPFT step's 10-step profile.
+        "ppft_profile_ms": step["control_net_k1_ms"],
+        # Full width (simt): B=40, L=100, 32 heads, Cp=256, bf16.
         "h32_max_abs_err": ft32_case["max_abs_err"],
         "h32_ms": ft32_case["ms"],
         "h32_plain_ms": ft32_case["plain_ms"],

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of K1's tensor-core designs goes, by ablation, on one H100.
+"""Where the time of K1's hand-written designs goes, by ablation, on one H100.
 
-    python3 scripts/k1_ablation.py [tc] [tc_f32]
+    python3 scripts/k1_ablation.py [tc] [tc_f32] [h4]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
-CUDA build of PyTorch. For each design named (both by default: "tc",
+CUDA build of PyTorch. For each design named (all by default: "tc",
 ``se3diff_torch/csrc/ipa_attention_tc.cu``, bf16; "tc_f32",
-``se3diff_torch/csrc/ipa_attention_tc_f32.cu``, f32) it compiles the source
-as it is and in variants that each cut one part of the work (a loop made
-empty, a copy not issued), one nvcc process a variant, all started
-together, and times every variant with CUDA events at the PPFT score
-model's and the sampling path's shapes (32 heads, Cp=256, the design's
-dtype). A variant's outputs are wrong by construction: only its time is
+``se3diff_torch/csrc/ipa_attention_tc_f32.cu``, f32; "h4",
+``se3diff_torch/csrc/ipa_attention_h4.cu``, f32, the in-kernel pair bias)
+it compiles the source as it is and in variants that each cut one part of
+the work (a loop made empty, a copy not issued), one nvcc process a
+variant, all started together, and times every variant with CUDA events
+at the design's widths and the shapes of the paths that launch it (the
+tensor-core designs: 32 heads, Cp=256, the sampling path's and the PPFT
+score model's shapes; "h4": 4 heads, Cp=32, the PPFT control net's B=256
+L=56 and a batch of 64). A variant's outputs are wrong by construction: only its time is
 read, as the share of the full kernel's time that the part it cuts costs.
 Prints one line a variant with ptxas's register and spill report, then the
 card's name and power limit. Outputs go to ``.work/k1_ablation/`` (listed
@@ -30,7 +33,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "se3diff_torch" / "csrc"
 OUT = REPO / ".work" / "k1_ablation"
-SHAPES = [(40, 100), (256, 56)]  # (B, L): sampling, the PPFT score model
 
 _PHASE_A = ("    for (int hh = 0; hh < kHeadsPerWarp; ++hh) {\n      const int h = warp + kWarps * hh;\n"
             "      const size_t bh = (size_t)b * kH + h;\n      float s[kTI];")
@@ -63,15 +65,40 @@ CUTS = {
         "pa_copy": [("for (int e = tid; e < kTI * kH * kPaChunks; e += kThreads) {",
                      "for (int e = tid; e < 0; e += kThreads) {")],
     },
+    "h4": {
+        "logits": [("    for (int jj = 0; jj < kTJ; ++jj) {\n      float part[kH]",
+                    "    for (int jj = 0; jj < 0; ++jj) {\n      float part[kH]")],
+        "pair_bias": [("      for (int k = 0; k < kNC; ++k) {\n        const int c4 = g + kTPR * k;\n        xv[jj][k]",
+                       "      for (int k = 0; k < 0; ++k) {\n        const int c4 = g + kTPR * k;\n        xv[jj][k]")],
+        "points": [("      for (int k = 0; k < 2; ++k) {\n        const float4 kp = kp4",
+                    "      for (int k = 0; k < 0; ++k) {\n        const float4 kp = kp4")],
+        "rescale": [("if (!__all_sync(0xffffffffu, corr == 1.f)) {", "if (false) {")],
+        "x2d_sums": [("      for (int k = 0; k < kNC; ++k) {\n        const float4 x = xv[jj][k];",
+                      "      for (int k = 0; k < 0; ++k) {\n        const float4 x = xv[jj][k];")],
+        "value_sums": [("      for (int c = 0; c < kVQ; ++c) {\n        av[0][c]", "      for (int c = 0; c < 0; ++c) {\n        av[0][c]")],
+        "projection": [("for (int c = 0; c < Cp; ++c) {\n      const float x = xh[c];",
+                        "for (int c = 0; c < 0; ++c) {\n      const float x = xh[c];")],
+        "x2d_copy": [("  for (int k = 0; k < kMaxC / 8; ++k) {", "  for (int k = 0; k < 0; ++k) {")],
+        "key_copy": [("for (int e = tid; e < kH * kKC * 4; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
+                     ("for (int e = tid; e < kH * kKC * 6; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
+                     ("for (int e = tid; e < 3 * kH * kNpts * kKC; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
+                     ("for (int j = tid; j < kKC; j += nthr) {", "for (int j = tid; j < 0; j += nthr) {")],
+    },
 }
-DESIGNS = {  # source, C symbol, dtype name
-    "tc": ("ipa_attention_tc.cu", "ipa_attention_tc_fwd", "bfloat16"),
-    "tc_f32": ("ipa_attention_tc_f32.cu", "ipa_attention_tc_f32_fwd", "float32"),
+DESIGNS = {  # source, C symbol, dtype name, heads, Cp, has_pa, shapes (B, L)
+    "tc": ("ipa_attention_tc.cu", "ipa_attention_tc_fwd", "bfloat16", 32, 256, True,
+           [(40, 100), (256, 56)]),
+    "tc_f32": ("ipa_attention_tc_f32.cu", "ipa_attention_tc_f32_fwd", "float32", 32, 256, True,
+               [(40, 100), (256, 56)]),
+    "h4": ("ipa_attention_h4.cu", "ipa_attention_h4_fwd", "float32", 4, 32, False,
+           [(256, 56), (64, 56)]),
 }
 
 
 def variants(design: str) -> dict[str, list[tuple[str, str]]]:
     cuts = CUTS[design]
+    if design == "h4":
+        return {"full": [], **{f"no_{k}": v for k, v in cuts.items()}}
     proj = "finalize_mma" if design == "tc" else "projection"
     return {"full": [], **{f"no_{k}": v for k, v in cuts.items()},
             f"no_phase_a_no_{proj}": cuts["phase_a"] + cuts[proj]}
@@ -118,14 +145,19 @@ def main(argv: list[str]) -> int:
     kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for design in designs:
-        dt = getattr(torch, DESIGNS[design][2])
+        _, symbol, dname, H, cp, has_pa, shapes = DESIGNS[design]
+        dt = getattr(torch, dname)
         inputs = {}
-        for B, L in SHAPES:
+        for B, L in shapes:
             g = lambda *s, scale=1.0: torch.randn(s, generator=gen, device="cuda") * scale
-            inputs[(B, L)] = [g(B, 32, L, 16).to(dt), g(B, 32, L, 16).to(dt), g(B, 32, L, 16).to(dt),
-                              g(B, 3, 128, L, scale=0.3), g(B, 3, 128, L, scale=0.3), g(B, 32, L, 24),
-                              g(B, L, L, 256, scale=0.5).to(dt), g(32, 256, 16, scale=0.06).to(dt),
-                              torch.zeros(B, L, device="cuda"), g(B, 32, L, L).to(dt)]
+            # The pair bias streamed (pa, w_pb None) or computed in the kernel (w_pb).
+            inputs[(B, L)] = [g(B, H, L, 16).to(dt), g(B, H, L, 16).to(dt), g(B, H, L, 16).to(dt),
+                              g(B, 3, 4 * H, L, scale=0.3), g(B, 3, 4 * H, L, scale=0.3),
+                              g(B, H, L, 24), g(B, L, L, cp, scale=0.5).to(dt),
+                              g(H, cp, 16, scale=0.06 * (256 / cp) ** 0.5).to(dt),
+                              torch.zeros(B, L, device="cuda"),
+                              g(B, H, L, L).to(dt) if has_pa else None,
+                              None if has_pa else g(cp, H, scale=cp**-0.5)]
         full = {}
         for d, name, lib, report in built:
             if d != design:
@@ -133,17 +165,18 @@ def main(argv: list[str]) -> int:
             if lib is None:
                 print(f"[ablation] {design} {name}: build failed: {report}")
                 return 1
-            fn = getattr(ctypes.CDLL(str(lib)), DESIGNS[design][1])
+            fn = getattr(ctypes.CDLL(str(lib)), symbol)
             fn.argtypes, fn.restype = [vp] * 14 + [ci] * 8 + [cf, cf, vp], ci
             times = []
-            for B, L in SHAPES:
+            for B, L in shapes:
                 a = inputs[(B, L)]
-                outs = (torch.empty_like(a[0]), torch.empty(B, 32, L, 24, device="cuda"),
+                outs = (torch.empty_like(a[0]), torch.empty(B, H, L, 24, device="cuda"),
                         torch.empty_like(a[0]))
 
                 def run():
-                    err = fn(*(t.data_ptr() for t in a), None, *(t.data_ptr() for t in outs),
-                             B, 32, L, L, 16, 256, int(dt == torch.bfloat16), 1, kw["scalar_w"],
+                    err = fn(*(None if t is None else t.data_ptr() for t in a),
+                             *(t.data_ptr() for t in outs), B, H, L, L, 16, cp,
+                             int(dt == torch.bfloat16), int(has_pa), kw["scalar_w"],
                              kw["pair_w"], torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{design} {name}: launch failed ({err})")
@@ -158,10 +191,10 @@ def main(argv: list[str]) -> int:
                 end.record()
                 torch.cuda.synchronize()
                 times.append(start.elapsed_time(end) / 20)
-            full = full or dict(zip(SHAPES, times))
+            full = full or dict(zip(shapes, times))
             print(f"[ablation] {design:7s}{name:28s}" + "  ".join(
                 f"B={B} L={L} {t:.4f} ms ({100 * (full[(B, L)] - t) / full[(B, L)]:+.1f}% cut)"
-                for (B, L), t in zip(SHAPES, times)) + f" | {report}", flush=True)
+                for (B, L), t in zip(shapes, times)) + f" | {report}", flush=True)
         del inputs
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()

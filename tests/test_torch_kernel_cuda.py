@@ -2,8 +2,9 @@
 heads (the score model, Cp=256), 4 heads (the PPFT control net, Cp=32) and 8
 and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
 (``w_pb``); and the tensor-core designs (32 heads, streamed ``pa``: route
-"tc" in bf16, "tc_f32" in f32) against the plain version and against the
-CUDA-core design on the same inputs.
+"tc" in bf16, "tc_f32" in f32) and the 4-head in-kernel design (route "h4":
+f32, ``w_pb``, the PPFT control net) against the plain version and against
+the CUDA-core design on the same inputs.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip. They
 import neither JAX nor the JAX package, so a machine with only PyTorch runs
@@ -11,7 +12,8 @@ them with ``python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.p
 
 Tolerances, relative to max|plain| (at least 1): f32 2e-4 (same products,
 summed in another order across online-softmax tiles; "tc_f32" carries each
-x2d and w_pv product to about 2^-22 of it by 3xTF32); bf16 3e-2 (outputs
+x2d and w_pv product to about 2^-22 of it by 3xTF32, "h4" sums in f32 on
+CUDA cores); bf16 3e-2 (outputs
 round to bf16 at 2^-8, and the kernel rounds the tile's unnormalised
 probabilities where the plain version rounds normalised ones).
 """
@@ -32,6 +34,11 @@ SHAPES = [(32, 256, "pa"), (32, 256, "w_pb"), (4, 32, "pa"), (4, 32, "w_pb"),
 # rows of 300 columns, and the PPFT score model's batch.
 TC_CASES = [(3, 37, 37, 5), (2, 5, 70, 0), (1, 1, 1, 0), (2, 33, 33, 33), (4, 150, 300, 0),
             (256, 56, 56, 0)]
+# Shapes of the "h4" route: the control net's batch on all rows, a smaller
+# batch, L=57 with masked columns (ragged row and column tiles), a 28-row
+# slab of 56 columns, and the ragged cases of the other routes.
+H4_CASES = [(256, 56, 56, 0), (64, 56, 56, 0), (256, 57, 57, 5), (256, 28, 56, 0), (3, 37, 37, 5),
+            (2, 5, 70, 0), (1, 1, 1, 0), (2, 33, 100, 0)]
 
 
 @pytest.fixture
@@ -131,6 +138,41 @@ def test_tensor_core_route_matches_plain_and_the_cuda_core_design(cuda_device, B
         scale = max(1.0, w.float().abs().max().item())
         assert (g.float() - w.float()).abs().max().item() <= tol * scale
         assert (g.float() - p.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("CP", [32, 4, 64])
+@pytest.mark.parametrize("B,Lq,Lk,masked", H4_CASES)
+def test_h4_route_matches_plain_and_the_cuda_core_design(cuda_device, B, Lq, Lk, masked, CP):
+    """f32, 4 heads, in-kernel pair bias: ipa_attention launches the "h4"
+    design; within 2e-4 x max|plain| of the plain version and of the
+    CUDA-core design (``_launch_design("simt")``) on the same inputs."""
+    tol = 2e-4
+    args = _args(cuda_device, B, Lq, Lk, torch.float32, masked, H=4, CP=CP, variant="w_pb")
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **KW)
+    prev = k1._launch_design("simt", *args, **KW)
+    torch.cuda.synchronize()
+    assert k1.launches_by_route == {**before, "h4": before["h4"] + 1}
+    want = k1.ipa_attention_plain(*args, **KW)
+    for g, p, w in zip(got, prev, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+        scale = max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+        assert (g.float() - p.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_h4_design_uses_the_shared_memory_its_source_states(cuda_device):
+    """The library's h4 layout at Cp = 32 and at its largest Cp is what the
+    source's header states."""
+    import re
+    from pathlib import Path
+
+    src = (Path(k1.__file__).resolve().parents[1] / "csrc" / "ipa_attention_h4.cu").read_text()
+    for cp in (32, k1.H4_MAX_CP):
+        stated = re.search(rf"Shared memory at Cp = {cp}: ([\d,]+) bytes", src).group(1)
+        assert k1._library().ipa_attention_h4_smem_bytes(cp) == int(stated.replace(",", ""))
 
 
 @pytest.mark.cuda

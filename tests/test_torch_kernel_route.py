@@ -39,7 +39,15 @@ REFUSED = [dict(dim_model=32, dim_pair=32, num_heads=4), dict(dim_model=192, dim
     (F32, 32, 16, 36, True, "simt"),     # Cp not a multiple of 32
     (F32, 32, 16, 256, False, "simt"),   # the in-kernel pair bias
     (BF16, 32, 16, 256, False, "simt"),  # the in-kernel pair bias
-    (F32, 4, 16, 32, False, "simt"),     # the PPFT control net
+    (F32, 4, 16, 32, False, "h4"),       # the PPFT control net
+    (F32, 4, 16, 4, False, "h4"),
+    (F32, 4, 16, 36, False, "h4"),
+    (F32, 4, 16, 64, False, "h4"),       # the h4 design's largest Cp
+    (F32, 4, 16, 68, False, "simt"),     # Cp above the h4 design's shared memory
+    (F32, 4, 16, 256, False, "simt"),
+    (BF16, 4, 16, 32, False, "simt"),    # bf16 at 4 heads
+    (F32, 4, 16, 32, True, "simt"),      # the streamed variant at 4 heads
+    (F32, 8, 16, 32, False, "simt"),     # 8 heads
     (BF16, 4, 16, 32, True, "simt"),
     (BF16, 8, 16, 64, True, "simt"),
     (F32, 16, 16, 128, False, "simt"),
@@ -93,8 +101,38 @@ def test_every_route_names_an_entry_the_cuda_sources_define():
         text = sources[defined[0]]
         signature = text[text.index(f"int {symbol}("):]
         assert signature[:signature.index(")")].count(",") == 24
-    assert set(k1.launches_by_route) == set(k1._ROUTE_SYMBOLS) == {"tc", "tc_f32", "simt"}
+    assert set(k1.launches_by_route) == set(k1._ROUTE_SYMBOLS) == {"tc", "tc_f32", "h4", "simt"}
     assert k1._ROUTE_SYMBOLS["tc_f32"] == "ipa_attention_tc_f32_fwd"
+    assert k1._ROUTE_SYMBOLS["h4"] == "ipa_attention_h4_fwd"
+
+
+def test_each_route_symbol_has_exactly_one_extern_c_definition():
+    """Every ``_ROUTE_SYMBOLS`` name is defined once across ``csrc/*.cu``,
+    inside an ``extern "C"`` block, so ctypes finds it unmangled."""
+    for symbol in k1._ROUTE_SYMBOLS.values():
+        found = []
+        for path in CSRC.glob("*.cu"):
+            text = path.read_text()
+            for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', text, re.S):
+                found += [path.name for _ in re.finditer(rf"\bint {symbol}\(", block)]
+        assert len(found) == 1, (symbol, found)
+
+
+def test_h4_cp_limit_is_the_sources_constant():
+    """``H4_MAX_CP`` is the h4 source's ``kMaxCp``; the source's stated
+    shared memory at that width fits what a block may opt into on Hopper,
+    and the route takes every Cp % 4 == 0 up to it and none above."""
+    src = (CSRC / "ipa_attention_h4.cu").read_text()
+    assert f"constexpr int kMaxCp = {k1.H4_MAX_CP};" in src
+    assert "constexpr int kH = 4;" in src
+    assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in src
+    stated = re.search(rf"Shared memory at Cp = {k1.H4_MAX_CP}: ([\d,]+) bytes", src)
+    assert stated is not None
+    assert int(stated.group(1).replace(",", "")) <= 232_448
+    assert k1.H4_MAX_CP >= 64
+    for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
+        want = "h4" if cp <= k1.H4_MAX_CP else "simt"
+        assert k1.kernel_route(F32, 4, 16, cp, False) == want, cp
 
 
 def test_check_card_widths():
@@ -168,6 +206,8 @@ def test_launch_design_refuses_what_it_does_not_take():
         k1._launch_design("wgmma", *args, **kw)
     with pytest.raises(ValueError, match="does not take these widths"):
         k1._launch_design("tc", *args, **kw)
+    with pytest.raises(ValueError, match="'h4' design does not take these widths"):
+        k1._launch_design("h4", *args, **kw)   # the streamed variant
     # The f32 tensor-core design refuses bf16 operands at its own widths.
     H, cp = 32, 32
     bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)
@@ -185,6 +225,17 @@ def test_launch_design_refuses_what_it_does_not_take():
         assert bad[i].is_contiguous() and bad[i].data_ptr() % 16
         with pytest.raises(ValueError, match=f"16-byte aligned {name}"):
             k1._launch_design("tc_f32", *bad, **kw)
+    # The h4 design needs 16-byte aligned q_s, v_s, v_p, w_pv and w_pb
+    # (16-byte loads and copies; x2d and k_s are checked for every design).
+    H, cp = 4, 32
+    args = [z(B, H, L, dk), z(B, H, L, dk), z(B, H, L, dk), z(B, 3, H * 4, L), z(B, 3, H * 4, L),
+            z(B, H, L, 24), z(B, L, L, cp), z(H, cp, dk), z(B, L), None, z(cp, H)]
+    assert k1.kernel_route(torch.float32, H, dk, cp, False) == "h4"
+    for i in (0, 2, 5, 7, 10):
+        bad = list(args)
+        bad[i] = shifted(args[i])
+        with pytest.raises(ValueError, match="h4 design needs 16-byte aligned q_s, v_s, v_p"):
+            k1._launch_design("h4", *bad, **kw)
 
 
 def test_library_name_follows_every_source_and_header(tmp_path, monkeypatch):
