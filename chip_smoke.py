@@ -89,6 +89,18 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    peak memory, K1 launches by variant and by route, and the device's busy
    share from a profile of a step cut to 10 heun steps, with the score
    model's and the control net's K1 time;
+14. ``[sample-cli]``: ``python -m se3diff_torch.sample``'s main with
+   ``--denoiser heun`` (100 steps, 2 evaluations a step) and ``--denoiser
+   euler_maruyama`` (200 steps, 1) for GYDPETGTWG x10 (L=100), one batch of
+   40, f32 (the CLI's default), the seed-0 bioemu-v1.0-width checkpoint of
+   phase 12, dummy embeddings: files written, finite coordinates, 1,600 K1
+   launches a run, all "tc_f32"; wall and structures/hr beside phase 4's f32
+   dpm_2m batch, the physicality filter's verdicts printed;
+15. ``[ppft-sde-dpm]``: phase 12's CLI run recording with
+   ``sde_dpm_solver_finetune`` at its 50 steps (2 evaluations a step), and
+   ``[ppft-sde-dpm-step]``: phase 13's step with it (800 streamed K1
+   launches on "tc", 400 in-kernel on "h4", 100 K1 backward passes; finite
+   path, loss and gradients), printed beside phase 13's heun step;
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -161,8 +173,16 @@ FT_LAYERS = FT_MODEL["num_layers"]
 # The CLI run is cut to fit the time: path batch 64 (of 256), heun 25 steps
 # (of 100), one epoch over 2 training mutants and 1 validation mutant.
 PPFT_CLI_BATCH, PPFT_CLI_STEPS = 64, 25
-# bench.py --finetune's shape: L=56, path batch 256, heun_finetune 100 steps.
-PPFT_BATCH, PPFT_STEPS = 256, 100
+# bench.py --finetune's shape: L=56, path batch 256 (each recorder at its
+# registry step count, RECORDERS).
+PPFT_BATCH = 256
+# Path recorders the PPFT phases drive: (registry step count, as in
+# config/denoiser/*_finetune.yaml; score-model and control-net evaluations a step).
+RECORDERS = {"heun_finetune": (100, 3), "sde_dpm_solver_finetune": (50, 2)}
+# Phase 14: the sample CLI with the stochastic samplers at their registry
+# step counts; evaluations per step: heun 2 (churned point and endpoint),
+# euler_maruyama 1.
+CLI_SAMPLERS = {"heun": (100, 2), "euler_maruyama": (200, 1)}
 ENSEMBLES = [
     ("tests/test_data/samples_example/md_emulation/cath1_1bl0A02.xtc",
      "tests/test_data/samples_example/md_emulation/cath1_1bl0A02.pdb"),
@@ -467,13 +487,13 @@ def phase_main_path(k1, card):
         kept += int(keep.sum())
     log(f"[main] outputs ok: finite coordinates; physicality filter on the card agrees with "
         f"numpy ({kept}/{MAIN_SAMPLES} frames physical with random weights)")
-    f32_launches = _main_path_f32(k1, card, wall)
-    return bundle, launches, f32_launches
+    f32_launches, f32_wall = _main_path_f32(k1, card, wall)
+    return bundle, launches, f32_launches, f32_wall
 
 
 def _main_path_f32(k1, card, bf16_wall):
     """One batch of the main path in f32, the sample CLI's default dtype:
-    every K1 launch on the "tc_f32" route. Returns its launches."""
+    every K1 launch on the "tc_f32" route. Returns its launches and wall."""
     import numpy as np
     import torch
 
@@ -508,7 +528,7 @@ def _main_path_f32(k1, card, bf16_wall):
     if pos.shape != (MAIN_BATCH, len(MAIN_SEQ), 3) or not (np.isfinite(pos).all() and np.isfinite(rot).all()):
         raise AssertionError(f"f32 sampling: bad shape {pos.shape} or non-finite coordinates")
     log("[main] f32 outputs ok: one batch file, finite coordinates")
-    return launches
+    return launches, wall
 
 
 def phase_profile(bundle):
@@ -1343,10 +1363,11 @@ def _check_ppft_routes(k1, launches):
     return routes
 
 
-def phase_ppft_cli(k1, files, card):
+def phase_ppft_cli(k1, files, card, denoiser="heun_finetune", steps=PPFT_CLI_STEPS):
     """``python -m se3diff_torch.finetune``'s main on the card at full widths,
-    cut in batch and steps. Returns K1's launches by variant and its
-    backward passes in the run."""
+    cut in batch (and, where ``steps`` is given, in steps), recording with
+    ``denoiser``. Returns K1's launches by variant and its backward passes in
+    the run."""
     import numpy as np
     import torch
     from unittest import mock
@@ -1374,8 +1395,9 @@ def phase_ppft_cli(k1, files, card):
         "--csv_path", str(files / "train.csv"), "--csv_path_val", str(files / "val.csv"),
         "--sequence_col", "seq", "--h_stars_cols", "f_dg_pred", "--h_stars_from_dg",
         "--ckpt_path", str(files / "score.npz"), "--model_config_path", str(files / "config.yaml"),
-        "--finetune_ckpt_path", str(files / "ft0.npz"), "--denoiser_type", "heun_finetune",
-        "--num_steps", str(PPFT_CLI_STEPS), "--batch_size", str(PPFT_CLI_BATCH), "--num_epochs", "1",
+        "--finetune_ckpt_path", str(files / "ft0.npz"), "--denoiser_type", denoiser,
+        *(["--num_steps", str(steps)] if steps else []),
+        "--batch_size", str(PPFT_CLI_BATCH), "--num_epochs", "1",
         "--output_dir", str(out), "--cache_embeds_dir", str(OUT / "embeds"), "--embeds_backend", "dummy",
         "--so3_cache_dir", str(OUT / "so3_cache"), "--dtype", "bfloat16", "--device", DEVICE,
     ]
@@ -1395,15 +1417,20 @@ def phase_ppft_cli(k1, files, card):
         n_params = len([k for k in a.files if a[k].size])
     model = dig.DiGConditionalScoreModel(**FT_MODEL)
     model.load_state_dict(trainer.load_finetune_params(out / "finetune_model.npz"), strict=True)
-    # Paths: validation at epochs 0 and 1 (1 mutant each) and 2 training paths.
+    # Paths: validation at epochs 0 and 1 (1 mutant each) and 2 training
+    # paths; the replay runs the control net twice a step (checkpoint).
     paths, train = 4, 2
-    expect = {"pa": paths * 3 * PPFT_CLI_STEPS * N_LAYERS,
-              "w_pb": paths * 3 * PPFT_CLI_STEPS * FT_LAYERS + train * 2 * PPFT_CLI_STEPS * FT_LAYERS}
-    expect_bwd = train * PPFT_CLI_STEPS * FT_LAYERS
-    log(f"[ppft] finetune CLI on the card: GRB2-SH3 (L=56) 2 training + 1 validation mutants, "
+    n = steps or RECORDERS[denoiser][0]
+    evals = RECORDERS[denoiser][1] * n
+    expect = {"pa": paths * evals * N_LAYERS,
+              "w_pb": paths * evals * FT_LAYERS + train * 2 * n * FT_LAYERS}
+    expect_bwd = train * n * FT_LAYERS
+    tag = "[ppft]" if denoiser == "heun_finetune" else "[ppft-sde-dpm]"
+    cut = f"{steps} steps (of 100)" if steps else f"its {n} steps"
+    log(f"{tag} finetune CLI on the card: GRB2-SH3 (L=56) 2 training + 1 validation mutants, "
         f"h*=sigmoid(-dG), FoldingStability on 2vwf_trimmed_SH3.pdb, bioemu-v1.0 score model "
-        f"(seed 0, bf16) + 2-layer d64 control net (near-zero, f32), heun_finetune; cut to path "
-        f"batch {PPFT_CLI_BATCH} (of 256), {PPFT_CLI_STEPS} steps (of 100), 1 epoch: {wall:.2f} s "
+        f"(seed 0, bf16) + 2-layer d64 control net (near-zero, f32), {denoiser}; cut to path "
+        f"batch {PPFT_CLI_BATCH} (of 256), {cut}, 1 epoch: {wall:.2f} s "
         f"with set-up; losses (train, val e0, val e1) {losses}; {len(moved)}/{n_params} control-net "
         f"tensors moved; K1 launches by variant {launches} (expected {expect}), by route "
         f"{routes}, K1 backward "
@@ -1421,11 +1448,13 @@ def phase_ppft_cli(k1, files, card):
     return launches, backwards
 
 
-def phase_ppft_step(k1, files, card):
-    """One PPFT step at bench.py --finetune's shape: path generation, replay
+def phase_ppft_step(k1, files, card, denoiser="heun_finetune", beside=None):
+    """One PPFT step at bench.py --finetune's shape, recording with
+    ``denoiser`` at its registry step count: path generation, replay
     gradient and AdamW update, timed, with launches by variant and peak
-    memory; then a profile of a step cut to 10 heun steps for the device's
-    busy share and the split of kernel time."""
+    memory; then a profile of a step cut to 10 steps for the device's busy
+    share and the split of kernel time. ``beside`` is an earlier step's
+    result of this run, printed beside this one."""
     from functools import partial
 
     import numpy as np
@@ -1437,7 +1466,7 @@ def phase_ppft_step(k1, files, card):
     L = 56
     bundle = trainer.load_finetune_bundle(
         files / "score.npz", model_config_path=files / "config.yaml",
-        finetune_ckpt_path=files / "ft0.npz", denoiser_type="heun_finetune",
+        finetune_ckpt_path=files / "ft0.npz", denoiser_type=denoiser,
         so3_cache_dir=str(OUT / "so3_cache"), dtype=torch.bfloat16, device=DEVICE,
     )
     rng = np.random.default_rng(0)  # bench.py --finetune's conditioning
@@ -1461,14 +1490,17 @@ def phase_ppft_step(k1, files, card):
         for name, p in model.named_parameters():
             p.grad = grads[name]
         opt.step()
-        opt.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
-        return t1 - t0, time.perf_counter() - t1, float(val), path
+        t2 = time.perf_counter()
+        finite_grads = all(bool(torch.isfinite(g).all()) for g in grads.values())
+        opt.zero_grad(set_to_none=True)
+        return t1 - t0, t2 - t1, float(val), path, finite_grads
 
     one_step(5, 0)  # warm-up: allocator, library loads
     _reset_k1(k1)
     torch.cuda.reset_peak_memory_stats()
-    t_path, t_grad, val, path = one_step(PPFT_STEPS, 1)
+    steps, per_step = RECORDERS[denoiser]
+    t_path, t_grad, val, path, finite_grads = one_step(steps, 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches, backwards = dict(k1.launches_by_variant), k1.backward_calls
     routes = _check_ppft_routes(k1, launches)
@@ -1477,20 +1509,26 @@ def phase_ppft_step(k1, files, card):
     del path
     step_s = t_path + t_grad
     value = 3600.0 / step_s
-    expect = {"pa": 3 * PPFT_STEPS * N_LAYERS, "w_pb": 3 * PPFT_STEPS * FT_LAYERS + 2 * PPFT_STEPS * FT_LAYERS}
-    log(f"[ppft-step] L={L} B={PPFT_BATCH} heun_finetune-{PPFT_STEPS}, score model bf16, control "
+    # The replay runs the control net twice a recorded step (checkpoint).
+    expect = {"pa": per_step * steps * N_LAYERS,
+              "w_pb": per_step * steps * FT_LAYERS + 2 * steps * FT_LAYERS}
+    tag = "[ppft-step]" if denoiser == "heun_finetune" else "[ppft-sde-dpm-step]"
+    metric = f"finetune_steps_per_hour_L{L}_B{PPFT_BATCH}_{denoiser.removesuffix('_finetune')}{steps}"
+    then = "" if beside is None else (
+        f" (beside {beside['denoiser']}-{beside['steps']} in this run: path {beside['t_path']:.3f} s, "
+        f"replay + update {beside['t_grad']:.3f} s, step {beside['t_path'] + beside['t_grad']:.3f} s)")
+    log(f"{tag} L={L} B={PPFT_BATCH} {denoiser}-{steps}, score model bf16, control "
         f"net f32: path generation {t_path:.3f} s, replay gradient + update {t_grad:.3f} s, step "
-        f"{step_s:.3f} s; val loss {val:.5f}; peak device memory {peak_gb:.2f} GB; K1 launches by "
-        f"variant {launches} (expected {expect}), by route {routes}, K1 backward passes "
-        f"{backwards} (expected "
-        f"{PPFT_STEPS * FT_LAYERS}); {card}")
-    if not finite or not np.isfinite(val):
-        raise AssertionError("non-finite PPFT path or loss")
-    if launches != expect or backwards != PPFT_STEPS * FT_LAYERS:
+        f"{step_s:.3f} s{then}; val loss {val:.5f}; peak device memory {peak_gb:.2f} GB; K1 "
+        f"launches by variant {launches} (expected {expect}), by route {routes}, K1 backward "
+        f"passes {backwards} (expected {steps * FT_LAYERS}); {card}")
+    if not finite or not finite_grads or not np.isfinite(val):
+        raise AssertionError("non-finite PPFT path, gradient or loss")
+    if launches != expect or backwards != steps * FT_LAYERS:
         raise AssertionError("PPFT step K1 launches or backward passes are not the expected counts")
 
     cut = 10
-    t_path_c, t_grad_c, _, _ = one_step(cut, 2)
+    t_path_c, t_grad_c, *_ = one_step(cut, 2)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         one_step(cut, 2)
     kernels = sorted(
@@ -1505,16 +1543,86 @@ def phase_ppft_step(k1, files, card):
     k1_split = {"tc": sum(t for k, t, _ in kernels if "ipa_attention_tc_kernel" in k),
                 "h4": sum(t for k, t, _ in kernels if "ipa_attention_h4_kernel" in k)}
     wall_ms = (t_path_c + t_grad_c) * 1e3
-    log(f"[ppft-step] profile of a step cut to heun {cut} steps: device kernel time {total:.1f} ms "
+    log(f"{tag} profile of a step cut to {cut} steps: device kernel time {total:.1f} ms "
         f"in {sum(n for _, _, n in kernels)} kernels against an unprofiled wall of {wall_ms:.1f} ms, "
         f"so the device is busy {100 * total / wall_ms:.1f}%; K1 score model (32 heads, streamed, "
         f"tensor-core design) {k1_split['tc']:.1f} ms, K1 control net (4 heads, in-kernel, "
         f"h4 design) {k1_split['h4']:.1f} ms")
     for key, t, n in kernels[:10]:
         log(f"[ppft-profile]   {t:9.2f} ms {100 * t / total:5.1f}%  x{n:<6d} {key[:90]}")
-    log(f"[ppft-step] finetune_steps_per_hour_L{L}_B{PPFT_BATCH}_heun{PPFT_STEPS} = {value:.1f}")
+    log(f"{tag} {metric} = {value:.1f}")
     return dict(value=value, launches=launches, backwards=backwards, busy=total / wall_ms,
-                control_net_k1_ms=k1_split["h4"])
+                control_net_k1_ms=k1_split["h4"], denoiser=denoiser, steps=steps, t_path=t_path,
+                t_grad=t_grad)
+
+
+def phase_sample_cli(k1, files, card, dpm_f32_wall):
+    """``python -m se3diff_torch.sample``'s main with each sampler of
+    ``CLI_SAMPLERS`` at its registry step count: L=100, one batch of 40, f32
+    (the CLI's default), the seed-0 bioemu-v1.0-width checkpoint and
+    production SO(3) tables of the PPFT phases, dummy embeddings. Every K1
+    launch on "tc_f32", finite coordinates; the physicality filter's verdicts
+    are printed, not asserted (random weights give unphysical frames).
+    Returns each sampler's launches and walls."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from se3diff_torch import sample as sample_cli
+    from se3diff_torch.struct.atoms import atom37_from_frames, atom37_mask
+    from se3diff_torch.struct.physics import filter_unphysical_masks_device
+    from se3diff_torch.struct.residues import sequence_to_aatype
+
+    handler = _Breakdown()
+    plog = logging.getLogger("se3diff_torch.sampling.pipeline")
+    plog.addHandler(handler)
+    plog.setLevel(logging.DEBUG)
+    aatype = sequence_to_aatype(MAIN_SEQ)
+    mask = atom37_mask(aatype)
+    results = {}
+    for name, (steps, per_step) in CLI_SAMPLERS.items():
+        out = OUT / f"cli_{name}"
+        shutil.rmtree(out, ignore_errors=True)
+        argv = [
+            "--sequence", MAIN_SEQ, "--num_samples", str(MAIN_BATCH), "--output_dir", str(out),
+            "--ckpt_path", str(files / "score.npz"), "--model_config_path", str(files / "config.yaml"),
+            "--denoiser", name, "--embeds_backend", "dummy", "--cache_embeds_dir", str(OUT / "embeds"),
+            "--so3_cache_dir", str(OUT / "so3_cache"), "--exact_batch_size", str(MAIN_BATCH),
+            "--no-filter_samples", "--device", DEVICE,
+        ]
+        _reset_k1(k1)
+        t0 = time.perf_counter()
+        sample_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, routes = k1.launches, dict(k1.launches_by_route)
+        loop_s = float(re.search(r"loop=([0-9.]+)s", handler.lines[-1]).group(1))
+        batches = sorted(out.glob("batch_*.npz"))
+        if len(batches) != 1 or not (out / "topology.pdb").exists():
+            raise AssertionError(f"--denoiser {name}: {len(batches)} batch files, expected 1, "
+                                 f"and a topology")
+        with np.load(batches[0]) as d:
+            pos, rot = d["pos"], d["node_orientations"]
+        if pos.shape != (MAIN_BATCH, len(MAIN_SEQ), 3) or not (np.isfinite(pos).all()
+                                                               and np.isfinite(rot).all()):
+            raise AssertionError(f"--denoiser {name}: bad shape {pos.shape} or non-finite coordinates")
+        atom37, _ = atom37_from_frames(torch.from_numpy(pos).to(DEVICE), torch.from_numpy(rot).to(DEVICE),
+                                       aatype)
+        kept = int(filter_unphysical_masks_device(atom37, mask).sum())
+        expect = N_LAYERS * steps * per_step
+        log(f"[sample-cli] sample CLI --denoiser {name} ({steps} steps, {steps * per_step} score "
+            f"evaluations): L={len(MAIN_SEQ)} f32, one batch of {MAIN_BATCH}: wall {wall:.3f} s with "
+            f"set-up, {handler.lines[-1]} = {MAIN_BATCH / loop_s * 3600:.1f} structures/hr on the "
+            f"loop (phase 4's f32 dpm_2m-{MAIN_STEPS} batch: {dpm_f32_wall:.3f} s = "
+            f"{MAIN_BATCH / dpm_f32_wall * 3600:.1f}); max |pos| {np.abs(pos).max():.1f} nm; "
+            f"physical frames {kept}/{MAIN_BATCH} (random weights); ipa_attention launches "
+            f"{launches} (expected {expect}), by route {routes}; {card}")
+        if launches != expect or routes != {"tc": 0, "tc_f32": expect, "h4": 0, "simt": 0}:
+            raise AssertionError(f"--denoiser {name} launched K1 {launches} times ({routes}), "
+                                 f"expected {expect}, all on the f32 tensor-core route")
+        results[name] = dict(launches=launches, wall=wall, loop_s=loop_s)
+    return results
 
 
 def main() -> int:
@@ -1546,7 +1654,7 @@ def main() -> int:
     k1, ptxas = phase_build()
     k1_results = phase_kernel(k1, ptxas)
     phase_score_eval()
-    bundle, sample_launches, f32_sample_launches = phase_main_path(k1, card)
+    bundle, sample_launches, f32_sample_launches, f32_wall = phase_main_path(k1, card)
     phase_profile(bundle)
     del bundle
     grad_results = phase_kernel_grad(k1)
@@ -1559,6 +1667,12 @@ def main() -> int:
     files = phase_ppft_files()
     ppft_launches, ppft_backwards = phase_ppft_cli(k1, files, card)
     step = phase_ppft_step(k1, files, card)
+    t_new = time.perf_counter()
+    cli = phase_sample_cli(k1, files, card, f32_wall)
+    sde_launches, sde_backwards = phase_ppft_cli(k1, files, card, "sde_dpm_solver_finetune", steps=None)
+    sde_step = phase_ppft_step(k1, files, card, "sde_dpm_solver_finetune", beside=step)
+    log(f"[done] phases 14-15 (the sample CLI with heun and euler_maruyama, PPFT with "
+        f"sde_dpm_solver_finetune) in {time.perf_counter() - t_new:.1f} s")
 
     main_case = k1_results[K1_CASES[0][:3]]
     ppft_case = k1_results[(256, 56, "bfloat16")]
@@ -1571,8 +1685,12 @@ def main() -> int:
     ft32_case = inkernel[(40, 100, 32, 256, "bfloat16", True)]
     ft_bwd = inkernel[("grad",) + INKERNEL_GRAD_CASES[0][:3] + INKERNEL_GRAD_CASES[0][4:5]]
     log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}, PPFT "
-        f"CLI {ppft_launches}, PPFT step {step['launches']}; backward passes: training path "
-        f"{train_backwards}, PPFT CLI {ppft_backwards}, PPFT step {step['backwards']}")
+        f"CLI {ppft_launches}, PPFT step {step['launches']}, sample CLI heun "
+        f"{cli['heun']['launches']} and euler_maruyama {cli['euler_maruyama']['launches']}, PPFT "
+        f"CLI sde_dpm {sde_launches}, PPFT step sde_dpm {sde_step['launches']}; backward passes: "
+        f"training path {train_backwards}, PPFT CLI {ppft_backwards}, PPFT step "
+        f"{step['backwards']}, PPFT CLI sde_dpm {sde_backwards}, PPFT step sde_dpm "
+        f"{sde_step['backwards']}")
     kernels = {"kernels": [{
         "name": "ipa_attention",
         "route": "cuda",
@@ -1598,8 +1716,11 @@ def main() -> int:
         "B256_L56_bound_ms": ppft_case["bound_ms"],
         "B256_L56_plain_ms": ppft_case["plain_ms"],
         "B256_L56_max_abs_err": ppft_case["max_abs_err"],
-        # Streamed launches of the PPFT CLI run's score model, counted apart.
+        # Streamed launches of the PPFT CLI run's score model, counted apart,
+        # and of the sde_dpm_solver_finetune CLI run and step (phase 15).
         "launches_ppft": ppft_launches["pa"],
+        "launches_ppft_sde_dpm": sde_launches["pa"],
+        "launches_ppft_sde_dpm_step": sde_step["launches"]["pa"],
         # At the control net's 4 heads: B=256, L=56, Cp=32, f32.
         "h4_max_abs_err": h4_case["max_abs_err"],
         "h4_ms": h4_case["ms"],
@@ -1625,8 +1746,11 @@ def main() -> int:
         "route": "cuda",
         "source": "se3diff_torch/csrc/ipa_attention_tc_f32.cu",
         "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
-        # The f32 batch of the sampling path (phase 4).
+        # The f32 batch of the sampling path (phase 4); the sample CLI's
+        # heun and euler_maruyama batches (phase 14).
         "launches": f32_sample_launches,
+        "launches_heun": cli["heun"]["launches"],
+        "launches_em": cli["euler_maruyama"]["launches"],
         "max_abs_err": f32_case["max_abs_err"],
         "ms": f32_case["ms"],
         "plain_ms": f32_case["plain_ms"],
@@ -1682,6 +1806,9 @@ def main() -> int:
         # and replay).
         "launches": ppft_launches["w_pb"],
         "launches_ppft_step": step["launches"]["w_pb"],
+        # The same with sde_dpm_solver_finetune (phase 15).
+        "launches_ppft_sde_dpm": sde_launches["w_pb"],
+        "launches_ppft_sde_dpm_step": sde_step["launches"]["w_pb"],
         # The control net's shape on the PPFT path: B=256, L=56, 4 heads, Cp=32, f32.
         "max_abs_err": ft_case["max_abs_err"],
         "ms": ft_case["ms"],
@@ -1712,6 +1839,8 @@ def main() -> int:
         "backward_source": "se3diff_torch/ops/ipa_attention.py",
         "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
         "backward_calls": ppft_backwards,
+        "backward_calls_ppft_sde_dpm": sde_backwards,
+        "backward_calls_ppft_sde_dpm_step": sde_step["backwards"],
         "backward_max_abs_err": ft_bwd["max_abs_err"],
         "backward_max_rel_err": ft_bwd["max_rel_err"],
         "backward_ms": ft_bwd["ms"],

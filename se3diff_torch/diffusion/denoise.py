@@ -1,13 +1,14 @@
-"""Reverse-diffusion samplers: DPM-Solver-2 and DPM-Solver++(2M), and the
-PPFT path recorders (Euler–Maruyama and Heun with a finetune control).
+"""Reverse-diffusion samplers (Euler–Maruyama, Heun, DPM-Solver-2,
+DPM-Solver++(2M)) and the PPFT path recorders (Euler–Maruyama, Heun and
+DPM-Solver-2 with a finetune control).
 
 Counterpart of ``se3diff_tpu/diffusion/denoise.py`` (reference
-`bioemu/src/bioemu/denoiser.py:206-777`). Each solver draws the prior and
-then runs a Python loop over the time grid; every step stays on the device
-of the prior's generator, with no host synchronisation inside the loop.
-The recorders draw their per-step standard normals from the same generator
-(positions, then rotations, each step); their private loops also take the
-draws as tensors, so tests can feed both packages the same noise.
+`bioemu/src/bioemu/denoiser.py:206-777`). Each public function draws the
+prior and then runs a private Python loop over the time grid; every step
+stays on the device of the prior's generator, with no host synchronisation
+inside the loop. The stochastic loops draw their per-step standard normals
+from the same generator (positions, then rotations, each step); they also
+take the draws as tensors, so tests can feed both packages the same noise.
 
 Model interface: ``model_fn(pos, rot, t) -> (pos_raw, rot_raw)`` with
 ``pos [B, L, 3]`` (nm), ``rot [B, L, 3, 3]``, ``t [B]``. ``pos_raw`` predicts
@@ -109,6 +110,167 @@ def _t_from_lambda(sde: CosineVPSDE, lambda_t: torch.Tensor) -> torch.Tensor:
     return 2.0 * (1.0 + sde.s) / math.pi * torch.arccos(torch.exp(f_lambda + log_c)) - sde.s
 
 
+# Noise of a stochastic loop: a generator (draws positions then rotations at
+# each step), the draws themselves, ``(z_pos [T, B, L, 3], z_rot [T, B, L, 3])``,
+# or a callable ``like -> z`` (see ``predictors.standard_normal``).
+StepNoise = torch.Generator | tuple[torch.Tensor, torch.Tensor] | Callable
+
+
+def _noise_at(draws: StepNoise, idx: int):
+    if isinstance(draws, tuple):
+        return draws[0][idx], draws[1][idx]
+    return draws, draws
+
+
+def euler_maruyama(
+    generator: torch.Generator,
+    sdes: SDEs,
+    model_fn: ModelFn,
+    batch: int,
+    length: int,
+    num_steps: int = 200,
+    max_t: float = 0.99,
+    min_t: float = 0.001,
+    noise_weight: float = 1.0,
+    marginal_concentration_factor: float = 1.0,
+    dtype=torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prior sample and ``num_steps`` reverse Euler–Maruyama steps, one model
+    evaluation each (denoiser.py:206-264)."""
+    pos, rot = _prior(generator, sdes, batch, length, dtype)
+    return _euler_maruyama_loop(
+        sdes, model_fn, pos, rot, generator, num_steps, max_t, min_t, noise_weight,
+        marginal_concentration_factor, dtype,
+    )
+
+
+def _euler_maruyama_loop(
+    sdes, model_fn, pos, rot, draws: StepNoise, num_steps, max_t, min_t, noise_weight,
+    marginal_concentration_factor, dtype,
+):
+    timesteps, dts = _timegrid(num_steps, max_t, min_t, dtype)
+    batch = pos.shape[0]
+    em_pos = EulerMaruyamaPredictor(sdes.pos, noise_weight, marginal_concentration_factor)
+    em_rot = EulerMaruyamaPredictor(
+        sdes.node_orientations, noise_weight, marginal_concentration_factor
+    )
+    for idx in range(num_steps):
+        t = torch.full((batch,), timesteps[idx], dtype=dtype, device=pos.device)
+        pos_score, rot_score = get_score(sdes, model_fn, pos, rot, t)
+        n_pos, n_rot = _noise_at(draws, idx)
+        pos = em_pos.update_given_score(n_pos, pos, t, dts[idx], pos_score)[0]
+        rot = em_rot.update_given_score(n_rot, rot, t, dts[idx], rot_score)[0]
+    return pos, rot
+
+
+def _heun_grid(num_steps: int, max_t: float, min_t: float, noise: float, dtype):
+    """The time grid and each step's ``(t, t_hat, t_next, dt)`` for Heun's
+    churn, as host scalars of the grid's numpy dtype, which is how the JAX
+    scan computes them: from the second step on (for ``0 < t < 1``) the state
+    is re-noised from ``t`` to ``t_hat = t - noise * dt``; step 0 has
+    ``t_hat = t``. The step then runs from ``t_hat`` to ``t_next = t + dt``."""
+    timesteps, dts = _timegrid(num_steps, max_t, min_t, dtype)
+    f = np.dtype(str(dtype).removeprefix("torch."))
+    steps = []
+    for idx in range(num_steps):
+        t, dt = f.type(timesteps[idx]), f.type(dts[idx])
+        churn = idx > 0 and 0.0 < t < 1.0
+        steps.append((t, t - f.type(noise) * dt if churn else t, t + dt, dt))
+    return timesteps, steps
+
+
+def heun(
+    generator: torch.Generator,
+    sdes: SDEs,
+    model_fn: ModelFn,
+    batch: int,
+    length: int,
+    num_steps: int = 100,
+    max_t: float = 0.99,
+    min_t: float = 0.001,
+    noise: float = 0.5,
+    dtype=torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Karras-style second-order sampler with noise churn (denoiser.py:351-461):
+    re-noise to ``t_hat``, a probability-flow step to ``t_next``, then the
+    step again with the drift averaged against the one at its endpoint; two
+    model evaluations a step."""
+    pos, rot = _prior(generator, sdes, batch, length, dtype)
+    return _heun_loop(sdes, model_fn, pos, rot, generator, num_steps, max_t, min_t, noise, dtype)
+
+
+def _heun_loop(sdes, model_fn, pos, rot, draws: StepNoise, num_steps, max_t, min_t, noise, dtype):
+    _, steps = _heun_grid(num_steps, max_t, min_t, noise, dtype)
+    batch = pos.shape[0]
+    ode_pos = EulerMaruyamaPredictor(sdes.pos, 0.0, 1.0)
+    ode_rot = EulerMaruyamaPredictor(sdes.node_orientations, 0.0, 1.0)
+    em_pos = EulerMaruyamaPredictor(sdes.pos, 1.0, 1.0)
+    em_rot = EulerMaruyamaPredictor(sdes.node_orientations, 1.0, 1.0)
+
+    def full(value):
+        return torch.full((batch,), float(value), dtype=dtype, device=pos.device)
+
+    for idx, (t_val, t_hat, t_next, _) in enumerate(steps):
+        dt_fwd, dt_step = float(t_hat - t_val), float(t_next - t_hat)
+        t, th, tn = full(t_val), full(t_hat), full(t_next)
+
+        n_pos, n_rot = _noise_at(draws, idx)
+        pos_hat = em_pos.forward_sde_step(n_pos, pos, t, dt_fwd)[0]
+        rot_hat = em_rot.forward_sde_step(n_rot, rot, t, dt_fwd)[0]
+
+        pos_score, rot_score = get_score(sdes, model_fn, pos_hat, rot_hat, th)
+        drift_pos, _ = ode_pos.reverse_drift_and_diffusion(pos_hat, th, pos_score)
+        drift_rot, _ = ode_rot.reverse_drift_and_diffusion(rot_hat, th, rot_score)
+        pos = ode_pos.mean_update(pos_hat, dt_step, drift_pos)
+        rot = ode_rot.mean_update(rot_hat, dt_step, drift_rot)
+
+        if t_next > 0.0:  # second-order correction, skipped at t_next == 0
+            pos_score_n, rot_score_n = get_score(sdes, model_fn, pos, rot, tn)
+            drift_pos_n, _ = ode_pos.reverse_drift_and_diffusion(pos, tn, pos_score_n)
+            drift_rot_n, _ = ode_rot.reverse_drift_and_diffusion(rot, tn, rot_score_n)
+            pos = ode_pos.mean_update(pos_hat, dt_step, (drift_pos + drift_pos_n) / 2)
+            rot = ode_rot.mean_update(rot_hat, dt_step, (drift_rot + drift_rot_n) / 2)
+    return pos, rot
+
+
+class _DPMStep(NamedTuple):
+    """DPM-Solver-2's position coefficients for one step from ``t`` to
+    ``t_next`` through the midpoint ``t_lambda`` in lambda space. ``t_lambda``
+    [B] and ``dt_mid`` (0-d) stay on the device: no host sync."""
+
+    alpha_t: torch.Tensor
+    sigma_t: torch.Tensor
+    alpha_next: torch.Tensor
+    sigma_next: torch.Tensor
+    alpha_mid: torch.Tensor
+    sigma_mid: torch.Tensor
+    h_t: torch.Tensor
+    t_lambda: torch.Tensor
+    dt_mid: torch.Tensor
+
+    @classmethod
+    def at(cls, pos_sde: CosineVPSDE, pos, t, t_next) -> "_DPMStep":
+        alpha_t, sigma_t = pos_sde.mean_coeff_and_std(pos, t)
+        lambda_t = torch.log(alpha_t / sigma_t)
+        alpha_next, sigma_next = pos_sde.mean_coeff_and_std(pos, t_next)
+        lambda_t_next = torch.log(alpha_next / sigma_next)
+        lambda_mid = (lambda_t + lambda_t_next) / 2.0
+        t_lambda = _t_from_lambda(pos_sde, lambda_mid).reshape(-1)[0].expand(t.shape[0])
+        alpha_mid, sigma_mid = pos_sde.mean_coeff_and_std(pos, t_lambda)
+        return cls(alpha_t, sigma_t, alpha_next, sigma_next, alpha_mid, sigma_mid,
+                   lambda_t_next - lambda_t, t_lambda, (t_lambda - t)[0])
+
+    def midpoint(self, pos, score):
+        """Half step in lambda space for positions."""
+        return (self.alpha_mid / self.alpha_t * pos
+                + self.sigma_mid * self.sigma_t * torch.expm1(self.h_t / 2.0) * score)
+
+    def update(self, pos, score_mid):
+        """The full step with the score at the midpoint."""
+        return (self.alpha_next / self.alpha_t * pos
+                + self.sigma_next * self.sigma_mid * torch.expm1(self.h_t) * score_mid)
+
+
 def dpm_solver(
     generator: torch.Generator,
     sdes: SDEs,
@@ -132,46 +294,24 @@ def _dpm_solver_loop(sdes, model_fn, pos, rot, num_steps, max_t, min_t, dtype):
     timesteps, dts = _timegrid(num_steps, max_t, min_t, dtype)
     batch = pos.shape[0]
     ode_rot = EulerMaruyamaPredictor(sdes.node_orientations, 0.0, 1.0)
-    pos_sde = sdes.pos
 
     for idx in range(num_steps):
         t = torch.full((batch,), timesteps[idx], dtype=dtype, device=pos.device)
-        t_next = t + dts[idx]
-
+        step = _DPMStep.at(sdes.pos, pos, t, t + dts[idx])
         pos_score, rot_score = get_score(sdes, model_fn, pos, rot, t)
-
-        alpha_t, sigma_t = pos_sde.mean_coeff_and_std(pos, t)
-        lambda_t = torch.log(alpha_t / sigma_t)
-        alpha_t_next, sigma_t_next = pos_sde.mean_coeff_and_std(pos, t_next)
-        lambda_t_next = torch.log(alpha_t_next / sigma_t_next)
-        h_t = lambda_t_next - lambda_t
-
-        lambda_mid = (lambda_t + lambda_t_next) / 2.0
-        t_lambda = _t_from_lambda(pos_sde, lambda_mid).reshape(-1)[0].expand(batch)
-        alpha_t_lambda, sigma_t_lambda = pos_sde.mean_coeff_and_std(pos, t_lambda)
-
-        # Half step in lambda space for positions.
-        pos_u = (
-            alpha_t_lambda / alpha_t * pos
-            + sigma_t_lambda * sigma_t * torch.expm1(h_t / 2.0) * pos_score
-        )
+        pos_u = step.midpoint(pos, pos_score)
 
         # Rotations: first-order ODE step from t to t_lambda.
-        dt_mid = (t_lambda - t)[0]
         drift_rot, _ = ode_rot.reverse_drift_and_diffusion(rot, t, rot_score)
-        rot_u = ode_rot.mean_update(rot, dt_mid, drift_rot)
+        rot_u = ode_rot.mean_update(rot, step.dt_mid, drift_rot)
 
         # Correction step at the midpoint.
-        pos_score_u, rot_score_u = get_score(sdes, model_fn, pos_u, rot_u, t_lambda)
-
-        pos_next = (
-            alpha_t_next / alpha_t * pos
-            + sigma_t_next * sigma_t_lambda * torch.expm1(h_t) * pos_score_u
-        )
+        pos_score_u, rot_score_u = get_score(sdes, model_fn, pos_u, rot_u, step.t_lambda)
+        pos_next = step.update(pos, pos_score_u)
 
         # Second-order score correction for rotations.
-        rot_score_corr = rot_score_u + 0.5 * (rot_score_u - rot_score) / dt_mid * dts[idx]
-        drift_rot_c, _ = ode_rot.reverse_drift_and_diffusion(rot_u, t_lambda, rot_score_corr)
+        rot_score_corr = rot_score_u + 0.5 * (rot_score_u - rot_score) / step.dt_mid * dts[idx]
+        drift_rot_c, _ = ode_rot.reverse_drift_and_diffusion(rot_u, step.t_lambda, rot_score_corr)
         rot = ode_rot.mean_update(rot, dts[idx], drift_rot_c)
         pos = pos_next
     return pos, rot
@@ -239,37 +379,36 @@ def _dpm_solver_pp2m_loop(sdes, model_fn, pos, rot, num_steps, max_t, min_t, dty
     return pos, rot
 
 
-_LOOPS = {dpm_solver: _dpm_solver_loop, dpm_solver_pp2m: _dpm_solver_pp2m_loop}
+_LOOPS = {
+    dpm_solver: _dpm_solver_loop,
+    dpm_solver_pp2m: _dpm_solver_pp2m_loop,
+    euler_maruyama: _euler_maruyama_loop,
+    heun: _heun_loop,
+}
 
 
 def solve_from(
-    denoiser: partial, sdes: SDEs, model_fn: ModelFn, pos: torch.Tensor, rot: torch.Tensor
+    denoiser: partial, sdes: SDEs, model_fn: ModelFn, pos: torch.Tensor, rot: torch.Tensor,
+    draws: StepNoise | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run ``denoiser`` (a partial of :func:`dpm_solver` or
-    :func:`dpm_solver_pp2m`, as bundles hold them) from the state
-    ``(pos, rot)`` in place of its prior draw. Data-parallel sampling draws
-    the whole batch's prior and solves its own rows with this."""
-    if denoiser.func not in _LOOPS:
+    """Run ``denoiser`` (a partial of a sampler, as bundles hold them) from the
+    state ``(pos, rot)`` in place of its prior draw; the stochastic samplers
+    (``euler_maruyama``, ``heun``) take their per-step normals from
+    ``draws``. Data-parallel sampling draws the whole batch's prior and
+    noise and solves its own rows with this."""
+    loop = _LOOPS.get(denoiser.func)
+    if loop is None:
         raise ValueError(f"no solver loop for {denoiser.func.__name__}")
     kw = {
         k: p.default for k, p in inspect.signature(denoiser.func).parameters.items()
         if p.default is not inspect.Parameter.empty
     }
     kw.update(denoiser.keywords)
-    return _LOOPS[denoiser.func](
-        sdes, model_fn, pos, rot, kw["num_steps"], kw["max_t"], kw["min_t"], kw["dtype"]
-    )
-
-
-# Noise of a recorder's loop: a generator (draws positions then rotations at
-# each step) or the draws themselves, ``(z_pos [T, B, L, 3], z_rot [T, B, L, 3])``.
-StepNoise = torch.Generator | tuple[torch.Tensor, torch.Tensor]
-
-
-def _noise_at(noise: StepNoise, idx: int):
-    if isinstance(noise, torch.Generator):
-        return noise, noise
-    return noise[0][idx], noise[1][idx]
+    if "draws" in inspect.signature(loop).parameters:
+        if draws is None:
+            raise ValueError(f"{denoiser.func.__name__} draws noise at every step: pass draws")
+        kw["draws"] = draws
+    return loop(sdes, model_fn, pos, rot, **kw)
 
 
 def _recorded_path(pos_path, rot_path, timesteps, us, dWs, like) -> DenoisedSDEPath:
@@ -305,7 +444,7 @@ def euler_maruyama_finetune(
 
 
 def _euler_maruyama_finetune_loop(
-    sdes, model_fn, finetune_model_fn, pos, rot, noise: StepNoise, num_steps, max_t, min_t, dtype
+    sdes, model_fn, finetune_model_fn, pos, rot, draws: StepNoise, num_steps, max_t, min_t, dtype
 ) -> DenoisedSDEPath:
     timesteps, dts = _timegrid(num_steps, max_t, min_t, dtype)
     batch = pos.shape[0]
@@ -316,7 +455,7 @@ def _euler_maruyama_finetune_loop(
         t = torch.full((batch,), timesteps[idx], dtype=dtype, device=pos.device)
         pos_score, rot_score = get_score(sdes, model_fn, pos, rot, t)
         u_pos, u_rot = finetune_model_fn(pos, rot, t)
-        n_pos, n_rot = _noise_at(noise, idx)
+        n_pos, n_rot = _noise_at(draws, idx)
         pos, _, dW_pos = em_pos.update_given_score(n_pos, pos, t, dts[idx], pos_score, u_pos)
         rot, _, dW_rot = em_rot.update_given_score(n_rot, rot, t, dts[idx], rot_score, u_rot)
         pos_path.append(pos)
@@ -356,31 +495,25 @@ def heun_finetune(
 
 
 def _heun_finetune_loop(
-    sdes, model_fn, finetune_model_fn, pos, rot, noise: StepNoise, num_steps, max_t, min_t,
-    churn_noise, dtype,
+    sdes, model_fn, finetune_model_fn, pos, rot, draws: StepNoise, num_steps, max_t, min_t,
+    noise, dtype,
 ) -> DenoisedSDEPath:
-    timesteps, dts = _timegrid(num_steps, max_t, min_t, dtype)
+    timesteps, steps = _heun_grid(num_steps, max_t, min_t, noise, dtype)
     batch = pos.shape[0]
     ode_pos = EulerMaruyamaPredictor(sdes.pos, 0.0, 1.0)
     ode_rot = EulerMaruyamaPredictor(sdes.node_orientations, 0.0, 1.0)
     em_pos = EulerMaruyamaPredictor(sdes.pos, 1.0, 1.0)
     em_rot = EulerMaruyamaPredictor(sdes.node_orientations, 1.0, 1.0)
-    # Host scalars in the grid's precision, as the JAX scan computes them.
-    f = np.dtype(str(dtype).removeprefix("torch."))
     pos_path, rot_path, us, dWs = [pos], [rot], ([], []), ([], [])
 
     def full(value):
         return torch.full((batch,), float(value), dtype=dtype, device=pos.device)
 
-    for idx in range(num_steps):
-        t_val, dt = f.type(timesteps[idx]), f.type(dts[idx])
-        t_next = t_val + dt
-        churn = idx > 0 and 0.0 < t_val < 1.0
-        t_hat = t_val - f.type(churn_noise) * dt if churn else t_val
+    for idx, (t_val, t_hat, t_next, dt) in enumerate(steps):
         dt_fwd, dt_step = float(t_hat - t_val), float(t_next - t_hat)
         t, th, tn = full(t_val), full(t_hat), full(t_next)
 
-        n_pos, n_rot = _noise_at(noise, idx)
+        n_pos, n_rot = _noise_at(draws, idx)
         pos_hat = em_pos.forward_sde_step(n_pos, pos, t, dt_fwd)[0]
         rot_hat = em_rot.forward_sde_step(n_rot, rot, t, dt_fwd)[0]
 
@@ -414,6 +547,86 @@ def _heun_finetune_loop(
         rot_path.append(rot)
         us[0].append(u_pos_pre)
         us[1].append(u_rot_pre)
+        dWs[0].append(dW_pos)
+        dWs[1].append(dW_rot)
+    return _recorded_path(pos_path, rot_path, timesteps, us, dWs, pos)
+
+
+def sde_dpm_solver_finetune(
+    generator: torch.Generator,
+    sdes: SDEs,
+    model_fn: ModelFn,
+    finetune_model_fn: ModelFn,
+    batch: int,
+    length: int,
+    num_steps: int = 30,
+    max_t: float = 0.99,
+    min_t: float = 0.001,
+    dtype=torch.float32,
+) -> DenoisedSDEPath:
+    """DPM-Solver-2 with the finetune control, recording the path; two base
+    and two control evaluations a step, and no draws after the prior. (The
+    reference ships an empty stub, denoiser.py:767-777; this follows the JAX
+    package's implementation.)
+
+    The control enters the positions through the controlled score
+    ``score - u / g``, which leaves the lambda-space step unchanged, and the
+    rotations through ``reverse_drift_and_diffusion(finetune_score=u)``.
+    The Brownian increments are those the recorded transition implies under
+    the controlled Euler–Maruyama step at the pre-step state, recovered with
+    :meth:`EulerMaruyamaPredictor.traceback_brownian_motion`: what the PPFT
+    replay needs of ``(x_path, u, dW)``. ``us`` are the pre-step controls."""
+    pos, rot = _prior(generator, sdes, batch, length, dtype)
+    return _sde_dpm_solver_finetune_loop(
+        sdes, model_fn, finetune_model_fn, pos, rot, num_steps, max_t, min_t, dtype
+    )
+
+
+def _sde_dpm_solver_finetune_loop(
+    sdes, model_fn, finetune_model_fn, pos, rot, num_steps, max_t, min_t, dtype
+) -> DenoisedSDEPath:
+    if not max_t < 1.0:
+        raise ValueError(f"max_t must be < 1, got {max_t}")
+    timesteps, dts = _timegrid(num_steps, max_t, min_t, dtype)
+    batch = pos.shape[0]
+    ode_rot = EulerMaruyamaPredictor(sdes.node_orientations, 0.0, 1.0)
+    em_pos = EulerMaruyamaPredictor(sdes.pos, 1.0, 1.0)
+    em_rot = EulerMaruyamaPredictor(sdes.node_orientations, 1.0, 1.0)
+    pos_path, rot_path, us, dWs = [pos], [rot], ([], []), ([], [])
+
+    def controlled(pos, rot, t):
+        """Scores and controls at ``(x, t)``, and the controlled position
+        score ``score - u / g``."""
+        pos_score, rot_score = get_score(sdes, model_fn, pos, rot, t)
+        u_pos, u_rot = finetune_model_fn(pos, rot, t)
+        _, g = sdes.pos.sde(x=pos, t=t)
+        return pos_score, rot_score, u_pos, u_rot, pos_score - u_pos / g
+
+    for idx in range(num_steps):
+        t = torch.full((batch,), timesteps[idx], dtype=dtype, device=pos.device)
+        step = _DPMStep.at(sdes.pos, pos, t, t + dts[idx])
+        pos_score, rot_score, u_pos, u_rot, pos_eff = controlled(pos, rot, t)
+        pos_u = step.midpoint(pos, pos_eff)
+
+        # Rotations: first-order controlled ODE step from t to t_lambda.
+        drift_rot, _ = ode_rot.reverse_drift_and_diffusion(rot, t, rot_score, u_rot)
+        rot_u = ode_rot.mean_update(rot, step.dt_mid, drift_rot)
+
+        # Correction at the midpoint, the control evaluated there.
+        _, rot_score_u, _, u_rot_u, pos_eff_u = controlled(pos_u, rot_u, step.t_lambda)
+        pos_next = step.update(pos, pos_eff_u)
+        rot_score_corr = rot_score_u + 0.5 * (rot_score_u - rot_score) / step.dt_mid * dts[idx]
+        drift_rot_c, _ = ode_rot.reverse_drift_and_diffusion(
+            rot_u, step.t_lambda, rot_score_corr, u_rot_u)
+        rot_next = ode_rot.mean_update(rot, dts[idx], drift_rot_c)
+
+        dW_pos = em_pos.traceback_brownian_motion(pos_next, pos, t, dts[idx], pos_score, u_pos)
+        dW_rot = em_rot.traceback_brownian_motion(rot_next, rot, t, dts[idx], rot_score, u_rot)
+        pos, rot = pos_next, rot_next
+        pos_path.append(pos)
+        rot_path.append(rot)
+        us[0].append(u_pos)
+        us[1].append(u_rot)
         dWs[0].append(dW_pos)
         dWs[1].append(dW_rot)
     return _recorded_path(pos_path, rot_path, timesteps, us, dWs, pos)

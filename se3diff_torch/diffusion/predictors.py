@@ -8,13 +8,15 @@ composes rotation-vector increments on the manifold; the Euclidean update is
 additive.
 
 A stochastic step takes its noise as ``noise``: a ``torch.Generator`` to draw
-the standard normal ``z`` from, or ``z`` itself (what the tests use to feed
-the JAX package's draws).
+the standard normal ``z`` from, ``z`` itself (what the tests use to feed
+the JAX package's draws), or a callable ``like -> z`` (data-parallel
+sampling draws the whole batch's ``z`` and keeps its own rows).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -22,12 +24,14 @@ from se3diff_torch.ops import so3 as so3_ops
 from se3diff_torch.sde.base import SDE
 from se3diff_torch.sde.so3_sde import SO3SDE
 
-Noise = torch.Generator | torch.Tensor
+Noise = torch.Generator | torch.Tensor | Callable[[torch.Tensor], torch.Tensor]
 
 
 def standard_normal(noise: Noise, like: torch.Tensor) -> torch.Tensor:
-    """``z`` shaped like ``like``: drawn from the generator ``noise``, or
-    ``noise`` itself when it is a tensor."""
+    """``z`` shaped like ``like``: drawn from the generator ``noise``,
+    ``noise`` itself when it is a tensor, or ``noise(like)``."""
+    if callable(noise):
+        noise = noise(like)
     if isinstance(noise, torch.Tensor):
         if noise.shape != like.shape:
             raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {tuple(like.shape)}")

@@ -53,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--h_func_config_path", default=None,
                    help="h-function YAML (config/h_func/*.yaml format); overrides --h_func")
     p.add_argument("--denoiser_type", default="heun_finetune",
-                   choices=["heun_finetune", "euler_maruyama_finetune"])
+                   choices=["heun_finetune", "euler_maruyama_finetune",
+                            "sde_dpm_solver_finetune"])
     p.add_argument("--h_func", default="folding_stability",
                    choices=["folding_stability", "folding_binding"])
     p.add_argument("--h_func_ref_path", default=None, help="reference PDB for the h function")
@@ -159,14 +160,15 @@ def main(argv: list[str] | None = None) -> None:
             den = make_denoiser(den_cfg)
         except KeyError as exc:
             raise SystemExit(f"--denoiser_config_path: {exc.args[0]}; the port records paths "
-                             "with heun_denoiser_finetune or "
-                             "euler_maruyama_predictor_finetune") from None
+                             "with heun_denoiser_finetune, euler_maruyama_predictor_finetune "
+                             "or sde_dpm_solver_finetune") from None
         # Fine-tuning needs a path recorder; a sampling denoiser has another
         # interface and would fail deep inside the path sampler.
         if not den.func.__name__.endswith("_finetune"):
             raise SystemExit(
                 "--denoiser_config_path must name a *_finetune path recorder "
-                "(euler_maruyama_predictor_finetune, heun_denoiser_finetune); "
+                "(euler_maruyama_predictor_finetune, heun_denoiser_finetune, "
+                "sde_dpm_solver_finetune); "
                 f"got {den.func.__name__}"
             )
         bundle = bundle._replace(denoiser=den)

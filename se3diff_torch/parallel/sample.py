@@ -4,7 +4,8 @@ Counterpart of ``se3diff_tpu/parallel/sample.py``. Sampling has no
 steady-state communication: every rank draws the whole batch's prior from
 one seed (``torch.Generator(device).manual_seed(seed)``, through
 ``diffusion/denoise.py::_prior``), keeps its own rows and runs the solver on
-them; one :func:`~.mesh.gather_rows` per output assembles the batch at the
+them; a stochastic solver (``heun``, ``euler_maruyama``) draws each step's
+normals for the whole batch from the same generator and keeps its rows too; one :func:`~.mesh.gather_rows` per output assembles the batch at the
 end. So DP reproduces the single-device batch of the same seed, as the JAX
 package's DP reproduces the unsharded key. The batch is rounded up to the
 world size and the surplus rows (copies of real ones) are trimmed.
@@ -27,7 +28,8 @@ def make_sharded_sampler(bundle: Bundle, ctx: RankContext, batch: int, length: i
     (pos, rot)`` for ``batch`` samples, split over ``ctx``'s ranks. Every
     rank must call it with the same arguments; every rank gets the whole
     batch back. The bundle's denoiser runs on the rank's rows through
-    :func:`~se3diff_torch.diffusion.denoise.solve_from`."""
+    :func:`~se3diff_torch.diffusion.denoise.solve_from`, any sampler the
+    bundles offer."""
     padded = round_up_batch(batch, ctx.world)
     per = padded // ctx.world
     b0, b1 = ctx.rank * per, (ctx.rank + 1) * per
@@ -47,7 +49,12 @@ def make_sharded_sampler(bundle: Bundle, ctx: RankContext, batch: int, length: i
         def model_fn(x, r, t):
             return bundle.model.score_from_cache(x, r, t, cache)
 
-        pos, rot = denoise.solve_from(bundle.denoiser, bundle.sdes, model_fn, pos, rot)
+        def draws(like):
+            z = torch.randn((batch, *like.shape[1:]), generator=gen, dtype=like.dtype,
+                            device=like.device)
+            return z[keep]
+
+        pos, rot = denoise.solve_from(bundle.denoiser, bundle.sdes, model_fn, pos, rot, draws)
         pos = gather_rows(pos.contiguous(), b0, b1, padded, dim=0, group=ctx.group)
         rot = gather_rows(rot.contiguous(), b0, b1, padded, dim=0, group=ctx.group)
         return pos[:batch], rot[:batch]

@@ -91,12 +91,15 @@ class FinetuneBundle(NamedTuple):
 
 
 FINETUNE_DENOISERS = {
-    # config/denoiser/{heun,euler_maruyama}_finetune.yaml
+    # config/denoiser/{heun,euler_maruyama}_finetune.yaml and sde_dpm_finetune.yaml
     "heun_finetune": dict(
         fn=denoise.heun_finetune, num_steps=100, max_t=0.99, min_t=0.001, noise=0.5
     ),
     "euler_maruyama_finetune": dict(
         fn=denoise.euler_maruyama_finetune, num_steps=200, max_t=0.99, min_t=0.001
+    ),
+    "sde_dpm_solver_finetune": dict(
+        fn=denoise.sde_dpm_solver_finetune, num_steps=50, max_t=0.99, min_t=0.001
     ),
 }
 

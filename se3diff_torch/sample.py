@@ -40,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "when --ckpt_path is given.")
     p.add_argument("--model_config_path", default=None,
                    help="config.yaml (default: alongside the checkpoint)")
-    p.add_argument("--denoiser", default="dpm", choices=["dpm", "dpm_fast", "dpm_2m"],
+    p.add_argument("--denoiser", default="dpm",
+                   choices=["dpm", "dpm_fast", "dpm_2m", "heun", "euler_maruyama"],
                    help="denoiser config (config/denoiser/*.yaml defaults; "
                         "dpm_2m = multistep DPM-Solver++(2M))")
     p.add_argument("--denoiser_config_path", default=None,

@@ -98,9 +98,12 @@ _TARGETS: dict[str, Callable] = {
     "CosineVPSDE": CosineVPSDE,
     "dpm_solver": denoise.dpm_solver,
     "dpm_solver_pp2m": denoise.dpm_solver_pp2m,
+    "heun_denoiser": denoise.heun,
+    "euler_maruyama_predictor": denoise.euler_maruyama,
     # PPFT path recorders (config/denoiser/*_finetune.yaml).
     "euler_maruyama_predictor_finetune": denoise.euler_maruyama_finetune,
     "heun_denoiser_finetune": denoise.heun_finetune,
+    "sde_dpm_solver_finetune": denoise.sde_dpm_solver_finetune,
 }
 
 # Scientific notation without a decimal dot: YAML 1.1 reads it as a string.
@@ -169,6 +172,8 @@ DENOISER_DEFAULTS: dict[str, dict[str, Any]] = {
     "dpm_fast": dict(fn="dpm_solver", num_steps=30, max_t=0.99, min_t=0.001),
     # Multistep DPM-Solver++(2M): second order at one model evaluation per step.
     "dpm_2m": dict(fn="dpm_solver_pp2m", num_steps=30, max_t=0.99, min_t=0.001),
+    "heun": dict(fn="heun_denoiser", num_steps=100, max_t=0.99, min_t=0.001, noise=0.5),
+    "euler_maruyama": dict(fn="euler_maruyama_predictor", num_steps=200, max_t=0.99, min_t=0.001),
 }
 
 

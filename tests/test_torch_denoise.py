@@ -1,9 +1,11 @@
-"""DPM solvers of the PyTorch port against the JAX package's, from one prior.
+"""Samplers of the PyTorch port against the JAX package's, from one prior.
 
 The two packages draw different random numbers, so the JAX solver's own
 prior (``_prior`` on the key it splits off) is fed to the port's solver
-loop, and the final states are compared. The solvers are deterministic
-after the prior.
+loop, and the final states are compared. The DPM solvers are deterministic
+after the prior; the stochastic ones (``euler_maruyama``, ``heun``) are
+also fed JAX's per-step standard normals, recovered by replaying its key
+splits, through ``solve_from``'s ``draws``.
 
 Models: the analytic closed-form score (tests/test_denoise.py) and a small
 DiG carried over by ``state_dict_from_jax``. Tolerances: 1e-4 (analytic,
@@ -11,6 +13,8 @@ DiG carried over by ``state_dict_from_jax``. Tolerances: 1e-4 (analytic,
 random weights drive them to ~100 nm) in f32: each step adds a few ulps of
 difference, and the ODE carries them forward.
 """
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +36,8 @@ from se3diff_tpu.sde.vpsde import CosineVPSDE as JaxVP
 from tests.test_denoise import DATA_MEAN, DATA_STD, make_analytic_model
 
 SO3 = dict(num_sigma=200, num_omega=1000, l_max=1000, eps_t=0.001)
-SOLVERS = [("dpm_solver", "_dpm_solver_loop"), ("dpm_solver_pp2m", "_dpm_solver_pp2m_loop")]
+SOLVERS = [("dpm_solver", "_dpm_solver_loop"), ("dpm_solver_pp2m", "_dpm_solver_pp2m_loop"),
+           ("euler_maruyama", "_euler_maruyama_loop"), ("heun", "_heun_loop")]
 
 
 @pytest.fixture(scope="module")
@@ -67,16 +72,35 @@ def _jax_run_and_prior(solver, key, sdes_j, model_fn, batch, length, steps):
     return (np.array(pos0), np.array(rot0)), (np.asarray(pos, np.float32), np.asarray(rot, np.float32))
 
 
+def _jax_draws(key, steps, batch, length):
+    """Each step's ``(z_pos, z_rot)`` [T, B, L, 3], as the JAX samplers split
+    their key (denoise.py:126-134, :222-224)."""
+    key, _ = jax.random.split(key)
+    zp, zr = [], []
+    for _ in range(steps):
+        key, k_pos, k_rot = jax.random.split(key, 3)
+        zp.append(np.asarray(jax.random.normal(k_pos, (batch, length, 3), jnp.float32)))
+        zr.append(np.asarray(jax.random.normal(k_rot, (batch, length, 3), jnp.float32)))
+    return torch.from_numpy(np.stack(zp)), torch.from_numpy(np.stack(zr))
+
+
+def _port_run(solver, loop, sdes_t, model_fn, pos0, rot0, steps, key):
+    """The port's ``loop`` (through ``solve_from``) from JAX's prior, with
+    JAX's per-step draws for the stochastic samplers."""
+    assert tden._LOOPS[getattr(tden, solver)] is getattr(tden, loop)
+    draws = _jax_draws(key, steps, *pos0.shape[:2]) if solver in ("euler_maruyama", "heun") else None
+    return tden.solve_from(partial(getattr(tden, solver), num_steps=steps), sdes_t, model_fn,
+                           torch.from_numpy(pos0), torch.from_numpy(rot0), draws)
+
+
 @pytest.mark.parametrize("solver,loop", SOLVERS)
 def test_solvers_match_with_analytic_model(sdes, solver, loop):
     sdes_j, sdes_t = sdes
+    key = jax.random.key(0)
     (pos0, rot0), (pos_j, rot_j) = _jax_run_and_prior(
-        solver, jax.random.key(0), sdes_j, jax.jit(make_analytic_model(sdes_j)), 16, 4, 30
+        solver, key, sdes_j, jax.jit(make_analytic_model(sdes_j)), 16, 4, 30
     )
-    pos_t, rot_t = getattr(tden, loop)(
-        sdes_t, torch_analytic_model(sdes_t), torch.from_numpy(pos0), torch.from_numpy(rot0),
-        30, 0.99, 0.001, torch.float32,
-    )
+    pos_t, rot_t = _port_run(solver, loop, sdes_t, torch_analytic_model(sdes_t), pos0, rot0, 30, key)
     np.testing.assert_allclose(pos_t.numpy(), pos_j, atol=1e-4)
     np.testing.assert_allclose(rot_t.numpy(), rot_j, atol=1e-4)
 
@@ -100,18 +124,16 @@ def test_solvers_match_with_small_dig(sdes, solver, loop):
     model_j = jax.jit(
         lambda p, r, t: flax_model.apply(variables, p, r, t, cache_j, method="score_from_cache")
     )
-    (pos0, rot0), (pos_j, rot_j) = _jax_run_and_prior(
-        solver, jax.random.key(2), sdes_j, model_j, B, L, steps
-    )
+    key = jax.random.key(2)
+    (pos0, rot0), (pos_j, rot_j) = _jax_run_and_prior(solver, key, sdes_j, model_j, B, L, steps)
 
     port = TorchDiG(**cfg).eval()
     port.load_state_dict(state_dict_from_jax(variables), strict=True)
     with torch.no_grad():
         cache_t = port.embed_conditioning(torch.from_numpy(single), torch.from_numpy(pair))
-        pos_t, rot_t = getattr(tden, loop)(
-            sdes_t, lambda p, r, t: port.score_from_cache(p, r, t, cache_t),
-            torch.from_numpy(pos0), torch.from_numpy(rot0), steps, 0.99, 0.001, torch.float32,
-        )
+        pos_t, rot_t = _port_run(solver, loop, sdes_t,
+                                 lambda p, r, t: port.score_from_cache(p, r, t, cache_t),
+                                 pos0, rot0, steps, key)
     np.testing.assert_allclose(pos_t.numpy(), pos_j, rtol=1e-4, atol=5e-4)
     np.testing.assert_allclose(rot_t.numpy(), rot_j, atol=5e-4)
 

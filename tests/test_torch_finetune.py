@@ -4,19 +4,22 @@
    (``tests/test_data/golden_so3/ppft_reference.npz``, float64): values at
    rtol 1e-12, the control gradient at rtol 1e-10 (as tests/test_golden_ppft.py).
 2. The h-functions on the SH3 reference, f32, at 1e-6.
-3. The predictor's stochastic steps and traceback, and both path recorders
-   (``euler_maruyama_finetune``, ``heun_finetune``), fed JAX's prior and
-   JAX's standard-normal draws (recovered by replaying its key splits), on
+3. The predictor's stochastic steps and traceback, and the path recorders
+   (``euler_maruyama_finetune``, ``heun_finetune``, ``sde_dpm_solver_finetune``),
+   fed JAX's prior and JAX's standard-normal draws (recovered by replaying its
+   key splits; the DPM recorder draws none after the prior), on
    tiny DiG models carried over by ``state_dict_from_jax``. f32; the steps
    at 1e-5 of the output scale, the recorded paths at 2e-4 (each model
    evaluation adds a few ulps, the recorder carries them forward; the
    port's attention sums in another order).
 4. The replay gradient (f32) on a JAX-recorded path against JAX's
    ``grad_fn`` run in float64: every parameter's gradient within 1e-5 of
-   its largest entry on a path from t=0.5, within 2e-4 on one from t=0.99.
+   its largest entry on a heun path from t=0.5, within 2e-4 on heun and
+   DPM paths from t=0.99.
 5. The loop and the CLI on the CPU: checkpoints load in the JAX package.
 """
 
+import inspect
 from functools import partial
 from pathlib import Path
 
@@ -229,9 +232,12 @@ def _jax_draws(key, steps):
     return prior_key, (torch.from_numpy(np.stack(zp)), torch.from_numpy(np.stack(zr)))
 
 
+# name: (JAX recorder, the port's loop, its arguments after the time grid,
+# base and control evaluations a step)
 RECORDERS = {
-    "euler_maruyama_finetune": (jden.euler_maruyama_finetune, tden._euler_maruyama_finetune_loop, ()),
-    "heun_finetune": (jden.heun_finetune, tden._heun_finetune_loop, (0.5,)),
+    "euler_maruyama_finetune": (jden.euler_maruyama_finetune, tden._euler_maruyama_finetune_loop, (), 1),
+    "heun_finetune": (jden.heun_finetune, tden._heun_finetune_loop, (0.5,), 3),
+    "sde_dpm_solver_finetune": (jden.sde_dpm_solver_finetune, tden._sde_dpm_solver_finetune_loop, (), 2),
 }
 
 
@@ -258,7 +264,8 @@ def test_recorders_match_jax_on_the_same_prior_and_draws(models, recorder):
         calls["pa" if args[9] is not None else "w_pb"] += 1
         return real(*args, **kw)
 
-    _, loop, extra = RECORDERS[recorder]
+    _, loop, extra, per_step = RECORDERS[recorder]
+    noise = (draws,) if "draws" in inspect.signature(loop).parameters else ()
     s, p = torch.from_numpy(single), torch.from_numpy(pair)
     base = tbundle.base.model
     with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
@@ -266,9 +273,9 @@ def test_recorders_match_jax_on_the_same_prior_and_draws(models, recorder):
         cache = base.embed_conditioning(s.expand(B, L, 384), p.expand(B, L, L, 128))
         ft_fn = ttr._finetune_model_fn(tbundle, s, p, B)
         got = loop(tbundle.base.sdes, lambda x, r, t: base.score_from_cache(x, r, t, cache), ft_fn,
-                   torch.from_numpy(np.array(pos0)), torch.from_numpy(np.array(rot0)), draws,
+                   torch.from_numpy(np.array(pos0)), torch.from_numpy(np.array(rot0)), *noise,
                    STEPS, 0.99, 0.001, *extra, torch.float32)
-    evals = STEPS * (3 if recorder == "heun_finetune" else 1)
+    evals = STEPS * per_step
     # Base model (1 layer) on the streamed pair bias, control net in-kernel.
     assert calls == {"pa": evals, "w_pb": evals}
     pairs = [(got.pos_path, want.pos_path), (got.rot_path, want.rot_path),
@@ -299,16 +306,16 @@ def _float64(tree):
         lambda x: jnp.asarray(x, jnp.float64) if jnp.issubdtype(x.dtype, jnp.floating) else x, tree)
 
 
-def _replay_gradients(models, max_t):
+def _replay_gradients(models, max_t, recorder=jden.heun_finetune):
     """The port's f32 replay gradient and JAX's ``grad_fn`` in float64 on the
-    same parameters and the same JAX-recorded f32 heun path from ``max_t``.
+    same parameters and the same JAX-recorded f32 path from ``max_t``.
     Returns each gradient's largest error relative to its largest entry,
     and the two validation losses."""
     import dataclasses
 
     jbundle, tbundle, single, pair = models
     sampler = jtr.make_path_sampler(
-        jbundle._replace(denoiser=partial(jden.heun_finetune, num_steps=STEPS, max_t=max_t)), B, L)
+        jbundle._replace(denoiser=partial(recorder, num_steps=STEPS, max_t=max_t)), B, L)
     path = sampler(jax.random.key(9), jbundle.base.params, jbundle.finetune_params,
                    jnp.asarray(single), jnp.asarray(pair))
     hs = _mean_pos_h_jax(path.pos_path[-1], SEQ)
@@ -362,6 +369,17 @@ def test_replay_gradient_from_t099_matches_jax_grad_fn(models):
     port's f32 gradient about 4e-5, so the port is held to 2e-4 of each
     gradient's largest entry."""
     errors, val, val_j = _replay_gradients(models, max_t=0.99)
+    np.testing.assert_allclose(val, val_j, rtol=1e-5)
+    for name, err in errors.items():
+        assert err <= 2e-4, (name, err)
+
+
+def test_replay_gradient_on_a_dpm_path_matches_jax_grad_fn(models):
+    """As above on a path that ``sde_dpm_solver_finetune`` recorded from
+    t=0.99: the replay reads only ``(pos_path, rot_path, timesteps, us,
+    dWs)``, so a DPM path replays as a heun path does. Held to 2e-4 of each
+    gradient's largest entry."""
+    errors, val, val_j = _replay_gradients(models, max_t=0.99, recorder=jden.sde_dpm_solver_finetune)
     np.testing.assert_allclose(val, val_j, rtol=1e-5)
     for name, err in errors.items():
         assert err <= 2e-4, (name, err)

@@ -13,7 +13,9 @@ data parallelism (DP) on ``torch.distributed``, on the CPU with gloo ranks.
    without SP, at 1e-5.
 3. DP sampling on two ranks against the single-process batch of the same
    seed, at 2e-4 (tests/test_parallel.py's DP tolerance; the solver runs 30
-   steps on per-rank batches whose products round in another order).
+   steps on per-rank batches whose products round in another order), with
+   dpm_2m and with the stochastic heun and euler_maruyama, whose ranks draw
+   each step's normals for the whole batch and keep their rows.
 4. The CLI with ``--sp 2 --device cpu`` writes the files of the run without
    ``--sp``, coordinates within 1e-4; ``--sp 2 --device cuda`` without GPUs
    raises.
@@ -194,6 +196,30 @@ def test_dp_sampling_reproduces_the_single_process_batch(tmp_path):
     pos_ref, rot_ref = bundle.sampler(batch, L)(
         torch.Generator().manual_seed(seed), torch.from_numpy(single), torch.from_numpy(pair)
     )
+
+    outs = run_ranks(programs.dp_sample, 2, ["cpu", "cpu"],
+                     args=(bundle_kwargs, single, pair, batch, seed),
+                     timeout=JOIN_TIMEOUT, group_timeout=GROUP_TIMEOUT, rendezvous_dir=str(tmp_path))
+    for o in outs:
+        assert o["pos"].shape == (batch, L, 3) and o["node_orientations"].shape == (batch, L, 3, 3)
+        np.testing.assert_allclose(o["pos"], pos_ref.numpy(), atol=2e-4)
+        np.testing.assert_allclose(o["node_orientations"], rot_ref.numpy(), atol=2e-4)
+
+
+@pytest.mark.parametrize("target", ["heun_denoiser", "euler_maruyama_predictor"])
+def test_dp_sampling_with_per_step_noise_reproduces_one_process(tmp_path, target):
+    L, batch, seed = 6, 3, 11   # 3 samples on 2 ranks: rounded up to 4, one trimmed
+    denoiser = {"_target_": target, "num_steps": 8, "max_t": 0.99, "min_t": 0.001}
+    bundle_kwargs = dict(model_cfg=SMALL, denoiser=denoiser, seed=0,
+                         so3_kwargs=dict(num_sigma=24, num_omega=128, l_max=100))
+    rng = np.random.default_rng(0)
+    single = (rng.standard_normal((L, 384)) * 0.3).astype(np.float32)
+    pair = (rng.standard_normal((L, L, 128)) * 0.1).astype(np.float32)
+    bundle = random_bundle(**bundle_kwargs, device="cpu")
+    pos_ref, rot_ref = bundle.sampler(batch, L)(
+        torch.Generator().manual_seed(seed), torch.from_numpy(single), torch.from_numpy(pair)
+    )
+    assert torch.isfinite(pos_ref).all() and torch.isfinite(rot_ref).all()
 
     outs = run_ranks(programs.dp_sample, 2, ["cpu", "cpu"],
                      args=(bundle_kwargs, single, pair, batch, seed),
