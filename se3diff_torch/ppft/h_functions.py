@@ -14,15 +14,12 @@ from dataclasses import dataclass
 
 import torch
 
-from se3diff_torch.ppft.observables import load_ref
+from se3diff_torch.ppft.observables import SH3_INTERFACE_RESIDUES, load_ref
 
 K_BOLTZMANN = 0.001987203599772605  # kcal / mol / K (free_energies.py:11)
 
 _ASSETS = os.path.join(os.path.dirname(__file__), "..", "..", "assets")
 DEFAULT_SH3_REF = os.path.normpath(os.path.join(_ASSETS, "structures", "2vwf_trimmed_SH3.pdb"))
-
-# GRB2-SH3 binding-interface residues (folding_binding.py:199-201).
-SH3_INTERFACE_RESIDUES = (6, 8, 11, 12, 15, 31, 33, 34, 36, 45, 47, 49, 50)
 
 
 def compute_folded_proportion(

@@ -121,11 +121,14 @@ class SO3SDE(SDE):
     def _sample_angles(
         self, generator: torch.Generator, cdf_rows: torch.Tensor, shape: tuple[int, ...]
     ) -> torch.Tensor:
-        """Inverse-transform sampling from per-element CDF rows
-        ``shape + [num_omega]`` (so3_sde.py:1244-1286)."""
         p_uniform = torch.rand(
             shape, generator=generator, dtype=cdf_rows.dtype, device=cdf_rows.device
         )
+        return self._angles_from_uniform(cdf_rows, p_uniform)
+
+    def _angles_from_uniform(self, cdf_rows: torch.Tensor, p_uniform: torch.Tensor) -> torch.Tensor:
+        """Inverse-transform sampling from per-element CDF rows
+        ``shape + [num_omega]`` at uniforms ``shape`` (so3_sde.py:1244-1286)."""
         idx_stop = (cdf_rows < p_uniform[..., None]).sum(-1)
         idx_stop = idx_stop.clamp(0, cdf_rows.shape[-1] - 1)
         idx_start = (idx_stop - 1).clamp(min=0)
@@ -152,9 +155,18 @@ class SO3SDE(SDE):
         """One IGSO(3)(I, sigma) rotation matrix per element of ``sigma``;
         angles forced to zero for ``sigma < tol`` (so3_sde.py:1289-1391)."""
         shape = tuple(sigma.shape)
-        axes = self._random_axes(generator, shape)
-        cdf_rows = self.cdf_igso3[self.get_sigma_idx(sigma)]
-        angles = self._sample_angles(generator, cdf_rows, shape)
+        axes = torch.randn((*shape, 3), generator=generator, dtype=self.dtype, device=self.device)
+        p_uniform = torch.rand(shape, generator=generator, dtype=self.dtype, device=self.device)
+        return self.igso3_from_draws(sigma, axes, p_uniform)
+
+    def igso3_from_draws(
+        self, sigma: torch.Tensor, axes: torch.Tensor, p_uniform: torch.Tensor
+    ) -> torch.Tensor:
+        """:meth:`sample_igso3` on given draws: standard normals ``axes
+        [..., 3]`` (normalised to the rotation axis) and uniforms ``p_uniform``
+        (the angle's inverse-CDF argument), both shaped like ``sigma``."""
+        axes = axes / (torch.linalg.vector_norm(axes, dim=-1, keepdim=True) + self.tol)
+        angles = self._angles_from_uniform(self.cdf_igso3[self.get_sigma_idx(sigma)], p_uniform)
         angles = torch.where(sigma < self.tol, torch.zeros_like(angles), angles)
         return so3_ops.rotvec_to_rotmat(axes * angles[..., None], tol=self.tol)
 

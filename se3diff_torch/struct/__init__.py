@@ -1,4 +1,4 @@
-"""Structure layer: frames <-> atom37, PDB I/O, native XTC codec, physics filter."""
+"""Structure layer: frames <-> atom37, PDB and mmCIF I/O, native XTC codec, physics filter."""
 
 from se3diff_torch.struct.atoms import (
     adjust_oxygen_pos,
@@ -7,6 +7,7 @@ from se3diff_torch.struct.atoms import (
     frames_from_atom37,
     frames_from_backbone,
 )
+from se3diff_torch.struct.cif import from_cif_string, read_cif, to_modelcif, write_modelcif
 from se3diff_torch.struct.pdb import Structure, from_pdb_string, read_pdb, to_pdb, write_pdb
 from se3diff_torch.struct.physics import (
     filter_unphysical_masks,
@@ -21,9 +22,13 @@ __all__ = [
     "atom37_mask",
     "frames_from_atom37",
     "frames_from_backbone",
+    "from_cif_string",
     "from_pdb_string",
+    "read_cif",
     "read_pdb",
+    "to_modelcif",
     "to_pdb",
+    "write_modelcif",
     "write_pdb",
     "filter_unphysical_masks",
     "filter_unphysical_masks_device",
