@@ -119,6 +119,20 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    binary outputs equal off the thresholds; each reference scores folded;
    ms per call; a ModelCIF of one phase-4 structure written and read back
    within 1e-3 A. Neither phase launches K1;
+18. ``[ppft-learn]``: the PPFT learning run's two scripts in this process at
+   full width, cut in length: ``scripts/torch_pretrain_sh3_prior.py``
+   (200 DSM steps at batch 32 on GRB2-SH3 mutant ensembles around the SH3
+   reference, bf16; every loss finite, 8 K1 forwards on "tc" and 8 backward
+   passes a step; ``params.npz`` reloads into a fresh model that scores a
+   fixed batch bit for bit as the trained one; 64 sampled WT structures,
+   dpm_solver-30, h finite within [0, 1]), then
+   ``scripts/torch_ppft_trainer_run.py`` on that prior (1 epoch, 2 training
+   and 1 validation mutants, path batch 256, EM-200): validation at epochs 0
+   and 1 finite, the epoch-0 path KL under 1e-6, a positive training path
+   KL, ``finetune_model.npz`` equal to the best epoch's checkpoint, K1
+   launches streamed on "tc" and in-kernel on "h4" at the recorder's counts;
+   the DSM step ms, the update wall and the phase wall; K1 and its backward
+   timed at the DSM step's shape (B=32, L=56, bf16);
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -147,6 +161,7 @@ K1_CASES = [(40, 100, "bfloat16", 0), (40, 100, "float32", 0),
             (256, 56, "bfloat16", 0), (256, 56, "float32", 0),
             (16, 100, "bfloat16", 0), (16, 100, "float32", 0)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}         # x max(1, max|plain|)
+K1_KW = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_STOP = 16, 30, 10, 20
 # The last case has two row chunks of the backward (L > 128).
 K1_GRAD_CASES = [(TRAIN_BATCH, 100, "bfloat16", 0), (TRAIN_BATCH, 100, "float32", 0),
@@ -220,6 +235,21 @@ TOY_FT = dict(num_steps_opt=75, batch_size=1024, num_steps=100, l_max=TOY_ASSIGN
 OBS_REFS = {"grb2_sh3": "assets/structures/2vwf_trimmed_SH3.pdb",
             "psd95_pdz3": "assets/structures/1be9_trimmed.pdb"}
 OBS_BATCH = 256
+# Phase 18: the PPFT learning run's two scripts at full width, cut in length
+# only, to stay under 90 s: pretraining 200 of 3,000 DSM steps at batch 32
+# (warm-up 20 of 200, which must be shorter than the run), 64 of 256 frames
+# a mutant, the mutants of 4 of 60 covered updates, with the 64-structure
+# dpm_solver-30 sample check; fine-tuning 1 of 5 epochs over 2 of 25
+# training mutants and 1 of 4 validation mutants, path batch 256, EM-200.
+LEARN_SCRIPTS = ("torch_pretrain_sh3_prior", "torch_ppft_trainer_run")
+LEARN_PRIOR_ARGV = ["--steps", "200", "--batch", "32", "--frames", "64", "--covered_steps", "4",
+                    "--warmup_steps", "20"]
+LEARN_PPFT_ARGV = ["--num_epochs", "1", "--train_mutants", "2", "--val_size", "1"]
+LEARN_L, LEARN_DSM_BATCH, LEARN_CHECK_BATCH = 56, 32, 64
+# (steps, score-model and control-net evaluations a step) of the recorder
+# and of the sample check's dpm_solver (a midpoint evaluation a step).
+LEARN_RECORDER, LEARN_CHECK = (200, 1), (30, 2)
+LEARN_PHASE_LIMIT_S = 90.0
 ENSEMBLES = [
     ("tests/test_data/samples_example/md_emulation/cath1_1bl0A02.xtc",
      "tests/test_data/samples_example/md_emulation/cath1_1bl0A02.pdb"),
@@ -356,40 +386,46 @@ def _timed_with_simt(k1, launch, args, kw, route, ptxas):
         f"max_abs_err vs the CUDA-core design {prev_err:.3e}; ptxas ({route}): {ptxas[route]}")
 
 
+def _forward_case(k1, ptxas, gen, B, L, dname, masked):
+    """One streamed 32-head K1 case on the card: the route's launch against
+    the plain version (fatal beyond ``TOL``), then its time beside the
+    CUDA-core design's, the plain version's and the bound."""
+    import torch
+
+    kw = K1_KW
+    dtype = getattr(torch, dname)
+    args = k1_inputs(B, L, dtype, gen, masked)
+    route = k1.kernel_route(dtype, 32, 16, 256, True)
+    before = k1.launches_by_route[route]
+    got = k1.ipa_attention(*args, **kw)
+    torch.cuda.synchronize()
+    if k1.launches_by_route[route] != before + 1:
+        raise AssertionError(f"ipa_attention did not launch the {route!r} design")
+    want = k1.ipa_attention_plain(*args, **kw)
+    err, scale = max_err(got, want)
+    tol = TOL[dname] * scale
+    plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **kw), reps=5)
+    bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
+    res, detail = _timed_with_simt(k1, lambda: k1.ipa_attention(*args, **kw), args, kw, route,
+                                   ptxas)
+    res.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(
+        f"[k1] B={B} L={L} {dname} masked_cols={masked}: max_abs_err={err:.3e} "
+        f"(tol {tol:.3e}) {detail} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+        f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) "
+        "library_ms=null (no single PyTorch call computes this function)"
+    )
+    if not err <= tol:
+        raise AssertionError(f"kernel disagrees with its plain version: {err} > {tol}")
+    return res
+
+
 def phase_kernel(k1, ptxas):
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    results = {}
-    kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
-    for B, L, dname, masked in K1_CASES:
-        dtype = getattr(torch, dname)
-        args = k1_inputs(B, L, dtype, gen, masked)
-        route = k1.kernel_route(dtype, 32, 16, 256, True)
-        before = k1.launches_by_route[route]
-        got = k1.ipa_attention(*args, **kw)
-        torch.cuda.synchronize()
-        if k1.launches_by_route[route] != before + 1:
-            raise AssertionError(f"ipa_attention did not launch the {route!r} design")
-        want = k1.ipa_attention_plain(*args, **kw)
-        err, scale = max_err(got, want)
-        tol = TOL[dname] * scale
-        plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **kw), reps=5)
-        bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
-        res, detail = _timed_with_simt(k1, lambda: k1.ipa_attention(*args, **kw), args, kw, route,
-                                       ptxas)
-        res.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log(
-            f"[k1] B={B} L={L} {dname} masked_cols={masked}: max_abs_err={err:.3e} "
-            f"(tol {tol:.3e}) {detail} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-            f"({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) "
-            "library_ms=null (no single PyTorch call computes this function)"
-        )
-        if not err <= tol:
-            raise AssertionError(f"kernel disagrees with its plain version: {err} > {tol}")
-        results[(B, L, dname)] = res
-        del args, got, want
-    return results
+    return {(B, L, dname): _forward_case(k1, ptxas, gen, B, L, dname, masked)
+            for B, L, dname, masked in K1_CASES}
 
 
 def phase_score_eval():
@@ -656,75 +692,82 @@ def peak_mb(fn):
     return (torch.cuda.max_memory_allocated() - base) / 1e6
 
 
+def _grad_case(k1, gen, B, L, dname, masked):
+    """One streamed 32-head case of K1's gradient on the card: the autograd
+    Function against autograd through the plain version in f32 (fatal
+    beyond ``GRAD_TOL``), then forward and backward times beside their
+    bounds, the plain autograd backward's time and both peak memories."""
+    import torch
+
+    kw = K1_KW
+    names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa")
+    dtype = getattr(torch, dname)
+    args = k1_inputs(B, L, dtype, gen, masked)
+    leaves = [t.clone().requires_grad_(n != "bias") for n, t in zip(names, args)]
+    diff = [t for n, t in zip(names, leaves) if n != "bias"]
+    cts = tuple(
+        torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+        for shape, dt in (((B, 32, L, 16), dtype), ((B, 32, L, 24), torch.float32),
+                          ((B, 32, L, 16), dtype))
+    )
+    before = k1.launches
+    outs = k1.ipa_attention(*leaves, **kw)
+    if k1.launches != before + 1 or any(o.grad_fn is None for o in outs):
+        raise AssertionError("ipa_attention on CUDA tensors did not launch or lost autograd history")
+    got = torch.autograd.grad(outs, diff, cts)
+    ref = [t.detach().float().requires_grad_(n != "bias") for n, t in zip(names, args)]
+    want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **kw),
+                               [t for n, t in zip(names, ref) if n != "bias"],
+                               [c.float() for c in cts])
+    torch.cuda.synchronize()
+    rel, abs_err = {}, 0.0  # max |error| / max |reference| of each gradient
+    for name, g, p, w in zip([n for n in names if n != "bias"], got, diff, want):
+        if g.dtype != p.dtype or g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"d_{name}: dtype/shape mismatch or non-finite values")
+        err = (g.float() - w).abs().max().item()
+        rel[name], abs_err = err / w.abs().max().item(), max(abs_err, err)
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= GRAD_TOL[dname]:
+        raise AssertionError(f"d_{worst} disagrees with autograd of the plain version: "
+                             f"{rel[worst]:.3e} x max|reference| > {GRAD_TOL[dname]:.3e}")
+    del ref, want
+    plain_outs = k1.ipa_attention_plain(*leaves, **kw)
+    plain_args = [t.detach() for t in leaves]
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: k1.ipa_attention(*plain_args, **kw), reps=20)
+        grads = k1.ipa_attention_backward(plain_args, cts, **kw)
+        bwd_ms = cuda_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw), reps=10)
+    plain_bwd_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
+    bwd_kernel_ms, bwd_kernels = kernel_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw))
+    fwd_bound, fwd_by, _, _ = k1_bound(plain_args, outs, dname)
+    bwd_bound, bwd_by, nbytes, ops = k1_bwd_bound(plain_args, cts, grads)
+    del plain_outs, outs, got
+    mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention(*leaves, **kw), diff, cts))
+    plain_mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention_plain(*leaves, **kw), diff, cts))
+    log(
+        f"[k1-grad] B={B} L={L} {dname} masked_cols={masked} "
+        f"({len(k1._row_chunks(L, 128))} row chunks): gradient errors x max|f32 reference| "
+        + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
+        + f" (tol {GRAD_TOL[dname]:.2e}); forward "
+        f"ms={fwd_ms:.4f} bound_ms={fwd_bound:.4f} ({fwd_by}); backward ms={bwd_ms:.4f} "
+        f"bound_ms={bwd_bound:.4f} ({bwd_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32), "
+        f"of which device kernel time {bwd_kernel_ms:.4f} ms in {bwd_kernels} kernels; "
+        f"plain autograd backward ms={plain_bwd_ms:.4f}; peak memory of forward + backward "
+        f"{mem:.1f} MB, plain autograd {plain_mem:.1f} MB"
+    )
+    return dict(
+        max_abs_err=abs_err, max_rel_err=rel[worst], fwd_ms=fwd_ms, ms=bwd_ms, plain_ms=plain_bwd_ms,
+        bound_ms=bwd_bound, bound_by=bwd_by,
+    )
+
+
 def phase_kernel_grad(k1):
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
-    names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa")
-    results = {}
-    for B, L, dname, masked in K1_GRAD_CASES:
-        dtype = getattr(torch, dname)
-        args = k1_inputs(B, L, dtype, gen, masked)
-        leaves = [t.clone().requires_grad_(n != "bias") for n, t in zip(names, args)]
-        diff = [t for n, t in zip(names, leaves) if n != "bias"]
-        cts = tuple(
-            torch.randn(shape, generator=gen, device=DEVICE).to(dt)
-            for shape, dt in (((B, 32, L, 16), dtype), ((B, 32, L, 24), torch.float32),
-                              ((B, 32, L, 16), dtype))
-        )
-        before = k1.launches
-        outs = k1.ipa_attention(*leaves, **kw)
-        if k1.launches != before + 1 or any(o.grad_fn is None for o in outs):
-            raise AssertionError("ipa_attention on CUDA tensors did not launch or lost autograd history")
-        got = torch.autograd.grad(outs, diff, cts)
-        ref = [t.detach().float().requires_grad_(n != "bias") for n, t in zip(names, args)]
-        want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **kw),
-                                   [t for n, t in zip(names, ref) if n != "bias"],
-                                   [c.float() for c in cts])
-        torch.cuda.synchronize()
-        rel, abs_err = {}, 0.0  # max |error| / max |reference| of each gradient
-        for name, g, p, w in zip([n for n in names if n != "bias"], got, diff, want):
-            if g.dtype != p.dtype or g.shape != w.shape or not torch.isfinite(g).all():
-                raise AssertionError(f"d_{name}: dtype/shape mismatch or non-finite values")
-            err = (g.float() - w).abs().max().item()
-            rel[name], abs_err = err / w.abs().max().item(), max(abs_err, err)
-        worst = max(rel, key=rel.get)
-        if not rel[worst] <= GRAD_TOL[dname]:
-            raise AssertionError(f"d_{worst} disagrees with autograd of the plain version: "
-                                 f"{rel[worst]:.3e} x max|reference| > {GRAD_TOL[dname]:.3e}")
-        del ref, want
-        plain_outs = k1.ipa_attention_plain(*leaves, **kw)
-        plain_args = [t.detach() for t in leaves]
-        with torch.no_grad():
-            fwd_ms = cuda_time_ms(lambda: k1.ipa_attention(*plain_args, **kw), reps=20)
-            grads = k1.ipa_attention_backward(plain_args, cts, **kw)
-            bwd_ms = cuda_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw), reps=10)
-        plain_bwd_ms = cuda_time_ms(
-            lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
-        bwd_kernel_ms, bwd_kernels = kernel_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw))
-        fwd_bound, fwd_by, _, _ = k1_bound(plain_args, outs, dname)
-        bwd_bound, bwd_by, nbytes, ops = k1_bwd_bound(plain_args, cts, grads)
-        del plain_outs, outs, got
-        mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention(*leaves, **kw), diff, cts))
-        plain_mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention_plain(*leaves, **kw), diff, cts))
-        log(
-            f"[k1-grad] B={B} L={L} {dname} masked_cols={masked} "
-            f"({len(k1._row_chunks(L, 128))} row chunks): gradient errors x max|f32 reference| "
-            + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
-            + f" (tol {GRAD_TOL[dname]:.2e}); forward "
-            f"ms={fwd_ms:.4f} bound_ms={fwd_bound:.4f} ({fwd_by}); backward ms={bwd_ms:.4f} "
-            f"bound_ms={bwd_bound:.4f} ({bwd_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32), "
-            f"of which device kernel time {bwd_kernel_ms:.4f} ms in {bwd_kernels} kernels; "
-            f"plain autograd backward ms={plain_bwd_ms:.4f}; peak memory of forward + backward "
-            f"{mem:.1f} MB, plain autograd {plain_mem:.1f} MB"
-        )
-        results[(B, L, dname)] = dict(
-            max_abs_err=abs_err, max_rel_err=rel[worst], fwd_ms=fwd_ms, ms=bwd_ms, plain_ms=plain_bwd_ms,
-            bound_ms=bwd_bound, bound_by=bwd_by,
-        )
-        del args, leaves, diff, grads, plain_args
-    return results
+    return {(B, L, dname): _grad_case(k1, gen, B, L, dname, masked)
+            for B, L, dname, masked in K1_GRAD_CASES}
 
 
 def phase_dsm_grad(k1):
@@ -1898,6 +1941,166 @@ def phase_observables(k1, card, ppft_pos):
         raise AssertionError(f"the observables launched K1 {k1.launches} times")
 
 
+def _load_script(name):
+    """``scripts/{name}.py`` as a module (scripts/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_ppft_learn(k1, ptxas, card):
+    """The PPFT learning run's scripts in this process, so K1's counters see
+    their launches: ``scripts/torch_pretrain_sh3_prior.py``'s main (DSM at
+    full width in bf16, the export, the sample check), then
+    ``scripts/torch_ppft_trainer_run.py``'s main on that prior. Then K1 and
+    its backward timed at the DSM step's shape (B=32, L=56, bf16)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from se3diff_torch.models import dig
+    from se3diff_torch.models.convert import load_checkpoint
+    from se3diff_torch.training import loop
+
+    prior_script, ppft_script = (_load_script(n) for n in LEARN_SCRIPTS)
+    d = OUT / "learn"
+    shutil.rmtree(d, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    # Every step's loss (kept on the device, read once at the end), and K1's
+    # counters when train_dsm returns: the sample check comes after it.
+    losses, dsm = [], {}
+    train_step, train_dsm = loop.train_step, loop.train_dsm
+
+    def recorded_step(*a, **kw):
+        losses.append(train_step(*a, **kw).detach())
+        return losses[-1]
+
+    def counted_train_dsm(*a, **kw):
+        out = train_dsm(*a, **kw)
+        dsm.update(launches=k1.launches, routes=dict(k1.launches_by_route), backwards=k1.backward_calls)
+        return out
+
+    _reset_k1(k1)
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "train_step", recorded_step), \
+            mock.patch.object(loop, "train_dsm", counted_train_dsm):
+        model, summary = prior_script.main([*LEARN_PRIOR_ARGV, "--ckpt_dir", str(d / "prior"),
+                                            "--output", str(d / "prior.json"), "--device", DEVICE])
+    torch.cuda.synchronize()
+    prior_wall = time.perf_counter() - t0
+    launches, routes, backwards = k1.launches, dict(k1.launches_by_route), k1.backward_calls
+    steps = summary["steps"]
+    check_launches = launches - dsm["launches"]
+    expect_check = LEARN_CHECK[0] * LEARN_CHECK[1] * N_LAYERS
+    sampled = summary["sampled_h"]
+    all_finite = bool(torch.isfinite(torch.stack(losses)).all())
+    log(f"[ppft-learn] pretraining (scripts/torch_pretrain_sh3_prior.py, bioemu-v1.0 widths, "
+        f"{summary['params_M']}M parameters, bf16): {steps} DSM steps at batch {summary['batch']} "
+        f"over {summary['systems']} mutants x {summary['frames_per_system']} frames in "
+        f"{prior_wall:.2f} s with set-up, median step {summary['dsm_step_ms']:.2f} ms; logged losses "
+        f"{json.loads((d / 'prior.json').read_text())['loss_history']}, {len(losses)} step losses "
+        f"{'all finite' if all_finite else 'NOT all finite'}; K1 launches {dsm['launches']} "
+        f"(by route {dsm['routes']}), backward passes {dsm['backwards']} (expected "
+        f"{N_LAYERS * steps} each: {N_LAYERS} a step, every launch on tc); sample check "
+        f"({LEARN_CHECK_BATCH} WT structures, dpm_solver-{LEARN_CHECK[0]}) {check_launches} launches "
+        f"(expected {expect_check}), sampled h mean {sampled['mean']:.4g}, q {sampled['quantiles']}; "
+        f"ensemble h mean {summary['ensemble_h']['mean']:.4g}; {card}")
+    if len(losses) != steps or not all_finite:
+        raise AssertionError("a DSM loss of the pretraining run is not finite")
+    if (dsm["launches"], dsm["backwards"]) != (N_LAYERS * steps, N_LAYERS * steps):
+        raise AssertionError("DSM K1 launches or backward passes are not 8 a step")
+    if routes != {"tc": launches, "tc_f32": 0, "h4": 0, "simt": 0} or backwards != dsm["backwards"]:
+        raise AssertionError(f"the pretraining run's launches left the tensor-core route: {routes}")
+    if check_launches != expect_check:
+        raise AssertionError("the sample check's K1 launches are not the expected count")
+    q = sampled["quantiles"]
+    if not (np.isfinite(sampled["mean"]) and 0.0 <= q[0] <= q[-1] <= 1.0):
+        raise AssertionError(f"sampled h is not finite within [0, 1]: {sampled}")
+
+    # The export reloads into a fresh model that scores a fixed batch as the
+    # trained model does, bit for bit.
+    fresh = dig.DiGConditionalScoreModel(dtype=torch.bfloat16)
+    fresh.load_state_dict(load_checkpoint(str(d / "prior" / "params.npz")), strict=True)
+    fresh.to(DEVICE).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    L = LEARN_L
+    x = (torch.randn(2, L, 3, generator=gen, device=DEVICE),
+         torch.eye(3, device=DEVICE).expand(2, L, 3, 3).contiguous(),
+         torch.full((2,), 0.3, device=DEVICE), torch.randn(2, L, 384, generator=gen, device=DEVICE),
+         torch.randn(2, L, L, 128, generator=gen, device=DEVICE) * 0.2)
+    with torch.inference_mode():
+        same = all(torch.equal(a, b) for a, b in zip(model.eval()(*x), fresh(*x)))
+    log(f"[ppft-learn] params.npz reloaded into a fresh model: score on a fixed batch "
+        f"{'equal to the trained model bit for bit' if same else 'DIFFERS from the trained model'}")
+    if not same:
+        raise AssertionError("the exported prior does not reload bit for bit")
+    del model, fresh
+
+    _reset_k1(k1)
+    t0 = time.perf_counter()
+    best = ppft_script.main([*LEARN_PPFT_ARGV, "--prior_params", str(d / "prior" / "params.npz"),
+                             "--output_dir", str(d / "ppft"), "--device", DEVICE])
+    torch.cuda.synchronize()
+    ppft_wall = time.perf_counter() - t0
+    launches, ppft_backwards = dict(k1.launches_by_variant), k1.backward_calls
+    routes = _check_ppft_routes(k1, launches)
+    hist = json.loads((d / "ppft" / "history.json").read_text())
+    n, per = LEARN_RECORDER
+    train = hist["train"][0]
+    updates = int(LEARN_PPFT_ARGV[LEARN_PPFT_ARGV.index("--train_mutants") + 1])
+    # Paths: validation at epochs 0 and 1 (1 mutant each) and one a training
+    # update; the replay runs the control net twice a step (checkpoint).
+    paths = 2 + updates
+    expect = {"pa": paths * per * n * N_LAYERS,
+              "w_pb": paths * per * n * FT_LAYERS + updates * 2 * n * FT_LAYERS}
+    expect_bwd = updates * n * FT_LAYERS
+    best_epoch = hist["best_epoch"]
+    with np.load(d / "ppft" / "finetune_model.npz") as a, \
+            np.load(d / "ppft" / f"finetune_model_{best_epoch}.npz") as b:
+        best_equal = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) and np.array_equal(a[k], best[k].cpu().numpy()) for k in a.files)
+    vals = [(e["epoch"], e["val_loss"], e["val_path_kl"]) for e in hist["val"]]
+    update_s = train["seconds"] / updates
+    log(f"[ppft-learn] fine-tuning (scripts/torch_ppft_trainer_run.py): GRB2-SH3 {updates} training "
+        f"+ 1 validation mutants, path batch {hist['config']['batch_size']}, "
+        f"euler_maruyama_finetune-{n}, 1 epoch: {ppft_wall:.2f} s with set-up; validation (epoch, "
+        f"EV+KL, path KL) {vals}; training loss {train['loss']}, mean path KL "
+        f"{train['mean_path_kl']}, max {train['max_path_kl']}; wall of an update (path, h, replay, "
+        f"AdamW) {update_s:.3f} s, of a validation {hist['val'][0]['seconds']:.3f} s; best epoch "
+        f"{best_epoch}, finetune_model.npz {'equals' if best_equal else 'DIFFERS from'} its "
+        f"checkpoint; K1 launches by variant {launches} (expected {expect}), by route {routes}, "
+        f"backward passes {ppft_backwards} (expected {expect_bwd}); {card}")
+    if [v[0] for v in vals] != [0, 1] or not np.isfinite([v[1:] for v in vals]).all():
+        raise AssertionError("history.json lacks finite validation at epochs 0 and 1")
+    if not vals[0][2] < 1e-6:
+        raise AssertionError(f"epoch-0 path KL {vals[0][2]} is not that of a near-zero control")
+    if not (train["mean_path_kl"] > 0 and np.isfinite(train["loss"])):
+        raise AssertionError("the updates left the control at zero or the loss is not finite")
+    if not best_equal:
+        raise AssertionError("finetune_model.npz is not the best epoch's checkpoint")
+    if launches != expect or ppft_backwards != expect_bwd:
+        raise AssertionError("PPFT K1 launches or backward passes are not the expected counts")
+    scripts_wall = time.perf_counter() - t_phase
+
+    # The DSM step's K1 shape, forward and backward, for PERF.md's table.
+    fwd = _forward_case(k1, ptxas, torch.Generator(device=DEVICE).manual_seed(12),
+                        LEARN_DSM_BATCH, L, "bfloat16", 0)
+    bwd = _grad_case(k1, torch.Generator(device=DEVICE).manual_seed(13),
+                     LEARN_DSM_BATCH, L, "bfloat16", 0)
+    wall = time.perf_counter() - t_phase
+    log(f"[ppft-learn] DSM step {summary['dsm_step_ms']:.2f} ms, update {update_s:.3f} s; the two "
+        f"scripts {scripts_wall:.1f} s (limit {LEARN_PHASE_LIMIT_S:.0f} s), the phase with the "
+        f"B={LEARN_DSM_BATCH} L={L} K1 timings {wall:.1f} s; {card}")
+    return dict(dsm_launches=dsm["launches"], dsm_backwards=dsm["backwards"],
+                check_launches=check_launches, ppft_launches=launches, ppft_backwards=ppft_backwards,
+                fwd=fwd, bwd=bwd)
+
+
 def main() -> int:
     try:
         import torch
@@ -1950,6 +2153,7 @@ def main() -> int:
     phase_toy(k1, card)
     phase_observables(k1, card, step["final_pos"])
     log(f"[done] phases 16-17 (the SO(3) toy, the observables) in {time.perf_counter() - t_new:.1f} s")
+    learn = phase_ppft_learn(k1, ptxas, card)
 
     main_case = k1_results[K1_CASES[0][:3]]
     ppft_case = k1_results[(256, 56, "bfloat16")]
@@ -1967,7 +2171,9 @@ def main() -> int:
         f"CLI sde_dpm {sde_launches}, PPFT step sde_dpm {sde_step['launches']}; backward passes: "
         f"training path {train_backwards}, PPFT CLI {ppft_backwards}, PPFT step "
         f"{step['backwards']}, PPFT CLI sde_dpm {sde_backwards}, PPFT step sde_dpm "
-        f"{sde_step['backwards']}")
+        f"{sde_step['backwards']}; PPFT learning run: DSM {learn['dsm_launches']} launches and "
+        f"{learn['dsm_backwards']} backward passes, sample check {learn['check_launches']}, "
+        f"fine-tuning {learn['ppft_launches']} and {learn['ppft_backwards']} backward passes")
     kernels = {"kernels": [{
         "name": "ipa_attention",
         "route": "cuda",
@@ -1998,6 +2204,16 @@ def main() -> int:
         "launches_ppft": ppft_launches["pa"],
         "launches_ppft_sde_dpm": sde_launches["pa"],
         "launches_ppft_sde_dpm_step": sde_step["launches"]["pa"],
+        # The PPFT learning run (phase 18): its DSM steps, its sample check
+        # and its fine-tuning recorder, and the DSM step's shape (B=32, L=56).
+        "launches_ppft_learn_dsm": learn["dsm_launches"],
+        "launches_ppft_learn_check": learn["check_launches"],
+        "launches_ppft_learn": learn["ppft_launches"]["pa"],
+        "B32_L56_ms": learn["fwd"]["ms"],
+        "B32_L56_prev_ms": learn["fwd"]["prev_ms"],
+        "B32_L56_plain_ms": learn["fwd"]["plain_ms"],
+        "B32_L56_bound_ms": learn["fwd"]["bound_ms"],
+        "B32_L56_max_abs_err": learn["fwd"]["max_abs_err"],
         # At the control net's 4 heads: B=256, L=56, Cp=32, f32.
         "h4_max_abs_err": h4_case["max_abs_err"],
         "h4_ms": h4_case["ms"],
@@ -2016,6 +2232,12 @@ def main() -> int:
         "backward_plain_ms": bwd_case["plain_ms"],
         "backward_bound_ms": bwd_case["bound_ms"],
         "backward_bound_by": bwd_case["bound_by"],
+        "backward_calls_ppft_learn_dsm": learn["dsm_backwards"],
+        "backward_B32_L56_ms": learn["bwd"]["ms"],
+        "backward_B32_L56_plain_ms": learn["bwd"]["plain_ms"],
+        "backward_B32_L56_bound_ms": learn["bwd"]["bound_ms"],
+        "backward_B32_L56_bound_by": learn["bwd"]["bound_by"],
+        "backward_B32_L56_max_rel_err": learn["bwd"]["max_rel_err"],
     }, {
         # f32, 32 heads, streamed pa (every CLI's default dtype): the f32
         # tensor-core design; prev_ms is the CUDA-core design on the same inputs.
@@ -2086,6 +2308,7 @@ def main() -> int:
         # The same with sde_dpm_solver_finetune (phase 15).
         "launches_ppft_sde_dpm": sde_launches["w_pb"],
         "launches_ppft_sde_dpm_step": sde_step["launches"]["w_pb"],
+        "launches_ppft_learn": learn["ppft_launches"]["w_pb"],
         # The control net's shape on the PPFT path: B=256, L=56, 4 heads, Cp=32, f32.
         "max_abs_err": ft_case["max_abs_err"],
         "ms": ft_case["ms"],
@@ -2118,6 +2341,7 @@ def main() -> int:
         "backward_calls": ppft_backwards,
         "backward_calls_ppft_sde_dpm": sde_backwards,
         "backward_calls_ppft_sde_dpm_step": sde_step["backwards"],
+        "backward_calls_ppft_learn": learn["ppft_backwards"],
         "backward_max_abs_err": ft_bwd["max_abs_err"],
         "backward_max_rel_err": ft_bwd["max_rel_err"],
         "backward_ms": ft_bwd["ms"],

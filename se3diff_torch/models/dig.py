@@ -450,6 +450,13 @@ class DiGConditionalScoreModel(nn.Module):
         )
 
 
+def count_params(model: nn.Module) -> int:
+    """Number of parameter elements (the JAX package's ``count_params`` on
+    the same weights); buffers such as the empty ``step_emb.dummy`` sentinel
+    are not parameters."""
+    return sum(p.numel() for p in model.parameters())
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter from ``generator`` with the JAX package's
     initialisers: truncated-normal LeCun for projections, normal(1/sqrt(dim))

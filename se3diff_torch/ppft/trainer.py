@@ -27,6 +27,7 @@ import dataclasses
 import json
 import logging
 import os
+import time
 from dataclasses import dataclass
 from functools import partial
 from pathlib import Path
@@ -387,7 +388,9 @@ def finetune(
     Epoch 0 is validation only; AdamW with a cosine decay to ``eta_min``
     over all updates; checkpoints ``finetune_model_{epoch}.npz`` every
     ``save_every_n_epochs`` and at the end, the best-validation weights as
-    ``finetune_model.npz``, ``history.json`` after every epoch. A path whose
+    ``finetune_model.npz``, ``history.json`` after every epoch (each entry
+    with its host wall, ``seconds``: the losses are read back on the host
+    after every path, so the wall covers the device work). A path whose
     KL exceeds ``kl_guard`` is not replayed and adds nothing to the update.
     Returns the best state dict. Path ``k`` of the run draws its noise from
     the generator of ``(seed, k)``.
@@ -466,6 +469,7 @@ def finetune(
 
     for epoch in range(config.num_epochs + 1):
         if epoch > 0:
+            t0 = time.perf_counter()
             epoch_loss, n, kls, skipped = 0.0, 0, [], 0
             for data_batch in dataset.batches(config.data_batch_size, config.shuffle, rng):
                 grads_sum = None
@@ -499,9 +503,11 @@ def finetune(
                 "mean_path_kl": float(np.mean(kls)) if kls else 0.0,
                 "max_path_kl": float(np.max(kls)) if kls else 0.0,
                 "skipped_updates": skipped,
+                "seconds": time.perf_counter() - t0,
             })
 
         if epoch % config.val_every_n_epochs == 0 or epoch == config.num_epochs:
+            t0 = time.perf_counter()
             val_loss, val_kl, n = 0.0, 0.0, 0
             for (seq, h_stars), in dataset_val.batches(1, shuffle=False):
                 _, loss, kl = run_one(seq, h_stars, False)
@@ -512,6 +518,7 @@ def finetune(
             logger.info("Epoch %d: avg val loss %.4f", epoch, avg_val)
             history["val"].append({
                 "epoch": epoch, "val_loss": avg_val, "val_path_kl": val_kl / max(n, 1),
+                "seconds": time.perf_counter() - t0,
             })
             if avg_val < best_val:
                 best_val, best_epoch = avg_val, epoch
