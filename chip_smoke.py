@@ -133,6 +133,28 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    launches streamed on "tc" and in-kernel on "h4" at the recorder's counts;
    the DSM step ms, the update wall and the phase wall; K1 and its backward
    timed at the DSM step's shape (B=32, L=56, bf16);
+19. ``[mesh-train]``: DP+TP DSM training (``python -m se3diff_torch.train
+   --mesh``) in one spawn of 2 gloo ranks sharing the card (NCCL refuses two
+   ranks on one device; the NCCL branch, one card a rank, is not run here):
+   (a) one f32 step at bioemu-v1.0 widths (seed-0 weights), B=16, L=100,
+   fixed noise, as ``data=2`` (K1 on "tc_f32", 8 rows a rank) and as
+   ``model=2`` (K1 on "simt" at 16 heads), each against this process's
+   one-device step on the whole batch: the loss within 1e-5 relative, the
+   clipped gradients of ``model=2`` within 1e-4 of each one's largest
+   entry; ``data=2`` equals, bit for bit, this process's step with the
+   gradient accumulated over the ranks' two halves, whose own gap to the
+   whole batch's gradient (1.8e-3 on the card) is held at 1e-2; the
+   updated weights within 1e-5 of the largest weight wherever the
+   gradient's sign is beyond the step's gradient limit; the two ranks' gathered weights and gradients equal; 8 K1
+   forwards and 8 backward passes a step on each rank; the ms a step and
+   the wall and count of its all-reduces; (b) the train CLI's rank function as ``--mesh model=2`` at
+   bf16 on the two test ensembles (one L=64 bucket), batch 16: 10 steps
+   with checkpoints every 5, then 5 steps, interrupted, and a resume to 10,
+   which must equal the uninterrupted weights bit for bit; 80 "simt"
+   launches and 80 backward passes a rank; the export loads through
+   ``load_bundle`` and one score evaluation runs from it. K1 at 16 heads
+   ("simt") is held against its plain version and timed beside its bound
+   at both shapes;
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -250,6 +272,21 @@ LEARN_L, LEARN_DSM_BATCH, LEARN_CHECK_BATCH = 56, 32, 64
 # and of the sample check's dpm_solver (a midpoint evaluation a step).
 LEARN_RECORDER, LEARN_CHECK = (200, 1), (30, 2)
 LEARN_PHASE_LIMIT_S = 90.0
+# Phase 19: DP+TP training on 2 gloo ranks sharing the card. (a) one f32
+# step at B=16, L=100 as data=2 and as model=2 (K1 at 16 heads a rank), at
+# the trainer's default lr. Each step's gradients have their own limit
+# against this process's step on the whole batch, as a share of each
+# tensor's largest entry. model=2 runs on the whole batch: 1e-4. data=2
+# sums two halves of 8, and must equal, bit for bit, this process's step
+# with the gradient accumulated over those halves; that accumulation itself
+# differs from the whole batch's by up to 1.77e-3 on the card (x1d_proj;
+# scripts/torch_dp_grad_gap.py measures where the gap comes from), so
+# data=2 against the whole batch is held at 1e-2.
+MESH_RANKS, MESH_B, MESH_L, MESH_LR, MESH_TIMED = 2, 16, 100, 1e-4, 3
+MESH_LOSS_TOL, MESH_WEIGHT_TOL = 1e-5, 1e-5
+MESH_GRAD_TOL = {"data=2": 1e-2, "model=2": 1e-4}
+# (b) the train CLI's rank function at model=2, bf16, batch 16.
+MESH_STEPS, MESH_CKPT_EVERY, MESH_STOP = 10, 5, 5
 ENSEMBLES = [
     ("tests/test_data/samples_example/md_emulation/cath1_1bl0A02.xtc",
      "tests/test_data/samples_example/md_emulation/cath1_1bl0A02.pdb"),
@@ -2101,6 +2138,244 @@ def phase_ppft_learn(k1, ptxas, card):
                 fwd=fwd, bwd=bwd)
 
 
+def _simt_case(k1, gen, B, L, dname):
+    """K1 at a TP rank's 16 heads (route "simt") against its plain version,
+    timed beside its bound."""
+    import torch
+
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL
+
+    dtype = getattr(torch, dname)
+    heads = BIOEMU_V1_MODEL["num_heads"] // MESH_RANKS
+    args = k1_inputs(B, L, dtype, gen, H=heads)
+    if k1.kernel_route(dtype, heads, 16, 256, True) != "simt":
+        raise AssertionError(f"K1 at {heads} heads does not take the simt route")
+    before = k1.launches_by_route["simt"]
+    got = k1.ipa_attention(*args, **K1_KW)
+    torch.cuda.synchronize()
+    if k1.launches_by_route["simt"] != before + 1:
+        raise AssertionError("ipa_attention did not launch the simt design")
+    want = k1.ipa_attention_plain(*args, **K1_KW)
+    err, scale = max_err(got, want)
+    tol = TOL[dname] * scale
+    ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **K1_KW), reps=20)
+    plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **K1_KW), reps=5)
+    bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
+    log(f"[mesh-k1] simt, {heads} heads, B={B} L={L} {dname}: max_abs_err={err:.3e} (tol "
+        f"{tol:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; {ms / bound_ms:.1f}x the bound) "
+        "library_ms=null (no single PyTorch call computes this function)")
+    if not err <= tol:
+        raise AssertionError(f"simt at {heads} heads disagrees with its plain version: {err} > {tol}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_mesh_train(k1, card):
+    """(a) one DP and one TP f32 step against this process's step; (b) the
+    train CLI's rank function at model=2, interrupted and resumed. One spawn
+    of MESH_RANKS gloo ranks on the card. Returns the readings the kernels
+    line carries."""
+    from datetime import timedelta
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from se3diff_torch.diffusion.denoise import SDEs
+    from se3diff_torch.models import dig
+    from se3diff_torch.ops.so3 import rotvec_to_rotmat
+    from se3diff_torch.parallel import programs, run_ranks
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, BIOEMU_V1_SO3, load_bundle
+    from se3diff_torch.sde.so3_sde import DiGSO3SDE
+    from se3diff_torch.sde.vpsde import CosineVPSDE
+    from se3diff_torch.training.dsm import draw_noise, dsm_denominator, dsm_loss, step_update
+    from se3diff_torch.training.loop import TrainConfig, make_optimizer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    simt = {"f32": _simt_case(k1, gen, MESH_B, MESH_L, "float32"),
+            "bf16": _simt_case(k1, gen, TRAIN_BATCH, 64, "bfloat16")}
+
+    # (a) This process's one-device f32 steps on the same weights, batch and
+    # noise: on the whole batch, and with the gradient accumulated over the
+    # data=2 ranks' two halves (the DP step's arithmetic, which it must equal).
+    B, L = MESH_B, MESH_L
+    rng = np.random.default_rng(19)
+    batch = {
+        "pos": (rng.standard_normal((B, L, 3)) * 0.5).astype(np.float32),
+        "rot": rotvec_to_rotmat(torch.from_numpy(
+            (rng.standard_normal((B, L, 3)) * 0.4).astype(np.float32))).numpy(),
+        "single": (rng.standard_normal((B, L, 384)) * 0.5).astype(np.float32),
+        "pair": (rng.standard_normal((B, L, L, 128)) * 0.2).astype(np.float32),
+    }
+    so3 = dict(BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache"))
+    sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**so3, device=DEVICE))
+    model = dig.init_weights(dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL),
+                             torch.Generator().manual_seed(0))
+    weights = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    b_dev = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    noise = draw_noise(torch.Generator(device=DEVICE).manual_seed(19), b_dev, sdes)
+
+    def one_process(halves):
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+        model.to(DEVICE).eval()
+        opt = make_optimizer(TrainConfig(lr=MESH_LR), model.parameters())
+        opt.zero_grad(set_to_none=True)
+        loss = 0.0
+        for b0, b1 in halves:
+            part = dsm_loss(model, {k: v[b0:b1] for k, v in b_dev.items()},
+                            type(noise)(*(x[b0:b1] for x in noise)), sdes,
+                            denom=dsm_denominator(b_dev))
+            part.backward()
+            loss = loss + part.detach()
+        step_update(model, opt, lr=MESH_LR, grad_clip=1.0)
+        return (loss.item(), {k: v.cpu().numpy().copy() for k, v in model.state_dict().items()},
+                {n: p.grad.cpu().numpy().copy() for n, p in model.named_parameters()})
+
+    ref = {"whole batch": one_process([(0, B)]),
+           "data=2 halves": one_process([(0, B // 2), (B // 2, B)])}
+    del model, b_dev
+    torch.cuda.empty_cache()
+    noise_np = tuple(x.cpu().numpy() for x in noise)
+
+    # (b) The train CLI's argv (--mesh is what the CLI reads; the rank function
+    # is handed the axes).
+    full, part = OUT / "mesh_full", OUT / "mesh_part"
+    for d in (full, part):
+        shutil.rmtree(d, ignore_errors=True)
+
+    def argv(ckpt_dir):
+        a = [x for traj, top in ENSEMBLES for x in ("--trajectory", str(REPO / traj),
+                                                      "--topology", str(REPO / top))]
+        return a + [
+            "--bucket", "32", "--batch_size", str(TRAIN_BATCH), "--dtype", "bfloat16",
+            "--steps", str(MESH_STEPS), "--ckpt_every", str(MESH_CKPT_EVERY), "--log_every", "5",
+            "--ckpt_dir", str(ckpt_dir), "--embeds_backend", "dummy", "--cache_embeds_dir",
+            str(OUT / "embeds"), "--so3_cache_dir", str(OUT / "so3_cache"), "--mesh",
+            f"model={MESH_RANKS}", "--device", "cuda",
+        ]
+
+    step = partial(programs.mesh_step, lr=MESH_LR, timed_steps=MESH_TIMED)
+    args = (BIOEMU_V1_MODEL, weights, batch, noise_np, so3)
+    steps = [
+        (step, (MESH_RANKS, 1, *args)),
+        (step, (1, MESH_RANKS, *args)),
+        (programs.train_rank, (argv(full), 1, MESH_RANKS)),
+        (programs.train_rank, (argv(part), 1, MESH_RANKS, MESH_STOP)),
+        (programs.train_rank, (argv(part), 1, MESH_RANKS)),
+    ]
+    t0 = time.perf_counter()
+    ranks = run_ranks(programs.in_turn, MESH_RANKS, [DEVICE + ":0"] * MESH_RANKS, args=(steps,),
+                      timeout=900.0, group_timeout=timedelta(seconds=300))
+    spawn_s = time.perf_counter() - t0
+    log(f"[mesh-train] {MESH_RANKS} gloo ranks spawned on {DEVICE}:0 ran (a)-(b) in "
+        f"{spawn_s:.1f} s with start-up")
+
+    zero = dict.fromkeys(k1.launches_by_route, 0)
+    whole_w = ref["whole batch"][1]
+    largest_w = max(float(np.abs(w).max()) for w in whole_w.values() if w.size)
+
+    def errors(o, want, grad_tol):
+        # A first AdamW step moves a weight by lr g / (|g| + eps): where
+        # rounding can flip a gradient's sign the weights may differ by up to
+        # 2 lr. Held: the entries whose whole-batch gradient exceeds twice
+        # the gradient tolerance of its tensor's largest entry.
+        loss, w, g = want
+        held = {k: np.abs(x) > 2 * grad_tol * np.abs(x).max() for k, x in g.items() if x.size}
+        return (abs(o["loss"] - loss) / abs(loss),
+                max(float(np.abs(o["weights"][k] - w[k]).max()) for k in held),
+                max(float(np.abs(o["weights"][k] - w[k])[held[k]].max(initial=0.0)) for k in held),
+                max(((float(np.abs(o["grads"][k] - g[k]).max() / np.abs(g[k]).max()), k)
+                     for k in held)),
+                sum(int(m.sum()) for m in held.values()), sum(m.size for m in held.values()))
+
+    readings = {}
+    for i, (name, route) in enumerate((("data=2", "tc_f32"), ("model=2", "simt"))):
+        outs = [r[i] for r in ranks]
+        o = outs[0]
+        grad_tol = MESH_GRAD_TOL[name]
+        same = all(np.array_equal(x[key][k], o[key][k]) for x in outs[1:]
+                   for key in ("weights", "grads") for k in o[key])
+        step_ms = float(np.median(o["step_ms"]))
+        for r, x in enumerate(outs):
+            log(f"[mesh-train] (a) {name} rank {r}: K1 launches by route {x['launches_by_route']}, "
+                f"backward passes {x['backward_calls']} (expected {N_LAYERS} each, on {route}); "
+                f"step ms {', '.join(f'{t:.1f}' for t in x['step_ms'])}; all-reduces a step "
+                f"{x['all_reduces']:.0f}, their wall with the wait for the other rank "
+                f"{x['all_reduce_ms']:.1f} ms")
+        loss_err, w_all, w_err, (g_err, g_key), n_held, n_all = errors(o, ref["whole batch"],
+                                                                        grad_tol)
+        log(f"[mesh-train] (a) {name}, f32 full width B={B} L={L}, one step against this "
+            f"process's on the whole batch: loss {o['loss']:.6f} vs {ref['whole batch'][0]:.6f} "
+            f"rel_err={loss_err:.2e} (tol {MESH_LOSS_TOL:.0e}); clipped gradients "
+            f"max_rel_err={g_err:.2e} ({g_key}; tol {grad_tol:.0e} x each one's largest "
+            f"entry); updated weights max_abs_err={w_err:.2e} on the {n_held} of {n_all} entries "
+            f"whose gradient exceeds {2 * grad_tol:.0e} of its tensor's largest (tol "
+            f"{MESH_WEIGHT_TOL * largest_w:.2e} = {MESH_WEIGHT_TOL:.0e} x the largest weight "
+            f"{largest_w:.3f}), {w_all:.2e} on all (at most 2 lr = {2 * MESH_LR:.0e}); ranks' "
+            f"weights and gradients equal: {same}; median step {step_ms:.1f} ms; {card}")
+        ok = (loss_err <= MESH_LOSS_TOL and g_err <= grad_tol
+              and w_err <= MESH_WEIGHT_TOL * largest_w and same)
+        if name == "data=2":
+            want_loss, want_w, want_g = ref["data=2 halves"]
+            exact = (o["loss"] == want_loss
+                     and all(np.array_equal(o["weights"][k], w) for k, w in want_w.items())
+                     and all(np.array_equal(o["grads"][k], g) for k, g in want_g.items()))
+            log(f"[mesh-train] (a) data=2 against this process's step with the gradient "
+                f"accumulated over the ranks' two halves: loss, gradients and weights "
+                + ("equal bit for bit" if exact else "DIFFER (expected bit for bit)"))
+            ok = ok and exact
+        if not ok:
+            raise AssertionError(f"the {name} step disagrees with one process")
+        for x in outs:
+            if x["launches_by_route"] != {**zero, route: N_LAYERS} or x["backward_calls"] != N_LAYERS:
+                raise AssertionError(f"the {name} step launched K1 {x['launches_by_route']} "
+                                     f"with {x['backward_calls']} backward passes")
+        readings[name] = dict(step_ms=step_ms, all_reduce_ms=o["all_reduce_ms"],
+                              launches=sum(x["launches_by_route"][route] for x in outs))
+
+    # (b) The CLI's rank function: full run, interrupted run, resume.
+    runs = [[r[j] for r in ranks] for j in (2, 3, 4)]
+    expect = (N_LAYERS * MESH_STEPS, N_LAYERS * MESH_STOP, N_LAYERS * (MESH_STEPS - MESH_STOP))
+    for label, run, n in zip(("10 steps", "interrupted at step 5", "resumed to 10"), runs, expect):
+        for x in run:
+            log(f"[mesh-train] (b) model={MESH_RANKS} bf16 B={TRAIN_BATCH} L=64, {label}, rank "
+                f"{x['rank']}: {x['wall_s']:.1f} s with set-up; logged losses {x['history']}; K1 "
+                f"launches by route {x['launches_by_route']}, backward passes "
+                f"{x['backward_calls']} (expected {n} each, on simt)")
+            if x["launches_by_route"] != {**zero, "simt": n} or x["backward_calls"] != n:
+                raise AssertionError(f"the CLI rank ({label}) launched K1 {x['launches_by_route']}")
+    if not all(np.isfinite(x["history"]).all() for x in runs[0]):
+        raise AssertionError("non-finite loss in the mesh run")
+    with np.load(full / "params.npz") as a, np.load(part / "params.npz") as b:
+        diffs = [k for k in a.files if a[k].tobytes() != b[k].tobytes()]
+    log(f"[mesh-train] (b) interrupted at step {MESH_STOP} and resumed to {MESH_STEPS}: "
+        + ("weights equal the uninterrupted run's bit for bit" if not diffs
+           else f"{len(diffs)} tensors differ ({diffs[:3]})"))
+    if diffs:
+        raise AssertionError("the resumed mesh run differs from the uninterrupted one")
+    bundle = load_bundle(full / "params.npz", device=DEVICE, dtype=torch.bfloat16,
+                         so3_cache_dir=str(OUT / "so3_cache"))
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    with torch.inference_mode():
+        pos, rot = bundle.model(
+            torch.randn(2, 64, 3, generator=g, device=DEVICE),
+            torch.eye(3, device=DEVICE).expand(2, 64, 3, 3), torch.full((2,), 0.5, device=DEVICE),
+            torch.randn(2, 64, 384, generator=g, device=DEVICE),
+            torch.randn(2, 64, 64, 128, generator=g, device=DEVICE) * 0.2,
+        )
+    if not (pos.shape == rot.shape == (2, 64, 3) and torch.isfinite(pos).all()
+            and torch.isfinite(rot).all()):
+        raise AssertionError("score evaluation from the mesh export failed")
+    log(f"[mesh-train] (b) export {full.relative_to(REPO)}/params.npz + config.yaml loads through "
+        f"load_bundle; one bf16 score evaluation from it is finite")
+    wall = time.perf_counter() - t_phase
+    log(f"[mesh-train] phase wall {wall:.1f} s (the spawn {spawn_s:.1f} s); {card}")
+    return dict(simt=simt, readings=readings,
+                cli_launches=sum(x["launches_by_route"]["simt"] for x in runs[0]),
+                cli_backwards=sum(x["backward_calls"] for x in runs[0]))
+
+
 def main() -> int:
     try:
         import torch
@@ -2154,6 +2429,7 @@ def main() -> int:
     phase_observables(k1, card, step["final_pos"])
     log(f"[done] phases 16-17 (the SO(3) toy, the observables) in {time.perf_counter() - t_new:.1f} s")
     learn = phase_ppft_learn(k1, ptxas, card)
+    mesh = phase_mesh_train(k1, card)
 
     main_case = k1_results[K1_CASES[0][:3]]
     ppft_case = k1_results[(256, 56, "bfloat16")]
@@ -2173,7 +2449,11 @@ def main() -> int:
         f"{step['backwards']}, PPFT CLI sde_dpm {sde_backwards}, PPFT step sde_dpm "
         f"{sde_step['backwards']}; PPFT learning run: DSM {learn['dsm_launches']} launches and "
         f"{learn['dsm_backwards']} backward passes, sample check {learn['check_launches']}, "
-        f"fine-tuning {learn['ppft_launches']} and {learn['ppft_backwards']} backward passes")
+        f"fine-tuning {learn['ppft_launches']} and {learn['ppft_backwards']} backward passes; "
+        f"mesh training (2 ranks): the data=2 step {mesh['readings']['data=2']['launches']} "
+        f"tc_f32, the model=2 step {mesh['readings']['model=2']['launches']} simt, the CLI's "
+        f"10 steps at model=2 {mesh['cli_launches']} simt and {mesh['cli_backwards']} backward "
+        f"passes")
     kernels = {"kernels": [{
         "name": "ipa_attention",
         "route": "cuda",
@@ -2267,6 +2547,8 @@ def main() -> int:
         "B256_L56_bound_ms": f32_ppft["bound_ms"],
         "B256_L56_plain_ms": f32_ppft["plain_ms"],
         "B256_L56_max_abs_err": f32_ppft["max_abs_err"],
+        # The data=2 mesh step (phase 19 (a)), summed over its 2 ranks.
+        "launches_mesh_dp": mesh["readings"]["data=2"]["launches"],
         # The train forward's shape at the train CLI's default f32.
         "B16_L100_ms": f32_train["ms"],
         "B16_L100_prev_ms": f32_train["prev_ms"],
@@ -2348,6 +2630,28 @@ def main() -> int:
         "backward_plain_ms": ft_bwd["plain_ms"],
         "backward_bound_ms": ft_bwd["bound_ms"],
         "backward_bound_by": ft_bwd["bound_by"],
+    }, {
+        # K1 at a TP rank's 16 heads (route simt, the CUDA-core design): the
+        # train CLI's 10 mesh steps at model=2 (phase 19 (b)), summed over its
+        # 2 ranks; its shape, B=16 L=64 bf16, and the f32 mesh step's (a).
+        "name": "ipa_attention_16_heads",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
+        "launches": mesh["cli_launches"],
+        "launches_mesh_tp_step": mesh["readings"]["model=2"]["launches"],
+        "max_abs_err": mesh["simt"]["bf16"]["max_abs_err"],
+        "ms": mesh["simt"]["bf16"]["ms"],
+        "plain_ms": mesh["simt"]["bf16"]["plain_ms"],
+        "bound_ms": mesh["simt"]["bf16"]["bound_ms"],
+        "bound_by": mesh["simt"]["bf16"]["bound_by"],
+        "library_ms": None,
+        "verdict": "pass",
+        "B16_L100_f32_max_abs_err": mesh["simt"]["f32"]["max_abs_err"],
+        "B16_L100_f32_ms": mesh["simt"]["f32"]["ms"],
+        "B16_L100_f32_plain_ms": mesh["simt"]["f32"]["plain_ms"],
+        "B16_L100_f32_bound_ms": mesh["simt"]["f32"]["bound_ms"],
+        "backward_calls": mesh["cli_backwards"],
     }]}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels))

@@ -36,6 +36,23 @@ loads with ``load_state_dict(strict=True)``.
   :func:`~se3diff_torch.parallel.mesh.gather_rows`. ``x1d``, the column
   bias and the diff head stay full. Without ``sp`` the model computes what
   it always did.
+* Tensor parallelism (TP), the counterpart of the JAX package's DP+TP train
+  step: a model built with ``tp`` (a
+  :class:`~se3diff_torch.parallel.mesh.MeshContext` with ``model = M > 1``)
+  holds its model rank's shard of the parameters
+  (``parallel/sharding.py``): each ``SAAttention`` ``H/M`` heads, so the
+  conditioning cache's ``pa`` is ``[n_layer, B, H/M, L, L]`` and K1 runs on
+  the rank's heads; each ``FeedForward`` ``dim_feedforward/M`` hidden units.
+  Each head-split region starts with
+  :func:`~se3diff_torch.parallel.mesh.copy_in` on its replicated inputs
+  and ends in a linear over split input features whose partial products one
+  :func:`~se3diff_torch.parallel.mesh.reduce_out` sums before the bias is
+  added. The replicated ``x2d`` feeds only head-split work, so its gradient
+  is a partial sum on each rank; rather than sum that ``[B, L, L, Cp]``
+  gradient, ``embed_conditioning`` passes the parameters of ``x2d_proj``
+  and ``rp_proj`` through one ``copy_in`` where it uses them, which sums
+  their few-KB gradients in one collective. Without ``tp`` the model
+  computes what it always did.
 """
 
 from __future__ import annotations
@@ -47,7 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from se3diff_torch.ops.ipa_attention import NEG_INF, sp_ipa_attention
-from se3diff_torch.parallel.mesh import RankContext, gather_rows
+from se3diff_torch.parallel.mesh import MeshContext, RankContext, copy_in, gather_rows, reduce_out
 
 # Evoformer embedding dims (models.py:15-16).
 EVOFORMER_NODE_DIM = 384
@@ -58,6 +75,17 @@ def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor
     """``lin`` applied in ``dtype`` (input and weights cast, f32 parameters kept)."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def _split_in_linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype,
+                     tp: MeshContext | None) -> torch.Tensor:
+    """``lin`` in ``dtype`` on input features split over ``tp``'s model group:
+    the rank's partial product summed over the group in f32, then the whole
+    bias added once. Plain :func:`_linear` without ``tp``."""
+    if tp is None:
+        return _linear(x, lin, dtype)
+    partial = F.linear(x.to(dtype), lin.weight.to(dtype)).float()
+    return (reduce_out(partial, tp) + lin.bias).to(dtype)
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -114,31 +142,37 @@ class RelativePositionBias(nn.Module):
         self.num_buckets, self.max_distance = num_buckets, max_distance
         self.relative_attention_bias = nn.Embedding(num_buckets, out_dim)
 
-    def forward(self, relative_position: torch.Tensor) -> torch.Tensor:
+    def forward(self, relative_position: torch.Tensor,
+                weight: torch.Tensor | None = None) -> torch.Tensor:
+        """The embedding of ``relative_position``'s buckets, from ``weight``
+        when given (the table as the caller passes it on), else the module's."""
         bucket = relative_position_bucket(relative_position, self.num_buckets, self.max_distance)
         # A one-hot product, not an index lookup: the same values exactly,
         # but its weight gradient is a matmul, where the embedding's CUDA
         # backward adds rows with atomics in no fixed order (exact resume of
         # training needs every step to be bit-reproducible).
-        weight = self.relative_attention_bias.weight
+        if weight is None:
+            weight = self.relative_attention_bias.weight
         return F.one_hot(bucket.long(), self.num_buckets).to(weight.dtype) @ weight
 
 
 class FeedForward(nn.Module):
-    """Linear -> GELU -> Dropout -> Linear -> Dropout (structure_module.py:12-26)."""
+    """Linear -> GELU -> Dropout -> Linear -> Dropout (structure_module.py:12-26).
+    Under ``tp``, the rank's ``dim_feedforward / M`` hidden units."""
 
     def __init__(self, d_model: int, dim_feedforward: int, dropout: float,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp: MeshContext | None = None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.tp = dtype, tp
+        hidden = dim_feedforward // (1 if tp is None else tp.model)
         self.ff = nn.Sequential(
-            nn.Linear(d_model, dim_feedforward), nn.GELU(), nn.Dropout(dropout),
-            nn.Linear(dim_feedforward, d_model), nn.Dropout(dropout),
+            nn.Linear(d_model, hidden), nn.GELU(), nn.Dropout(dropout),
+            nn.Linear(hidden, d_model), nn.Dropout(dropout),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ff[2](F.gelu(_linear(x, self.ff[0], self.dtype)))
-        return self.ff[4](_linear(x, self.ff[3], self.dtype))
+        x = self.ff[2](F.gelu(_linear(copy_in(x, self.tp), self.ff[0], self.dtype)))
+        return self.ff[4](_split_in_linear(x, self.ff[3], self.dtype, self.tp))
 
 
 class DiffHead(nn.Module):
@@ -181,25 +215,30 @@ class HeadwiseLinear(nn.Linear):
 
 
 class SAAttention(nn.Module):
-    """DiG invariant point attention (structure_module.py:56-220)."""
+    """DiG invariant point attention (structure_module.py:56-220). Under
+    ``tp``, the rank's ``n_head / M`` heads (``self.n_head``)."""
 
     def __init__(self, d_model: int, d_pair: int, n_head: int, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp: MeshContext | None = None):
         super().__init__()
         if d_model % n_head != 0:
             raise ValueError("d_model must be a multiple of n_head")
-        self.d_model, self.d_pair, self.n_head, self.dtype = d_model, d_pair, n_head, dtype
-        H = n_head
+        M = 1 if tp is None else tp.model
+        if n_head % M != 0:
+            raise ValueError(f"{n_head} heads do not split over {M} model ranks")
+        H, dk = n_head // M, d_model // n_head
+        self.d_model, self.d_pair, self.dtype, self.tp = d_model, d_pair, dtype, tp
+        self.n_head, self.head_dim = H, dk
         self.trained_point_weight = nn.Parameter(torch.rand(H))
-        self.scalar_query = nn.Linear(d_model, d_model, bias=False)
-        self.scalar_key = nn.Linear(d_model, d_model, bias=False)
-        self.scalar_value = nn.Linear(d_model, d_model, bias=False)
+        self.scalar_query = nn.Linear(d_model, H * dk, bias=False)
+        self.scalar_key = nn.Linear(d_model, H * dk, bias=False)
+        self.scalar_value = nn.Linear(d_model, H * dk, bias=False)
         self.pair_bias = nn.Linear(d_pair, H, bias=False)
         self.point_query = nn.Linear(d_model, H * 4 * 3, bias=False)
         self.point_key = nn.Linear(d_model, H * 4 * 3, bias=False)
         self.point_value = nn.Linear(d_model, H * 8 * 3, bias=False)
-        self.pair_value = HeadwiseLinear(d_pair, d_model, H)
-        self.fc_out = nn.Linear(2 * d_model + H * 8 * 3 + H * 8, d_model)
+        self.pair_value = HeadwiseLinear(d_pair, H * dk, H)
+        self.fc_out = nn.Linear(2 * H * dk + H * 8 * 3 + H * 8, d_model)
         self.dropout = nn.Dropout(dropout)
 
     def forward(
@@ -216,10 +255,12 @@ class SAAttention(nn.Module):
         rank's slab under SP, else ``(0, L)``). Keys and values are all
         ``L`` rows of ``x1d``. With ``pa`` None the kernel computes the pair
         bias from ``x2d`` and ``pair_bias.weight``."""
-        H, dk, dt = self.n_head, self.d_model // self.n_head, self.dtype
+        H, dk, dt = self.n_head, self.head_dim, self.dtype
         B, L, _ = x1d.shape
+        x1d = copy_in(x1d, self.tp)
         # The module receives inverse rotations; transpose back to rotations.
-        T, R = pose[0].float(), pose[1].transpose(-1, -2).float()
+        T = copy_in(pose[0], self.tp).float()
+        R = copy_in(pose[1], self.tp).transpose(-1, -2).float()
         r0, r1 = rows
         xq, Tq, Rq = x1d[:, r0:r1], T[:, r0:r1], R[:, r0:r1]
         n = r1 - r0
@@ -272,20 +313,21 @@ class SAAttention(nn.Module):
             ],
             dim=-1,
         )
-        return self.dropout(_linear(out_feat, self.fc_out, dt))
+        return self.dropout(_split_in_linear(out_feat, self.fc_out, dt, self.tp))
 
 
 class SAEncoderLayer(nn.Module):
     """Pre-LN IPA + MLP residual block (structure_module.py:223-249)."""
 
     def __init__(self, d_model: int, d_pair: int, n_head: int, dim_feedforward: int,
-                 dropout: float, dtype: torch.dtype = torch.float32):
+                 dropout: float, dtype: torch.dtype = torch.float32,
+                 tp: MeshContext | None = None):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(d_model)
-        self.attn = SAAttention(d_model, d_pair, n_head, dropout, dtype)
+        self.attn = SAAttention(d_model, d_pair, n_head, dropout, dtype, tp)
         self.norm2 = nn.LayerNorm(d_model)
-        self.ffn = FeedForward(d_model, dim_feedforward, dropout, dtype)
+        self.ffn = FeedForward(d_model, dim_feedforward, dropout, dtype, tp)
 
     def forward(self, x1d, x2d, pose, bias, pa, sp: RankContext | None = None):
         """Attention, the residuals and the FFN on the query rows: all of
@@ -311,11 +353,12 @@ class StructureModule(nn.Module):
     """IPA encoder stack + diff head (structure_module.py:252-287)."""
 
     def __init__(self, d_model: int, d_pair: int, n_layer: int, n_head: int,
-                 dim_feedforward: int, dropout: float, dtype: torch.dtype = torch.float32):
+                 dim_feedforward: int, dropout: float, dtype: torch.dtype = torch.float32,
+                 tp: MeshContext | None = None):
         super().__init__()
         self.n_layer = n_layer
         self.encoder = SAEncoder([
-            SAEncoderLayer(d_model, d_pair, n_head, dim_feedforward, dropout, dtype)
+            SAEncoderLayer(d_model, d_pair, n_head, dim_feedforward, dropout, dtype, tp)
             for _ in range(n_layer)
         ])
         self.diff_head = DiffHead(d_model)
@@ -343,10 +386,12 @@ class DistributionalGraphormer(nn.Module):
                  num_heads: int = 32, dim_single_rep: int = 64, dim_hidden: int = 1024,
                  num_buckets: int = 64, max_distance_relative: int = 128,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32,
-                 sp: RankContext | None = None):
+                 sp: RankContext | None = None, tp: MeshContext | None = None):
         super().__init__()
+        if sp is not None and tp is not None:
+            raise ValueError("a model takes sequence or tensor parallelism, not both")
         self.dtype = dtype
-        self.sp = sp
+        self.sp, self.tp = sp, tp
         self.x1d_proj = nn.Sequential(
             nn.LayerNorm(EVOFORMER_NODE_DIM), nn.Linear(EVOFORMER_NODE_DIM, dim_model, bias=False)
         )
@@ -356,7 +401,7 @@ class DistributionalGraphormer(nn.Module):
         )
         self.rp_proj = RelativePositionBias(num_buckets, max_distance_relative, dim_pair)
         self.st_module = StructureModule(
-            dim_model, dim_pair, num_layers, num_heads, dim_hidden, dropout, dtype
+            dim_model, dim_pair, num_layers, num_heads, dim_hidden, dropout, dtype, tp
         )
 
     def embed_conditioning(
@@ -372,7 +417,8 @@ class DistributionalGraphormer(nn.Module):
         (the JAX package's cache without ``pa``, dig.py:707-751).
 
         Under SP only the rank's row slab ``r0:r1`` of ``x2d`` and ``pa`` is
-        built, from ``pair_repr[:, r0:r1]``."""
+        built, from ``pair_repr[:, r0:r1]``. Under TP ``pa`` holds the rank's
+        heads, from its rows of every layer's ``pair_bias``."""
         dt = self.dtype
         B, L = pair_repr.shape[:2]
         dev = pair_repr.device
@@ -385,9 +431,15 @@ class DistributionalGraphormer(nn.Module):
             pair_repr, query_seq = pair_repr[:, r0:r1], pos_seq[r0:r1]
 
         x1d = _linear(_layer_norm(single_repr, self.x1d_proj[0], dt), self.x1d_proj[1], dt)
-        x2d = _linear(_layer_norm(pair_repr, self.x2d_proj[0], dt), self.x2d_proj[1], dt)
+        # Under TP x2d feeds only the rank's heads: copy_in sums the partial
+        # gradients of the parameters that build it.
+        ln, lin = self.x2d_proj
+        w_ln, b_ln, w_x2d, w_rp = copy_in(
+            (ln.weight, ln.bias, lin.weight, self.rp_proj.relative_attention_bias.weight), self.tp)
+        x2d = F.layer_norm(pair_repr.float(), ln.normalized_shape, w_ln, b_ln, ln.eps).to(dt)
+        x2d = F.linear(x2d, w_x2d.to(dt))
         rel_pos = query_seq[:, None] - pos_seq[None, :]
-        x2d = (x2d.float() + self.rp_proj(rel_pos)[None]).to(dt).contiguous()
+        x2d = (x2d.float() + self.rp_proj(rel_pos, w_rp)[None]).to(dt).contiguous()
 
         # Column bias: NEG_INF at masked columns; a fully masked row falls
         # back to no masking to keep the softmax finite (models.py:286-291).
@@ -430,11 +482,11 @@ class DiGConditionalScoreModel(nn.Module):
                  num_heads: int = 32, dim_single_rep: int = 64, dim_hidden: int = 1024,
                  num_buckets: int = 64, max_distance_relative: int = 128,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32,
-                 sp: RankContext | None = None):
+                 sp: RankContext | None = None, tp: MeshContext | None = None):
         super().__init__()
         self.model_nn = DistributionalGraphormer(
             dim_model, dim_pair, num_layers, num_heads, dim_single_rep, dim_hidden,
-            num_buckets, max_distance_relative, dropout, dtype, sp,
+            num_buckets, max_distance_relative, dropout, dtype, sp, tp,
         )
 
     def embed_conditioning(self, single_repr, pair_repr, mask=None, with_pa: bool = True) -> dict:

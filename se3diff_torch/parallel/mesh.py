@@ -1,9 +1,9 @@
-"""Process groups, row slabs and the batch helpers of multi-rank sampling.
+"""Process groups, row slabs, the training mesh and the batch helpers.
 
 Counterpart of ``se3diff_tpu/parallel/mesh.py`` on ``torch.distributed``.
 The JAX package lays its chips out as a ``("data", "model")`` mesh and lets
 XLA place the shards; here every rank is a process that owns one device and
-the port moves rows itself:
+the port moves rows and partial sums itself:
 
 * :func:`init_group` joins a rank to its group: NCCL when every rank has a
   CUDA device of its own, gloo otherwise (on the CPU, or when ranks share a
@@ -16,6 +16,17 @@ the port moves rows itself:
   copies its slab: one code path for both backends (gloo documents only
   broadcast and all_reduce for CUDA tensors), exact in f32 and bf16 because
   every entry is one slab's value plus zeros.
+* :func:`init_mesh` lays the ranks of a group out as a ``data x model``
+  grid (:class:`MeshContext`), model groups on contiguous ranks as in the
+  JAX package's ``make_mesh``, with one process group for each row and
+  each column of the grid.
+* :func:`copy_in` and :func:`reduce_out` are the two collectives of tensor
+  parallelism (TP) over the model group, each a ``torch.autograd.Function``:
+  ``copy_in`` is the identity forward and sums the gradient over the group
+  backward (the entry of a head-split region, whose replicated input gets a
+  partial gradient on each rank; several tensors share one collective); ``reduce_out`` sums partial products
+  forward and passes the gradient through backward (after a linear whose
+  input features are split). Both reduce in f32 with ``all_reduce`` only.
 
 The pure helpers (``round_up_batch``, ``good_batch_size``,
 ``largest_pow2_leq``, ``pick_model_parallel``) are copies of the JAX
@@ -117,6 +128,104 @@ def init_group(
         world_size=world, timeout=timeout,
     )
     return RankContext(group=dist.group.WORLD, rank=rank, world=world, device=device)
+
+
+@dataclass(frozen=True)
+class MeshContext:
+    """One rank's place in a ``data x model`` grid of ``data * model``
+    ranks: rank ``r`` has data index ``r // model`` and model index
+    ``r % model``. ``model_group`` holds the rank's row of the grid (the
+    ranks that share a batch shard and split the heads), ``data_group`` its
+    column (the ranks that hold the same shard of the weights)."""
+
+    rank: int
+    data: int
+    model: int
+    device: torch.device
+    data_group: dist.ProcessGroup
+    model_group: dist.ProcessGroup
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def tp(self) -> "MeshContext | None":
+        """What a model takes for tensor parallelism: this context, or None
+        when the model axis has one rank."""
+        return self if self.model > 1 else None
+
+    def batch_rows(self, batch: int) -> tuple[int, int]:
+        """The rank's rows ``(b0, b1)`` of a global batch of ``batch``."""
+        return row_slabs(batch, self.data)[self.data_rank]
+
+
+def init_mesh(ctx: RankContext, data: int, model: int) -> MeshContext:
+    """The ``data x model`` grid over the ranks of ``ctx``'s group. Every rank
+    of the group must call it, with the same arguments: it creates every
+    row's and every column's process group, in one order on all ranks."""
+    if data < 1 or model < 1 or data * model != ctx.world:
+        raise ValueError(f"a data={data} x model={model} mesh needs {data * model} ranks, "
+                         f"the group has {ctx.world}")
+    rows = [dist.new_group([d * model + m for m in range(model)]) for d in range(data)]
+    cols = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
+    return MeshContext(rank=ctx.rank, data=data, model=model, device=ctx.device,
+                       data_group=cols[ctx.rank % model], model_group=rows[ctx.rank // model])
+
+
+def _all_reduce_f32(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, reduced in f32 and returned in
+    ``x``'s dtype; ``x`` is left as it was."""
+    y = x.detach().to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # Every gradient summed in one f32 buffer: one collective.
+        flat = _all_reduce_f32(torch.cat([g.reshape(-1).float() for g in grads]), ctx.group)
+        sums = flat.split([g.numel() for g in grads])
+        return (None, *(s.view_as(g).to(g.dtype) for s, g in zip(sums, grads)))
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_in(x: torch.Tensor | tuple[torch.Tensor, ...],
+            tp: MeshContext | None) -> torch.Tensor | tuple[torch.Tensor, ...]:
+    """``x`` unchanged; backward, its gradient summed over ``tp``'s model
+    group. ``x`` may be a tuple of tensors, whose gradients are then summed
+    in one collective. The identity when ``tp`` is None."""
+    if tp is None:
+        return x
+    if isinstance(x, torch.Tensor):
+        return _CopyIn.apply(tp.model_group, x)[0]
+    return _CopyIn.apply(tp.model_group, *x)
+
+
+def reduce_out(x: torch.Tensor, tp: MeshContext | None) -> torch.Tensor:
+    """``x`` summed over ``tp``'s model group (in f32, returned in ``x``'s
+    dtype); backward, the gradient passed through. The identity when
+    ``tp`` is None."""
+    return x if tp is None else _ReduceOut.apply(x, tp.model_group)
 
 
 def gather_rows(

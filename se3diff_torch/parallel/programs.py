@@ -3,32 +3,50 @@
 Each takes the rank's :class:`~se3diff_torch.parallel.mesh.RankContext` and
 picklable arguments (numpy arrays, plain values), builds what it needs on
 the rank's device and returns numpy or plain values. They drive the
-sequence-parallel (SP) score network, the SP sampling pipeline and
-data-parallel (DP) sampling, and are what the test suite and
-``chip_smoke.py`` run on each rank to hold the multi-rank paths against one
-process.
+sequence-parallel (SP) score network, the SP sampling pipeline,
+data-parallel (DP) sampling, the DP+TP train step and the train CLI's ranks
+(:func:`train_rank`, which ``python -m se3diff_torch.train --mesh`` spawns),
+and are what the test suite and ``chip_smoke.py`` run on each rank to hold
+the multi-rank paths against one process.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import time
 from typing import Any, Callable, Sequence
+from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from se3diff_torch import train
+from se3diff_torch.diffusion.denoise import SDEs
 from se3diff_torch.models.dig import DiGConditionalScoreModel, init_weights
 from se3diff_torch.ops import ipa_attention as k1
-from se3diff_torch.parallel.mesh import RankContext
+from se3diff_torch.parallel.mesh import RankContext, init_mesh
 from se3diff_torch.parallel.sample import sample_batch_sharded
+from se3diff_torch.parallel.sharding import gather_state_dict, shard_state_dict
 from se3diff_torch.sampling.bundle import random_bundle
 from se3diff_torch.sampling.pipeline import sample
+from se3diff_torch.sde.so3_sde import DiGSO3SDE
+from se3diff_torch.sde.vpsde import CosineVPSDE
+from se3diff_torch.training.data import MultiEnsembleDataset
+from se3diff_torch.training.dsm import DSMNoise, mesh_train_step
+from se3diff_torch.training.loop import TrainConfig, make_optimizer
 
 
 def in_turn(ctx: RankContext, steps: Sequence[tuple[Callable, tuple]]) -> list[Any]:
     """Run several programs ``(fn, args)`` on one rank, in order, in one
     group: one spawn for all of them."""
     return [fn(ctx, *args) for fn, args in steps]
+
+
+def _reset_k1() -> None:
+    k1.launches = k1.backward_calls = 0
+    k1.launches_by_route.update(dict.fromkeys(k1.launches_by_route, 0))
 
 
 def _synchronize(ctx: RankContext) -> None:
@@ -89,8 +107,7 @@ def sp_sample(
     _synchronize(ctx)
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
-    k1.launches = 0
-    k1.launches_by_route.update(dict.fromkeys(k1.launches_by_route, 0))
+    _reset_k1()
     t0 = time.perf_counter()
     sample(**sample_kwargs, bundle=bundle)
     _synchronize(ctx)
@@ -111,3 +128,132 @@ def dp_sample(
     routes = dict(k1.launches_by_route)
     out = sample_batch_sharded(bundle, ctx, single, pair, batch, seed)
     return {**out, "launches_by_route": _routes_since(routes)}
+
+
+def _tensors(x, device: torch.device) -> dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device) for k, v in x.items()}
+
+
+def _numpy(sd: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Copies: what a later step changes in place stays as it was here."""
+    return {k: v.detach().to("cpu", copy=True).numpy() for k, v in sd.items()}
+
+
+def shard_round_trip(ctx: RankContext, data: int, model: int,
+                     weights: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """``weights`` cut to the rank's model shard
+    (:func:`~se3diff_torch.parallel.sharding.shard_state_dict`) on its
+    device and gathered back over the model group."""
+    mesh = init_mesh(ctx, data, model)
+    shard = shard_state_dict(_tensors(weights, ctx.device), mesh.model_rank, model)
+    return _numpy(gather_state_dict(shard, mesh.model_group))
+
+
+def mesh_step(
+    ctx: RankContext, data: int, model: int, model_cfg: dict, weights: dict[str, np.ndarray],
+    batch: dict[str, np.ndarray], noise: Sequence[np.ndarray], so3_kwargs: dict, *,
+    lr: float, timed_steps: int = 0,
+) -> dict[str, Any]:
+    """One f32 DP+TP DSM step
+    (:func:`~se3diff_torch.training.dsm.mesh_train_step`) on a ``data x
+    model`` mesh from full ``weights``, on the global ``batch`` with the
+    global ``noise`` ``(t, z, rot_t)``, with the train loop's defaults
+    (``TrainConfig(lr)``: AdamW, the global-norm clip). Returns the
+    global loss, the updated full weights and the step's clipped full
+    gradients, gathered over the model group (numpy), and the rank's K1
+    forward launches by route and backward passes in the step. With
+    ``timed_steps``, that many more steps follow on the same inputs, timed
+    (``step_ms``), then as many with a device synchronization before and
+    after every ``all_reduce`` (``all_reduce_ms``, ``all_reduces``: their
+    wall and count a step; the wall includes the wait for the other ranks,
+    not only the transfer)."""
+    mesh = init_mesh(ctx, data, model)
+    dev = ctx.device
+    net = DiGConditionalScoreModel(**model_cfg, tp=mesh.tp)
+    full = {k: torch.as_tensor(v) for k, v in weights.items()}
+    net.load_state_dict(shard_state_dict(full, mesh.model_rank, model), strict=True)
+    net.to(dev)
+    sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**so3_kwargs, device=dev))
+    cfg = TrainConfig(lr=lr)
+    opt = make_optimizer(cfg, net.parameters())
+    b = _tensors(batch, dev)
+    nz = DSMNoise(*(torch.as_tensor(x).to(dev) for x in noise))
+
+    def step():
+        return mesh_train_step(net, opt, b, nz, sdes, mesh, lr=lr, grad_clip=cfg.grad_clip)
+
+    _reset_k1()
+    loss = float(step())
+    out = {"loss": loss, "launches_by_route": dict(k1.launches_by_route),
+           "backward_calls": k1.backward_calls,
+           "weights": _numpy(gather_state_dict(net.state_dict(), mesh.model_group)),
+           "grads": _numpy(gather_state_dict({n: p.grad for n, p in net.named_parameters()},
+                                             mesh.model_group))}
+    if timed_steps:
+        times = []
+        for _ in range(timed_steps):
+            _synchronize(ctx)
+            t0 = time.perf_counter()
+            step()
+            _synchronize(ctx)
+            times.append(time.perf_counter() - t0)
+        reduce_s, calls, all_reduce = [0.0], [0], dist.all_reduce
+
+        def timed(*a, **kw):
+            _synchronize(ctx)
+            t0 = time.perf_counter()
+            res = all_reduce(*a, **kw)
+            _synchronize(ctx)
+            reduce_s[0] += time.perf_counter() - t0
+            calls[0] += 1
+            return res
+
+        with mock.patch.object(dist, "all_reduce", timed):
+            for _ in range(timed_steps):
+                step()
+        out.update(step_ms=[1e3 * t for t in times],
+                   all_reduce_ms=1e3 * reduce_s[0] / timed_steps,
+                   all_reduces=calls[0] / timed_steps)
+    return out
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def train_rank(ctx: RankContext, argv: Sequence[str], data: int, model: int,
+               stop_at: int | None = None) -> dict[str, Any]:
+    """One rank of ``python -m se3diff_torch.train`` with ``argv`` on a
+    ``data x model`` mesh (:func:`se3diff_torch.train.run`): what the CLI's
+    ``--mesh`` spawns on every rank. With ``stop_at``, every rank stops when
+    it asks for step ``stop_at``'s batch, as an interrupted run stops, and
+    returns. Returns the logged global losses, the run's wall, and the
+    rank's K1 forward launches by route and backward passes."""
+    logging.basicConfig(level=logging.INFO)
+    args = train.build_parser().parse_args(list(argv))
+    mesh = init_mesh(ctx, data, model)
+    batch_fn = MultiEnsembleDataset.batch_fn
+
+    def stopping(self, *a, **kw):
+        fn = batch_fn(self, *a, **kw)
+
+        def step_fn(step):
+            if step == stop_at:
+                raise _Interrupt
+            return fn(step)
+        return step_fn
+
+    _reset_k1()
+    t0 = time.perf_counter()
+    history = None
+    patch = (contextlib.nullcontext() if stop_at is None
+             else mock.patch.object(MultiEnsembleDataset, "batch_fn", stopping))
+    with patch:
+        try:
+            history = train.run(args, mesh)
+        except _Interrupt:
+            pass
+    _synchronize(ctx)
+    return {"history": history, "wall_s": time.perf_counter() - t0, "rank": ctx.rank,
+            "launches_by_route": dict(k1.launches_by_route),
+            "backward_calls": k1.backward_calls}

@@ -13,6 +13,10 @@ The score network trains with dropout inactive, as the JAX package's does
 puts the model in eval mode. Its three parts, :func:`step_loss`,
 :func:`step_backward` and :func:`step_update`, are public so that a
 profiler can time each of them in the step it measures.
+
+:func:`mesh_train_step` is the DP+TP step of one rank of a ``data x model``
+mesh, the counterpart of ``make_sharded_dsm_train_step``
+(``se3diff_tpu/training/dsm.py:117-184``).
 """
 
 from __future__ import annotations
@@ -20,9 +24,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from se3diff_torch.diffusion.denoise import SDEs
 from se3diff_torch.ops import so3 as so3_ops
+from se3diff_torch.parallel.mesh import MeshContext
+from se3diff_torch.parallel.sharding import split_dim
 from se3diff_torch.sde.base import bcast_right
 
 
@@ -49,7 +56,20 @@ def draw_noise(
     return DSMNoise(t, z, rot_t)
 
 
-def dsm_loss(model: torch.nn.Module, batch: dict, noise: DSMNoise, sdes: SDEs) -> torch.Tensor:
+def dsm_denominator(batch: dict) -> torch.Tensor:
+    """The denominator of :func:`dsm_loss`: 3 times the batch's count of
+    real residues (``mask``; every row when there is none), at least 3."""
+    B, L = batch["pos"].shape[:2]
+    mask = batch.get("mask")
+    if mask is None:
+        count = torch.tensor(float(B * L), device=batch["pos"].device)
+    else:
+        count = mask.to(batch["pos"].dtype).sum() * (B if mask.ndim == 1 else 1)
+    return count.clamp(min=1.0) * 3.0
+
+
+def dsm_loss(model: torch.nn.Module, batch: dict, noise: DSMNoise, sdes: SDEs,
+             denom: torch.Tensor | None = None) -> torch.Tensor:
     """Masked MSE between the model's raw outputs and the closed-form DSM
     targets for ``noise``.
 
@@ -57,6 +77,9 @@ def dsm_loss(model: torch.nn.Module, batch: dict, noise: DSMNoise, sdes: SDEs) -
     ``single``/``pair`` conditioning and an optional ``mask [B, L]``
     (True = real residue). ``single``/``pair``/``mask`` may come without the
     batch axis (``[L, S]``/``[L, L, P]``/``[L]``); they are expanded here.
+    ``denom`` is the masked sum's divisor, by default
+    :func:`dsm_denominator` of ``batch``; a data-parallel rank passes the
+    global batch's, so that the ranks' losses sum to the global loss.
     """
     pos0, rot0 = batch["pos"], batch["rot"]
     B, L = pos0.shape[:2]
@@ -86,7 +109,8 @@ def dsm_loss(model: torch.nn.Module, batch: dict, noise: DSMNoise, sdes: SDEs) -
     pos_raw, rot_raw = model(pos_t, rot_t, t, single, pair, mask)
 
     w = mask.to(pos0.dtype)[..., None]
-    denom = w.sum().clamp(min=1.0) * 3.0
+    if denom is None:
+        denom = dsm_denominator(batch)
     loss_pos = (w * (pos_raw - pos_target).square()).sum() / denom
     loss_rot = (w * (rot_raw - rot_target).square()).sum() / denom
     return loss_pos + loss_rot
@@ -98,6 +122,22 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
     ``torch.nn.utils.clip_grad_norm_``). Stays on the device: no host sync."""
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     torch._foreach_mul_(grads, (max_norm / norm).clamp(max=1.0))
+
+
+def _clip_sharded(named_grads: list[tuple[str, torch.Tensor]], max_norm: float,
+                  tp: MeshContext) -> None:
+    """:func:`clip_by_global_norm` of the full model's gradients from one
+    model rank's: the squared norms of the split parameters' shards summed
+    over the model group, those of the replicated ones (equal on every
+    rank) counted once."""
+    sq = torch.zeros(2, dtype=torch.float32, device=named_grads[0][1].device)
+    for i, split in enumerate((True, False)):
+        grads = [g for n, g in named_grads if (split_dim(n) is not None) == split]
+        if grads:
+            sq[i] = torch.stack(torch._foreach_norm(grads)).square().sum()
+    dist.all_reduce(sq[:1], group=tp.model_group)
+    grads = [g for _, g in named_grads]
+    torch._foreach_mul_(grads, (max_norm / sq.sum().sqrt()).clamp(max=1.0))
 
 
 def step_loss(
@@ -118,11 +158,18 @@ def step_backward(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
 
 def step_update(
     model: torch.nn.Module, optimizer: torch.optim.Optimizer, *, lr: float,
-    grad_clip: float | None = 1.0,
+    grad_clip: float | None = 1.0, tp: MeshContext | None = None,
 ) -> None:
-    """The last part of :func:`train_step`: clip, then AdamW at ``lr``."""
+    """The last part of :func:`train_step`: clip, then AdamW at ``lr``. A
+    tensor-parallel model (``tp``) clips by the full model's norm
+    (:func:`_clip_sharded`); AdamW runs on its shards as it is, being
+    elementwise."""
     if grad_clip is not None:
-        clip_by_global_norm([p.grad for p in model.parameters() if p.grad is not None], grad_clip)
+        named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+        if tp is None:
+            clip_by_global_norm([g for _, g in named], grad_clip)
+        else:
+            _clip_sharded(named, grad_clip, tp)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
@@ -145,3 +192,56 @@ def train_step(
     step_backward(optimizer, loss)
     step_update(model, optimizer, lr=lr, grad_clip=grad_clip)
     return loss.detach()
+
+
+# The batch entries that may come without the batch axis, and their ndim then.
+_UNBATCHED_NDIM = {"single": 2, "pair": 3, "mask": 1}
+
+
+def _all_reduce_flat(tensors: list[torch.Tensor], group: dist.ProcessGroup) -> None:
+    """Sum every tensor of ``tensors`` (f32) over ``group`` in place, through
+    one flat buffer: one collective however many tensors."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    for t, s in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(s.view_as(t))
+
+
+def mesh_train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    batch: dict,
+    noise: DSMNoise,
+    sdes: SDEs,
+    mesh: MeshContext,
+    *,
+    lr: float,
+    grad_clip: float | None = 1.0,
+) -> torch.Tensor:
+    """One DP+TP DSM step on one rank of ``mesh``: the step
+    :func:`train_step` takes on the whole batch, split over ``mesh.data``
+    batch shards and ``mesh.model`` head groups.
+
+    ``batch`` and ``noise`` are the global batch and its noise (every rank
+    passes the same; :func:`draw_noise` on the global batch gives what one
+    process draws). ``model`` is built with ``tp=mesh.tp`` and holds the
+    rank's shard; ``optimizer`` is over its parameters. The rank takes its
+    rows ``mesh.batch_rows(B)``; its loss is its rows' masked sum over the
+    global batch's :func:`dsm_denominator` (every rank holds the global
+    mask, so no collective is needed for it). After :func:`step_backward`,
+    every gradient, with the loss, is summed over the data group in one
+    flat buffer; :func:`step_update` then clips by the full model's norm
+    and takes the AdamW step on the rank's shards. Returns the global loss
+    (a device tensor, equal on every rank)."""
+    model.eval()
+    b0, b1 = mesh.batch_rows(batch["pos"].shape[0])
+    local = {k: v if v.ndim == _UNBATCHED_NDIM.get(k) else v[b0:b1] for k, v in batch.items()}
+    loss = dsm_loss(model, local, DSMNoise(*(x[b0:b1] for x in noise)), sdes,
+                    denom=dsm_denominator(batch))
+    step_backward(optimizer, loss)
+    loss = loss.detach().reshape(1)
+    if mesh.data > 1:
+        _all_reduce_flat([p.grad for p in model.parameters() if p.grad is not None] + [loss],
+                         mesh.data_group)
+    step_update(model, optimizer, lr=lr, grad_clip=grad_clip, tp=mesh.tp)
+    return loss[0]

@@ -6,6 +6,16 @@ clipping, periodic validation, ``train_log.jsonl`` metrics lines, and
 checkpoints of ``{model, optimizer, step}`` as torch files in place of orbax.
 The per-step generator is seeded from ``(seed, step)``, so a resumed run
 draws the same noise as an uninterrupted one and ends with the same weights.
+
+With a ``mesh`` (:class:`~se3diff_torch.parallel.mesh.MeshContext`) every
+rank runs this loop on the model's shard, through
+:func:`~se3diff_torch.training.dsm.mesh_train_step` (the JAX loop's
+``mesh=`` path, ``se3diff_tpu/training/loop.py:110-136``). Every rank draws
+the global batch's noise from the step's generator. A checkpoint holds the
+full model and the full AdamW moments, gathered over the model group, in
+the one-device layout, written by rank 0 behind a barrier; a resume loads
+the full state on every rank and shards it, so a mesh checkpoint and a
+one-device one are the same file.
 """
 
 from __future__ import annotations
@@ -16,14 +26,18 @@ import logging
 import math
 import os
 import time
+from functools import partial
 from pathlib import Path
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from se3diff_torch.diffusion.denoise import SDEs
-from se3diff_torch.training.dsm import draw_noise, dsm_loss, train_step
+from se3diff_torch.parallel.mesh import MeshContext
+from se3diff_torch.parallel.sharding import gather_state_dict, shard_state_dict
+from se3diff_torch.training.dsm import draw_noise, dsm_loss, mesh_train_step, train_step
 
 logger = logging.getLogger(__name__)
 
@@ -106,15 +120,56 @@ def _checkpoints(ckpt_dir: str) -> list[tuple[int, Path]]:
     return sorted(found)
 
 
-def _save_checkpoint(cfg: TrainConfig, step: int, model, optimizer) -> None:
-    d = Path(cfg.ckpt_dir)
-    d.mkdir(parents=True, exist_ok=True)
-    path = d / f"step_{step:08d}.pt"
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": step}, tmp)
-    os.replace(tmp, path)  # a checkpoint on disk is a whole one
-    for _, old in _checkpoints(cfg.ckpt_dir)[:-cfg.max_ckpts_kept]:
-        old.unlink()
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _map_moments(model, optimizer_state: dict, fn: Callable[[dict], dict]) -> dict:
+    """``optimizer_state`` (an AdamW state dict) with its moments replaced:
+    each moment's ``{parameter name: tensor}`` dict through ``fn``."""
+    names = [n for n, _ in model.named_parameters()]
+    state = {i: dict(s) for i, s in optimizer_state["state"].items()}
+    for key in _MOMENTS:
+        mapped = fn({names[i]: s[key] for i, s in state.items()})
+        for i, s in state.items():
+            s[key] = mapped[names[i]]
+    return {**optimizer_state, "state": state}
+
+
+def _full_state(model, optimizer, mesh: MeshContext | None) -> tuple[dict, dict]:
+    """The full model's and the full optimizer's state dicts: the rank's own
+    without a model axis, else gathered over the model group (every rank of
+    it must call this)."""
+    model_sd, opt_sd = model.state_dict(), optimizer.state_dict()
+    if mesh is None or mesh.tp is None:
+        return model_sd, opt_sd
+    gather = partial(gather_state_dict, group=mesh.model_group)
+    return gather(model_sd), _map_moments(model, opt_sd, gather)
+
+
+def _load_state(model, optimizer, state: dict, mesh: MeshContext | None) -> None:
+    """Load a full checkpoint, sharded to the rank under a model axis."""
+    model_sd, opt_sd = state["model"], state["optimizer"]
+    if mesh is not None and mesh.tp is not None:
+        shard = partial(shard_state_dict, model_rank=mesh.model_rank, model=mesh.model)
+        model_sd, opt_sd = shard(model_sd), _map_moments(model, opt_sd, shard)
+    model.load_state_dict(model_sd)
+    optimizer.load_state_dict(opt_sd)
+
+
+def _save_checkpoint(cfg: TrainConfig, step: int, model, optimizer,
+                     mesh: MeshContext | None = None) -> None:
+    model_sd, opt_sd = _full_state(model, optimizer, mesh)
+    if mesh is None or mesh.rank == 0:
+        d = Path(cfg.ckpt_dir)
+        d.mkdir(parents=True, exist_ok=True)
+        path = d / f"step_{step:08d}.pt"
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        torch.save({"model": model_sd, "optimizer": opt_sd, "step": step}, tmp)
+        os.replace(tmp, path)  # a checkpoint on disk is a whole one
+        for _, old in _checkpoints(cfg.ckpt_dir)[:-cfg.max_ckpts_kept]:
+            old.unlink()
+    if mesh is not None:  # no rank reads the directory while rank 0 writes it
+        dist.barrier()
 
 
 def train_dsm(
@@ -123,6 +178,7 @@ def train_dsm(
     batch_fn: Callable[[int], dict],
     cfg: TrainConfig,
     val_batch: dict | None = None,
+    mesh: MeshContext | None = None,
 ) -> tuple[torch.nn.Module, list[float]]:
     """Run ``cfg.num_steps`` DSM steps on the model's device; returns
     ``(model, loss_history)``, the model trained in place.
@@ -130,7 +186,10 @@ def train_dsm(
     ``batch_fn`` maps a step index to its batch, which is what lets a
     resumed run re-derive the batches it missed. With ``ckpt_every`` and
     ``ckpt_dir`` set, the latest checkpoint there is restored first and the
-    steps it covers are skipped.
+    steps it covers are skipped. With ``mesh``, ``model`` is the rank's shard
+    (built with ``tp=mesh.tp``), ``batch_fn`` gives the global batch, every
+    rank of the mesh runs this together, and rank 0 alone writes the
+    checkpoints and the metrics; the loss history is the global loss's.
     """
     device = next(model.parameters()).device
     optimizer = make_optimizer(cfg, model.parameters())
@@ -141,16 +200,16 @@ def train_dsm(
     if checkpointing and _checkpoints(cfg.ckpt_dir):
         _, path = _checkpoints(cfg.ckpt_dir)[-1]
         state = torch.load(path, map_location=device, weights_only=True)
-        model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
+        _load_state(model, optimizer, state, mesh)
         start_step = state["step"]
         logger.info("resumed from checkpoint at step %d", start_step)
 
     metrics_path = cfg.metrics_path or (
         os.path.join(cfg.ckpt_dir, "train_log.jsonl") if checkpointing else None
     )
+    writer = mesh is None or mesh.rank == 0
     metrics_f = None
-    if metrics_path:
+    if metrics_path and writer:
         os.makedirs(os.path.dirname(metrics_path) or ".", exist_ok=True)
         metrics_f = open(metrics_path, "a")  # appended across resumes
     t_start = time.perf_counter()
@@ -160,14 +219,20 @@ def train_dsm(
     try:
         for step in range(start_step, cfg.num_steps):
             batch = _to_device(batch_fn(step), device)
-            loss = train_step(
-                model, optimizer, batch, step_generator(cfg.seed, step, device), sdes,
-                lr=sched(step), min_t=cfg.min_t, grad_clip=cfg.grad_clip,
-            )
+            gen = step_generator(cfg.seed, step, device)
+            if mesh is None:
+                loss = train_step(model, optimizer, batch, gen, sdes, lr=sched(step),
+                                  min_t=cfg.min_t, grad_clip=cfg.grad_clip)
+            else:
+                loss = mesh_train_step(
+                    model, optimizer, batch, draw_noise(gen, batch, sdes, cfg.min_t), sdes, mesh,
+                    lr=sched(step), grad_clip=cfg.grad_clip,
+                )
             if cfg.log_every and (step + 1) % cfg.log_every == 0:
                 loss_f = float(loss)
                 history.append(loss_f)
-                logger.info("step %d: dsm loss %.5f", step + 1, loss_f)
+                if writer:
+                    logger.info("step %d: dsm loss %.5f", step + 1, loss_f)
                 if metrics_f is not None:
                     metrics_f.write(json.dumps({
                         "step": step + 1, "loss": loss_f, "lr": sched(step),
@@ -179,9 +244,10 @@ def train_dsm(
                 with torch.no_grad():
                     noise = draw_noise(step_generator(cfg.seed, _VAL_STEP, device), vb, sdes, cfg.min_t)
                     vl = float(dsm_loss(model, vb, noise, sdes))
-                logger.info("step %d: val dsm loss %.5f", step + 1, vl)
+                if writer:
+                    logger.info("step %d: val dsm loss %.5f", step + 1, vl)
             if checkpointing and (step + 1) % cfg.ckpt_every == 0:
-                _save_checkpoint(cfg, step + 1, model, optimizer)
+                _save_checkpoint(cfg, step + 1, model, optimizer, mesh)
     finally:
         if metrics_f is not None:
             metrics_f.close()
