@@ -9,7 +9,8 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 1. device and build: the card's name and power limit; build the IPA
    attention kernels from ``se3diff_torch/csrc`` with nvcc, one process a
    source (time, ptxas report: registers, spills and shared memory of the
-   "tc", "tc_f32" and "h4" kernels);
+   "tc", "tc_f32", "h4", "tc16" and "tc16_f32" kernels, and the 16-head
+   designs' resident blocks an SM);
 2. the kernel against its plain PyTorch version on the card, at the main
    path's shape (B=40, L=100, 32 heads of 16, Cp=256, streamed pair bias) in
    bf16 and f32, at a ragged L=77 with masked columns, and at the PPFT score
@@ -76,6 +77,10 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    slab takes the "h4" design, timed in turns with the CUDA-core design
    ("simt", ``prev_ms``) on the same inputs, with its error against it; the
    Function's gradients with ``w_pb`` against autograd of the plain version;
+   the streamed 16-head cases (B=40 L=77 masked, Cp=96, and B=2 with 5 rows
+   of 70 columns, a partial last key tile) take "tc16" in bf16 and
+   "tc16_f32" in f32, held against the plain version and the CUDA-core
+   design at ``TOL`` and timed in turns with the latter;
 12. ``[ppft]``: ``python -m se3diff_torch.finetune``'s main on the card at
    bioemu-v1.0 widths (score model seed 0, bf16; near-zero 2-layer d64
    control net, f32), 2 training and 1 validation GRB2-SH3 mutants, dummy
@@ -138,7 +143,7 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    ranks on one device; the NCCL branch, one card a rank, is not run here):
    (a) one f32 step at bioemu-v1.0 widths (seed-0 weights), B=16, L=100,
    fixed noise, as ``data=2`` (K1 on "tc_f32", 8 rows a rank) and as
-   ``model=2`` (K1 on "simt" at 16 heads), each against this process's
+   ``model=2`` (K1 on "tc16_f32" at 16 heads), each against this process's
    one-device step on the whole batch: the loss within 1e-5 relative, the
    clipped gradients of ``model=2`` within 1e-4 of each one's largest
    entry; ``data=2`` equals, bit for bit, this process's step with the
@@ -150,11 +155,14 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    the wall and count of its all-reduces; (b) the train CLI's rank function as ``--mesh model=2`` at
    bf16 on the two test ensembles (one L=64 bucket), batch 16: 10 steps
    with checkpoints every 5, then 5 steps, interrupted, and a resume to 10,
-   which must equal the uninterrupted weights bit for bit; 80 "simt"
+   which must equal the uninterrupted weights bit for bit; 80 "tc16"
    launches and 80 backward passes a rank; the export loads through
    ``load_bundle`` and one score evaluation runs from it. K1 at 16 heads
-   ("simt") is held against its plain version and timed beside its bound
-   at both shapes;
+   ("tc16_f32" at the f32 step's shape, "tc16" at the CLI's) is held
+   against its plain version and the CUDA-core design and timed in turns
+   with the latter beside its bound, and its gradients against autograd of
+   the plain version with the backward timed beside its bound, at both
+   shapes;
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -220,6 +228,13 @@ INKERNEL_CASES = [(40, 100, 32, 256, "bfloat16", 0, True), (40, 100, 32, 256, "f
                   (40, 77, 16, 256, "bfloat16", 9, False), (40, 77, 16, 256, "float32", 9, False)]
 INKERNEL_GRAD_CASES = [(256, 56, 4, 32, "float32", 0), (16, 100, 32, 256, "bfloat16", 0),
                        (16, 77, 32, 256, "float32", 9)]
+# K1 at a tensor-parallel rank's 16 heads with the streamed pair bias: the
+# route of each dtype, and (B, Lq, Lk, Cp, dtype, masked columns) of phase
+# 11's further cases: Cp=96 (three n-tile pairs a warp), and a partial last
+# key tile with rows != columns (B=40 L=77 masked is in INKERNEL_CASES).
+H16_ROUTES = {"bfloat16": "tc16", "float32": "tc16_f32"}
+K1_H16_CASES = [(16, 100, 100, 96, dt, 0) for dt in H16_ROUTES] + [
+    (2, 5, 70, 256, dt, 0) for dt in H16_ROUTES]
 # PPFT (python -m se3diff_torch.finetune): GRB2-SH3 (L=56) mutants from the
 # repository's CSV, bioemu-v1.0's 2-layer d64 control net (bench.py:63-67).
 GRB2_CSV = "assets/reference_h/GRB2_SH3_high_confidence.csv"
@@ -323,26 +338,28 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_inputs(B, L, dtype, gen, masked_cols=0, H=32, cp=256, in_kernel=False):
-    """Kernel-layout operands at the model's scales (q/k/v ~ 1, planes ~ nm):
-    the ten of the streamed pair bias, or with ``in_kernel`` eleven, ``pa``
-    None and ``w_pb [cp, H]`` f32 last."""
+def k1_inputs(B, L, dtype, gen, masked_cols=0, H=32, cp=256, in_kernel=False, Lq=None):
+    """Kernel-layout operands at the model's scales (q/k/v ~ 1, planes ~ nm)
+    for ``L`` key columns and ``Lq`` query rows (``L`` unless given): the
+    ten of the streamed pair bias, or with ``in_kernel`` eleven, ``pa`` None
+    and ``w_pb [cp, H]`` f32 last."""
     import torch
 
     dk, dev = 16, DEVICE
+    Lq = L if Lq is None else Lq
     g = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale
     bias = torch.zeros(B, L, device=dev)
     if masked_cols:
         bias[:, -masked_cols:] = -1e30
     args = (
-        g(B, H, L, dk).to(dtype), g(B, H, L, dk).to(dtype), g(B, H, L, dk).to(dtype),
-        g(B, 3, H * 4, L, scale=0.3), g(B, 3, H * 4, L, scale=0.3), g(B, H, L, 24, scale=2.0),
-        g(B, L, L, cp, scale=0.5).to(dtype), g(H, cp, dk, scale=0.06 * (256 / cp) ** 0.5).to(dtype),
+        g(B, H, Lq, dk).to(dtype), g(B, H, L, dk).to(dtype), g(B, H, L, dk).to(dtype),
+        g(B, 3, H * 4, Lq, scale=0.3), g(B, 3, H * 4, L, scale=0.3), g(B, H, L, 24, scale=2.0),
+        g(B, Lq, L, cp, scale=0.5).to(dtype), g(H, cp, dk, scale=0.06 * (256 / cp) ** 0.5).to(dtype),
         bias,
     )
     if in_kernel:
         return (*args, None, g(cp, H, scale=cp**-0.5))
-    return (*args, g(B, H, L, L).to(dtype))
+    return (*args, g(B, H, Lq, L).to(dtype))
 
 
 def k1_bound(args, outs, dtype_name):
@@ -361,6 +378,12 @@ def k1_bound(args, outs, dtype_name):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_OPS_PER_S[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def only_routes(k1, **counts):
+    """K1's launches by route as ``counts`` on the routes named and none on
+    any other."""
+    return {**dict.fromkeys(k1.launches_by_route, 0), **counts}
 
 
 def max_err(got, want):
@@ -394,11 +417,15 @@ def phase_build():
     ptxas = {"tc": ptxas_summary(report, "ipa_attention_tc_kernel"),
              "tc_f32": ptxas_summary(report, "ipa_attention_tc_f32_kernel")
              + f"; dynamic shared memory {lib.ipa_attention_tc_f32_smem_bytes(256)} bytes at Cp=256",
+             **{r: ptxas_summary(report, f"ipa_attention_{r}_kernel") + "; dynamic shared memory "
+                f"{getattr(lib, f'ipa_attention_{r}_smem_bytes')(256)} bytes at Cp=256, "
+                f"{getattr(lib, f'ipa_attention_{r}_blocks_per_sm')(256)} blocks an SM resident"
+                for r in ("tc16", "tc16_f32")},
              # Two instantiations: Cp <= 32 (every path) and Cp <= 64.
              "h4": f"Cp <= 32: {ptxas_summary(report, 'ipa_attention_h4_kernelILi32E')}; dynamic "
                    f"shared memory {lib.ipa_attention_h4_smem_bytes(32)} bytes at Cp=32 | Cp <= 64: "
                    f"{ptxas_summary(report, 'ipa_attention_h4_kernelILi64E')}"}
-    for route in ("tc_f32", "h4"):
+    for route in ("tc_f32", "h4", "tc16", "tc16_f32"):
         log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
 
@@ -572,7 +599,7 @@ def phase_main_path(k1, card):
         f"in {wall:.3f} s = {MAIN_SAMPLES / wall * 3600:.1f} structures/hr; "
         f"{handler.lines[-1]}; ipa_attention launches {launches} (expected {expect}), by route "
         f"{routes}; {card}")
-    if launches != expect or routes != {"tc": expect, "tc_f32": 0, "h4": 0, "simt": 0}:
+    if launches != expect or routes != only_routes(k1, tc=expect):
         raise AssertionError(f"ipa_attention launched {launches} times ({routes}), expected "
                              f"{expect}, all on the tensor-core route")
     if not (out / "topology.pdb").exists():
@@ -627,7 +654,7 @@ def _main_path_f32(k1, card, bf16_wall):
         f"in f32): {wall:.3f} s = {MAIN_BATCH / wall * 3600:.1f} structures/hr (bf16 run above: "
         f"{MAIN_SAMPLES / bf16_wall * 3600:.1f}); ipa_attention launches {launches} (expected "
         f"{expect}), by route {routes}; {card}")
-    if launches != expect or routes != {"tc": 0, "tc_f32": expect, "h4": 0, "simt": 0}:
+    if launches != expect or routes != only_routes(k1, tc_f32=expect):
         raise AssertionError(f"f32 sampling launched K1 {launches} times ({routes}), expected "
                              f"{expect}, all on the f32 tensor-core route")
     files = sorted(out.glob("batch_*.npz"))
@@ -729,23 +756,24 @@ def peak_mb(fn):
     return (torch.cuda.max_memory_allocated() - base) / 1e6
 
 
-def _grad_case(k1, gen, B, L, dname, masked):
-    """One streamed 32-head case of K1's gradient on the card: the autograd
-    Function against autograd through the plain version in f32 (fatal
-    beyond ``GRAD_TOL``), then forward and backward times beside their
-    bounds, the plain autograd backward's time and both peak memories."""
+def _grad_case(k1, gen, B, L, dname, masked, H=32):
+    """One streamed case of K1's gradient on the card (``H`` heads): the
+    autograd Function against autograd through the plain version in f32
+    (fatal beyond ``GRAD_TOL``), then forward and backward times beside
+    their bounds, the plain autograd backward's time and both peak
+    memories."""
     import torch
 
     kw = K1_KW
     names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa")
     dtype = getattr(torch, dname)
-    args = k1_inputs(B, L, dtype, gen, masked)
+    args = k1_inputs(B, L, dtype, gen, masked, H=H)
     leaves = [t.clone().requires_grad_(n != "bias") for n, t in zip(names, args)]
     diff = [t for n, t in zip(names, leaves) if n != "bias"]
     cts = tuple(
         torch.randn(shape, generator=gen, device=DEVICE).to(dt)
-        for shape, dt in (((B, 32, L, 16), dtype), ((B, 32, L, 24), torch.float32),
-                          ((B, 32, L, 16), dtype))
+        for shape, dt in (((B, H, L, 16), dtype), ((B, H, L, 24), torch.float32),
+                          ((B, H, L, 16), dtype))
     )
     before = k1.launches
     outs = k1.ipa_attention(*leaves, **kw)
@@ -783,7 +811,7 @@ def _grad_case(k1, gen, B, L, dname, masked):
     mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention(*leaves, **kw), diff, cts))
     plain_mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention_plain(*leaves, **kw), diff, cts))
     log(
-        f"[k1-grad] B={B} L={L} {dname} masked_cols={masked} "
+        f"[k1-grad] H={H} B={B} L={L} {dname} masked_cols={masked} "
         f"({len(k1._row_chunks(L, 128))} row chunks): gradient errors x max|f32 reference| "
         + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
         + f" (tol {GRAD_TOL[dname]:.2e}); forward "
@@ -910,7 +938,7 @@ def phase_train_path(k1, card):
         f"(expected {N_LAYERS * TRAIN_STEPS} each, every launch on the tensor-core route); {card}")
     if launches != N_LAYERS * TRAIN_STEPS or backwards != N_LAYERS * TRAIN_STEPS:
         raise AssertionError(f"training launched K1 {launches} times and ran {backwards} backwards")
-    if routes != {"tc": launches, "tc_f32": 0, "h4": 0, "simt": 0}:
+    if routes != only_routes(k1, tc=launches):
         raise AssertionError(f"bf16 training launches left the tensor-core route: {routes}")
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite training loss")
@@ -1249,7 +1277,7 @@ def phase_parallel(k1, card):
             log(f"[sp-score] {dname} full width B={SP_BATCH} L={L} rank {r} rows {out['rows']}: "
                 f"vs one process max_abs_err={err:.3e} (tol {tol * scale:.3e}); K1 launches "
                 f"{out['launches']} (expected {N_LAYERS}), by route {out['launches_by_route']}")
-            want_routes = {"tc": 0, "tc_f32": 0, "h4": 0, "simt": 0, route: N_LAYERS}
+            want_routes = only_routes(k1, **{route: N_LAYERS})
             if not err <= tol * scale or out["launches"] != N_LAYERS \
                     or out["launches_by_route"] != want_routes:
                 raise AssertionError(f"SP score evaluation ({dname}, rank {r}) is wrong")
@@ -1265,8 +1293,7 @@ def phase_parallel(k1, card):
             f"{SP_SAMPLES / run['wall_s'] * 3600:.1f} structures/hr; peak device memory "
             f"{peak}; K1 launches {run['launches']} (expected {expect}; on this path every "
             f"one is a slab launch of sp_ipa_attention), by route {run['launches_by_route']}")
-        if run["launches"] != expect or run["launches_by_route"] != {"tc": expect, "tc_f32": 0,
-                                                                     "h4": 0, "simt": 0}:
+        if run["launches"] != expect or run["launches_by_route"] != only_routes(k1, tc=expect):
             raise AssertionError(f"rank {run['rank']} launched K1 {run['launches']} times "
                                  f"({run['launches_by_route']})")
     log(f"[sp-main] one process, same run: {one_wall:.3f} s = "
@@ -1303,7 +1330,7 @@ def phase_parallel(k1, card):
         if not replay_err <= 1e-6 or not err <= DP_TOL:
             raise AssertionError("DP rows differ from the single-device rows")
         dp_launches = N_LAYERS * DP_DENOISER["num_steps"]
-        if routes != {"tc": 0, "tc_f32": dp_launches, "h4": 0, "simt": 0}:
+        if routes != only_routes(k1, tc_f32=dp_launches):
             raise AssertionError(f"DP rank {r} launched K1 {routes}, expected {dp_launches} "
                                  "on the f32 tensor-core route")
     return [run["launches"] for run in sp_runs]
@@ -1340,6 +1367,9 @@ def phase_inkernel(k1, ptxas):
         tol = TOL[dname] * scale
         res, detail = _timed_with_simt(k1, lambda: k1.ipa_attention(*args, **kw), args, kw, route,
                                        ptxas)
+        if route in H16_ROUTES.values() and not res["err_vs_prev"] <= tol:
+            raise AssertionError(f"{route} disagrees with the CUDA-core design: "
+                                 f"{res['err_vs_prev']} > {tol}")
         plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **kw), reps=5)
         bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
         log(f"[k1-inkernel] {'has_pa=False' if in_kernel else 'has_pa=True'} B={B} L={L} H={H} "
@@ -1426,6 +1456,11 @@ def phase_inkernel(k1, ptxas):
             max_abs_err=abs_err, max_rel_err=rel[worst], ms=bwd_ms, plain_ms=plain_bwd_ms,
             bound_ms=bwd_bound, bound_by=bwd_by)
         del args, leaves, diff, grads, plain_args, plain_outs
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    for B, Lq, Lk, cp, dname, masked in K1_H16_CASES:
+        results[("h16", B, Lq, Lk, cp, dname)] = _h16_case(k1, ptxas, gen, B, Lq, Lk, cp, dname,
+                                                            masked, tag="k1-inkernel")
     return results
 
 
@@ -1468,14 +1503,14 @@ def phase_ppft_files():
 def _reset_k1(k1):
     k1.launches = k1.backward_calls = 0
     k1.launches_by_variant.update(pa=0, w_pb=0)
-    k1.launches_by_route.update(tc=0, tc_f32=0, h4=0, simt=0)
+    k1.launches_by_route.update(dict.fromkeys(k1.launches_by_route, 0))
 
 
 def _check_ppft_routes(k1, launches):
     """The score model's streamed bf16 launches take the tensor-core route,
     the control net's in-kernel f32 launches at 4 heads the "h4" design."""
     routes = dict(k1.launches_by_route)
-    if routes != {"tc": launches["pa"], "tc_f32": 0, "h4": launches["w_pb"], "simt": 0}:
+    if routes != only_routes(k1, tc=launches["pa"], h4=launches["w_pb"]):
         raise AssertionError(f"PPFT launches by route {routes} do not follow their variants {launches}")
     return routes
 
@@ -1736,7 +1771,7 @@ def phase_sample_cli(k1, files, card, dpm_f32_wall):
             f"{MAIN_BATCH / dpm_f32_wall * 3600:.1f}); max |pos| {np.abs(pos).max():.1f} nm; "
             f"physical frames {kept}/{MAIN_BATCH} (random weights); ipa_attention launches "
             f"{launches} (expected {expect}), by route {routes}; {card}")
-        if launches != expect or routes != {"tc": 0, "tc_f32": expect, "h4": 0, "simt": 0}:
+        if launches != expect or routes != only_routes(k1, tc_f32=expect):
             raise AssertionError(f"--denoiser {name} launched K1 {launches} times ({routes}), "
                                  f"expected {expect}, all on the f32 tensor-core route")
         results[name] = dict(launches=launches, wall=wall, loop_s=loop_s)
@@ -2051,7 +2086,7 @@ def phase_ppft_learn(k1, ptxas, card):
         raise AssertionError("a DSM loss of the pretraining run is not finite")
     if (dsm["launches"], dsm["backwards"]) != (N_LAYERS * steps, N_LAYERS * steps):
         raise AssertionError("DSM K1 launches or backward passes are not 8 a step")
-    if routes != {"tc": launches, "tc_f32": 0, "h4": 0, "simt": 0} or backwards != dsm["backwards"]:
+    if routes != only_routes(k1, tc=launches) or backwards != dsm["backwards"]:
         raise AssertionError(f"the pretraining run's launches left the tensor-core route: {routes}")
     if check_launches != expect_check:
         raise AssertionError("the sample check's K1 launches are not the expected count")
@@ -2138,39 +2173,45 @@ def phase_ppft_learn(k1, ptxas, card):
                 fwd=fwd, bwd=bwd)
 
 
-def _simt_case(k1, gen, B, L, dname):
-    """K1 at a TP rank's 16 heads (route "simt") against its plain version,
-    timed beside its bound."""
+def _h16_case(k1, ptxas, gen, B, Lq, Lk, cp, dname, masked=0, tag="k1-h16"):
+    """K1 at a tensor-parallel rank's 16 heads with the streamed pair bias
+    (route "tc16" in bf16, "tc16_f32" in f32): one counted launch against
+    the plain version and against the CUDA-core design on the same inputs
+    (each fatal beyond ``TOL``), then its time in turns with the CUDA-core
+    design's, beside the plain version's and the bound."""
     import torch
 
-    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL
-
     dtype = getattr(torch, dname)
-    heads = BIOEMU_V1_MODEL["num_heads"] // MESH_RANKS
-    args = k1_inputs(B, L, dtype, gen, H=heads)
-    if k1.kernel_route(dtype, heads, 16, 256, True) != "simt":
-        raise AssertionError(f"K1 at {heads} heads does not take the simt route")
-    before = k1.launches_by_route["simt"]
+    args = k1_inputs(B, Lk, dtype, gen, masked, H=16, cp=cp, Lq=Lq)
+    route = k1.kernel_route(dtype, 16, 16, cp, True)
+    if route != H16_ROUTES[dname]:
+        raise AssertionError(f"K1 at 16 heads, Cp={cp}, {dname} takes route {route!r}, not "
+                             f"{H16_ROUTES[dname]!r}")
+    before = dict(k1.launches_by_route)
     got = k1.ipa_attention(*args, **K1_KW)
     torch.cuda.synchronize()
-    if k1.launches_by_route["simt"] != before + 1:
-        raise AssertionError("ipa_attention did not launch the simt design")
+    if k1.launches_by_route != {**before, route: before[route] + 1}:
+        raise AssertionError(f"ipa_attention at 16 heads did not launch the {route!r} design once")
     want = k1.ipa_attention_plain(*args, **K1_KW)
     err, scale = max_err(got, want)
     tol = TOL[dname] * scale
-    ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **K1_KW), reps=20)
     plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **K1_KW), reps=5)
     bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
-    log(f"[mesh-k1] simt, {heads} heads, B={B} L={L} {dname}: max_abs_err={err:.3e} (tol "
-        f"{tol:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
-        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; {ms / bound_ms:.1f}x the bound) "
-        "library_ms=null (no single PyTorch call computes this function)")
-    if not err <= tol:
-        raise AssertionError(f"simt at {heads} heads disagrees with its plain version: {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    res, detail = _timed_with_simt(k1, lambda: k1.ipa_attention(*args, **K1_KW), args, K1_KW,
+                                   route, ptxas)
+    log(f"[{tag}] 16 heads B={B} Lq={Lq} Lk={Lk} Cp={cp} {dname} masked_cols={masked}: "
+        f"max_abs_err={err:.3e} (tol {tol:.3e}) {detail} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; "
+        f"{res['ms'] / bound_ms:.1f}x the bound) library_ms=null (no single PyTorch call "
+        "computes this function)")
+    if not (err <= tol and res["err_vs_prev"] <= tol):
+        raise AssertionError(f"{route} disagrees with the plain version ({err:.3e}) or the "
+                             f"CUDA-core design ({res['err_vs_prev']:.3e}) beyond {tol:.3e}")
+    res.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return res
 
 
-def phase_mesh_train(k1, card):
+def phase_mesh_train(k1, ptxas, card):
     """(a) one DP and one TP f32 step against this process's step; (b) the
     train CLI's rank function at model=2, interrupted and resumed. One spawn
     of MESH_RANKS gloo ranks on the card. Returns the readings the kernels
@@ -2193,8 +2234,15 @@ def phase_mesh_train(k1, card):
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(19)
-    simt = {"f32": _simt_case(k1, gen, MESH_B, MESH_L, "float32"),
-            "bf16": _simt_case(k1, gen, TRAIN_BATCH, 64, "bfloat16")}
+    heads = BIOEMU_V1_MODEL["num_heads"] // MESH_RANKS
+    if heads != 16:
+        raise AssertionError(f"a rank at model={MESH_RANKS} has {heads} heads, not 16")
+    # K1 at a TP rank's heads at both of this phase's shapes: the forward in
+    # turns with the CUDA-core design, then the gradients and the backward.
+    h16 = {"f32": _h16_case(k1, ptxas, gen, MESH_B, MESH_L, MESH_L, 256, "float32", tag="mesh-k1"),
+           "bf16": _h16_case(k1, ptxas, gen, TRAIN_BATCH, 64, 64, 256, "bfloat16", tag="mesh-k1")}
+    bwd = {"f32": _grad_case(k1, gen, MESH_B, MESH_L, "float32", 0, H=heads),
+           "bf16": _grad_case(k1, gen, TRAIN_BATCH, 64, "bfloat16", 0, H=heads)}
 
     # (a) This process's one-device f32 steps on the same weights, batch and
     # noise: on the whole batch, and with the gradient accumulated over the
@@ -2290,7 +2338,7 @@ def phase_mesh_train(k1, card):
                 sum(int(m.sum()) for m in held.values()), sum(m.size for m in held.values()))
 
     readings = {}
-    for i, (name, route) in enumerate((("data=2", "tc_f32"), ("model=2", "simt"))):
+    for i, (name, route) in enumerate((("data=2", "tc_f32"), ("model=2", "tc16_f32"))):
         outs = [r[i] for r in ranks]
         o = outs[0]
         grad_tol = MESH_GRAD_TOL[name]
@@ -2332,7 +2380,8 @@ def phase_mesh_train(k1, card):
                 raise AssertionError(f"the {name} step launched K1 {x['launches_by_route']} "
                                      f"with {x['backward_calls']} backward passes")
         readings[name] = dict(step_ms=step_ms, all_reduce_ms=o["all_reduce_ms"],
-                              launches=sum(x["launches_by_route"][route] for x in outs))
+                              launches=sum(x["launches_by_route"][route] for x in outs),
+                              backwards=sum(x["backward_calls"] for x in outs))
 
     # (b) The CLI's rank function: full run, interrupted run, resume.
     runs = [[r[j] for r in ranks] for j in (2, 3, 4)]
@@ -2342,8 +2391,8 @@ def phase_mesh_train(k1, card):
             log(f"[mesh-train] (b) model={MESH_RANKS} bf16 B={TRAIN_BATCH} L=64, {label}, rank "
                 f"{x['rank']}: {x['wall_s']:.1f} s with set-up; logged losses {x['history']}; K1 "
                 f"launches by route {x['launches_by_route']}, backward passes "
-                f"{x['backward_calls']} (expected {n} each, on simt)")
-            if x["launches_by_route"] != {**zero, "simt": n} or x["backward_calls"] != n:
+                f"{x['backward_calls']} (expected {n} each, on tc16)")
+            if x["launches_by_route"] != {**zero, "tc16": n} or x["backward_calls"] != n:
                 raise AssertionError(f"the CLI rank ({label}) launched K1 {x['launches_by_route']}")
     if not all(np.isfinite(x["history"]).all() for x in runs[0]):
         raise AssertionError("non-finite loss in the mesh run")
@@ -2371,9 +2420,29 @@ def phase_mesh_train(k1, card):
         f"load_bundle; one bf16 score evaluation from it is finite")
     wall = time.perf_counter() - t_phase
     log(f"[mesh-train] phase wall {wall:.1f} s (the spawn {spawn_s:.1f} s); {card}")
-    return dict(simt=simt, readings=readings,
-                cli_launches=sum(x["launches_by_route"]["simt"] for x in runs[0]),
+    return dict(h16=h16, bwd=bwd, readings=readings,
+                cli_launches=sum(x["launches_by_route"]["tc16"] for x in runs[0]),
                 cli_backwards=sum(x["backward_calls"] for x in runs[0]))
+
+
+def _h16_entry(case, l77, bwd):
+    """The kernels line's readings of a 16-head design: its case at a mesh
+    path's shape, at B=40 L=77 with 9 masked columns, and K1's backward at
+    the path's shape."""
+    return {
+        "max_abs_err": case["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
+        "verdict": "pass", "design": case["design"],
+        "prev_source": "se3diff_torch/csrc/ipa_attention.cu", "prev_ms": case["prev_ms"],
+        "max_abs_err_vs_prev": case["err_vs_prev"],
+        "B40_L77_masked_ms": l77["ms"], "B40_L77_masked_prev_ms": l77["prev_ms"],
+        "B40_L77_masked_bound_ms": l77["bound_ms"], "B40_L77_masked_max_abs_err": l77["max_abs_err"],
+        "backward_route": "torch", "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "backward_ms": bwd["ms"], "backward_plain_ms": bwd["plain_ms"],
+        "backward_bound_ms": bwd["bound_ms"], "backward_bound_by": bwd["bound_by"],
+        "backward_max_rel_err": bwd["max_rel_err"],
+    }
 
 
 def main() -> int:
@@ -2429,7 +2498,7 @@ def main() -> int:
     phase_observables(k1, card, step["final_pos"])
     log(f"[done] phases 16-17 (the SO(3) toy, the observables) in {time.perf_counter() - t_new:.1f} s")
     learn = phase_ppft_learn(k1, ptxas, card)
-    mesh = phase_mesh_train(k1, card)
+    mesh = phase_mesh_train(k1, ptxas, card)
 
     main_case = k1_results[K1_CASES[0][:3]]
     ppft_case = k1_results[(256, 56, "bfloat16")]
@@ -2441,6 +2510,7 @@ def main() -> int:
     ft57_case = inkernel[(PPFT_BATCH, 57, 4, 32, "float32", True)]
     ft32_case = inkernel[(40, 100, 32, 256, "bfloat16", True)]
     ft_bwd = inkernel[("grad",) + INKERNEL_GRAD_CASES[0][:3] + INKERNEL_GRAD_CASES[0][4:5]]
+    h16_l77 = {dname: inkernel[(40, 77, 16, 256, dname, False)] for dname in H16_ROUTES}
     log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}, PPFT "
         f"CLI {ppft_launches}, PPFT step {step['launches']}, sample CLI heun "
         f"{cli['heun']['launches']} and euler_maruyama {cli['euler_maruyama']['launches']}, PPFT "
@@ -2451,8 +2521,8 @@ def main() -> int:
         f"{learn['dsm_backwards']} backward passes, sample check {learn['check_launches']}, "
         f"fine-tuning {learn['ppft_launches']} and {learn['ppft_backwards']} backward passes; "
         f"mesh training (2 ranks): the data=2 step {mesh['readings']['data=2']['launches']} "
-        f"tc_f32, the model=2 step {mesh['readings']['model=2']['launches']} simt, the CLI's "
-        f"10 steps at model=2 {mesh['cli_launches']} simt and {mesh['cli_backwards']} backward "
+        f"tc_f32, the model=2 step {mesh['readings']['model=2']['launches']} tc16_f32, the CLI's "
+        f"10 steps at model=2 {mesh['cli_launches']} tc16 and {mesh['cli_backwards']} backward "
         f"passes")
     kernels = {"kernels": [{
         "name": "ipa_attention",
@@ -2631,27 +2701,27 @@ def main() -> int:
         "backward_bound_ms": ft_bwd["bound_ms"],
         "backward_bound_by": ft_bwd["bound_by"],
     }, {
-        # K1 at a TP rank's 16 heads (route simt, the CUDA-core design): the
-        # train CLI's 10 mesh steps at model=2 (phase 19 (b)), summed over its
-        # 2 ranks; its shape, B=16 L=64 bf16, and the f32 mesh step's (a).
+        # K1 at a TP rank's 16 heads in bf16 (route tc16): the train CLI's 10
+        # mesh steps at model=2 (phase 19 (b)), summed over its 2 ranks, at
+        # its shape, B=16 L=64; prev_ms is the CUDA-core design
+        # (prev_source) on the same inputs, timed in turns.
         "name": "ipa_attention_16_heads",
         "route": "cuda",
-        "source": "se3diff_torch/csrc/ipa_attention.cu",
+        "source": "se3diff_torch/csrc/ipa_attention_tc16.cu",
         "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
         "launches": mesh["cli_launches"],
-        "launches_mesh_tp_step": mesh["readings"]["model=2"]["launches"],
-        "max_abs_err": mesh["simt"]["bf16"]["max_abs_err"],
-        "ms": mesh["simt"]["bf16"]["ms"],
-        "plain_ms": mesh["simt"]["bf16"]["plain_ms"],
-        "bound_ms": mesh["simt"]["bf16"]["bound_ms"],
-        "bound_by": mesh["simt"]["bf16"]["bound_by"],
-        "library_ms": None,
-        "verdict": "pass",
-        "B16_L100_f32_max_abs_err": mesh["simt"]["f32"]["max_abs_err"],
-        "B16_L100_f32_ms": mesh["simt"]["f32"]["ms"],
-        "B16_L100_f32_plain_ms": mesh["simt"]["f32"]["plain_ms"],
-        "B16_L100_f32_bound_ms": mesh["simt"]["f32"]["bound_ms"],
+        **_h16_entry(mesh["h16"]["bf16"], h16_l77["bfloat16"], mesh["bwd"]["bf16"]),
         "backward_calls": mesh["cli_backwards"],
+    }, {
+        # The same at f32 (route tc16_f32): the model=2 mesh step (phase 19
+        # (a)), summed over its 2 ranks, at its shape, B=16 L=100.
+        "name": "ipa_attention_16_heads_f32",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_tc16_f32.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
+        "launches": mesh["readings"]["model=2"]["launches"],
+        **_h16_entry(mesh["h16"]["f32"], h16_l77["float32"], mesh["bwd"]["f32"]),
+        "backward_calls": mesh["readings"]["model=2"]["backwards"],
     }]}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels))

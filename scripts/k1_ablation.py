@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Where the time of K1's hand-written designs goes, by ablation, on one H100.
 
-    python3 scripts/k1_ablation.py [tc] [tc_f32] [h4]
+    python3 scripts/k1_ablation.py [tc] [tc_f32] [tc16] [tc16_f32] [h4]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
 CUDA build of PyTorch. For each design named (all by default: "tc",
 ``se3diff_torch/csrc/ipa_attention_tc.cu``, bf16; "tc_f32",
-``se3diff_torch/csrc/ipa_attention_tc_f32.cu``, f32; "h4",
-``se3diff_torch/csrc/ipa_attention_h4.cu``, f32, the in-kernel pair bias)
+``se3diff_torch/csrc/ipa_attention_tc_f32.cu``, f32; "tc16" and
+"tc16_f32", ``se3diff_torch/csrc/ipa_attention_tc16{,_f32}.cu``, the same
+at 16 heads; "h4", ``se3diff_torch/csrc/ipa_attention_h4.cu``, f32, the
+in-kernel pair bias)
 it compiles the source as it is and in variants that each cut one part of
 the work (a loop made empty, a copy not issued), one nvcc process a
 variant, all started together, and times every variant with CUDA events
 at the design's widths and the shapes of the paths that launch it (the
-tensor-core designs: 32 heads, Cp=256, the sampling path's and the PPFT
-score model's shapes; "h4": 4 heads, Cp=32, the PPFT control net's B=256
-L=56 and a batch of 64). A variant's outputs are wrong by construction: only its time is
+32-head tensor-core designs: Cp=256, the sampling path's and the PPFT
+score model's shapes; the 16-head ones: Cp=256, a tensor-parallel rank's
+shapes in the mesh trainer, B=16 at L=100 and L=64; "h4": 4 heads, Cp=32,
+the PPFT control net's B=256 L=56 and a batch of 64). A variant's outputs are wrong by construction: only its time is
 read, as the share of the full kernel's time that the part it cuts costs.
 Prints one line a variant with ptxas's register and spill report, then the
 card's name and power limit. Outputs go to ``.work/k1_ablation/`` (listed
@@ -37,6 +40,16 @@ OUT = REPO / ".work" / "k1_ablation"
 _PHASE_A = ("    for (int hh = 0; hh < kHeadsPerWarp; ++hh) {\n      const int h = warp + kWarps * hh;\n"
             "      const size_t bh = (size_t)b * kH + h;\n      float s[kTI];")
 _PHASE_A_F32 = "    // -------- phase A: logits, online softmax, v_s / v_p sums --------\n    {"
+# The 16-head designs' cuts that both sources share.
+_TC16 = {
+    "phase_a": [(_PHASE_A_F32, _PHASE_A_F32.replace("\n    {", "\n    if (false) {"))],
+    "points": [("for (int p = 0; p < kNpts; ++p) {", "for (int p = 0; p < 0; ++p) {")],
+    "v_sums": [("for (int jj = 0; jj < kTJ; ++jj) {", "for (int jj = 0; jj < 0; ++jj) {")],
+    "key_prefetch": [("if (t + 1 < ntiles) {\n      const int jn", "if (false) {\n      const int jn")],
+    "rescale": [("if (rescale && nt < nt_count) {", "if (false) {")],
+    "x2d_copy": [("for (int k = 0; k < kMaxCp / 32; ++k)", "for (int k = 0; k < 0; ++k)")],
+    "pa_copy": [("if (tid >= kTI * kH * kPaChunks) return;", "return;")],
+}
 # Each cut: (text in the source, its replacement). Every text must occur once.
 CUTS = {
     "tc": {
@@ -65,6 +78,20 @@ CUTS = {
         "pa_copy": [("for (int e = tid; e < kTI * kH * kPaChunks; e += kThreads) {",
                      "for (int e = tid; e < 0; e += kThreads) {")],
     },
+    "tc16": {
+        **_TC16,
+        "phase_b_mma": [("if (2 * np < nt_count) {", "if (false) {")],
+        "finalize_mma": [("for (int k0 = 0; k0 < Cp; k0 += 16) {",
+                          "for (int k0 = 0; k0 < 0; k0 += 16) {")],
+    },
+    "tc16_f32": {
+        **_TC16,
+        "phase_b_mma": [("        if (nt < nt_count) {\n          uint32_t bb0",
+                         "        if (false) {\n          uint32_t bb0")],
+        "projection": [("for (int c = cq; c < Cp; c += kTI) {", "for (int c = cq; c < 0; c += kTI) {")],
+        # 3xTF32 down to one TF32 product a term in phase B.
+        "small_terms": [("  mma_tf32(d, as, bb0, bb1);\n  mma_tf32(d, ab, bs0, bs1);\n", "")],
+    },
     "h4": {
         "logits": [("    for (int jj = 0; jj < kTJ; ++jj) {\n      float part[kH]",
                     "    for (int jj = 0; jj < 0; ++jj) {\n      float part[kH]")],
@@ -90,6 +117,10 @@ DESIGNS = {  # source, C symbol, dtype name, heads, Cp, has_pa, shapes (B, L)
            [(40, 100), (256, 56)]),
     "tc_f32": ("ipa_attention_tc_f32.cu", "ipa_attention_tc_f32_fwd", "float32", 32, 256, True,
                [(40, 100), (256, 56)]),
+    "tc16": ("ipa_attention_tc16.cu", "ipa_attention_tc16_fwd", "bfloat16", 16, 256, True,
+             [(16, 64), (16, 100)]),
+    "tc16_f32": ("ipa_attention_tc16_f32.cu", "ipa_attention_tc16_f32_fwd", "float32", 16, 256,
+                 True, [(16, 100), (16, 64)]),
     "h4": ("ipa_attention_h4.cu", "ipa_attention_h4_fwd", "float32", 4, 32, False,
            [(256, 56), (64, 56)]),
 }
@@ -99,7 +130,7 @@ def variants(design: str) -> dict[str, list[tuple[str, str]]]:
     cuts = CUTS[design]
     if design == "h4":
         return {"full": [], **{f"no_{k}": v for k, v in cuts.items()}}
-    proj = "finalize_mma" if design == "tc" else "projection"
+    proj = "finalize_mma" if design in ("tc", "tc16") else "projection"
     return {"full": [], **{f"no_{k}": v for k, v in cuts.items()},
             f"no_phase_a_no_{proj}": cuts["phase_a"] + cuts[proj]}
 

@@ -28,7 +28,7 @@ device of its operands alone: CPU tensors go through
 kernel or raise. The card takes the widths in :data:`CARD_WIDTHS` (4, 8,
 16 or 32 heads of width 16, ``Cp <= 256``, ``Cp % 4 == 0``);
 :func:`check_card_widths` holds a model config against them before a model
-is bound to the card. Four kernel designs, all built with ``nvcc`` for
+is bound to the card. Six kernel designs, all built with ``nvcc`` for
 ``sm_90a`` at first use into one library bound through ``ctypes``, and a
 static rule on the widths (:func:`kernel_route`) picks one:
 
@@ -38,13 +38,18 @@ static rule on the widths (:func:`kernel_route`) picks one:
 - ``"tc_f32"`` (``csrc/ipa_attention_tc_f32.cu``): the same widths in f32,
   the score model's launches at every CLI's default dtype: f32 tiles staged
   by ``cp.async``, the x2d aggregate on 3xTF32 ``mma.sync`` (f32 accuracy);
+- ``"tc16"`` (``csrc/ipa_attention_tc16.cu``) and ``"tc16_f32"``
+  (``csrc/ipa_attention_tc16_f32.cu``): the same widths at 16 heads, bf16
+  and f32, the launches of every tensor-parallel rank at ``--mesh
+  model=2``: one m16 tile of ``mma.sync`` a query row's heads, two
+  256-thread blocks an SM;
 - ``"h4"`` (``csrc/ipa_attention_h4.cu``): f32, 4 heads, the in-kernel pair
   bias and ``Cp <= H4_MAX_CP``, every attention of the PPFT control net: a
   warp a query row with its 4 heads, x2d tiles staged once by ``cp.async``
   and read twice from shared memory, on CUDA-core FMAs;
 - ``"simt"`` (``csrc/ipa_attention.cu``): every other card width (bf16 at 4
-  heads, 8 and 16 heads, the in-kernel pair bias at 32 heads), on CUDA-core
-  FMAs.
+  heads, 8 heads, the in-kernel pair bias at 16 and 32 heads, ``Cp % 32 !=
+  0``), on CUDA-core FMAs.
 
 Nothing falls back at run time. Its backward is
 :func:`ipa_attention_backward` on both devices: the JAX package's backward
@@ -100,7 +105,11 @@ CARD_WIDTHS = {"heads": (4, 8, 16, 32), "head_dim": 16, "max_cp": 256, "cp_multi
 H4_MAX_CP = 64
 # The kernel design each route launches, by C symbol.
 _ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "tc_f32": "ipa_attention_tc_f32_fwd",
+                  "tc16": "ipa_attention_tc16_fwd", "tc16_f32": "ipa_attention_tc16_f32_fwd",
                   "h4": "ipa_attention_h4_fwd", "simt": "ipa_attention_fwd"}
+# The tensor-core designs of the streamed pair bias, by head count and dtype.
+_TC_ROUTES = {(32, torch.bfloat16): "tc", (32, torch.float32): "tc_f32",
+              (16, torch.bfloat16): "tc16", (16, torch.float32): "tc16_f32"}
 
 # Forward kernel launches made through ipa_attention (plain-version calls and
 # backward passes do not count), in all, by variant ("pa" streams the pair
@@ -146,14 +155,15 @@ def check_card_widths(model_cfg, device) -> None:
 def kernel_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -> str:
     """The kernel design that CUDA operands of these widths launch: for 32
     heads, the streamed pair bias and ``Cp % 32 == 0``, ``"tc"`` in bf16 and
-    ``"tc_f32"`` in f32; ``"h4"`` for f32 at 4 heads with the in-kernel pair
-    bias and ``Cp <= H4_MAX_CP``; ``"simt"`` for every other width in
-    :data:`CARD_WIDTHS`. Raises ``ValueError`` for widths none takes."""
+    ``"tc_f32"`` in f32, and at 16 heads ``"tc16"`` and ``"tc16_f32"``;
+    ``"h4"`` for f32 at 4 heads with the in-kernel pair bias and ``Cp <=
+    H4_MAX_CP``; ``"simt"`` for every other width in :data:`CARD_WIDTHS`.
+    Raises ``ValueError`` for widths none takes."""
     err = _widths_error(H, dk, cp)
     if err is not None:
         raise ValueError(err)
-    if H == 32 and has_pa and cp % 32 == 0:
-        return "tc" if dtype == torch.bfloat16 else "tc_f32"
+    if has_pa and cp % 32 == 0 and (H, dtype) in _TC_ROUTES:
+        return _TC_ROUTES[H, dtype]
     if H == 4 and not has_pa and dtype == torch.float32 and cp <= H4_MAX_CP:
         return "h4"
     return "simt"
@@ -229,7 +239,10 @@ def _library() -> ctypes.CDLL:
             lib.ipa_attention_takes_heads.argtypes = [ci]
             lib.ipa_attention_takes_heads.restype = ci
             lib.ipa_attention_head_dim.restype = ci
-            for name in ("ipa_attention_tc_f32_smem_bytes", "ipa_attention_h4_smem_bytes"):
+            for name in ("ipa_attention_tc_f32_smem_bytes", "ipa_attention_h4_smem_bytes",
+                         "ipa_attention_tc16_smem_bytes", "ipa_attention_tc16_f32_smem_bytes",
+                         "ipa_attention_tc16_blocks_per_sm",
+                         "ipa_attention_tc16_f32_blocks_per_sm"):
                 getattr(lib, name).argtypes = [ci]
                 getattr(lib, name).restype = ci
             _lib = lib
@@ -326,10 +339,10 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scal
     if design is not None and design != route and design != "simt":
         raise ValueError(f"the {design!r} design does not take these widths (route {route!r})")
     counted, design = design is None, design or route
-    if design in ("tc", "tc_f32") and pa.data_ptr() % 16:
+    if design in _TC_ROUTES.values() and pa.data_ptr() % 16:
         raise ValueError("the tensor-core designs need a 16-byte aligned pa")
-    if design == "tc_f32" and w_pv.data_ptr() % 16:
-        raise ValueError("the f32 tensor-core design needs a 16-byte aligned w_pv")
+    if design in ("tc_f32", "tc16_f32") and w_pv.data_ptr() % 16:
+        raise ValueError("the f32 tensor-core designs need a 16-byte aligned w_pv")
     if design == "h4" and any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv, w_pb)):
         raise ValueError("the h4 design needs 16-byte aligned q_s, v_s, v_p, w_pv and w_pb")
     lib = _library()
@@ -363,8 +376,8 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scal
 def _launch_design(design: str, q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa=None,
                    w_pb=None, *, scalar_w: float, pair_w: float):
     """Launch the named kernel design on CUDA operands whatever
-    :func:`kernel_route` picks (``"simt"`` takes every card width, ``"tc"``,
-    ``"tc_f32"`` and ``"h4"`` their own), counting nothing: the yardstick that
+    :func:`kernel_route` picks (``"simt"`` takes every card width, the other
+    designs their own), counting nothing: the yardstick that
     ``chip_smoke.py`` and the card tests time and compare beside the
     route's design. No model path calls it."""
     if design not in _ROUTE_SYMBOLS:

@@ -152,20 +152,23 @@ def test_cpu_tensors_take_the_plain_version(rng):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("heads", [8, 16])
-def test_plain_matches_jnp_twin_at_more_card_head_counts(rng, dtype, heads):
-    """8 and 16 heads of width 16 (the card takes 4, 8, 16 and 32): the
-    plain version against ``_fused_semantics_jnp``, ragged with masked
-    columns, rows != columns."""
-    B, Lq, Lk, dk, cp = 2, 11, 13, 16, 64
+@pytest.mark.parametrize("heads,cp", [(8, 64), (16, 64), (16, 256)], ids=["8", "16", "16-cp256"])
+def test_plain_matches_jnp_twin_at_more_card_head_counts(rng, dtype, heads, cp):
+    """8 and 16 heads of width 16 (the card takes 4, 8, 16 and 32), and 16
+    heads at the full pair width 256 (a tensor-parallel rank of the
+    bioemu-v1.0 score model at ``--mesh model=2``): the plain version
+    against ``_fused_semantics_jnp``, ragged with masked columns, rows !=
+    columns."""
+    B, Lq, Lk, dk = 2, 11, 13, 16
+    wide = (64 / cp) ** 0.5  # weights over Cp channels at the same output scale
     g = lambda *shape, scale=1.0: (rng.standard_normal(shape) * scale).astype(np.float32)
     bias = np.zeros((B, Lk), np.float32)
     bias[:, -3:] = NEG_INF
     a = dict(
         q_s=g(B, heads, Lq, dk), k_s=g(B, heads, Lk, dk), v_s=g(B, heads, Lk, dk),
         q_p=g(B, 3, heads * 4, Lq, scale=0.6), k_p=g(B, 3, heads * 4, Lk, scale=0.6),
-        v_p=g(B, heads, Lk, 24), x2d=g(B, Lq, Lk, cp, scale=0.5), w_pb=g(cp, heads, scale=0.3),
-        w_pv=g(heads, cp, dk, scale=0.3), bias=bias,
+        v_p=g(B, heads, Lk, 24), x2d=g(B, Lq, Lk, cp, scale=0.5),
+        w_pb=g(cp, heads, scale=0.3 * wide), w_pv=g(heads, cp, dk, scale=0.3 * wide), bias=bias,
     )
     pa = _pa(a)
     md = getattr(torch, dtype)

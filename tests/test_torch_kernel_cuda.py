@@ -1,10 +1,11 @@
 """The IPA attention kernels on the card, against their plain version, at 32
 heads (the score model, Cp=256), 4 heads (the PPFT control net, Cp=32) and 8
 and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
-(``w_pb``); and the tensor-core designs (32 heads, streamed ``pa``: route
-"tc" in bf16, "tc_f32" in f32) and the 4-head in-kernel design (route "h4":
-f32, ``w_pb``, the PPFT control net) against the plain version and against
-the CUDA-core design on the same inputs.
+(``w_pb``); and the tensor-core designs (streamed ``pa``: at 32 heads route
+"tc" in bf16 and "tc_f32" in f32, at 16 heads, a tensor-parallel rank's,
+"tc16" and "tc16_f32") and the 4-head in-kernel design (route "h4": f32,
+``w_pb``, the PPFT control net) against the plain version and against the
+CUDA-core design on the same inputs.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip. They
 import neither JAX nor the JAX package, so a machine with only PyTorch runs
@@ -29,7 +30,7 @@ KW = dict(scalar_w=1 / np.sqrt(3 * DK), pair_w=1 / np.sqrt(3))
 NAMES = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa", "w_pb")
 # (heads, Cp, pair-bias variant)
 SHAPES = [(32, 256, "pa"), (32, 256, "w_pb"), (4, 32, "pa"), (4, 32, "w_pb"),
-          (8, 64, "pa"), (8, 64, "w_pb"), (16, 128, "pa"), (16, 128, "w_pb")]
+          (8, 64, "pa"), (8, 64, "w_pb"), (16, 128, "pa"), (16, 128, "w_pb"), (16, 256, "pa")]
 # Shapes of the tensor-core routes: the ragged cases above, an SP slab of 150
 # rows of 300 columns, and the PPFT score model's batch.
 TC_CASES = [(3, 37, 37, 5), (2, 5, 70, 0), (1, 1, 1, 0), (2, 33, 33, 33), (4, 150, 300, 0),
@@ -116,17 +117,19 @@ def test_gradients_on_the_card_match_autograd_of_plain(cuda_device, dtype, tol, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,route,tol", [(torch.bfloat16, "tc", 3e-2),
-                                             (torch.float32, "tc_f32", 2e-4)])
+@pytest.mark.parametrize("H,dtype,route,tol", [(32, torch.bfloat16, "tc", 3e-2),
+                                               (32, torch.float32, "tc_f32", 2e-4),
+                                               (16, torch.bfloat16, "tc16", 3e-2),
+                                               (16, torch.float32, "tc16_f32", 2e-4)])
 @pytest.mark.parametrize("CP", [256, 96, 32])
 @pytest.mark.parametrize("B,Lq,Lk,masked", TC_CASES)
 def test_tensor_core_route_matches_plain_and_the_cuda_core_design(cuda_device, B, Lq, Lk, masked, CP,
-                                                                  dtype, route, tol):
-    """32 heads, streamed pa: ipa_attention launches the tensor-core design
-    of the dtype ("tc" for bf16, "tc_f32" for f32); within ``tol`` x
-    max|plain| of the plain version and of the CUDA-core design
-    (``_launch_design("simt")``) on the same inputs."""
-    args = _args(cuda_device, B, Lq, Lk, dtype, masked, CP=CP)
+                                                                  H, dtype, route, tol):
+    """32 or 16 heads, streamed pa: ipa_attention launches the tensor-core
+    design of the heads and dtype ("tc"/"tc16" for bf16, "tc_f32"/"tc16_f32"
+    for f32); within ``tol`` x max|plain| of the plain version and of the
+    CUDA-core design (``_launch_design("simt")``) on the same inputs."""
+    args = _args(cuda_device, B, Lq, Lk, dtype, masked, H=H, CP=CP)
     before = dict(k1.launches_by_route)
     got = k1.ipa_attention(*args, **KW)
     prev = k1._launch_design("simt", *args, **KW)
@@ -185,6 +188,21 @@ def test_f32_design_uses_the_shared_memory_its_source_states(cuda_device):
     src = (Path(k1.__file__).resolve().parents[1] / "csrc" / "ipa_attention_tc_f32.cu").read_text()
     stated = int(re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes", src).group(1).replace(",", ""))
     assert k1._library().ipa_attention_tc_f32_smem_bytes(256) == stated
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tc16", "tc16_f32"])
+def test_16_head_designs_use_the_shared_memory_their_sources_state(cuda_device, route):
+    """The library's 16-head layouts at Cp=256 are the totals the sources'
+    headers state, and two blocks of each are resident on an SM."""
+    import re
+    from pathlib import Path
+
+    src = (Path(k1.__file__).resolve().parents[1] / "csrc" / f"ipa_attention_{route}.cu").read_text()
+    stated = int(re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes", src).group(1).replace(",", ""))
+    lib = k1._library()
+    assert getattr(lib, f"ipa_attention_{route}_smem_bytes")(256) == stated
+    assert getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256) == 2
 
 
 @pytest.mark.cuda

@@ -50,7 +50,18 @@ REFUSED = [dict(dim_model=32, dim_pair=32, num_heads=4), dict(dim_model=192, dim
     (F32, 8, 16, 32, False, "simt"),     # 8 heads
     (BF16, 4, 16, 32, True, "simt"),
     (BF16, 8, 16, 64, True, "simt"),
+    (BF16, 8, 16, 256, True, "simt"),    # 8 heads (a rank at --mesh model=4)
+    (F32, 8, 16, 256, True, "simt"),
     (F32, 16, 16, 128, False, "simt"),
+    (BF16, 16, 16, 256, True, "tc16"),   # a tensor-parallel rank at --mesh model=2, bf16
+    (BF16, 16, 16, 128, True, "tc16"),
+    (BF16, 16, 16, 32, True, "tc16"),
+    (F32, 16, 16, 256, True, "tc16_f32"),  # the same at the train CLI's default f32
+    (F32, 16, 16, 96, True, "tc16_f32"),
+    (F32, 16, 16, 32, True, "tc16_f32"),
+    (F32, 16, 16, 36, True, "simt"),     # Cp not a multiple of 32
+    (BF16, 16, 16, 36, True, "simt"),
+    (BF16, 16, 16, 128, False, "simt"),  # the in-kernel pair bias at 16 heads
 ])
 def test_route_rule(dtype, H, dk, cp, has_pa, route):
     assert k1.kernel_route(dtype, H, dk, cp, has_pa) == route
@@ -79,11 +90,14 @@ def test_card_widths_name_what_the_cuda_sources_instantiate():
     assert cases == takes == set(k1.CARD_WIDTHS["heads"])
     tc = (CSRC / "ipa_attention_tc.cu").read_text()
     tc_f32 = (CSRC / "ipa_attention_tc_f32.cu").read_text()
-    for text in (src, tc, tc_f32):
+    tc16 = [(CSRC / f"ipa_attention_{r}.cu").read_text() for r in ("tc16", "tc16_f32")]
+    for text in (src, tc, tc_f32, *tc16):
         assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in text
         assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in text
     for text in (tc, tc_f32):
         assert "constexpr int kH = 32;" in text
+    for text in tc16:
+        assert "constexpr int kH = 16;" in text
     # The f32 design states its shared memory at Cp=256, within what a block
     # may opt into on Hopper (232,448 bytes).
     stated = re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes", tc_f32)
@@ -101,8 +115,11 @@ def test_every_route_names_an_entry_the_cuda_sources_define():
         text = sources[defined[0]]
         signature = text[text.index(f"int {symbol}("):]
         assert signature[:signature.index(")")].count(",") == 24
-    assert set(k1.launches_by_route) == set(k1._ROUTE_SYMBOLS) == {"tc", "tc_f32", "h4", "simt"}
+    assert set(k1.launches_by_route) == set(k1._ROUTE_SYMBOLS) == {
+        "tc", "tc_f32", "tc16", "tc16_f32", "h4", "simt"}
     assert k1._ROUTE_SYMBOLS["tc_f32"] == "ipa_attention_tc_f32_fwd"
+    assert k1._ROUTE_SYMBOLS["tc16"] == "ipa_attention_tc16_fwd"
+    assert k1._ROUTE_SYMBOLS["tc16_f32"] == "ipa_attention_tc16_f32_fwd"
     assert k1._ROUTE_SYMBOLS["h4"] == "ipa_attention_h4_fwd"
 
 
@@ -133,6 +150,28 @@ def test_h4_cp_limit_is_the_sources_constant():
     for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
         want = "h4" if cp <= k1.H4_MAX_CP else "simt"
         assert k1.kernel_route(F32, 4, 16, cp, False) == want, cp
+
+
+@pytest.mark.parametrize("route,dtype", [("tc16", BF16), ("tc16_f32", F32)])
+def test_16_head_designs_state_a_layout_two_blocks_an_sm_can_hold(route, dtype):
+    """Each 16-head tensor-core source states its shared memory at Cp=256,
+    within what two blocks of one Hopper SM may hold (233,472 bytes less
+    1,024 a block), exports that layout and its resident blocks an SM, and
+    its design takes every Cp % 32 == 0 up to 256 at 16 heads with the
+    streamed pair bias and nothing else; the card tests hold the library's
+    ``*_smem_bytes(256)`` to the stated number."""
+    src = (CSRC / f"ipa_attention_{route}.cu").read_text()
+    stated = re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes \(two 256-thread blocks an SM\)",
+                       src)
+    assert stated is not None
+    assert int(stated.group(1).replace(",", "")) <= (233_472 - 2 * 1_024) // 2
+    assert "constexpr int kThreads = 256;" in src and "__launch_bounds__(kThreads, 2)" in src
+    for name in (f"ipa_attention_{route}_smem_bytes", f"ipa_attention_{route}_blocks_per_sm"):
+        assert re.search(rf"\bint {name}\(int Cp\)", src), name
+    for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
+        want = route if cp % 32 == 0 else "simt"
+        assert k1.kernel_route(dtype, 16, 16, cp, True) == want, cp
+        assert k1.kernel_route(dtype, 16, 16, cp, False) == "simt", cp
 
 
 def test_check_card_widths():

@@ -161,7 +161,7 @@ def test_sp_model_matches_jax_pair_sharded_model(tmp_path, flax_weights):
     assert [o["rows"] for o in outs] == [(0, 6), (6, 12)]
     for o in outs:
         assert o["launches"] == 0   # CPU tensors take the plain version
-        assert o["launches_by_route"] == dict.fromkeys(("tc", "tc_f32", "h4", "simt"), 0)
+        assert o["launches_by_route"] == dict.fromkeys(k1._ROUTE_SYMBOLS, 0)
         np.testing.assert_allclose(o["pos"], np.asarray(want[0], np.float32), atol=2e-5)
         np.testing.assert_allclose(o["rot"], np.asarray(want[1], np.float32), atol=2e-5)
 
