@@ -163,6 +163,30 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    with the latter beside its bound, and its gradients against autograd of
    the plain version with the backward timed beside its bound, at both
    shapes;
+20. ``[sp-pp-train]``: (c) K1 at this slice's new shapes against its plain
+   version, each timed in turns with the CUDA-core design beside its bound:
+   a PP microbatch B=4 L=100 (bf16 "tc", f32 "tc_f32"), a Picard sweep's
+   B=30 L=100 f32 and B=200 L=100 bf16; K1's backward on a 150-row slab of
+   L=300 f32 against autograd of the plain version. Then one spawn of 2
+   gloo ranks sharing the card, at bioemu-v1.0 widths (seed-0 weights),
+   each against this process: (a) one f32 SP DSM step
+   (``training/dsm.py::sp_train_step``) at B=4 L=300 (150-row slabs): the
+   loss within 1e-5 relative, the clipped gradients within 1e-4 of each
+   one's largest entry, equal on both ranks, 8 "tc_f32" launches and 8
+   backward passes a rank; (b) PP (``parallel/pipeline.py``) at pipe=2 (4
+   layers a stage), B=16 L=100, 4 microbatches: the f32 forward within
+   1e-4 of the largest output (16 "tc_f32" launches a rank), one f32 DSM
+   step (loss and gradients as (a); 32 launches, the backward's recompute
+   included, and 16 backward passes a rank), then 5 bf16 steps with AdamW,
+   each loss within 1e-2 relative (the largest gap printed);
+21. ``[picard]``: ``parallel_picard_em`` at ``bench.py --picard``'s shape
+   (bf16, B=1 L=100, em-200, the cache built once at batch 200) at 8, 25
+   and 50 sweeps against the sequential ``euler_maruyama``-200: walls, the
+   median of 3, and their ratio; 8 "tc" launches a sweep (1,600 at B=1 for
+   the sequential run), checked; f32 em-30 with 30 sweeps against the
+   sequential run on the same generator (the gaps printed, not held); the
+   closed-form model's 8 sweeps against 8 sequential steps on the card,
+   held at the CPU test's tolerances (5e-4 nm, 5e-3 rad);
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -302,6 +326,33 @@ MESH_LOSS_TOL, MESH_WEIGHT_TOL = 1e-5, 1e-5
 MESH_GRAD_TOL = {"data=2": 1e-2, "model=2": 1e-4}
 # (b) the train CLI's rank function at model=2, bf16, batch 16.
 MESH_STEPS, MESH_CKPT_EVERY, MESH_STOP = 10, 5, 5
+# Phase 20: SP and PP training on 2 gloo ranks sharing the card, bioemu-v1.0
+# widths, seed-0 weights, at the trainer's default lr. (a) one f32 SP step at
+# B=4, L=300 (150-row slabs); (b) PP at pipe=2 (4 layers a stage), B=16,
+# L=100, 4 microbatches of 4: one f32 forward and one f32 step, then 5 bf16
+# steps with the optimizer, each loss against this process's at 1e-2
+# (microbatching changes the bf16 GEMMs' shapes). Loss within 1e-5 relative,
+# forward outputs and clipped gradients within 1e-4 of each one's largest
+# entry. (c) K1 at the shapes this slice's paths give it.
+SPT_B, SPT_L = 4, 300
+PP_PIPE, PP_B, PP_L, PP_M = 2, 16, 100, 4
+PP_BF16_STEPS, PP_BF16_SEED, PP_BF16_RTOL = 5, 200, 1e-2
+SPPP_LOSS_TOL, SPPP_TOL = 1e-5, 1e-4
+# (B, L, dtype): a PP microbatch in bf16 and f32, a Picard sweep's batch at
+# em-30 (f32) and em-200 (bf16).
+NEW_K1_CASES = [(PP_B // PP_M, PP_L, "bfloat16"), (PP_B // PP_M, PP_L, "float32"),
+                (30, 100, "float32"), (200, 100, "bfloat16")]
+# Phase 21: parallel_picard_em at bench.py --picard's shape (B=1, L=100,
+# em-200, bf16; the cache built once at batch steps x B), against the
+# sequential euler_maruyama-200; walls the median of 3. Then f32 em-30 with
+# 30 sweeps against the sequential run (a reading), and the closed-form
+# model's equality of 8 sweeps and 8 steps (a gate, at the CPU test's
+# tolerances).
+PICARD_L, PICARD_STEPS, PICARD_SWEEPS, PICARD_REPS = 100, 200, (8, 25, 50), 3
+PICARD_F32_STEPS = 30
+PICARD_POS_ATOL, PICARD_ROT_RAD = 5e-4, 5e-3
+# The CPU test's SO(3) SDE for the closed-form model (tests/test_denoise.py).
+PICARD_ANALYTIC_SO3 = dict(num_sigma=200, num_omega=1000, l_max=1000, eps_t=0.001)
 ENSEMBLES = [
     ("tests/test_data/samples_example/md_emulation/cath1_1bl0A02.xtc",
      "tests/test_data/samples_example/md_emulation/cath1_1bl0A02.pdb"),
@@ -756,24 +807,25 @@ def peak_mb(fn):
     return (torch.cuda.max_memory_allocated() - base) / 1e6
 
 
-def _grad_case(k1, gen, B, L, dname, masked, H=32):
-    """One streamed case of K1's gradient on the card (``H`` heads): the
-    autograd Function against autograd through the plain version in f32
-    (fatal beyond ``GRAD_TOL``), then forward and backward times beside
-    their bounds, the plain autograd backward's time and both peak
-    memories."""
+def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
+    """One streamed case of K1's gradient on the card (``H`` heads, ``Lq``
+    query rows of ``L`` columns: a row slab when fewer): the autograd
+    Function against autograd through the plain version in f32 (fatal
+    beyond ``GRAD_TOL``), then forward and backward times beside their
+    bounds, the plain autograd backward's time and both peak memories."""
     import torch
 
     kw = K1_KW
     names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa")
     dtype = getattr(torch, dname)
-    args = k1_inputs(B, L, dtype, gen, masked, H=H)
+    Lq = L if Lq is None else Lq
+    args = k1_inputs(B, L, dtype, gen, masked, H=H, Lq=Lq)
     leaves = [t.clone().requires_grad_(n != "bias") for n, t in zip(names, args)]
     diff = [t for n, t in zip(names, leaves) if n != "bias"]
     cts = tuple(
         torch.randn(shape, generator=gen, device=DEVICE).to(dt)
-        for shape, dt in (((B, H, L, 16), dtype), ((B, H, L, 24), torch.float32),
-                          ((B, H, L, 16), dtype))
+        for shape, dt in (((B, H, Lq, 16), dtype), ((B, H, Lq, 24), torch.float32),
+                          ((B, H, Lq, 16), dtype))
     )
     before = k1.launches
     outs = k1.ipa_attention(*leaves, **kw)
@@ -811,8 +863,8 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32):
     mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention(*leaves, **kw), diff, cts))
     plain_mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention_plain(*leaves, **kw), diff, cts))
     log(
-        f"[k1-grad] H={H} B={B} L={L} {dname} masked_cols={masked} "
-        f"({len(k1._row_chunks(L, 128))} row chunks): gradient errors x max|f32 reference| "
+        f"[k1-grad] H={H} B={B} Lq={Lq} L={L} {dname} masked_cols={masked} "
+        f"({len(k1._row_chunks(Lq, 128))} row chunks): gradient errors x max|f32 reference| "
         + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
         + f" (tol {GRAD_TOL[dname]:.2e}); forward "
         f"ms={fwd_ms:.4f} bound_ms={fwd_bound:.4f} ({fwd_by}); backward ms={bwd_ms:.4f} "
@@ -2224,7 +2276,6 @@ def phase_mesh_train(k1, ptxas, card):
 
     from se3diff_torch.diffusion.denoise import SDEs
     from se3diff_torch.models import dig
-    from se3diff_torch.ops.so3 import rotvec_to_rotmat
     from se3diff_torch.parallel import programs, run_ranks
     from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, BIOEMU_V1_SO3, load_bundle
     from se3diff_torch.sde.so3_sde import DiGSO3SDE
@@ -2248,14 +2299,7 @@ def phase_mesh_train(k1, ptxas, card):
     # noise: on the whole batch, and with the gradient accumulated over the
     # data=2 ranks' two halves (the DP step's arithmetic, which it must equal).
     B, L = MESH_B, MESH_L
-    rng = np.random.default_rng(19)
-    batch = {
-        "pos": (rng.standard_normal((B, L, 3)) * 0.5).astype(np.float32),
-        "rot": rotvec_to_rotmat(torch.from_numpy(
-            (rng.standard_normal((B, L, 3)) * 0.4).astype(np.float32))).numpy(),
-        "single": (rng.standard_normal((B, L, 384)) * 0.5).astype(np.float32),
-        "pair": (rng.standard_normal((B, L, L, 128)) * 0.2).astype(np.float32),
-    }
+    batch = _numpy_batch(B, L, 19)
     so3 = dict(BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache"))
     sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**so3, device=DEVICE))
     model = dig.init_weights(dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL),
@@ -2425,6 +2469,355 @@ def phase_mesh_train(k1, ptxas, card):
                 cli_backwards=sum(x["backward_calls"] for x in runs[0]))
 
 
+def _numpy_batch(B, L, seed):
+    """A DSM batch of random frames near the identity and conditioning
+    (phases 19 and 20)."""
+    import numpy as np
+    import torch
+
+    from se3diff_torch.ops.so3 import rotvec_to_rotmat
+
+    rng = np.random.default_rng(seed)
+    return {
+        "pos": (rng.standard_normal((B, L, 3)) * 0.5).astype(np.float32),
+        "rot": rotvec_to_rotmat(torch.from_numpy(
+            (rng.standard_normal((B, L, 3)) * 0.4).astype(np.float32))).numpy(),
+        "single": (rng.standard_normal((B, L, 384)) * 0.5).astype(np.float32),
+        "pair": (rng.standard_normal((B, L, L, 128)) * 0.2).astype(np.float32),
+    }
+
+
+def _rel_gap(got, want):
+    """max |got - want| / max |want| over the entries of two dicts, and the key."""
+    import numpy as np
+
+    return max((float(np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)), k)
+               for k, w in want.items())
+
+
+def phase_sp_pp_train(k1, ptxas, card):
+    """(c) K1 at this slice's new shapes; (a) one SP and (b) PP steps and a
+    PP forward on 2 gloo ranks sharing the card, against this process.
+    Returns the readings the kernels line carries."""
+    from datetime import timedelta
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from se3diff_torch.diffusion.denoise import SDEs
+    from se3diff_torch.models import dig
+    from se3diff_torch.parallel import programs, run_ranks
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, BIOEMU_V1_SO3
+    from se3diff_torch.sde.so3_sde import DiGSO3SDE
+    from se3diff_torch.sde.vpsde import CosineVPSDE
+    from se3diff_torch.training.dsm import (
+        DSMNoise, clip_by_global_norm, draw_noise, dsm_loss, step_update,
+    )
+    from se3diff_torch.training.loop import TrainConfig, make_optimizer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    new = {case: _forward_case(k1, ptxas, gen, *case, 0) for case in NEW_K1_CASES}
+    slab_bwd = _grad_case(k1, gen, SPT_B, SPT_L, "float32", 0, Lq=SPT_L // 2)
+
+    so3 = dict(BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache"))
+    sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**so3, device=DEVICE))
+    init = dig.init_weights(dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL),
+                            torch.Generator().manual_seed(0))
+    weights = {k: v.numpy().copy() for k, v in init.state_dict().items()}
+    del init
+
+    def ref_model(dtype):
+        m = dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL, dtype=dtype)
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+        return m.to(DEVICE).eval()
+
+    def on_device(batch):
+        return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+    def one_step(batch, noise):
+        """This process's f32 DSM loss and clipped gradients."""
+        m = ref_model(torch.float32)
+        loss = dsm_loss(m, on_device(batch), DSMNoise(*(torch.from_numpy(x).to(DEVICE)
+                                                        for x in noise)), sdes)
+        loss.backward()
+        clip_by_global_norm([p.grad for p in m.parameters()], 1.0)
+        return loss.item(), {n: p.grad.cpu().numpy() for n, p in m.named_parameters()}
+
+    sp_batch, pp_batch = _numpy_batch(SPT_B, SPT_L, 20), _numpy_batch(PP_B, PP_L, 21)
+    sp_noise, pp_noise = (
+        tuple(x.cpu().numpy() for x in draw_noise(torch.Generator(device=DEVICE).manual_seed(seed),
+                                                  on_device(b), sdes))
+        for seed, b in ((20, sp_batch), (21, pp_batch)))
+    pp_inputs = (pp_batch["pos"], pp_batch["rot"], pp_noise[0], pp_batch["single"],
+                 pp_batch["pair"])
+    ref = {"sp": one_step(sp_batch, sp_noise), "pp": one_step(pp_batch, pp_noise)}
+    with torch.inference_mode():
+        ref["pp_score"] = [o.cpu().numpy() for o in ref_model(torch.float32)(
+            *(torch.from_numpy(x).to(DEVICE) for x in pp_inputs))]
+    m16 = ref_model(torch.bfloat16)
+    opt = make_optimizer(TrainConfig(lr=MESH_LR), m16.parameters())
+    b16, ref["bf16"] = on_device(pp_batch), []
+    for i in range(PP_BF16_STEPS):
+        nz = draw_noise(torch.Generator(device=DEVICE).manual_seed(PP_BF16_SEED + i), b16, sdes)
+        loss = dsm_loss(m16, b16, nz, sdes)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        step_update(m16, opt, lr=MESH_LR, grad_clip=1.0)
+        ref["bf16"].append(loss.item())
+    del m16, opt, b16
+    torch.cuda.empty_cache()
+
+    pp_step = partial(programs.pp_step, n_microbatches=PP_M, lr=MESH_LR)
+    grid = (1, PP_PIPE, BIOEMU_V1_MODEL, weights)
+    steps = [
+        (partial(programs.sp_step, lr=MESH_LR), (BIOEMU_V1_MODEL, weights, sp_batch, sp_noise, so3)),
+        (programs.pp_score, (*grid, pp_inputs, PP_M)),
+        (pp_step, (*grid, pp_batch, pp_noise, so3)),
+        (partial(pp_step, dtype="bfloat16", steps=PP_BF16_STEPS, seed=PP_BF16_SEED),
+         (*grid, pp_batch, None, so3)),
+    ]
+    t0 = time.perf_counter()
+    ranks = run_ranks(programs.in_turn, 2, [DEVICE + ":0"] * 2, args=(steps,),
+                      timeout=900.0, group_timeout=timedelta(seconds=300))
+    spawn_s = time.perf_counter() - t0
+    log(f"[sp-pp-train] 2 gloo ranks spawned on {DEVICE}:0 ran (a)-(b) in {spawn_s:.1f} s with "
+        "start-up")
+    zero = dict.fromkeys(k1.launches_by_route, 0)
+    layers_a_stage = N_LAYERS // PP_PIPE
+
+    # (a) SP: each rank's 150 rows, the full gradient on every rank.
+    sp = [r[0] for r in ranks]
+    loss, grads = ref["sp"]
+    loss_err = abs(sp[0]["loss"] - loss) / abs(loss)
+    g_err, g_key = _rel_gap(sp[0]["grads"], grads)
+    same = all(np.array_equal(x["grads"][k], sp[0]["grads"][k]) for x in sp[1:] for k in grads)
+    for x in sp:
+        log(f"[sp-pp-train] (a) SP rank rows {x['rows']}: K1 launches by route "
+            f"{x['launches_by_route']}, backward passes {x['backward_calls']} (expected "
+            f"{N_LAYERS} each, on tc_f32)")
+    log(f"[sp-pp-train] (a) SP f32 full width B={SPT_B} L={SPT_L}, one step against this "
+        f"process's: loss {sp[0]['loss']:.6f} vs {loss:.6f} rel_err={loss_err:.2e} (tol "
+        f"{SPPP_LOSS_TOL:.0e}); clipped gradients max_rel_err={g_err:.2e} ({g_key}; tol "
+        f"{SPPP_TOL:.0e} x each one's largest entry); ranks' gradients equal: {same}; {card}")
+    if not (loss_err <= SPPP_LOSS_TOL and g_err <= SPPP_TOL and same):
+        raise AssertionError("the SP step disagrees with one process")
+    for x in sp:
+        if (x["launches_by_route"] != {**zero, "tc_f32": N_LAYERS}
+                or x["backward_calls"] != N_LAYERS):
+            raise AssertionError(f"the SP step launched K1 {x['launches_by_route']} with "
+                                 f"{x['backward_calls']} backward passes")
+
+    # (b) PP: the forward, the f32 step, the bf16 steps.
+    fwd = [r[1] for r in ranks]
+    f_err = max(float(np.abs(x[key] - w).max() / np.abs(w).max())
+                for x in fwd for key, w in zip(("pos", "rot"), ref["pp_score"]))
+    log(f"[sp-pp-train] (b) PP pipe={PP_PIPE} ({layers_a_stage} layers a stage) M={PP_M} f32 "
+        f"B={PP_B} L={PP_L}: forward against this process's score max_rel_err={f_err:.2e} (tol "
+        f"{SPPP_TOL:.0e} x the largest output); K1 launches by route "
+        + ", ".join(str(x["launches_by_route"]) for x in fwd)
+        + f" (expected {PP_M * layers_a_stage} a rank: {PP_M} microbatches x {layers_a_stage} "
+        "layers, on tc_f32)")
+    if f_err > SPPP_TOL or any(x["launches_by_route"] != {**zero, "tc_f32": PP_M * layers_a_stage}
+                               for x in fwd):
+        raise AssertionError("the PP forward disagrees with one process or launched K1 otherwise")
+    pps = [r[2] for r in ranks]
+    merged = {}
+    for x in pps:
+        for k, g in x["grads"].items():
+            if k in merged and not np.array_equal(merged[k], g):
+                raise AssertionError(f"the stages' gradients of the replicated {k} differ")
+            merged[k] = g
+    loss, grads = ref["pp"]
+    loss_err = abs(pps[0]["losses"][0] - loss) / abs(loss)
+    if set(merged) != set(grads):
+        raise AssertionError("the stages do not cover every parameter's gradient")
+    g_err, g_key = _rel_gap(merged, grads)
+    n_step = 2 * PP_M * layers_a_stage
+    for x in pps:
+        log(f"[sp-pp-train] (b) PP step stage {x['stage']}: K1 launches by route "
+            f"{x['launches_by_route']}, backward passes {x['backward_calls']} (expected {n_step} "
+            f"forward launches, the backward's recompute included, and {n_step // 2} backward "
+            "passes, on tc_f32)")
+    log(f"[sp-pp-train] (b) PP f32 step against this process's: loss {pps[0]['losses'][0]:.6f} vs "
+        f"{loss:.6f} rel_err={loss_err:.2e} (tol {SPPP_LOSS_TOL:.0e}); clipped gradients "
+        f"max_rel_err={g_err:.2e} ({g_key}; tol {SPPP_TOL:.0e} x each one's largest entry); {card}")
+    if not (loss_err <= SPPP_LOSS_TOL and g_err <= SPPP_TOL):
+        raise AssertionError("the PP step disagrees with one process")
+    for x in pps:
+        if (x["launches_by_route"] != {**zero, "tc_f32": n_step}
+                or x["backward_calls"] != n_step // 2):
+            raise AssertionError(f"the PP step launched K1 {x['launches_by_route']}")
+    bf = [r[3] for r in ranks]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(bf[0]["losses"], ref["bf16"])]
+    log(f"[sp-pp-train] (b) PP bf16, {PP_BF16_STEPS} steps with AdamW: losses "
+        + ", ".join(f"{a:.5f}" for a in bf[0]["losses"]) + " vs this process's "
+        + ", ".join(f"{b:.5f}" for b in ref["bf16"])
+        + f"; largest gap {max(gaps):.2e} relative (tol {PP_BF16_RTOL:.0e}); first step's K1 "
+        f"launches by route {bf[0]['launches_by_route']}, backward passes "
+        f"{bf[0]['backward_calls']} a rank (expected {n_step} on tc, {n_step // 2})")
+    if (max(gaps) > PP_BF16_RTOL or not all(x["losses"] == bf[0]["losses"] for x in bf)
+            or any(x["launches_by_route"] != {**zero, "tc": n_step} for x in bf)
+            or not np.isfinite(bf[0]["losses"]).all()):
+        raise AssertionError("the PP bf16 steps disagree with one process")
+    wall = time.perf_counter() - t_phase
+    log(f"[sp-pp-train] phase wall {wall:.1f} s (the spawn {spawn_s:.1f} s); {card}")
+    return dict(new=new, slab_bwd=slab_bwd,
+                sp_launches=sum(x["launches_by_route"]["tc_f32"] for x in sp),
+                sp_backwards=sum(x["backward_calls"] for x in sp),
+                pp_launches=sum(x["launches_by_route"]["tc_f32"] for x in fwd + pps),
+                pp_backwards=sum(x["backward_calls"] for x in pps),
+                pp_bf16_launches=sum(x["launches_by_route"]["tc"] for x in bf))
+
+
+def _analytic_model(sdes):
+    """Closed-form scores (tests/test_denoise.py's model): positions from
+    N(1.5, 0.5^2), rotations at the identity."""
+    import torch
+
+    from se3diff_torch.ops.so3 import rotmat_to_rotvec
+    from se3diff_torch.sde.base import bcast_right
+
+    def model_fn(pos, rot, t):
+        alpha = bcast_right(sdes.pos._marginal_mean_coeff(t), pos)
+        var = alpha**2 * 0.25 + 1.0 - alpha**2
+        pos_raw = -(pos - alpha * 1.5) / var * torch.sqrt(1.0 - alpha**2)
+        score_rot = sdes.node_orientations.compute_score(rotmat_to_rotvec(rot), t, method="table")
+        return pos_raw, score_rot / bcast_right(sdes.node_orientations.get_score_scaling(t),
+                                                score_rot)
+
+    return model_fn
+
+
+def _gaps(a, b):
+    """Largest position gap and geodesic rotation gap (rad) of two samples."""
+    import torch
+
+    rel = torch.einsum("...ji,...jk->...ik", a[1].double(), b[1].double())
+    cos = ((rel.diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2).clamp(-1.0, 1.0)
+    return (a[0] - b[0]).abs().max().item(), torch.arccos(cos).max().item()
+
+
+def phase_picard(k1, card):
+    """``parallel_picard_em`` against the sequential ``euler_maruyama`` on the
+    card; returns the walls and launch counts for the kernels line."""
+    import numpy as np
+    import torch
+
+    from se3diff_torch.diffusion import denoise
+    from se3diff_torch.models import dig
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, BIOEMU_V1_SO3
+    from se3diff_torch.sde.so3_sde import DiGSO3SDE
+    from se3diff_torch.sde.vpsde import CosineVPSDE
+
+    t_phase = time.perf_counter()
+    L = PICARD_L
+    sdes = denoise.SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(
+        **BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache"), device=DEVICE))
+    rng = np.random.default_rng(0)
+    single = torch.from_numpy((rng.standard_normal((1, L, 384)) * 0.5).astype(np.float32))
+    pair = torch.from_numpy((rng.standard_normal((1, L, L, 128)) * 0.2).astype(np.float32))
+    single, pair = single.to(DEVICE), pair.to(DEVICE)
+
+    def sampler(model, fn, eval_batch, steps, **kw):
+        with torch.inference_mode():
+            cache = model.embed_conditioning(single.expand(eval_batch, -1, -1),
+                                             pair.expand(eval_batch, -1, -1, -1))
+
+        def run(seed, steps=steps):
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            with torch.inference_mode():
+                out = fn(gen, sdes, lambda p, r, t: model.score_from_cache(p, r, t, cache), 1, L,
+                         num_steps=steps, **kw)
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    def walls(run, route, launches):
+        """Median wall of PICARD_REPS runs; K1's launches in the first, checked."""
+        times = []
+        for i in range(PICARD_REPS):
+            _reset_k1(k1)
+            t0 = time.perf_counter()
+            out = run(i + 1)
+            times.append(time.perf_counter() - t0)
+            if i == 0 and k1.launches_by_route != only_routes(k1, **{route: launches}):
+                raise AssertionError(f"expected {launches} K1 launches on {route}, got "
+                                     f"{k1.launches_by_route}")
+            if not (torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()):
+                raise AssertionError("non-finite Picard or sequential sample")
+        return float(np.median(times)), times
+
+    model = dig.init_weights(dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL, dtype=torch.bfloat16),
+                             torch.Generator().manual_seed(0)).to(DEVICE).eval()
+    seq = sampler(model, denoise.euler_maruyama, 1, PICARD_STEPS)
+    seq(0, steps=5)                                   # warm the B=1 shapes
+    res = {"seq": walls(seq, "tc", N_LAYERS * PICARD_STEPS)}
+    for sweeps in PICARD_SWEEPS:
+        pic = sampler(model, denoise.parallel_picard_em, PICARD_STEPS, PICARD_STEPS,
+                      num_sweeps=sweeps)
+        if sweeps == PICARD_SWEEPS[0]:
+            pic(0)                                    # warm the B=200 shapes
+        res[sweeps] = walls(pic, "tc", N_LAYERS * sweeps)
+        del pic
+    t_seq = res["seq"][0]
+    log(f"[picard] bf16 full width B=1 L={L} em-{PICARD_STEPS}: sequential euler_maruyama "
+        f"{t_seq:.3f} s (median of {PICARD_REPS}: "
+        + ", ".join(f"{t:.3f}" for t in res["seq"][1]) + f"; {N_LAYERS * PICARD_STEPS} K1 launches "
+        "at B=1 on tc); " + "; ".join(
+            f"Picard {s} sweeps {res[s][0]:.3f} s (" + ", ".join(f"{t:.3f}" for t in res[s][1])
+            + f"; {N_LAYERS * s} launches at B={PICARD_STEPS} on tc), {res[s][0] / t_seq:.3f}x the "
+            "sequential wall" for s in PICARD_SWEEPS) + f"; {card}")
+    del model
+    torch.cuda.empty_cache()
+
+    # f32 em-30: 30 sweeps against the sequential run on the same generator.
+    model = dig.init_weights(dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL),
+                             torch.Generator().manual_seed(0)).to(DEVICE).eval()
+    n = PICARD_F32_STEPS
+    _reset_k1(k1)
+    a = sampler(model, denoise.euler_maruyama, 1, n)(7)
+    seq_routes = dict(k1.launches_by_route)
+    _reset_k1(k1)
+    b = sampler(model, denoise.parallel_picard_em, n, n, num_sweeps=n)(7)
+    pic_routes = dict(k1.launches_by_route)
+    pos_gap, rot_gap = _gaps(a, b)
+    log(f"[picard] f32 em-{n} against {n} sweeps, same generator: largest position gap "
+        f"{pos_gap:.3e} nm, rotation gap {rot_gap:.3e} rad (a reading: batch-{n} and batch-1 "
+        f"GEMMs round apart); K1 launches sequential {seq_routes}, Picard {pic_routes}")
+    if (seq_routes != only_routes(k1, tc_f32=N_LAYERS * n)
+            or pic_routes != only_routes(k1, tc_f32=N_LAYERS * n)):
+        raise AssertionError("the f32 em-30 runs launched K1 otherwise")
+    del model
+    torch.cuda.empty_cache()
+
+    # The closed-form model: 8 sweeps equal 8 sequential steps (a gate).
+    sdes = denoise.SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(
+        **PICARD_ANALYTIC_SO3, cache_dir=str(OUT / "so3_cache"), device=DEVICE))
+    model_fn = _analytic_model(sdes)
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(11)  # noqa: E731
+    a = denoise.euler_maruyama(gen(), sdes, model_fn, 16, 3, num_steps=8)
+    b = denoise.parallel_picard_em(gen(), sdes, model_fn, 16, 3, num_steps=8, num_sweeps=8)
+    pos_gap_a, rot_gap_a = _gaps(a, b)
+    log(f"[picard] closed-form model, 8 sweeps against euler_maruyama-8 (B=16 L=3) on the card: "
+        f"position gap {pos_gap_a:.3e} (tol {PICARD_POS_ATOL:.0e}), rotation gap {rot_gap_a:.3e} "
+        f"rad (tol {PICARD_ROT_RAD:.0e})")
+    if not (pos_gap_a <= PICARD_POS_ATOL and rot_gap_a < PICARD_ROT_RAD):
+        raise AssertionError("Picard with as many sweeps as steps differs from euler_maruyama")
+    wall = time.perf_counter() - t_phase
+    log(f"[picard] phase wall {wall:.1f} s; {card}")
+    return dict(seq_s=t_seq, walls={s: res[s][0] for s in PICARD_SWEEPS},
+                launches={s: N_LAYERS * s for s in PICARD_SWEEPS}, f32_launches=N_LAYERS * n,
+                f32_gaps=(pos_gap, rot_gap))
+
+
+def _case_keys(prefix, case):
+    """A forward case's readings for the kernels line, under ``prefix``."""
+    return {f"{prefix}_{k}": case[k] for k in ("ms", "prev_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "max_abs_err")}
+
+
 def _h16_entry(case, l77, bwd):
     """The kernels line's readings of a 16-head design: its case at a mesh
     path's shape, at B=40 L=77 with 9 masked columns, and K1's backward at
@@ -2499,6 +2892,10 @@ def main() -> int:
     log(f"[done] phases 16-17 (the SO(3) toy, the observables) in {time.perf_counter() - t_new:.1f} s")
     learn = phase_ppft_learn(k1, ptxas, card)
     mesh = phase_mesh_train(k1, ptxas, card)
+    t_new = time.perf_counter()
+    sppp = phase_sp_pp_train(k1, ptxas, card)
+    picard = phase_picard(k1, card)
+    log(f"[done] phases 20-21 (SP and PP training, Picard) in {time.perf_counter() - t_new:.1f} s")
 
     main_case = k1_results[K1_CASES[0][:3]]
     ppft_case = k1_results[(256, 56, "bfloat16")]
@@ -2523,7 +2920,12 @@ def main() -> int:
         f"mesh training (2 ranks): the data=2 step {mesh['readings']['data=2']['launches']} "
         f"tc_f32, the model=2 step {mesh['readings']['model=2']['launches']} tc16_f32, the CLI's "
         f"10 steps at model=2 {mesh['cli_launches']} tc16 and {mesh['cli_backwards']} backward "
-        f"passes")
+        f"passes; SP training (2 ranks) {sppp['sp_launches']} slab launches on tc_f32 and "
+        f"{sppp['sp_backwards']} backward passes; PP (2 stages) f32 forward and step "
+        f"{sppp['pp_launches']} on tc_f32, {sppp['pp_backwards']} backward passes, bf16 first "
+        f"step {sppp['pp_bf16_launches']} on tc; Picard bf16 "
+        + ", ".join(f"{s} sweeps {n}" for s, n in picard["launches"].items())
+        + f" on tc, f32 30 sweeps {picard['f32_launches']} on tc_f32")
     kernels = {"kernels": [{
         "name": "ipa_attention",
         "route": "cuda",
@@ -2588,6 +2990,15 @@ def main() -> int:
         "backward_B32_L56_bound_ms": learn["bwd"]["bound_ms"],
         "backward_B32_L56_bound_by": learn["bwd"]["bound_by"],
         "backward_B32_L56_max_rel_err": learn["bwd"]["max_rel_err"],
+        # Phase 21: a Picard sweep of em-200 at B=1 (K1 at B=200), launches
+        # of one run at each sweep count; phase 20 (b): the bf16 PP step's
+        # microbatch (B=4), its first step summed over the 2 stages.
+        "launches_picard": picard["launches"],
+        "picard_wall_s": picard["walls"],
+        "picard_sequential_em200_wall_s": picard["seq_s"],
+        "launches_pp_bf16_step": sppp["pp_bf16_launches"],
+        **_case_keys("B200_L100", sppp["new"][(200, 100, "bfloat16")]),
+        **_case_keys("B4_L100", sppp["new"][(PP_B // PP_M, PP_L, "bfloat16")]),
     }, {
         # f32, 32 heads, streamed pa (every CLI's default dtype): the f32
         # tensor-core design; prev_ms is the CUDA-core design on the same inputs.
@@ -2624,6 +3035,14 @@ def main() -> int:
         "B16_L100_prev_ms": f32_train["prev_ms"],
         "B16_L100_bound_ms": f32_train["bound_ms"],
         "B16_L100_max_abs_err": f32_train["max_abs_err"],
+        # Phase 20 (b): the PP forward and step at pipe=2, summed over the 2
+        # stages, at its microbatch (B=4); phase 21: f32 em-30 with 30
+        # sweeps (K1 at B=30).
+        "launches_pp": sppp["pp_launches"],
+        "backward_calls_pp": sppp["pp_backwards"],
+        "launches_picard_f32": picard["f32_launches"],
+        **_case_keys("B4_L100", sppp["new"][(PP_B // PP_M, PP_L, "float32")]),
+        **_case_keys("B30_L100", sppp["new"][(30, 100, "float32")]),
     }, {
         "name": "sp_ipa_attention",
         "route": "cuda",
@@ -2648,6 +3067,18 @@ def main() -> int:
         "h4_plain_ms": inkernel["sp_h4"]["plain_ms"],
         "h4_bound_ms": inkernel["sp_h4"]["bound_ms"],
         "h4_prev_ms": inkernel["sp_h4"]["prev_ms"],
+        # Phase 20 (a): the f32 SP DSM step (150-row slabs of L=300 on
+        # tc_f32), summed over its 2 ranks, and K1's backward on one slab.
+        "launches_sp_train": sppp["sp_launches"],
+        "backward_calls_sp_train": sppp["sp_backwards"],
+        "backward_route": "torch",
+        "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "backward_ms": sppp["slab_bwd"]["ms"],
+        "backward_plain_ms": sppp["slab_bwd"]["plain_ms"],
+        "backward_bound_ms": sppp["slab_bwd"]["bound_ms"],
+        "backward_bound_by": sppp["slab_bwd"]["bound_by"],
+        "backward_max_rel_err": sppp["slab_bwd"]["max_rel_err"],
     }, {
         "name": "ipa_attention_in_kernel_pair_bias",
         "route": "cuda",

@@ -1,5 +1,5 @@
 """Reverse-diffusion samplers (Euler–Maruyama, Heun, DPM-Solver-2,
-DPM-Solver++(2M)) and the PPFT path recorders (Euler–Maruyama, Heun and
+DPM-Solver++(2M), parallel-in-time Picard Euler–Maruyama) and the PPFT path recorders (Euler–Maruyama, Heun and
 DPM-Solver-2 with a finetune control).
 
 Counterpart of ``se3diff_tpu/diffusion/denoise.py`` (reference
@@ -27,7 +27,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from se3diff_torch.diffusion.predictors import EulerMaruyamaPredictor
+from se3diff_torch.diffusion.predictors import EulerMaruyamaPredictor, standard_normal
+from se3diff_torch.ops import so3 as so3_ops
 from se3diff_torch.sde.base import bcast_right
 from se3diff_torch.sde.so3_sde import SO3SDE
 from se3diff_torch.sde.vpsde import CosineVPSDE
@@ -376,6 +377,101 @@ def _dpm_solver_pp2m_loop(sdes, model_fn, pos, rot, num_steps, max_t, min_t, dty
         drift_rot, _ = ode_rot.reverse_drift_and_diffusion(rot, t, rot_score)
         rot = ode_rot.mean_update(rot, dts[idx], drift_rot)
         pos, x0_prev, h_prev = pos_next, x0, h_scalar
+    return pos, rot
+
+
+def _prefix_products(E: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products ``P[k] = E[0] @ E[1] @ ... @ E[k]`` along
+    axis 0 of ``E [T, ..., 3, 3]``, by log-depth doubling (Hillis-Steele):
+    ``ceil(log2 T)`` batched 3x3 products, each over the whole trajectory,
+    not ``T`` sequential ones. The JAX package's ``lax.associative_scan``
+    computes the same prefixes (in another bracketing)."""
+    P, shift = E, 1
+    while shift < P.shape[0]:
+        P = torch.cat([P[:shift], P[:-shift] @ P[shift:]])
+        shift *= 2
+    return P
+
+
+def parallel_picard_em(
+    generator: torch.Generator,
+    sdes: SDEs,
+    model_fn: ModelFn,
+    batch: int,
+    length: int,
+    num_steps: int = 30,
+    num_sweeps: int | None = None,
+    max_t: float = 0.99,
+    min_t: float = 0.001,
+    noise_weight: float = 1.0,
+    marginal_concentration_factor: float = 1.0,
+    dtype=torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Parallel-in-time Euler–Maruyama sampling by Picard iteration
+    (``se3diff_tpu/diffusion/denoise.py:640-763``; Shih et al. 2023,
+    arXiv:2305.16317, and the SO(3) variant arXiv:2507.10347).
+
+    Each sweep evaluates the model at every step of the current trajectory
+    at once (one call on a ``[num_steps * batch]`` batch) and rebuilds the
+    trajectory from the prior by prefix aggregation: cumulative sums of the
+    position increments and prefix products of the rotation increments
+    (:func:`_prefix_products`). The noise is fixed: the prior, then each
+    step's position and rotation normals, drawn from ``generator`` in the
+    order :func:`euler_maruyama` draws them, so sweep ``m`` reproduces the
+    sequential trajectory up to step ``m`` and ``num_sweeps == num_steps``
+    equals :func:`euler_maruyama` on the same generator; fewer sweeps trade
+    accuracy for fewer (larger) model calls. Not exported from
+    ``se3diff_torch.diffusion``, as in the JAX package."""
+    pos, rot = _prior(generator, sdes, batch, length, dtype)
+    return _parallel_picard_em_loop(
+        sdes, model_fn, pos, rot, generator, num_steps, num_sweeps, max_t, min_t, noise_weight,
+        marginal_concentration_factor, dtype,
+    )
+
+
+def _parallel_picard_em_loop(
+    sdes, model_fn, pos0, rot0, draws: StepNoise, num_steps, num_sweeps, max_t, min_t,
+    noise_weight, marginal_concentration_factor, dtype,
+):
+    num_sweeps = num_steps if num_sweeps is None else num_sweeps
+    timesteps, dts = _timegrid(num_steps, max_t, min_t, dtype)
+    T, (B, L) = num_steps, pos0.shape[:2]
+    dev = pos0.device
+    em_pos = EulerMaruyamaPredictor(sdes.pos, noise_weight, marginal_concentration_factor)
+    em_rot = EulerMaruyamaPredictor(
+        sdes.node_orientations, noise_weight, marginal_concentration_factor
+    )
+    if isinstance(draws, tuple):
+        z_pos, z_rot = (z.to(device=dev, dtype=dtype) for z in draws)
+    else:  # each step's position, then rotation, normals: euler_maruyama's order
+        zs = [standard_normal(draws, pos0) for _ in range(2 * T)]
+        z_pos, z_rot = torch.stack(zs[0::2]), torch.stack(zs[1::2])
+    dts_t = torch.tensor(dts, dtype=dtype, device=dev).reshape(T, 1, 1, 1)
+    sqdt = dts_t.abs().sqrt()
+    dW_pos, dW_rot = noise_weight * sqdt * z_pos, noise_weight * sqdt * z_rot
+    t_all = torch.tensor(timesteps[:T], dtype=dtype, device=dev)[:, None].expand(T, B)
+    t_flat = t_all.reshape(T * B)
+    tol = sdes.node_orientations.tol
+
+    # The states before each step, [T, B, L, ...]: all the prior at first.
+    pos_traj = pos0[None].expand(T, B, L, 3)
+    rot_traj = rot0[None].expand(T, B, L, 3, 3)
+    pos, rot = pos0, rot0
+    for _ in range(num_sweeps):
+        pos_score, rot_score = get_score(
+            sdes, model_fn, pos_traj.reshape(T * B, L, 3), rot_traj.reshape(T * B, L, 3, 3), t_flat
+        )
+        drift_pos, diff_pos = em_pos.reverse_drift_and_diffusion(
+            pos_traj, t_all, pos_score.reshape(T, B, L, 3))
+        drift_rot, diff_rot = em_rot.reverse_drift_and_diffusion(
+            rot_traj, t_all, rot_score.reshape(T, B, L, 3))
+        cum_pos = torch.cumsum(drift_pos * dts_t + bcast_right(diff_pos, dW_pos) * dW_pos, dim=0)
+        E = (so3_ops.rotvec_to_rotmat(drift_rot * dts_t, tol=tol)
+             @ so3_ops.rotvec_to_rotmat(bcast_right(diff_rot, dW_rot) * dW_rot, tol=tol))
+        rot_P = rot0 @ _prefix_products(E)                  # [T, B, L, 3, 3]
+        pos_traj = torch.cat([pos0[None], pos0 + cum_pos[:-1]])
+        rot_traj = torch.cat([rot0[None], rot_P[:-1]])
+        pos, rot = pos0 + cum_pos[-1], rot_P[-1]
     return pos, rot
 
 

@@ -456,11 +456,17 @@ class DistributionalGraphormer(nn.Module):
 
     def score_from_cache(
         self, T_perturbed: torch.Tensor, IR_perturbed: torch.Tensor, t: torch.Tensor,
-        cache: dict,
+        cache: dict, trunk_fn=None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-step score evaluation against a conditioning cache."""
+        """Per-step score evaluation against a conditioning cache.
+
+        ``trunk_fn`` optionally replaces the IPA stack and its diff head
+        (the call contract of ``self.st_module``), so that another schedule
+        of the layers, such as the pipeline-parallel trunk
+        (``parallel/pipeline.py``), reuses this method's DiG conventions."""
         x1d = (cache["x1d"].float() + self.step_emb(t)[:, None]).to(self.dtype)
-        T_eps, IR_eps = self.st_module(
+        trunk = self.st_module if trunk_fn is None else trunk_fn
+        T_eps, IR_eps = trunk(
             (T_perturbed, IR_perturbed), x1d, cache["x2d"], cache["bias"], cache.get("pa"), self.sp,
         )
         # Orientation dependence of the translation score (models.py:305).
@@ -493,8 +499,9 @@ class DiGConditionalScoreModel(nn.Module):
         """The t-invariant conditioning, for :meth:`score_from_cache`."""
         return self.model_nn.embed_conditioning(single_repr, pair_repr, mask, with_pa)
 
-    def score_from_cache(self, pos, rot, t, cache):
-        return self.model_nn.score_from_cache(pos, rot.transpose(-1, -2), t * 1000.0, cache)
+    def score_from_cache(self, pos, rot, t, cache, trunk_fn=None):
+        return self.model_nn.score_from_cache(pos, rot.transpose(-1, -2), t * 1000.0, cache,
+                                              trunk_fn)
 
     def forward(self, pos, rot, t, single_repr, pair_repr, mask=None):
         return self.model_nn(

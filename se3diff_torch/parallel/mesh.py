@@ -15,7 +15,9 @@ the port moves rows and partial sums itself:
   ``all_reduce`` of a zero-filled full-length buffer into which each rank
   copies its slab: one code path for both backends (gloo documents only
   broadcast and all_reduce for CUDA tensors), exact in f32 and bf16 because
-  every entry is one slab's value plus zeros.
+  every entry is one slab's value plus zeros. It is an autograd Function:
+  its backward sums the gradient over the group and returns the rank's
+  slab of it (the all-gather's transpose, a reduce-scatter).
 * :func:`init_mesh` lays the ranks of a group out as a ``data x model``
   grid (:class:`MeshContext`), model groups on contiguous ranks as in the
   JAX package's ``make_mesh``, with one process group for each row and
@@ -228,17 +230,34 @@ def reduce_out(x: torch.Tensor, tp: MeshContext | None) -> torch.Tensor:
     return x if tp is None else _ReduceOut.apply(x, tp.model_group)
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, r0, r1, L, dim, group):
+        ctx.r0, ctx.r1, ctx.dim, ctx.group = r0, r1, dim, group
+        shape = list(x.shape)
+        shape[dim] = L
+        full = x.new_zeros(shape)
+        full.narrow(dim, r0, r1 - r0).copy_(x)
+        dist.all_reduce(full, group=group)
+        return full
+
+    @staticmethod
+    def backward(ctx, grad):
+        # The transpose of the all-gather: a reduce-scatter, written as an
+        # f32 all_reduce of the whole gradient narrowed to the rank's slab.
+        full = _all_reduce_f32(grad, ctx.group)
+        return full.narrow(ctx.dim, ctx.r0, ctx.r1 - ctx.r0).contiguous(), None, None, None, None, None
+
+
 def gather_rows(
     x: torch.Tensor, r0: int, r1: int, L: int, dim: int, group: dist.ProcessGroup | None = None
 ) -> torch.Tensor:
     """The full-length tensor from every rank's slab ``x`` (rows ``r0:r1``
     of ``L`` along ``dim``): zeros with the slab copied in, summed over the
-    group. Every rank gets the same result, bit for bit."""
+    group. Every rank gets the same result, bit for bit. Differentiable:
+    backward, the gradient summed over the group in f32 and narrowed to the
+    rank's slab, so a rank's slab gets what every rank's use of the full
+    tensor contributes."""
     if x.shape[dim] != r1 - r0:
         raise ValueError(f"slab has {x.shape[dim]} rows along dim {dim}, expected {r1 - r0}")
-    shape = list(x.shape)
-    shape[dim] = L
-    full = x.new_zeros(shape)
-    full.narrow(dim, r0, r1 - r0).copy_(x)
-    dist.all_reduce(full, group=group)
-    return full
+    return _GatherRows.apply(x, r0, r1, L, dim, group)

@@ -4,10 +4,11 @@ Each takes the rank's :class:`~se3diff_torch.parallel.mesh.RankContext` and
 picklable arguments (numpy arrays, plain values), builds what it needs on
 the rank's device and returns numpy or plain values. They drive the
 sequence-parallel (SP) score network, the SP sampling pipeline,
-data-parallel (DP) sampling, the DP+TP train step and the train CLI's ranks
+data-parallel (DP) sampling, the DP+TP train step, the train CLI's ranks
 (:func:`train_rank`, which ``python -m se3diff_torch.train --mesh`` spawns),
-and are what the test suite and ``chip_smoke.py`` run on each rank to hold
-the multi-rank paths against one process.
+the SP train step and the pipeline-parallel (PP) score and train step, and
+are what the test suite and ``chip_smoke.py`` run on each rank to hold the
+multi-rank paths against one process.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from se3diff_torch import train
 from se3diff_torch.diffusion.denoise import SDEs
 from se3diff_torch.models.dig import DiGConditionalScoreModel, init_weights
 from se3diff_torch.ops import ipa_attention as k1
-from se3diff_torch.parallel.mesh import RankContext, init_mesh
+from se3diff_torch.parallel.mesh import RankContext, gather_rows, init_mesh
+from se3diff_torch.parallel.pipeline import make_pp_score_fn
 from se3diff_torch.parallel.sample import sample_batch_sharded
 from se3diff_torch.parallel.sharding import gather_state_dict, shard_state_dict
 from se3diff_torch.sampling.bundle import random_bundle
@@ -34,7 +36,13 @@ from se3diff_torch.sampling.pipeline import sample
 from se3diff_torch.sde.so3_sde import DiGSO3SDE
 from se3diff_torch.sde.vpsde import CosineVPSDE
 from se3diff_torch.training.data import MultiEnsembleDataset
-from se3diff_torch.training.dsm import DSMNoise, mesh_train_step
+from se3diff_torch.training.dsm import (
+    DSMNoise,
+    draw_noise,
+    mesh_train_step,
+    pp_train_step,
+    sp_train_step,
+)
 from se3diff_torch.training.loop import TrainConfig, make_optimizer
 
 
@@ -257,3 +265,121 @@ def train_rank(ctx: RankContext, argv: Sequence[str], data: int, model: int,
     return {"history": history, "wall_s": time.perf_counter() - t0, "rank": ctx.rank,
             "launches_by_route": dict(k1.launches_by_route),
             "backward_calls": k1.backward_calls}
+
+
+def gather_rows_probe(ctx: RankContext, w: np.ndarray, x: np.ndarray) -> dict[str, np.ndarray]:
+    """Two row-split products through :func:`~se3diff_torch.parallel.mesh.
+    gather_rows`: ``y = W[slab] @ x``, gathered, ``z = W[slab] @ y``,
+    gathered, loss ``sum(z^2) / world``. Returns the rank's gradients of
+    ``W`` and ``x``; summed over the ranks they are the gradients of
+    ``sum((W @ W @ x)^2)``."""
+    L = w.shape[0]
+    r0, r1 = ctx.rows(L)
+    W = torch.tensor(w, requires_grad=True)
+    X = torch.tensor(x, requires_grad=True)
+    y = gather_rows(W[r0:r1] @ X, r0, r1, L, dim=0, group=ctx.group)
+    z = gather_rows(W[r0:r1] @ y, r0, r1, L, dim=0, group=ctx.group)
+    (z.square().sum() / ctx.world).backward()
+    return {"w": W.grad.numpy(), "x": X.grad.numpy(), "z": z.detach().numpy()}
+
+
+def _dsm_setup(ctx: RankContext, model: torch.nn.Module, weights: dict[str, np.ndarray],
+               so3_kwargs: dict, lr: float):
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()}, strict=True)
+    model.to(ctx.device)
+    sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**so3_kwargs, device=ctx.device))
+    return sdes, make_optimizer(TrainConfig(lr=lr), model.parameters())
+
+
+def sp_step(
+    ctx: RankContext, model_cfg: dict, weights: dict[str, np.ndarray],
+    batch: dict[str, np.ndarray], noise: Sequence[np.ndarray], so3_kwargs: dict, *,
+    lr: float, dtype: str = "float32",
+) -> dict[str, Any]:
+    """One DSM step of the SP model
+    (:func:`~se3diff_torch.training.dsm.sp_train_step`) from full
+    ``weights`` on the whole ``batch`` with ``noise`` ``(t, z, rot_t)``,
+    with the train loop's defaults (``TrainConfig(lr)``). Returns the loss,
+    the step's clipped gradients and updated weights (numpy), the rank's
+    row slab and its K1 forward launches by route and backward passes."""
+    k1.check_card_widths(model_cfg, ctx.device)
+    model = DiGConditionalScoreModel(**model_cfg, dtype=getattr(torch, dtype), sp=ctx)
+    sdes, opt = _dsm_setup(ctx, model, weights, so3_kwargs, lr)
+    b = _tensors(batch, ctx.device)
+    nz = DSMNoise(*(torch.as_tensor(x).to(ctx.device) for x in noise))
+    _reset_k1()
+    loss = float(sp_train_step(model, opt, b, nz, sdes, ctx, lr=lr))
+    _synchronize(ctx)
+    return {"loss": loss, "rows": ctx.rows(b["pos"].shape[1]),
+            "launches_by_route": dict(k1.launches_by_route), "backward_calls": k1.backward_calls,
+            "weights": _numpy(model.state_dict()),
+            "grads": _numpy({n: p.grad for n, p in model.named_parameters()})}
+
+
+def _pp_model(ctx: RankContext, data: int, pipe: int, model_cfg: dict,
+              weights: dict[str, np.ndarray], dtype: str):
+    k1.check_card_widths(model_cfg, ctx.device)
+    mesh = init_mesh(ctx, data, pipe)
+    model = DiGConditionalScoreModel(**model_cfg, dtype=getattr(torch, dtype))
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()}, strict=True)
+    return mesh, model.to(ctx.device).eval()
+
+
+def pp_score(
+    ctx: RankContext, data: int, pipe: int, model_cfg: dict, weights: dict[str, np.ndarray],
+    inputs: Sequence[np.ndarray], n_microbatches: int, dtype: str = "float32",
+) -> dict[str, Any]:
+    """One score evaluation through
+    :func:`~se3diff_torch.parallel.pipeline.make_pp_score_fn` on a ``data x
+    pipe`` grid: ``inputs`` are the global ``(pos, rot, t, single, pair[,
+    mask])``, of which the rank's data shard takes its rows. Returns its
+    rows' outputs, the rows and the rank's K1 launches by route."""
+    mesh, model = _pp_model(ctx, data, pipe, model_cfg, weights, dtype)
+    fn = make_pp_score_fn(model, mesh, n_microbatches)
+    b0, b1 = mesh.batch_rows(inputs[0].shape[0])
+    args = [torch.as_tensor(np.array(x[b0:b1])).to(ctx.device) for x in inputs]
+    _reset_k1()
+    with torch.inference_mode():
+        pos, rot = fn(*args)
+    _synchronize(ctx)
+    return {"pos": pos.float().cpu().numpy(), "rot": rot.float().cpu().numpy(),
+            "batch_rows": (b0, b1), "stage": mesh.model_rank,
+            "launches_by_route": dict(k1.launches_by_route)}
+
+
+def pp_step(
+    ctx: RankContext, data: int, pipe: int, model_cfg: dict, weights: dict[str, np.ndarray],
+    batch: dict[str, np.ndarray], noise: Sequence[np.ndarray] | None, so3_kwargs: dict, *,
+    n_microbatches: int, lr: float, dtype: str = "float32", steps: int = 1, seed: int = 0,
+) -> dict[str, Any]:
+    """``steps`` PP DSM steps (:func:`~se3diff_torch.training.dsm.
+    pp_train_step`) on a ``data x pipe`` grid from full ``weights`` on the
+    global ``batch``, with the train loop's defaults: step 0 with
+    ``noise`` when it is given, each other step ``i`` with the noise that
+    :func:`~se3diff_torch.training.dsm.draw_noise` draws on the global
+    batch from a generator on the rank's device seeded ``seed + i``.
+    Returns the global losses, the first step's clipped gradients and the
+    weights after it of the parameters the rank holds a gradient of (its
+    stage's layers and the replicated ones), the rank's stage and its K1
+    forward launches by route and backward passes in the first step."""
+    mesh, model = _pp_model(ctx, data, pipe, model_cfg, weights, dtype)
+    sdes, opt = _dsm_setup(ctx, model, weights, so3_kwargs, lr)
+    fn = make_pp_score_fn(model, mesh, n_microbatches)
+    b = _tensors(batch, ctx.device)
+    losses, out = [], {}
+    _reset_k1()
+    for i in range(steps):
+        if i == 0 and noise is not None:
+            nz = DSMNoise(*(torch.as_tensor(x).to(ctx.device) for x in noise))
+        else:
+            nz = draw_noise(torch.Generator(device=ctx.device).manual_seed(seed + i), b, sdes)
+        losses.append(float(pp_train_step(model, opt, b, nz, sdes, mesh, fn, lr=lr)))
+        if i == 0:
+            _synchronize(ctx)
+            held = {n for n, p in model.named_parameters() if p.grad is not None}
+            out = {"launches_by_route": dict(k1.launches_by_route),
+                   "backward_calls": k1.backward_calls,
+                   "grads": _numpy({n: p.grad for n, p in model.named_parameters() if n in held}),
+                   "weights": _numpy({n: p for n, p in model.named_parameters() if n in held})}
+    _synchronize(ctx)
+    return {**out, "losses": losses, "stage": mesh.model_rank}

@@ -47,6 +47,12 @@ def compute_dg(p_folded: torch.Tensor, temperature: float = 298.0, tol: float = 
     return -K_BOLTZMANN * temperature * torch.log(p / (1.0 - p))
 
 
+def compute_folded_proportion_from_dg(dg: torch.Tensor, temperature: float = 298.0):
+    """The folded proportion of a folding free energy ``dg`` (kcal/mol), the
+    inverse Boltzmann relation (folding_stability.py:103-116)."""
+    return torch.sigmoid(-torch.as_tensor(dg) / (K_BOLTZMANN * temperature))
+
+
 def _ref(path: str, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(load_ref(path)).to(device=like.device, dtype=like.dtype)
 

@@ -8,7 +8,14 @@ from se3diff_torch.sampling.bundle import (
     random_bundle,
     resolve_device,
 )
-from se3diff_torch.sampling.pipeline import batch_size_heuristic, sample, stage_conditioning
+from se3diff_torch.sampling.pipeline import (
+    batch_size_heuristic,
+    generate_batch,
+    generate_batch_async,
+    sample,
+    stage_conditioning,
+    write_structure_outputs,
+)
 
 __all__ = [
     "Bundle",
@@ -18,6 +25,9 @@ __all__ = [
     "random_bundle",
     "resolve_device",
     "batch_size_heuristic",
+    "generate_batch",
+    "generate_batch_async",
     "sample",
     "stage_conditioning",
+    "write_structure_outputs",
 ]

@@ -109,6 +109,38 @@ def _dispatch_batch(
     return pos[:, :true_len], rot[:, :true_len]
 
 
+def generate_batch(
+    bundle: Bundle,
+    single: np.ndarray,
+    pair: np.ndarray,
+    seed: int,
+    batch_size: int,
+    length_bucket: int | None = None,
+) -> dict[str, np.ndarray]:
+    """Denoise one batch on the bundle's device; returns ``{"pos" [B, L, 3],
+    "node_orientations" [B, L, 3, 3]}`` as numpy (sample.py:186-238).
+    ``length_bucket`` pads L up to a bucket multiple with masked residues,
+    as :func:`sample` does."""
+    pos, rot = generate_batch_async(bundle, single, pair, seed, batch_size, length_bucket)
+    return {"pos": pos.cpu().numpy(), "node_orientations": rot.cpu().numpy()}
+
+
+def generate_batch_async(
+    bundle: Bundle,
+    single: np.ndarray,
+    pair: np.ndarray,
+    seed: int,
+    batch_size: int,
+    length_bucket: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stage_conditioning` and one enqueued denoise batch: the device
+    tensors ``(pos, rot)``, not synchronised. A loop stages once and
+    dispatches each batch instead; this stages the conditioning every call."""
+    single_d, pair_d, mask_d, L = stage_conditioning(single, pair, bundle.device, length_bucket)
+    with torch.inference_mode():
+        return _dispatch_batch(bundle, single_d, pair_d, mask_d, L, seed, batch_size)
+
+
 def _to_host_async(*tensors: torch.Tensor):
     """Start device->host copies (pinned, non-blocking on CUDA); returns the
     host tensors and an event to wait on (None on the CPU)."""
@@ -302,3 +334,24 @@ def _write_ensemble(
         )
         logger.warning("native XTC codec unavailable; wrote %s instead", pdb_path)
     return output_dir
+
+
+def write_structure_outputs(
+    output_dir: str | Path, sequence: str, filter_samples: bool = True,
+    device: str | torch.device = "cuda",
+) -> Path:
+    """Every batch file in ``output_dir`` -> ``topology.pdb`` + trajectory
+    (sample.py:310-327, convert_chemgraph.py:398-458), one file at a time:
+    frames -> atom37 and the physicality filter on ``device``, the kept
+    frames centred on the host. :func:`sample` does this inline; this
+    re-derives the outputs from saved batches (the same files)."""
+    from se3diff_torch.sampling.bundle import resolve_device
+
+    output_dir, device = Path(output_dir), resolve_device(device)
+    aatype = sequence_to_aatype(sequence)
+    mask = atom37_mask(aatype)
+    kept_chunks: list[np.ndarray] = []
+    total = 0
+    for f in sorted(output_dir.glob("batch_*.npz")):
+        total += _append_npz_chunk(kept_chunks, f, sequence, aatype, mask, filter_samples, device)
+    return _write_ensemble(output_dir, sequence, aatype, mask, kept_chunks, total, filter_samples)

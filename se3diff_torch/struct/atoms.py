@@ -22,6 +22,7 @@ from se3diff_torch.struct.residues import (
     BACKBONE_ATOM_MASK,
     BACKBONE_LOCAL_POSITIONS,
     C_O_BOND_LENGTH,
+    sequence_to_aatype,
 )
 
 NM_TO_ANG = 10.0
@@ -67,6 +68,17 @@ def atom37_from_frames(
 
     mask = torch.as_tensor(atom37_mask(aatype), device=pos.device)
     return atom37, mask
+
+
+def get_atom37_from_frames(
+    pos: torch.Tensor, rot: torch.Tensor, sequence: str
+) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """The reference's signature (convert_chemgraph.py:139-185): ``pos [N,
+    3]`` nm and ``rot [N, 3, 3]`` of ``sequence`` -> ``(atom37 [N, 37, 3]``
+    in Angstroms, ``mask [N, 37]``, ``aatype [N])``."""
+    aatype = sequence_to_aatype(sequence)
+    atom37, mask = atom37_from_frames(pos, rot, aatype)
+    return atom37, mask, aatype
 
 
 def frames_from_backbone(

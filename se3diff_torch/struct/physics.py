@@ -85,3 +85,32 @@ def filter_unphysical_masks_device(
         d2 = torch.where(pair_mask, d2, torch.full_like(d2, float("inf")))
         ok_clash.append(d2.amin(dim=(1, 2)) > clash_distance**2)
     return ok_ca & ok_cn & torch.cat(ok_clash)
+
+
+def get_physical_frame_indices(
+    atom37,
+    mask: np.ndarray,
+    max_ca_seq_distance: float = 4.5,
+    max_cn_seq_distance: float = 2.0,
+    clash_distance: float = 1.0,
+    strict: bool = False,
+    device: bool = False,
+) -> np.ndarray:
+    """Indices of the frames of ``atom37 [M, N, 37, 3]`` that pass all three
+    criteria (convert_chemgraph.py:348-371). ``device=True`` runs
+    :func:`filter_unphysical_masks_device` on ``atom37``'s device (a
+    tensor, or a numpy array taken to the CPU), else the numpy version.
+    ``strict`` raises when no frame passes."""
+    if device:
+        atom37 = torch.as_tensor(atom37)
+        matches_all = filter_unphysical_masks_device(
+            atom37, mask, max_ca_seq_distance, max_cn_seq_distance, clash_distance
+        ).cpu().numpy()
+    else:
+        ok_ca, ok_cn, ok_clash = filter_unphysical_masks(
+            np.asarray(atom37), mask, max_ca_seq_distance, max_cn_seq_distance, clash_distance
+        )
+        matches_all = ok_ca & ok_cn & ok_clash
+    if strict and not matches_all.any():
+        raise ValueError("every frame is unphysical: the trajectory would be empty")
+    return np.where(matches_all)[0]

@@ -16,19 +16,23 @@ profiler can time each of them in the step it measures.
 
 :func:`mesh_train_step` is the DP+TP step of one rank of a ``data x model``
 mesh, the counterpart of ``make_sharded_dsm_train_step``
-(``se3diff_tpu/training/dsm.py:117-184``).
+(``se3diff_tpu/training/dsm.py:117-184``). :func:`sp_train_step` is the
+step of a sequence-parallel (SP) rank, and :func:`pp_train_step` that of a
+rank of a ``data x pipe`` pipeline-parallel (PP) grid; the JAX package
+reaches both by composing its one-device step with a ``pair_sharding``
+model or ``make_pp_score_fn``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from se3diff_torch.diffusion.denoise import SDEs
 from se3diff_torch.ops import so3 as so3_ops
-from se3diff_torch.parallel.mesh import MeshContext
+from se3diff_torch.parallel.mesh import MeshContext, RankContext
 from se3diff_torch.parallel.sharding import split_dim
 from se3diff_torch.sde.base import bcast_right
 
@@ -125,17 +129,18 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
 
 
 def _clip_sharded(named_grads: list[tuple[str, torch.Tensor]], max_norm: float,
-                  tp: MeshContext) -> None:
+                  group: dist.ProcessGroup, split: Callable[[str], bool]) -> None:
     """:func:`clip_by_global_norm` of the full model's gradients from one
-    model rank's: the squared norms of the split parameters' shards summed
-    over the model group, those of the replicated ones (equal on every
-    rank) counted once."""
+    rank's: the squared norms of the parameters that ``split`` names (each
+    rank of ``group`` holds its own part of them: a TP shard, a PP stage's
+    layers) summed over ``group``, those of the replicated ones (equal on
+    every rank) counted once."""
     sq = torch.zeros(2, dtype=torch.float32, device=named_grads[0][1].device)
-    for i, split in enumerate((True, False)):
-        grads = [g for n, g in named_grads if (split_dim(n) is not None) == split]
+    for i, part in enumerate((True, False)):
+        grads = [g for n, g in named_grads if split(n) == part]
         if grads:
             sq[i] = torch.stack(torch._foreach_norm(grads)).square().sum()
-    dist.all_reduce(sq[:1], group=tp.model_group)
+    dist.all_reduce(sq[:1], group=group)
     grads = [g for _, g in named_grads]
     torch._foreach_mul_(grads, (max_norm / sq.sum().sqrt()).clamp(max=1.0))
 
@@ -159,17 +164,22 @@ def step_backward(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
 def step_update(
     model: torch.nn.Module, optimizer: torch.optim.Optimizer, *, lr: float,
     grad_clip: float | None = 1.0, tp: MeshContext | None = None,
+    pp: MeshContext | None = None,
 ) -> None:
     """The last part of :func:`train_step`: clip, then AdamW at ``lr``. A
-    tensor-parallel model (``tp``) clips by the full model's norm
-    (:func:`_clip_sharded`); AdamW runs on its shards as it is, being
-    elementwise."""
+    tensor-parallel model (``tp``) and a pipeline stage (``pp``, whose
+    model axis is the pipe) clip by the full model's norm
+    (:func:`_clip_sharded`); AdamW runs on the rank's parameters as it is,
+    being elementwise, and skips those without a gradient (the other
+    stages' layers)."""
     if grad_clip is not None:
         named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
-        if tp is None:
-            clip_by_global_norm([g for _, g in named], grad_clip)
+        if tp is not None:
+            _clip_sharded(named, grad_clip, tp.model_group, lambda n: split_dim(n) is not None)
+        elif pp is not None and pp.model > 1:
+            _clip_sharded(named, grad_clip, pp.model_group, lambda n: ".encoder.layers." in n)
         else:
-            _clip_sharded(named, grad_clip, tp)
+            clip_by_global_norm([g for _, g in named], grad_clip)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
@@ -244,4 +254,77 @@ def mesh_train_step(
         _all_reduce_flat([p.grad for p in model.parameters() if p.grad is not None] + [loss],
                          mesh.data_group)
     step_update(model, optimizer, lr=lr, grad_clip=grad_clip, tp=mesh.tp)
+    return loss[0]
+
+
+def sp_train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    batch: dict,
+    noise: DSMNoise,
+    sdes: SDEs,
+    sp: RankContext,
+    *,
+    lr: float,
+    grad_clip: float | None = 1.0,
+) -> torch.Tensor:
+    """One DSM step on one rank of a sequence-parallel group: the step
+    :func:`train_step` takes, with the pair stack's query rows split over
+    ``sp.world`` ranks.
+
+    ``model`` is built with ``sp=sp``; every rank passes the whole batch
+    and the same ``noise`` (the batch is replicated: :func:`draw_noise`
+    from a generator seeded alike on every rank gives it). The loss,
+    the diff head and the score heads after the last ``gather_rows`` run
+    replicated on every rank, so each rank backpropagates its loss divided
+    by the group's size; ``gather_rows``' backward sums what flows into
+    each slab. The parameter gradients are then summed over the group in
+    one flat buffer, which leaves every rank with the full gradient, and
+    the clip and AdamW run as in :func:`train_step`, identically on every
+    rank. Returns the loss (a device tensor, equal on every rank)."""
+    model.eval()
+    loss = dsm_loss(model, batch, noise, sdes)
+    step_backward(optimizer, loss / sp.world)
+    if sp.world > 1:
+        _all_reduce_flat([p.grad for p in model.parameters() if p.grad is not None], sp.group)
+    step_update(model, optimizer, lr=lr, grad_clip=grad_clip)
+    return loss.detach()
+
+
+def pp_train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    batch: dict,
+    noise: DSMNoise,
+    sdes: SDEs,
+    mesh: MeshContext,
+    score_fn: Callable,
+    *,
+    lr: float,
+    grad_clip: float | None = 1.0,
+) -> torch.Tensor:
+    """One DSM step on one rank of a ``data x pipe`` grid (``mesh``, its
+    model axis the pipe): :func:`mesh_train_step` with the model run by
+    ``score_fn``, a :func:`~se3diff_torch.parallel.pipeline.make_pp_score_fn`
+    of ``model`` on ``mesh``.
+
+    ``batch`` and ``noise`` are the global ones; the rank takes its data
+    shard's rows, and its loss is their masked sum over the global
+    denominator. The pipeline leaves every stage with the full gradient of
+    the replicated parameters (embeddings, diff head) and its own layers'
+    gradients; the other layers get none. Every gradient, with the loss,
+    is summed over the data group; the clip takes the full model's norm
+    (the stages' layers summed over the pipe group) and AdamW steps the
+    parameters that have a gradient. Returns the global loss."""
+    model.eval()
+    b0, b1 = mesh.batch_rows(batch["pos"].shape[0])
+    local = {k: v if v.ndim == _UNBATCHED_NDIM.get(k) else v[b0:b1] for k, v in batch.items()}
+    loss = dsm_loss(score_fn, local, DSMNoise(*(x[b0:b1] for x in noise)), sdes,
+                    denom=dsm_denominator(batch))
+    step_backward(optimizer, loss)
+    loss = loss.detach().reshape(1)
+    if mesh.data > 1:
+        _all_reduce_flat([p.grad for p in model.parameters() if p.grad is not None] + [loss],
+                         mesh.data_group)
+    step_update(model, optimizer, lr=lr, grad_clip=grad_clip, pp=mesh)
     return loss[0]
