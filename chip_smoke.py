@@ -106,9 +106,9 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    ``[ppft-sde-dpm-step]``: phase 13's step with it (800 streamed K1
    launches on "tc", 400 in-kernel on "h4", 100 K1 backward passes; finite
    path, loss and gradients), printed beside phase 13's heun step;
-16. ``[toy]``: ``examples/toy_so3.py`` at its full settings through
-   ``se3diff_torch.toy``: the IGSO(3)-mixture SDE's tables, DSM training
-   (1,500 steps at batch 4,096), base sampling (4,096 x 200 EM steps) and
+16. ``[toy]``: ``examples/torch_toy_so3.py``'s ``main`` (``examples/toy_so3.py``
+   on ``se3diff_torch.toy``) at its full settings on the card: the
+   IGSO(3)-mixture SDE's tables, DSM training (1,500 steps at batch 4,096), base sampling (4,096 x 200 EM steps) and
    its mixture weights, PPFT fine-tuning toward h* = (0.4, 0.2, 0.4) (150
    steps, cut to 75 to keep the phase under 90 s; paths of 1,024 x 100)
    and fine-tuned sampling: the loss must fall below 0.85 of its start, the
@@ -187,6 +187,29 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    sequential run on the same generator (the gaps printed, not held); the
    closed-form model's 8 sweeps against 8 sequential steps on the card,
    held at the CPU test's tolerances (5e-4 nm, 5e-3 rad);
+22. ``[bench]``: the benchmarks of ``se3diff_torch.benchmarks``. First K1 at
+   the sample CLI's shapes (B=10, L=60 and L=77, f32, "tc_f32") and at the
+   training example's (B=8 L=8, 4 heads, "simt"), each held against its
+   plain version at ``TOL`` and timed while the host runs nothing else.
+   (b) The sample CLI at bioemu-v1.0 widths (seed 0, f32, dpm_2m-30, dummy
+   embeddings) writes 10 samples of md_emulation's cath1_1bl0A02 (L=60) and
+   of multiconf_ood60's P50405 (L=77), 240 "tc_f32" launches a run; both
+   are found by sequence and scored by the benchmark CLI
+   (``--skip_filtering``): finite or NaN metrics. (c) One score evaluation
+   at B=40 L=100 bf16 under ``utils.profiling``: the table of its kernels
+   with their launch sites, K1's "tc" kernel a row of 8. (d)
+   ``examples/torch_train_from_scratch.py --steps 500`` on the card (its
+   narrowest card width, d64, 4 heads: K1 on "simt"): the samples' mean
+   pairwise Ca distance at most halfway from the prior's to the data's.
+   (a) Then ``python -m se3diff_torch.benchmarks eval`` on each of the
+   seven benchmarks' directories of the reference's fixture
+   (``tests/test_data/samples_example``; it holds no multiconf_oodval
+   samples, so that run must skip it), filtering on, one child process a
+   benchmark on one core each, all at once: exit 0, each benchmark in its
+   ``benchmark_metrics.json`` with its output files (``results.h5`` where
+   h5py imports), walls; the reference's recorded ood60 values (RMSD
+   coverage at the last threshold 0.8157894736842105 within 1e-12,
+   E1C7U0's 1-recall within 1% of 6.0333076);
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -353,6 +376,21 @@ PICARD_F32_STEPS = 30
 PICARD_POS_ATOL, PICARD_ROT_RAD = 5e-4, 5e-3
 # The CPU test's SO(3) SDE for the closed-form model (tests/test_denoise.py).
 PICARD_ANALYTIC_SO3 = dict(num_sigma=200, num_omega=1000, l_max=1000, eps_t=0.001)
+# Phase 22: the benchmarks. (a) The CLI on the reference's fixture; the
+# reference's recorded ood60 values (its tests/test_multiconf_evaluator.py).
+# (b) The sample CLI (f32, dpm_2m-30, 10 samples) for two test cases. (c) A
+# profile of one score evaluation (B, L) in bf16. (d) The training example.
+BENCH_FIXTURE = "tests/test_data/samples_example"
+BENCH_OOD60_COVERAGE, BENCH_E1C7U0_RECALL = 0.8157894736842105, 6.0333076
+BENCH_FILES = {"folding_free_energies": ["results_systems.csv", "results_metrics.csv", "contact_scores.npz"],
+               "md_emulation": ["results_metrics.csv", "results_projections.npz"],
+               "multiconf": ["summary.json", "multiconf_results.npz"]}
+BENCH_CASES = {"md_emulation": "cath1_1bl0A02", "multiconf_ood60": "P50405"}
+BENCH_SAMPLES, BENCH_STEPS, BENCH_PROFILE = 10, 30, (40, 100)
+BENCH_TRAIN_STEPS, BENCH_SIMT4_SHAPE = 500, (8, 8, 4, 16)  # (B, L, heads, Cp)
+# K1 at the sample CLI's shapes in (b): one batch of 10, L=60 and L=77, f32.
+BENCH_K1_CASES = [(BENCH_SAMPLES, 60, "float32"), (BENCH_SAMPLES, 77, "float32")]
+BENCH_EVAL_TIMEOUT_S = 600.0
 ENSEMBLES = [
     ("tests/test_data/samples_example/md_emulation/cath1_1bl0A02.xtc",
      "tests/test_data/samples_example/md_emulation/cath1_1bl0A02.pdb"),
@@ -721,10 +759,10 @@ def _main_path_f32(k1, card, bf16_wall):
 
 def phase_profile(bundle):
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from se3diff_torch.sampling.embeds import get_embeds, load_embeds
     from se3diff_torch.sampling.pipeline import stage_conditioning
+    from se3diff_torch.utils.profiling import profile_device
 
     single, pair = load_embeds(*get_embeds(MAIN_SEQ, str(OUT / "embeds"), backend="dummy"))
     s, p, m, _ = stage_conditioning(single, pair, bundle.device)
@@ -734,21 +772,11 @@ def phase_profile(bundle):
     run(torch.Generator(device=DEVICE).manual_seed(7), s, p, m)
     torch.cuda.synchronize()
     batch_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(torch.Generator(device=DEVICE).manual_seed(7), s, p, m)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernels only: CPU-side aten ops, and the device-timeline annotations
-    # that span each op's kernels, carry those kernels' time as well.
-    dev = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-         and e.self_device_time_total > 0),
-        key=lambda x: -x[1],
-    )
-    total_ms = sum(t for _, t, _ in dev)
+    # Kernels only (profile_device leaves out the CPU-side aten ops and the
+    # device-timeline annotations, which carry their kernels' time as well).
+    prof = profile_device(lambda: run(torch.Generator(device=DEVICE).manual_seed(7), s, p, m))
+    wall_ms, total_ms = prof.wall_ms, prof.total_ms
+    dev = [(r.name, r.total_ms, r.count) for r in prof.rows]
     log(f"[profile] one batch (B={MAIN_BATCH}, dpm_2m-{MAIN_STEPS}) under the profiler: wall "
         f"{wall_ms:.1f} ms, device kernel time {total_ms:.1f} ms; unprofiled batch wall "
         f"{batch_wall_ms:.1f} ms, so the device is busy {100 * total_ms / batch_wall_ms:.1f}% "
@@ -762,16 +790,13 @@ def kernel_time_ms(fn):
     from the profiler: the gaps in which the device waits for the host's
     launches are left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from se3diff_torch.utils.profiling import profile_device
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    return sum(e.self_device_time_total for e in kernels) / 1e3, sum(e.count for e in kernels)
+    prof = profile_device(fn)
+    return prof.total_ms, prof.count
 
 
 def k1_bwd_bound(args, cts, grads):
@@ -1049,7 +1074,7 @@ def phase_train_path(k1, card):
 def phase_train_throughput(k1, card):
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     from unittest import mock
 
     from se3diff_torch.diffusion.denoise import SDEs
@@ -1060,6 +1085,7 @@ def phase_train_throughput(k1, card):
     from se3diff_torch.sde.vpsde import CosineVPSDE
     from se3diff_torch.training.dsm import step_backward, step_loss, step_update, train_step
     from se3diff_torch.training.loop import TrainConfig, make_optimizer, step_generator
+    from se3diff_torch.utils.profiling import profile_device
 
     B, L = TRAIN_BATCH, 100
     rng = np.random.default_rng(0)  # bench.py:219-231
@@ -1128,31 +1154,22 @@ def phase_train_throughput(k1, card):
         with record_function("ipa_attention_backward"):
             return bwd(*a, **kw)
 
+    def labelled_step():
+        with record_function("forward"):
+            loss = step_loss(model, batch, gen(18), sdes)
+        step_backward(opt, loss)
+        with record_function("optimizer"):
+            step_update(model, opt, lr=cfg.lr, grad_clip=cfg.grad_clip)
+
     with mock.patch.object(k1, "ipa_attention_backward", labelled):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with record_function("forward"):
-                loss = step_loss(model, batch, gen(18), sdes)
-            step_backward(opt, loss)
-            with record_function("optimizer"):
-                step_update(model, opt, lr=cfg.lr, grad_clip=cfg.grad_clip)
-            torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in events
-         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-         and e.self_device_time_total > 0),
-        key=lambda x: -x[1],
-    )
-    total = sum(t for _, t, _ in kernels)
+        prof = profile_device(labelled_step, labels=("forward", "optimizer", "ipa_attention_backward"))
+    kernels = [(r.name, r.total_ms, r.count) for r in prof.rows]
+    total = prof.total_ms
     if not total > 0:
         raise AssertionError("the profiler recorded no device time for the train step")
 
-    def label_ms(name):
-        return sum(e.device_time_total for e in events
-                   if e.key == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
-
     k1_fwd = sum(t for k, t, _ in kernels if "ipa_attention" in k)
-    fwd, opt_ms, k1_bwd = label_ms("forward"), label_ms("optimizer"), label_ms("ipa_attention_backward")
+    fwd, opt_ms, k1_bwd = (prof.labels[k] for k in ("forward", "optimizer", "ipa_attention_backward"))
     bwd_ms = total - fwd - opt_ms
     log(f"[train-profile] one step: device kernel time {total:.2f} ms in "
         f"{sum(n for _, _, n in kernels)} kernels, busy "
@@ -1663,9 +1680,9 @@ def phase_ppft_step(k1, files, card, denoiser="heun_finetune", beside=None):
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from se3diff_torch.ppft import trainer
+    from se3diff_torch.utils.profiling import profile_device
 
     L = 56
     bundle = trainer.load_finetune_bundle(
@@ -1734,15 +1751,9 @@ def phase_ppft_step(k1, files, card, denoiser="heun_finetune", beside=None):
 
     cut = 10
     t_path_c, t_grad_c, *_ = one_step(cut, 2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_step(cut, 2)
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-         and e.self_device_time_total > 0),
-        key=lambda x: -x[1],
-    )
-    total = sum(t for _, t, _ in kernels)
+    prof = profile_device(lambda: one_step(cut, 2))
+    kernels = [(r.name, r.total_ms, r.count) for r in prof.rows]
+    total = prof.total_ms
     if not total > 0:
         raise AssertionError("the profiler recorded no device time for the PPFT step")
     k1_split = {"tc": sum(t for k, t, _ in kernels if "ipa_attention_tc_kernel" in k),
@@ -1831,8 +1842,8 @@ def phase_sample_cli(k1, files, card, dpm_f32_wall):
 
 
 def phase_toy(k1, card):
-    """``examples/toy_so3.py`` at its full settings through ``se3diff_torch.toy``
-    on the card: DSM training (1,500 steps at batch 4,096), base sampling
+    """``examples/torch_toy_so3.py``'s ``main`` (``examples/toy_so3.py`` through
+    ``se3diff_torch.toy``) at its full settings on the card: DSM training (1,500 steps at batch 4,096), base sampling
     (4,096 x 200 steps) and its mixture weights, PPFT fine-tuning toward h*
     (150 steps, paths of 1,024 x 100), fine-tuned sampling and its weights.
     The trained loss must fall below 0.85 of its start, the base weights lie
@@ -1844,21 +1855,30 @@ def phase_toy(k1, card):
 
     import torch
 
-    from se3diff_torch.toy import (DiGMixSO3SDE, ScoreNet, assign_igso3, finetune_toy,
-                                   reverse_diffusion, reverse_finetune_diffusion, train_toy)
+    from se3diff_torch.toy import finetune_toy, train_toy
 
-    def f32(x):
-        return torch.tensor(x, dtype=torch.float32, device=DEVICE)
-
-    mus, sigmas, weights, h_stars = (f32(x) for x in (TOY_MUS, TOY_SIGMAS, TOY_WEIGHTS, TOY_H_STARS))
+    example = _load_example("torch_toy_so3")
     _reset_k1(k1)
-    t_start = time.perf_counter()
-    sde = DiGMixSO3SDE(**TOY_SO3, cache_dir=str(OUT / "so3_cache"), device=DEVICE)
-    t_tables = time.perf_counter() - t_start
-    torch.manual_seed(0)  # the two ScoreNets' initial weights
-    model, ft_model = ScoreNet(), ScoreNet()
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
+    r = example.main(["--device", DEVICE, "--ft_steps", str(TOY_FT["num_steps_opt"]),
+                      "--so3_cache_dir", str(OUT / "so3_cache"), "--no_plot"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    settings = r["settings"]
+    if (settings["so3"], settings["train_steps"], settings["train_batch"], settings["sample_steps"],
+            example.SAMPLE_BATCH, example.ASSIGN_L_MAX) != (
+            TOY_SO3, TOY_TRAIN_STEPS, TOY_BATCH, TOY_SAMPLE_STEPS, TOY_BATCH, TOY_ASSIGN_L_MAX) or (
+            settings["ft_steps"], settings["ft_batch"], settings["ft_path_steps"]) != (
+            TOY_FT["num_steps_opt"], TOY_FT["batch_size"], TOY_FT["num_steps"]):
+        raise AssertionError(f"the toy example's settings {settings} are not the phase's")
+    if (example.MUS, example.SIGMAS, example.WEIGHTS, example.H_STARS) != (
+            TOY_MUS, TOY_SIGMAS, TOY_WEIGHTS, TOY_H_STARS):
+        raise AssertionError("the toy example's mixture or h* is not the notebook's")
+    sde, model, ft_model, gen = r["sde"], r["model"], r["ft_model"], r["gen"]
+    mus, sigmas, weights, h_stars = r["mus"], r["sigmas"], r["weights"], r["h_stars"]
+    losses, ft_losses, xs, path, base_w, ft_w = (r[k] for k in ("losses", "ft_losses", "xs", "path",
+                                                                "base_w", "ft_w"))
+    t_tables, t_train, t_base, t_ft, t_ft_sample, wall = (r[k] for k in (
+        "t_tables", "t_train", "t_base", "t_ft", "t_ft_sample", "wall"))
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1866,19 +1886,6 @@ def phase_toy(k1, card):
         out = fn()
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
-
-    (model, losses), t_train = timed(lambda: train_toy(
-        gen, sde, model, mus, sigmas, weights, num_steps=TOY_TRAIN_STEPS, batch_size=TOY_BATCH,
-        device=DEVICE))
-    (xs, _), t_base = timed(lambda: reverse_diffusion(gen, sde, model, TOY_BATCH, TOY_SAMPLE_STEPS))
-    base_w = assign_igso3(xs[-1], mus, sigmas, weights, l_max=TOY_ASSIGN_L_MAX).mean(0)
-    (ft_model, ft_losses), t_ft = timed(lambda: finetune_toy(
-        gen, sde, model, ft_model, mus, sigmas, h_stars, **TOY_FT, device=DEVICE))
-    (path, t_ft_sample) = timed(lambda: reverse_finetune_diffusion(
-        gen, sde, model, ft_model, TOY_BATCH, TOY_SAMPLE_STEPS))
-    ft_w = assign_igso3(path[0][-1], mus, sigmas, weights, l_max=TOY_ASSIGN_L_MAX).mean(0)
-    wall = time.perf_counter() - t_start
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     losses, ft_losses = losses.cpu(), ft_losses.cpu()
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
@@ -1929,17 +1936,12 @@ def phase_toy(k1, card):
 
 def _profiled_kernels(fn):
     """Device kernel time (ms) and kernel count of ``fn()`` under the profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from se3diff_torch.utils.profiling import profile_device
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation and e.self_device_time_total > 0]
-    if not kernels:
+    prof = profile_device(fn)
+    if not prof.rows:
         raise AssertionError("the profiler recorded no device time")
-    return sum(e.self_device_time_total for e in kernels) / 1e3, sum(e.count for e in kernels)
+    return prof.total_ms, prof.count
 
 
 def _noisy_copies(ref_nm, rng, n):
@@ -2812,6 +2814,278 @@ def phase_picard(k1, card):
                 f32_gaps=(pos_gap, rot_gap))
 
 
+def _load_example(name):
+    """``examples/{name}.py`` as a module (examples/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _bench_eval(samples, names, out, *flags):
+    """``python -m se3diff_torch.benchmarks eval`` on ``samples`` as a child
+    process on one core, its log in ``out``.log; returns the process, whose
+    ``end`` a waiting thread stamps."""
+    import os
+    import threading
+
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "se3diff_torch.benchmarks", "eval", *map(str, samples),
+           "--benchmarks", *names, "--output_dir", str(out), "--no_plots", *flags]
+    logf = open(out.with_suffix(".log"), "w")
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=logf, stderr=subprocess.STDOUT, env=env)
+    proc.start, proc.end, proc.logf = time.perf_counter(), None, logf
+
+    def wait():
+        proc.wait()
+        proc.end = time.perf_counter()
+
+    proc.waiter = threading.Thread(target=wait, daemon=True)
+    proc.waiter.start()
+    return proc
+
+
+def _bench_join(proc, what):
+    """Wait for an eval child; fatal unless it exited 0. Returns its wall."""
+    proc.waiter.join(timeout=BENCH_EVAL_TIMEOUT_S)
+    if proc.end is None:
+        proc.kill()
+        raise AssertionError(f"{what}: the benchmark CLI did not finish in {BENCH_EVAL_TIMEOUT_S} s")
+    proc.logf.close()
+    if proc.returncode != 0:
+        tail = Path(proc.logf.name).read_text()[-3000:]
+        raise AssertionError(f"{what}: the benchmark CLI exited {proc.returncode}:\n{tail}")
+    return proc.end - proc.start
+
+
+def _finite_or_nan(values):
+    import math
+
+    return all(isinstance(v, float) and (math.isfinite(v) or math.isnan(v)) for v in values)
+
+
+def _simt4_case(k1, gen):
+    """K1 at the training example's shape on the card (B=8, L=8, 4 heads of
+    16, Cp=16, f32, streamed pair bias: the "simt" design) against its plain
+    version (fatal beyond ``TOL``), with its time, the plain version's and
+    the bound."""
+    import torch
+
+    B, L, H, cp = BENCH_SIMT4_SHAPE
+    args = k1_inputs(B, L, torch.float32, gen, H=H, cp=cp)
+    route = k1.kernel_route(torch.float32, H, 16, cp, True)
+    if route != "simt":
+        raise AssertionError(f"K1 at the training example's shape takes route {route!r}, not 'simt'")
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **K1_KW)
+    torch.cuda.synchronize()
+    if k1.launches_by_route != {**before, route: before[route] + 1}:
+        raise AssertionError("ipa_attention at 4 heads did not launch the 'simt' design once")
+    want = k1.ipa_attention_plain(*args, **K1_KW)
+    err, scale = max_err(got, want)
+    tol = TOL["float32"] * scale
+    ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **K1_KW), reps=20)
+    plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **K1_KW), reps=5)
+    bound_ms, bound_by, nbytes, ops = k1_bound(args, got, "float32")
+    log(f"[bench-k1] 4 heads B={B} L={L} Cp={cp} f32 streamed (the training example's shape): "
+        f"max_abs_err={err:.3e} (tol {tol:.3e}) route {route} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}; {nbytes / 1e3:.1f} kB, {ops / 1e6:.2f} MFLOP; "
+        f"{ms / bound_ms:.0f}x the bound) library_ms=null (no single PyTorch call computes this "
+        f"function)")
+    if not err <= tol:
+        raise AssertionError(f"the simt design disagrees with its plain version: {err} > {tol}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                design=route)
+
+
+def phase_bench(k1, ptxas, card):
+    """Phase 22: the benchmarks. First K1 at the shapes (b) and (d) give it,
+    each against its plain version. (b) The sample CLI at bioemu-v1.0 widths
+    (seed 0, f32, dpm_2m-30) for two benchmark test cases, 10 samples each
+    (240 "tc_f32" launches a run), scored by the benchmark CLI. (c) A profile
+    of one score evaluation at B=40 L=100 bf16 through ``utils.profiling``:
+    K1's "tc" kernel 8 times. (d) ``examples/torch_train_from_scratch.py``
+    at 500 steps on the card: the samples' mean pairwise distance at most
+    halfway from the prior's to the data's. (a) Then, with the host idle,
+    the benchmark CLI on the reference's fixture, one child process a
+    benchmark, all at once: exit 0, every benchmark in its
+    ``benchmark_metrics.json`` with its output files, and the reference's
+    recorded ood60 values. Returns the kernels line's readings."""
+    import importlib.util
+    import json as json_
+
+    import torch
+
+    from se3diff_torch import sample as sample_cli
+    from se3diff_torch.benchmarks import align
+    from se3diff_torch.benchmarks.core import ALL_BENCHMARKS, Benchmark, rows_where
+    from se3diff_torch.benchmarks.multiconf import MetricType, coverage, evaluate_multiconf, k_recall
+    from se3diff_torch.benchmarks.samples import IndexedSamples, find_samples_in_dir
+    from se3diff_torch.models import dig
+    from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL
+    from se3diff_torch.utils.profiling import format_device_profile, profile_device
+
+    t_phase = time.perf_counter()
+    root = OUT / "bench"
+    shutil.rmtree(root, ignore_errors=True)
+    fixture = REPO / BENCH_FIXTURE
+
+    native = align._load_tmlib() is not None
+    log(f"[bench] native TM-score library loaded: {native}")
+    if not native:
+        raise AssertionError("native/libtmscore.so did not load: the benchmarks would run on numpy")
+
+    # K1 at (b)'s and (d)'s shapes, timed while the host runs nothing else.
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    sample_cases = {case: _forward_case(k1, ptxas, gen, *case, 0) for case in BENCH_K1_CASES}
+    simt4 = _simt4_case(k1, gen)
+
+    # (b) The sample CLI for two test cases, then the benchmark CLI on them.
+    samples_root = root / "samples"
+    sample_walls, sample_launches = {}, {}
+    for bm_name, tc in BENCH_CASES.items():
+        seq = rows_where(Benchmark(bm_name).metadata, "test_case", tc)[0]["sequence"]
+        if (BENCH_SAMPLES, len(seq), "float32") not in sample_cases:
+            raise AssertionError(f"{tc}'s length {len(seq)} is not a K1 case checked above")
+        argv = ["--sequence", seq, "--num_samples", str(BENCH_SAMPLES), "--output_dir",
+                str(samples_root / tc), "--denoiser", "dpm_2m", "--embeds_backend", "dummy",
+                "--cache_embeds_dir", str(OUT / "embeds"), "--no-filter_samples", "--device", DEVICE]
+        _reset_k1(k1)
+        t0 = time.perf_counter()
+        sample_cli.main(argv)
+        torch.cuda.synchronize()
+        sample_walls[tc] = time.perf_counter() - t0
+        launches, routes = k1.launches, dict(k1.launches_by_route)
+        expect = N_LAYERS * BENCH_STEPS
+        log(f"[bench] (b) sample CLI {bm_name} {tc} (L={len(seq)}): {BENCH_SAMPLES} samples, f32, "
+            f"dpm_2m-{BENCH_STEPS}, seed-0 bioemu-v1.0 weights: wall {sample_walls[tc]:.2f} s with "
+            f"set-up; ipa_attention launches {launches} (expected {expect}), by route {routes}")
+        if launches != expect or routes != only_routes(k1, tc_f32=expect):
+            raise AssertionError(f"the sample CLI for {tc} launched K1 {launches} times ({routes}), "
+                                 f"expected {expect}, all on the f32 tensor-core route")
+        sample_launches[tc] = launches
+    found = find_samples_in_dir(samples_root)
+    for bm_name, tc in BENCH_CASES.items():
+        cases = IndexedSamples.from_benchmark(Benchmark(bm_name), found).test_case_to_sequencesamples
+        if tc not in cases:
+            raise AssertionError(f"{tc}'s samples were not found by sequence for {bm_name}: {list(cases)}")
+    scored = _bench_eval([samples_root], list(BENCH_CASES), root / "scored", "--skip_filtering")
+    score_wall = _bench_join(scored, "scoring the port's samples")
+    metrics = json_.loads((root / "scored" / "benchmark_metrics.json").read_text())
+    for bm_name in BENCH_CASES:
+        if bm_name not in metrics or not _finite_or_nan(list(metrics[bm_name].values())):
+            raise AssertionError(f"{bm_name} of the port's samples is missing or not finite: {metrics}")
+    log(f"[bench] (b) benchmark CLI on the port's samples (--skip_filtering: random weights give "
+        f"unphysical frames): wall {score_wall:.2f} s; "
+        + "; ".join(f"{k}: " + ", ".join(f"{m} {v:.4g}" for m, v in vals.items())
+                    for k, vals in metrics.items()))
+
+    # (c) One score evaluation at B=40 L=100 bf16 under the profiler.
+    B, L = BENCH_PROFILE
+    model = dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL, dtype=torch.bfloat16)
+    dig.init_weights(model, torch.Generator().manual_seed(0)).to(DEVICE).eval()
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    pos = torch.randn(B, L, 3, generator=g, device=DEVICE)
+    rot = torch.linalg.qr(torch.randn(B, L, 3, 3, generator=g, device=DEVICE))[0]
+    t = torch.full((B,), 0.5, device=DEVICE)
+    single = torch.randn(B, L, 384, generator=g, device=DEVICE) * 0.5
+    pair = torch.randn(B, L, L, 128, generator=g, device=DEVICE) * 0.2
+
+    def evaluation():
+        with torch.no_grad():
+            return model(pos, rot, t, single, pair)
+
+    evaluation()
+    torch.cuda.synchronize()
+    _reset_k1(k1)
+    prof = profile_device(evaluation, device=DEVICE, with_stack=True)
+    tc_rows = [r for r in prof.rows if "ipa_attention_tc_kernel" in r.name]
+    log(f"[bench] (c) one score evaluation B={B} L={L} bf16 through utils.profiling: wall "
+        f"{prof.wall_ms:.2f} ms under the profiler, {prof.count} kernels, {prof.total_ms:.2f} ms of "
+        f"device time; K1 launches {dict(k1.launches_by_route)}\n" + format_device_profile(prof.rows, 12))
+    if len(tc_rows) != 1 or tc_rows[0].count != N_LAYERS or k1.launches_by_route["tc"] != N_LAYERS:
+        raise AssertionError(f"the profile holds K1's tc kernel as {[(r.name, r.count) for r in tc_rows]}, "
+                             f"expected one row of {N_LAYERS}")
+    profile_launches = k1.launches_by_route["tc"]
+    del model
+
+    # (d) The known-answer training example on the card.
+    example = _load_example("torch_train_from_scratch")
+    _reset_k1(k1)
+    t0 = time.perf_counter()
+    res = example.main(["--steps", str(BENCH_TRAIN_STEPS), "--device", DEVICE,
+                        "--ckpt_dir", str(root / "train_example")])
+    train_wall = time.perf_counter() - t0
+    launches, routes, backwards = k1.launches, dict(k1.launches_by_route), k1.backward_calls
+    layers = res["model"]["num_layers"]
+    expect = layers * (BENCH_TRAIN_STEPS + example.SAMPLE_STEPS)
+    halfway = (res["d_prior"] + res["d_data"]) / 2
+    log(f"[bench] (d) examples/torch_train_from_scratch.py --steps {BENCH_TRAIN_STEPS} on the card, "
+        f"model {res['model']}: loss {res['history'][0]:.4f} -> {res['history'][-1]:.4f}, training "
+        f"{res['train_s']:.2f} s, sampling ({example.SAMPLE_STEPS} EM steps) {res['sample_s']:.2f} s, "
+        f"wall {train_wall:.2f} s; mean pairwise distance: prior {res['d_prior']:.4f}, samples "
+        f"{res['d_model']:.4f}, data {res['d_data']:.4f} (halfway {halfway:.4f}); K1 launches "
+        f"{launches} (expected {expect}), by route {routes}, backward passes {backwards} "
+        f"(expected {layers * BENCH_TRAIN_STEPS})")
+    if launches != expect or routes != only_routes(k1, simt=expect) or backwards != layers * BENCH_TRAIN_STEPS:
+        raise AssertionError("the training example's K1 launches or backward passes are not the expected counts")
+    if not res["d_model"] <= halfway:
+        raise AssertionError(f"the samples' mean pairwise distance {res['d_model']:.4f} is not at most "
+                             f"halfway ({halfway:.4f}) from the prior's to the data's")
+
+    # (a) Every benchmark by the CLI on its fixture directory, with filtering.
+    # The fixture holds no multiconf_oodval samples: that run reads the whole
+    # fixture and must skip the benchmark, as the reference's CLI does.
+    procs = {}
+    for bm in ALL_BENCHMARKS:
+        d = fixture / bm.value
+        procs[bm.value] = _bench_eval([d if d.is_dir() else fixture], [bm.value],
+                                      root / "fixture" / bm.value)
+    log(f"[bench] (a) {len(procs)} benchmark CLI processes started on {BENCH_FIXTURE} (filtering on, "
+        f"one core each)")
+    h5 = importlib.util.find_spec("h5py") is not None
+    walls = {}
+    for name, proc in procs.items():
+        walls[name] = _bench_join(proc, name)
+        out = root / "fixture" / name
+        got = json_.loads((out / "benchmark_metrics.json").read_text())
+        if name == Benchmark.MULTICONF_OODVAL.value:
+            if got or "Skipping multiconf_oodval" not in Path(proc.logf.name).read_text():
+                raise AssertionError(f"multiconf_oodval has no fixture samples, yet the CLI gave {got}")
+            continue
+        files = BENCH_FILES.get(name, BENCH_FILES["multiconf"]) + (
+            ["results.h5"] if h5 and name not in BENCH_FILES else [])
+        missing = [f for f in files + ["filter_statistics.json"] if not (out / name / f).exists()]
+        if name not in got or missing or not _finite_or_nan(list(got[name].values())):
+            raise AssertionError(f"{name}: metrics {got}, missing files {missing}")
+    res_ood = evaluate_multiconf(
+        IndexedSamples.from_benchmark(Benchmark.MULTICONF_OOD60,
+                                      find_samples_in_dir(fixture / "multiconf_ood60")),
+        references_dir=str(Path(Benchmark.MULTICONF_OOD60.asset_dir) / "reference"),
+        metric_types=[MetricType.RMSD],
+        references_localresidinfo_dir=str(Path(Benchmark.MULTICONF_OOD60.asset_dir) / "local_residinfo"),
+    )
+    rmsd = {tc: e.metrics_against_references[MetricType.RMSD] for tc, e in res_ood.items()}
+    cov = float(coverage(rmsd, MetricType.RMSD)[1][-1])
+    recall = k_recall(rmsd, MetricType.RMSD, k=1)["E1C7U0"]
+    log("[bench] (a) benchmark CLI on the reference's fixture, walls (s, the seven at once): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+        + f"; results.h5 written: {h5}; ood60 unfiltered RMSD coverage at the last threshold "
+        f"{cov!r} (reference 0.8157894736842105), E1C7U0 1-recall {recall:.7f} (reference "
+        f"{BENCH_E1C7U0_RECALL}, {100 * abs(recall / BENCH_E1C7U0_RECALL - 1):.3f}% off)")
+    if abs(cov - BENCH_OOD60_COVERAGE) > 1e-12 or abs(recall / BENCH_E1C7U0_RECALL - 1) > 0.01:
+        raise AssertionError(f"the reference's recorded ood60 values are not met: {cov}, {recall}")
+    wall = time.perf_counter() - t_phase
+    log(f"[bench] phase 22 wall {wall:.1f} s; {card}")
+    return dict(sample_launches=sample_launches, profile_launches=profile_launches,
+                train_launches=launches, train_backwards=backwards, simt4=simt4,
+                sample_cases=sample_cases, wall=wall)
+
+
 def _case_keys(prefix, case):
     """A forward case's readings for the kernels line, under ``prefix``."""
     return {f"{prefix}_{k}": case[k] for k in ("ms", "prev_ms", "plain_ms", "bound_ms",
@@ -2896,6 +3170,7 @@ def main() -> int:
     sppp = phase_sp_pp_train(k1, ptxas, card)
     picard = phase_picard(k1, card)
     log(f"[done] phases 20-21 (SP and PP training, Picard) in {time.perf_counter() - t_new:.1f} s")
+    bench = phase_bench(k1, ptxas, card)
 
     main_case = k1_results[K1_CASES[0][:3]]
     ppft_case = k1_results[(256, 56, "bfloat16")]
@@ -2925,7 +3200,10 @@ def main() -> int:
         f"{sppp['pp_launches']} on tc_f32, {sppp['pp_backwards']} backward passes, bf16 first "
         f"step {sppp['pp_bf16_launches']} on tc; Picard bf16 "
         + ", ".join(f"{s} sweeps {n}" for s, n in picard["launches"].items())
-        + f" on tc, f32 30 sweeps {picard['f32_launches']} on tc_f32")
+        + f" on tc, f32 30 sweeps {picard['f32_launches']} on tc_f32; benchmarks: sample CLI "
+        f"{bench['sample_launches']} on tc_f32, the profiled evaluation {bench['profile_launches']} "
+        f"on tc, the training example {bench['train_launches']} on simt and "
+        f"{bench['train_backwards']} backward passes")
     kernels = {"kernels": [{
         "name": "ipa_attention",
         "route": "cuda",
@@ -2999,6 +3277,8 @@ def main() -> int:
         "launches_pp_bf16_step": sppp["pp_bf16_launches"],
         **_case_keys("B200_L100", sppp["new"][(200, 100, "bfloat16")]),
         **_case_keys("B4_L100", sppp["new"][(PP_B // PP_M, PP_L, "bfloat16")]),
+        # Phase 22 (c): the profiled score evaluation (B=40, L=100).
+        "launches_bench_profile": bench["profile_launches"],
     }, {
         # f32, 32 heads, streamed pa (every CLI's default dtype): the f32
         # tensor-core design; prev_ms is the CUDA-core design on the same inputs.
@@ -3041,6 +3321,11 @@ def main() -> int:
         "launches_pp": sppp["pp_launches"],
         "backward_calls_pp": sppp["pp_backwards"],
         "launches_picard_f32": picard["f32_launches"],
+        # Phase 22 (b): the sample CLI for each benchmark test case scored,
+        # and K1 at its shapes (B=10, L=60 and L=77).
+        "launches_bench_samples": bench["sample_launches"],
+        **_case_keys("B10_L60", bench["sample_cases"][BENCH_K1_CASES[0]]),
+        **_case_keys("B10_L77", bench["sample_cases"][BENCH_K1_CASES[1]]),
         **_case_keys("B4_L100", sppp["new"][(PP_B // PP_M, PP_L, "float32")]),
         **_case_keys("B30_L100", sppp["new"][(30, 100, "float32")]),
     }, {
@@ -3153,6 +3438,28 @@ def main() -> int:
         "launches": mesh["readings"]["model=2"]["launches"],
         **_h16_entry(mesh["h16"]["f32"], h16_l77["float32"], mesh["bwd"]["f32"]),
         "backward_calls": mesh["readings"]["model=2"]["backwards"],
+    }, {
+        # K1 at 4 heads of 16 with the streamed pair bias, f32 (route simt,
+        # the CUDA-core design): the training example on the card (phase 22
+        # (d), 500 DSM steps and 100 EM steps of a 2-layer d64 model), at its
+        # shape, B=8 L=8, Cp=16.
+        "name": "ipa_attention_4_heads_streamed",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
+        "launches": bench["train_launches"],
+        "max_abs_err": bench["simt4"]["max_abs_err"],
+        "ms": bench["simt4"]["ms"],
+        "plain_ms": bench["simt4"]["plain_ms"],
+        "bound_ms": bench["simt4"]["bound_ms"],
+        "bound_by": bench["simt4"]["bound_by"],
+        "library_ms": None,
+        "verdict": "pass",
+        "design": bench["simt4"]["design"],
+        "backward_route": "torch",
+        "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "backward_calls": bench["train_backwards"],
     }]}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels))
