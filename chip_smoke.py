@@ -9,8 +9,9 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 1. device and build: the card's name and power limit; build the IPA
    attention kernels from ``se3diff_torch/csrc`` with nvcc, one process a
    source (time, ptxas report: registers, spills and shared memory of the
-   "tc", "tc_f32", "h4", "tc16" and "tc16_f32" kernels, and the 16-head
-   designs' resident blocks an SM);
+   "tc", "tc_f32", "h4", "tc16" and "tc16_f32" kernels, the 16-head
+   designs' resident blocks an SM, and the backward kernels' row and column
+   kernels, "bwd_tc" and "bwd_tc_f32");
 2. the kernel against its plain PyTorch version on the card, at the main
    path's shape (B=40, L=100, 32 heads of 16, Cp=256, streamed pair bias) in
    bf16 and f32, at a ragged L=77 with masked columns, and at the PPFT score
@@ -33,12 +34,17 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    launches, all on "tc_f32", finite coordinates, its wall beside the bf16
    run's;
 5. a profile of one main-path batch: device time by kernel;
-6. K1's gradient on the card: the autograd Function (kernel forward,
-   row-chunked PyTorch backward) against autograd through the plain version
-   at B=16, L=100 (bf16, f32), L=77 with 9 masked columns, and B=4, L=200
-   (two row chunks of the backward); each gradient's error beside its
-   tolerance, forward and backward ms beside their bounds, peak memory
-   beside the plain autograd's;
+6. K1's gradient on the card: the autograd Function (kernel forward; the
+   backward kernel, "bwd_tc" in bf16 and "bwd_tc_f32" in f32, at 32 heads)
+   against autograd through the plain version at B=16, L=100 (bf16, f32),
+   L=77 with 9 masked columns, B=4, L=200, an SP slab (B=4, rows 0-150 of
+   L=300, f32 and bf16) and the learning run's B=32, L=56 (bf16); each
+   gradient's error beside its tolerance; autograd's backward on the route
+   of its widths; the kernel's second call equal to its first bit for bit;
+   the kernel timed in turns with the PyTorch backward
+   (``ipa_attention_backward``), both beside the bound of the kernel's
+   design (its bytes and its operations on the units that run them), with their device kernel time and kernel count; forward ms beside
+   its bound, peak memory beside the plain autograd's;
 7. one full-width DSM loss and gradient (bioemu-v1.0 widths, seed-0
    weights, f32) on the card through the kernel and on the CPU through the
    plain version, on the same injected noise; every parameter must get a
@@ -47,11 +53,13 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    repository's two test ensembles (one L=64 bucket), full width, bf16,
    batch 16, 30 steps with checkpoints every 10; then 20 steps, interrupted,
    and a resume to 30, which must give the same weights bit for bit; K1
-   launches (all "tc") and K1 backward passes 8 per step; the export loads through ``load_bundle`` and one
+   launches (all "tc") and K1 backward passes 8 per step (all on the backward
+   kernel "bwd_tc"); the export loads through ``load_bundle`` and one
    score evaluation runs from it;
 9. train-step throughput at ``bench.py --train``'s shape (L=100, B=16, bf16):
-   ``dsm_train_examples_per_hour_L100_B16``, the forward / backward /
-   optimizer split and a profile of one step;
+   ``dsm_train_examples_per_hour_L100_B16`` (8 backward passes a step on
+   "bwd_tc"), the forward / backward / optimizer split and a profile of one
+   step, K1's backward labelled where autograd dispatches it;
 10. sequence- and data-parallel sampling (``se3diff_torch.parallel``):
    (a) ``sp_ipa_attention``'s row-slab launches, concatenated, against
    ``ipa_attention_plain`` over all rows at B=4, L=300 on 2 and 4 slabs and
@@ -87,7 +95,8 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    embeddings, heun_finetune cut to batch 64 and 25 steps, 1 epoch: finite
    losses and gradients, moved control-net weights, checkpoints and
    history.json, K1 launches by variant and by route (streamed "tc",
-   in-kernel "h4") and backward passes as counted;
+   in-kernel "h4") and backward passes as counted (all the control net's,
+   on the PyTorch backward, route "torch");
 13. ``[ppft-step]``: one PPFT step at ``bench.py --finetune``'s shape (L=56,
    path batch 256, heun_finetune 100 steps): path generation, replay
    gradient and step seconds, ``finetune_steps_per_hour_L56_B256_heun100``,
@@ -136,14 +145,15 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    and 1 finite, the epoch-0 path KL under 1e-6, a positive training path
    KL, ``finetune_model.npz`` equal to the best epoch's checkpoint, K1
    launches streamed on "tc" and in-kernel on "h4" at the recorder's counts;
-   the DSM step ms, the update wall and the phase wall; K1 and its backward
-   timed at the DSM step's shape (B=32, L=56, bf16);
+   the DSM step ms, the update wall and the phase wall; K1 timed at the DSM
+   step's shape (B=32, L=56, bf16; its backward there is phase 6's);
 19. ``[mesh-train]``: DP+TP DSM training (``python -m se3diff_torch.train
    --mesh``) in one spawn of 2 gloo ranks sharing the card (NCCL refuses two
    ranks on one device; the NCCL branch, one card a rank, is not run here):
    (a) one f32 step at bioemu-v1.0 widths (seed-0 weights), B=16, L=100,
-   fixed noise, as ``data=2`` (K1 on "tc_f32", 8 rows a rank) and as
-   ``model=2`` (K1 on "tc16_f32" at 16 heads), each against this process's
+   fixed noise, as ``data=2`` (K1 on "tc_f32", 8 rows a rank, its backward
+   on "bwd_tc_f32") and as ``model=2`` (K1 on "tc16_f32" at 16 heads, its
+   backward on "torch"), each against this process's
    one-device step on the whole batch: the loss within 1e-5 relative, the
    clipped gradients of ``model=2`` within 1e-4 of each one's largest
    entry; ``data=2`` equals, bit for bit, this process's step with the
@@ -156,7 +166,7 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    bf16 on the two test ensembles (one L=64 bucket), batch 16: 10 steps
    with checkpoints every 5, then 5 steps, interrupted, and a resume to 10,
    which must equal the uninterrupted weights bit for bit; 80 "tc16"
-   launches and 80 backward passes a rank; the export loads through
+   launches and 80 backward passes ("torch") a rank; the export loads through
    ``load_bundle`` and one score evaluation runs from it. K1 at 16 heads
    ("tc16_f32" at the f32 step's shape, "tc16" at the CLI's) is held
    against its plain version and the CUDA-core design and timed in turns
@@ -166,19 +176,20 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 20. ``[sp-pp-train]``: (c) K1 at this slice's new shapes against its plain
    version, each timed in turns with the CUDA-core design beside its bound:
    a PP microbatch B=4 L=100 (bf16 "tc", f32 "tc_f32"), a Picard sweep's
-   B=30 L=100 f32 and B=200 L=100 bf16; K1's backward on a 150-row slab of
-   L=300 f32 against autograd of the plain version. Then one spawn of 2
+   B=30 L=100 f32 and B=200 L=100 bf16 (K1's backward on the SP step's
+   150-row slab of L=300 is phase 6's). Then one spawn of 2
    gloo ranks sharing the card, at bioemu-v1.0 widths (seed-0 weights),
    each against this process: (a) one f32 SP DSM step
    (``training/dsm.py::sp_train_step``) at B=4 L=300 (150-row slabs): the
    loss within 1e-5 relative, the clipped gradients within 1e-4 of each
    one's largest entry, equal on both ranks, 8 "tc_f32" launches and 8
-   backward passes a rank; (b) PP (``parallel/pipeline.py``) at pipe=2 (4
+   backward passes ("bwd_tc_f32") a rank; (b) PP (``parallel/pipeline.py``) at pipe=2 (4
    layers a stage), B=16 L=100, 4 microbatches: the f32 forward within
    1e-4 of the largest output (16 "tc_f32" launches a rank), one f32 DSM
    step (loss and gradients as (a); 32 launches, the backward's recompute
-   included, and 16 backward passes a rank), then 5 bf16 steps with AdamW,
-   each loss within 1e-2 relative (the largest gap printed);
+   included, and 16 backward passes a rank on "bwd_tc_f32"), then 5 bf16
+   steps with AdamW (backward passes on "bwd_tc"), each loss within 1e-2
+   relative (the largest gap printed);
 21. ``[picard]``: ``parallel_picard_em`` at ``bench.py --picard``'s shape
    (bf16, B=1 L=100, em-200, the cache built once at batch 200) at 8, 25
    and 50 sweeps against the sequential ``euler_maruyama``-200: walls, the
@@ -230,6 +241,7 @@ REPO = Path(__file__).resolve().parent
 OUT = REPO / ".work" / "chip_smoke"
 H100_BYTES_PER_S = 3.35e12                        # HBM3, H100 SXM data sheet
 H100_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / f32 CUDA-core peaks
+H100_TF32_OPS_PER_S = 495e12                      # dense TF32 tensor-core peak
 DEVICE = "cuda"
 MAIN_SEQ = "GYDPETGTWG" * 10
 MAIN_BATCH, MAIN_SAMPLES, MAIN_STEPS, N_LAYERS = 40, 80, 30, 8
@@ -244,6 +256,11 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_STOP = 16, 30, 10, 20
 K1_GRAD_CASES = [(TRAIN_BATCH, 100, "bfloat16", 0), (TRAIN_BATCH, 100, "float32", 0),
                  (TRAIN_BATCH, 77, "bfloat16", 9), (TRAIN_BATCH, 77, "float32", 9),
                  (4, 200, "bfloat16", 0)]
+# Phase 6's further cases, the shapes the training paths give K1's backward
+# (B, L, dtype, masked columns, query rows): an SP slab of 150 of L=300 rows
+# (phase 20 (a)) and the PPFT learning run's DSM step (phase 18).
+K1_GRAD_PATH_CASES = [(4, 300, "float32", 0, 150), (4, 300, "bfloat16", 0, 150),
+                      (32, 56, "bfloat16", 0, None)]
 # Gradient tolerances x max|reference| of each gradient, the reference being
 # autograd through the plain version on the same values in f32: f32, sums
 # in another order; bf16, the same plus one rounding of the f32 gradient to
@@ -475,6 +492,12 @@ def only_routes(k1, **counts):
     return {**dict.fromkeys(k1.launches_by_route, 0), **counts}
 
 
+def only_bwd_routes(k1, **counts):
+    """K1's backward passes by backward route as ``counts`` on the routes
+    named and none on any other."""
+    return {**dict.fromkeys(k1.backward_calls_by_route, 0), **counts}
+
+
 def max_err(got, want):
     err = max((a.float() - b.float().to(a.device)).abs().max().item() for a, b in zip(got, want))
     scale = max(1.0, max(b.float().abs().max().item() for b in want))
@@ -514,7 +537,13 @@ def phase_build():
              "h4": f"Cp <= 32: {ptxas_summary(report, 'ipa_attention_h4_kernelILi32E')}; dynamic "
                    f"shared memory {lib.ipa_attention_h4_smem_bytes(32)} bytes at Cp=32 | Cp <= 64: "
                    f"{ptxas_summary(report, 'ipa_attention_h4_kernelILi64E')}"}
-    for route in ("tc_f32", "h4", "tc16", "tc16_f32"):
+    cols = lib.ipa_attention_bwd_cols_smem_bytes()
+    for route, t, smem in (("bwd_tc", "13__nv_bfloat16", lib.ipa_attention_bwd_tc_smem_bytes(256)),
+                           ("bwd_tc_f32", "f", lib.ipa_attention_bwd_tc_f32_smem_bytes(256))):
+        ptxas[route] = (f"rows: {ptxas_summary(report, f'bwd_rowsI{t}E')}; dynamic shared memory "
+                        f"{smem} bytes at Cp=256 | cols: {ptxas_summary(report, f'bwd_colsI{t}E')}; "
+                        f"dynamic shared memory {cols} bytes")
+    for route in ("tc_f32", "h4", "tc16", "tc16_f32", "bwd_tc", "bwd_tc_f32"):
         log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
 
@@ -799,10 +828,18 @@ def kernel_time_ms(fn):
     return prof.total_ms, prof.count
 
 
-def k1_bwd_bound(args, cts, grads):
-    """Least time for one backward call: bytes (inputs and cotangents read
-    once, gradients written once) over the HBM rate vs f32 operations over
-    the f32 peak (the backward computes in f32)."""
+def k1_bwd_bound(args, cts, grads, route="torch"):
+    """Least time for one backward call on ``route``: the larger of the bytes
+    (inputs and cotangents read once, gradients written once) over the HBM
+    rate and the design's operations over the peak of the units that run
+    them. On "torch" every operation is f32 on CUDA cores. The kernel routes
+    run the three x2d contractions (2 Cp operations each per head, row and
+    column) on tensor cores, each product as many times as it has terms
+    ("bwd_tc": a x2d and g x2d two bf16 terms, a g three; "bwd_tc_f32":
+    3xTF32, three TF32 terms each), and the rest in f32 on CUDA cores; the
+    two units' times are added. Returns the bound, what bounds it, the
+    bytes, the all-f32 operation count and the design's operations time
+    (ms)."""
     q_s, k_s, x2d = args[0], args[1], args[6]
     in_kernel = len(args) == 11 and args[10] is not None
     B, H, Lq, dk = q_s.shape
@@ -813,11 +850,19 @@ def k1_bwd_bound(args, cts, grads):
     # 20; d_qp, d_kp 48; d_x2d 2Cp; d_pa 1; d_vs 2dk, d_vp 48; the in-kernel
     # pair bias adds its recompute, d_w_pb and its d_x2d term, 2Cp each. Per
     # (b, h, i): g_wx2d and d_w_pv, 2 Cp dk each.
-    ops = (B * H * Lq * Lk * (10 * dk + (12 if in_kernel else 6) * cp + 217)
-           + 4 * B * H * Lq * cp * dk)
+    pairs = B * H * Lq * Lk
+    ops = pairs * (10 * dk + (12 if in_kernel else 6) * cp + 217) + 4 * B * H * Lq * cp * dk
+    f32_ms = lambda n: n / H100_OPS_PER_S["float32"] * 1e3
+    if route == "torch":
+        ops_ms = f32_ms(ops)
+    else:
+        terms, rate = {"bwd_tc": (2 + 2 + 3, H100_OPS_PER_S["bfloat16"]),
+                       "bwd_tc_f32": (3 + 3 + 3, H100_TF32_OPS_PER_S)}[route]
+        tensor_ops = pairs * 2 * cp * terms
+        ops_ms = tensor_ops / rate * 1e3 + f32_ms(ops - pairs * 6 * cp)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_OPS_PER_S["float32"] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+    return (max(t_bytes, ops_ms), ("bytes" if t_bytes >= ops_ms else "operations"), nbytes, ops,
+            ops_ms)
 
 
 def peak_mb(fn):
@@ -836,14 +881,25 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
     """One streamed case of K1's gradient on the card (``H`` heads, ``Lq``
     query rows of ``L`` columns: a row slab when fewer): the autograd
     Function against autograd through the plain version in f32 (fatal
-    beyond ``GRAD_TOL``), then forward and backward times beside their
-    bounds, the plain autograd backward's time and both peak memories."""
+    beyond ``GRAD_TOL``), its backward on ``backward_route``'s route (fatal
+    otherwise). On a kernel route ("bwd_tc", "bwd_tc_f32") the kernel's
+    gradients against ``ipa_attention_backward``'s (fatal beyond twice
+    ``GRAD_TOL``: each is within it of the f32 reference), its second call
+    equal to its first bit for bit (fatal otherwise), and the two timed in
+    turns (kernel, PyTorch, kernel, PyTorch), each with its device kernel
+    time and count. Then the
+    forward's and the route's backward times beside their bounds (the
+    backward's: ``k1_bwd_bound`` on its route, with its bytes bound, its
+    operations on the route's units and every operation in f32 on CUDA
+    cores printed), the plain autograd backward's time and both peak
+    memories."""
     import torch
 
     kw = K1_KW
     names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa")
     dtype = getattr(torch, dname)
     Lq = L if Lq is None else Lq
+    route = k1.backward_route(dtype, H, 16, 256, True)
     args = k1_inputs(B, L, dtype, gen, masked, H=H, Lq=Lq)
     leaves = [t.clone().requires_grad_(n != "bias") for n, t in zip(names, args)]
     diff = [t for n, t in zip(names, leaves) if n != "bias"]
@@ -852,11 +908,14 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
         for shape, dt in (((B, H, Lq, 16), dtype), ((B, H, Lq, 24), torch.float32),
                           ((B, H, Lq, 16), dtype))
     )
-    before = k1.launches
+    before, bwd_before = k1.launches, dict(k1.backward_calls_by_route)
     outs = k1.ipa_attention(*leaves, **kw)
     if k1.launches != before + 1 or any(o.grad_fn is None for o in outs):
         raise AssertionError("ipa_attention on CUDA tensors did not launch or lost autograd history")
     got = torch.autograd.grad(outs, diff, cts)
+    if k1.backward_calls_by_route != {**bwd_before, route: bwd_before[route] + 1}:
+        raise AssertionError(f"autograd's backward left the {route!r} route: "
+                             f"{k1.backward_calls_by_route} after {bwd_before}")
     ref = [t.detach().float().requires_grad_(n != "bias") for n, t in zip(names, args)]
     want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **kw),
                                [t for n, t in zip(names, ref) if n != "bias"],
@@ -875,32 +934,67 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
     del ref, want
     plain_outs = k1.ipa_attention_plain(*leaves, **kw)
     plain_args = [t.detach() for t in leaves]
+    sw, pw = kw["scalar_w"], kw["pair_w"]
     with torch.no_grad():
         fwd_ms = cuda_time_ms(lambda: k1.ipa_attention(*plain_args, **kw), reps=20)
         grads = k1.ipa_attention_backward(plain_args, cts, **kw)
-        bwd_ms = cuda_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw), reps=10)
+
+        def pytorch_bwd():
+            return k1.ipa_attention_backward(plain_args, cts, **kw)
+
+        if route == "torch":
+            bwd_ms = torch_ms = cuda_time_ms(pytorch_bwd, reps=10)
+            kernel_ms, kernels = torch_kernel_ms, torch_kernels = kernel_time_ms(pytorch_bwd)
+            vs_torch, identical, detail = None, None, ""
+        else:
+            def kernel_bwd():
+                return k1._launch_backward(plain_args, cts, sw, pw, counted=False)
+
+            first, second = kernel_bwd(), kernel_bwd()
+            identical = all(a is None and b is None or torch.equal(a, b)
+                            for a, b in zip(first, second))
+            vs_torch = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                           for a, b in zip(first, grads) if a is not None)
+            del first, second
+            times = [cuda_time_ms(fn, reps=10) for fn in (kernel_bwd, pytorch_bwd) * 2]
+            bwd_ms, torch_ms = (times[0] + times[2]) / 2, (times[1] + times[3]) / 2
+            kernel_ms, kernels = kernel_time_ms(kernel_bwd)
+            torch_kernel_ms, torch_kernels = kernel_time_ms(pytorch_bwd)
+            detail = (f"; the PyTorch backward (ipa_attention_backward) ms={torch_ms:.4f} "
+                      f"({times[1]:.4f}, {times[3]:.4f}; {torch_ms / bwd_ms:.2f}x the kernel's), "
+                      f"device kernel time {torch_kernel_ms:.4f} ms in {torch_kernels} kernels; "
+                      f"kernel against it: largest gradient error {vs_torch:.2e} x its max "
+                      f"(tol {2 * GRAD_TOL[dname]:.2e}); second kernel call "
+                      + ("bit for bit equal to the first" if identical else "DIFFERS from the first"))
     plain_bwd_ms = cuda_time_ms(
         lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
-    bwd_kernel_ms, bwd_kernels = kernel_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw))
     fwd_bound, fwd_by, _, _ = k1_bound(plain_args, outs, dname)
-    bwd_bound, bwd_by, nbytes, ops = k1_bwd_bound(plain_args, cts, grads)
+    bwd_bound, bwd_by, nbytes, ops, design_ms = k1_bwd_bound(plain_args, cts, grads, route)
+    bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_OPS_PER_S["float32"] * 1e3
     del plain_outs, outs, got
     mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention(*leaves, **kw), diff, cts))
     plain_mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention_plain(*leaves, **kw), diff, cts))
     log(
-        f"[k1-grad] H={H} B={B} Lq={Lq} L={L} {dname} masked_cols={masked} "
-        f"({len(k1._row_chunks(Lq, 128))} row chunks): gradient errors x max|f32 reference| "
+        f"[k1-grad] H={H} B={B} Lq={Lq} L={L} {dname} masked_cols={masked} backward route "
+        f"{route}: gradient errors x max|f32 reference| "
         + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
-        + f" (tol {GRAD_TOL[dname]:.2e}); forward "
-        f"ms={fwd_ms:.4f} bound_ms={fwd_bound:.4f} ({fwd_by}); backward ms={bwd_ms:.4f} "
-        f"bound_ms={bwd_bound:.4f} ({bwd_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32), "
-        f"of which device kernel time {bwd_kernel_ms:.4f} ms in {bwd_kernels} kernels; "
-        f"plain autograd backward ms={plain_bwd_ms:.4f}; peak memory of forward + backward "
+        + f" (tol {GRAD_TOL[dname]:.2e}); forward ms={fwd_ms:.4f} bound_ms={fwd_bound:.4f} "
+        f"({fwd_by}); backward ({route}) ms={bwd_ms:.4f}, device kernel time {kernel_ms:.4f} ms "
+        f"in {kernels} kernels{detail}; backward bound_ms={bwd_bound:.4f} ({bwd_by}; the route's "
+        f"operations on their units {design_ms:.4f} ms, bytes {nbytes / 1e6:.1f} MB {bytes_ms:.4f} "
+        f"ms; all {ops / 1e9:.2f} GFLOP in f32 on CUDA cores {ops_ms:.4f} ms); plain autograd backward ms={plain_bwd_ms:.4f}; peak memory of forward + backward "
         f"{mem:.1f} MB, plain autograd {plain_mem:.1f} MB"
     )
+    if route != "torch" and not (identical and vs_torch <= 2 * GRAD_TOL[dname]):
+        raise AssertionError(f"the {route} kernel is not deterministic or disagrees with "
+                             f"ipa_attention_backward ({vs_torch:.3e})")
     return dict(
         max_abs_err=abs_err, max_rel_err=rel[worst], fwd_ms=fwd_ms, ms=bwd_ms, plain_ms=plain_bwd_ms,
-        bound_ms=bwd_bound, bound_by=bwd_by,
+        bound_ms=bwd_bound, bound_by=bwd_by, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+        design_ops_ms=design_ms,
+        route=route, torch_ms=torch_ms, kernel_ms=kernel_ms, kernels=kernels,
+        torch_kernel_ms=torch_kernel_ms, torch_kernels=torch_kernels, peak_mb=mem,
+        plain_peak_mb=plain_mem,
     )
 
 
@@ -908,8 +1002,9 @@ def phase_kernel_grad(k1):
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    return {(B, L, dname): _grad_case(k1, gen, B, L, dname, masked)
-            for B, L, dname, masked in K1_GRAD_CASES}
+    cases = [(*c, None) for c in K1_GRAD_CASES] + K1_GRAD_PATH_CASES
+    return {(B, L, dname, Lq or L): _grad_case(k1, gen, B, L, dname, masked, Lq=Lq)
+            for B, L, dname, masked, Lq in cases}
 
 
 def phase_dsm_grad(k1):
@@ -1008,15 +1103,19 @@ def phase_train_path(k1, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, backwards, routes = k1.launches, k1.backward_calls, dict(k1.launches_by_route)
+    bwd_routes = dict(k1.backward_calls_by_route)
     losses = [json.loads(x)["loss"] for x in (full / "train_log.jsonl").read_text().splitlines()]
     log(f"[train] train CLI, 2 ensembles (L=64 bucket), bioemu-v1.0 widths, bf16, batch "
         f"{TRAIN_BATCH}, {TRAIN_STEPS} steps: {wall:.2f} s with set-up; loss at steps 10/20/30 "
         f"{losses}; K1 launches {launches} (by route {routes}), K1 backward passes {backwards} "
-        f"(expected {N_LAYERS * TRAIN_STEPS} each, every launch on the tensor-core route); {card}")
+        f"(by route {bwd_routes}; expected {N_LAYERS * TRAIN_STEPS} each, every launch on the "
+        f"tensor-core route, every backward on the kernel bwd_tc); {card}")
     if launches != N_LAYERS * TRAIN_STEPS or backwards != N_LAYERS * TRAIN_STEPS:
         raise AssertionError(f"training launched K1 {launches} times and ran {backwards} backwards")
     if routes != only_routes(k1, tc=launches):
         raise AssertionError(f"bf16 training launches left the tensor-core route: {routes}")
+    if bwd_routes != only_bwd_routes(k1, bwd_tc=backwards):
+        raise AssertionError(f"bf16 training's backward left the kernel route: {bwd_routes}")
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite training loss")
 
@@ -1068,7 +1167,7 @@ def phase_train_path(k1, card):
         raise AssertionError("score evaluation from the exported weights failed")
     log(f"[train] export {full.relative_to(REPO)}/params.npz + config.yaml loads through "
         f"load_bundle; one bf16 score evaluation from it is finite")
-    return launches, backwards
+    return launches, backwards, bwd_routes
 
 
 def phase_train_throughput(k1, card):
@@ -1115,6 +1214,7 @@ def phase_train_throughput(k1, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
+    bwd_before = dict(k1.backward_calls_by_route)
     for i in range(3, 13):
         t0 = time.perf_counter()
         loss = step(i)
@@ -1122,9 +1222,13 @@ def phase_train_throughput(k1, card):
         times.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = float(np.median(times))
+    bwd_routes = {k: n - bwd_before[k] for k, n in k1.backward_calls_by_route.items()}
     log(f"[train-step] L={L} B={B} bf16 full width, 10 timed steps: median {med * 1e3:.2f} ms, "
         f"min {min(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms; loss {loss.item():.4f}; "
-        f"peak device memory {peak_gb:.2f} GB; {card}")
+        f"peak device memory {peak_gb:.2f} GB; K1 backward passes by route {bwd_routes} "
+        f"(expected {10 * N_LAYERS} on bwd_tc); {card}")
+    if bwd_routes != only_bwd_routes(k1, bwd_tc=10 * N_LAYERS):
+        raise AssertionError(f"the train step's K1 backward left the kernel route: {bwd_routes}")
 
     # Forward / backward / optimizer split, by CUDA events, over 5 steps:
     # the three parts train_step is made of, called in its order.
@@ -1146,9 +1250,10 @@ def phase_train_throughput(k1, card):
         + ", ".join(f"{k} {v:.2f} ms" for k, v in split_ms.items()))
 
     # One profiled step, train_step's three parts with labels; the K1
-    # backward is labelled without touching the library. A CPU-side label's
+    # backward is labelled where autograd dispatches it (k1._backward, on
+    # either route), without touching the library. A CPU-side label's
     # device time is the kernel time of what was launched under it.
-    bwd = k1.ipa_attention_backward
+    bwd = k1._backward
 
     def labelled(*a, **kw):
         with record_function("ipa_attention_backward"):
@@ -1161,22 +1266,30 @@ def phase_train_throughput(k1, card):
         with record_function("optimizer"):
             step_update(model, opt, lr=cfg.lr, grad_clip=cfg.grad_clip)
 
-    with mock.patch.object(k1, "ipa_attention_backward", labelled):
+    with mock.patch.object(k1, "_backward", labelled):
         prof = profile_device(labelled_step, labels=("forward", "optimizer", "ipa_attention_backward"))
     kernels = [(r.name, r.total_ms, r.count) for r in prof.rows]
     total = prof.total_ms
     if not total > 0:
         raise AssertionError("the profiler recorded no device time for the train step")
 
+    # Kernels launched through ctypes (the library carries its own CUDA
+    # runtime) fall under no label: K1's forward kernel and the backward
+    # kernel's bwd_rows / bwd_cols are added to their labels by name (in
+    # run 1 of PR 16 the backward's label alone held 0.94 ms of 8 calls).
     k1_fwd = sum(t for k, t, _ in kernels if "ipa_attention" in k)
-    fwd, opt_ms, k1_bwd = (prof.labels[k] for k in ("forward", "optimizer", "ipa_attention_backward"))
+    k1_bwd_own = sum(t for k, t, _ in kernels if "bwd_rows" in k or "bwd_cols" in k)
+    fwd_label, opt_ms, bwd_label = (prof.labels[k] for k in ("forward", "optimizer",
+                                                             "ipa_attention_backward"))
+    fwd, k1_bwd = fwd_label + k1_fwd, bwd_label + k1_bwd_own
     bwd_ms = total - fwd - opt_ms
     log(f"[train-profile] one step: device kernel time {total:.2f} ms in "
         f"{sum(n for _, _, n in kernels)} kernels, busy "
         f"{100 * total / (med * 1e3):.1f}% of the median unprofiled step; forward (noise "
         f"included) {fwd:.2f} ms, backward {bwd_ms:.2f} ms ({100 * bwd_ms / total:.1f}%), "
         f"optimizer {opt_ms:.2f} ms; K1 forward kernel {k1_fwd:.2f} ms ({100 * k1_fwd / total:.1f}%), "
-        f"K1 backward (8 calls, PyTorch) {k1_bwd:.2f} ms ({100 * k1_bwd / total:.1f}%)")
+        f"K1 backward (8 calls, route bwd_tc) {k1_bwd:.2f} ms ({100 * k1_bwd / total:.1f}%: "
+        f"bwd_rows and bwd_cols {k1_bwd_own:.2f} ms, the ops around them {bwd_label:.2f} ms)")
     for key, t, n in kernels[:12]:
         log(f"[train-profile]   {t:8.2f} ms {100 * t / total:5.1f}%  x{n:<5d} {key[:90]}")
     value = B * 3600.0 / med
@@ -1515,7 +1628,7 @@ def phase_inkernel(k1, ptxas):
             bwd_ms = cuda_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw), reps=10)
         plain_bwd_ms = cuda_time_ms(
             lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
-        bwd_bound, bwd_by, nbytes, ops = k1_bwd_bound(plain_args, cts, grads)
+        bwd_bound, bwd_by, nbytes, ops, _ = k1_bwd_bound(plain_args, cts, grads)
         log(f"[k1-inkernel] gradients has_pa=False B={B} L={L} H={H} {dname} masked_cols={masked}: "
             "errors x max|f32 reference| " + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
             + f" (tol {GRAD_TOL[dname]:.2e}); backward ms={bwd_ms:.4f} bound_ms={bwd_bound:.4f} "
@@ -1573,14 +1686,20 @@ def _reset_k1(k1):
     k1.launches = k1.backward_calls = 0
     k1.launches_by_variant.update(pa=0, w_pb=0)
     k1.launches_by_route.update(dict.fromkeys(k1.launches_by_route, 0))
+    k1.backward_calls_by_route.update(dict.fromkeys(k1.backward_calls_by_route, 0))
 
 
 def _check_ppft_routes(k1, launches):
     """The score model's streamed bf16 launches take the tensor-core route,
-    the control net's in-kernel f32 launches at 4 heads the "h4" design."""
+    the control net's in-kernel f32 launches at 4 heads the "h4" design;
+    every backward pass is the control net's (the score model is frozen),
+    on the PyTorch backward ("torch")."""
     routes = dict(k1.launches_by_route)
     if routes != only_routes(k1, tc=launches["pa"], h4=launches["w_pb"]):
         raise AssertionError(f"PPFT launches by route {routes} do not follow their variants {launches}")
+    bwd_routes = dict(k1.backward_calls_by_route)
+    if bwd_routes != only_bwd_routes(k1, torch=k1.backward_calls):
+        raise AssertionError(f"PPFT backward passes by route {bwd_routes}: expected all on torch")
     return routes
 
 
@@ -2108,7 +2227,8 @@ def phase_ppft_learn(k1, ptxas, card):
 
     def counted_train_dsm(*a, **kw):
         out = train_dsm(*a, **kw)
-        dsm.update(launches=k1.launches, routes=dict(k1.launches_by_route), backwards=k1.backward_calls)
+        dsm.update(launches=k1.launches, routes=dict(k1.launches_by_route), backwards=k1.backward_calls,
+                   bwd_routes=dict(k1.backward_calls_by_route))
         return out
 
     _reset_k1(k1)
@@ -2131,8 +2251,9 @@ def phase_ppft_learn(k1, ptxas, card):
         f"{prior_wall:.2f} s with set-up, median step {summary['dsm_step_ms']:.2f} ms; logged losses "
         f"{json.loads((d / 'prior.json').read_text())['loss_history']}, {len(losses)} step losses "
         f"{'all finite' if all_finite else 'NOT all finite'}; K1 launches {dsm['launches']} "
-        f"(by route {dsm['routes']}), backward passes {dsm['backwards']} (expected "
-        f"{N_LAYERS * steps} each: {N_LAYERS} a step, every launch on tc); sample check "
+        f"(by route {dsm['routes']}), backward passes {dsm['backwards']} (by route "
+        f"{dsm['bwd_routes']}; expected {N_LAYERS * steps} each: {N_LAYERS} a step, every launch on "
+        f"tc, every backward on bwd_tc); sample check "
         f"({LEARN_CHECK_BATCH} WT structures, dpm_solver-{LEARN_CHECK[0]}) {check_launches} launches "
         f"(expected {expect_check}), sampled h mean {sampled['mean']:.4g}, q {sampled['quantiles']}; "
         f"ensemble h mean {summary['ensemble_h']['mean']:.4g}; {card}")
@@ -2142,6 +2263,8 @@ def phase_ppft_learn(k1, ptxas, card):
         raise AssertionError("DSM K1 launches or backward passes are not 8 a step")
     if routes != only_routes(k1, tc=launches) or backwards != dsm["backwards"]:
         raise AssertionError(f"the pretraining run's launches left the tensor-core route: {routes}")
+    if dsm["bwd_routes"] != only_bwd_routes(k1, bwd_tc=dsm["backwards"]):
+        raise AssertionError(f"the pretraining run's backward left bwd_tc: {dsm['bwd_routes']}")
     if check_launches != expect_check:
         raise AssertionError("the sample check's K1 launches are not the expected count")
     q = sampled["quantiles"]
@@ -2213,18 +2336,17 @@ def phase_ppft_learn(k1, ptxas, card):
         raise AssertionError("PPFT K1 launches or backward passes are not the expected counts")
     scripts_wall = time.perf_counter() - t_phase
 
-    # The DSM step's K1 shape, forward and backward, for PERF.md's table.
+    # The DSM step's K1 forward for PERF.md's table (its backward is phase
+    # 6's K1_GRAD_PATH_CASES).
     fwd = _forward_case(k1, ptxas, torch.Generator(device=DEVICE).manual_seed(12),
                         LEARN_DSM_BATCH, L, "bfloat16", 0)
-    bwd = _grad_case(k1, torch.Generator(device=DEVICE).manual_seed(13),
-                     LEARN_DSM_BATCH, L, "bfloat16", 0)
     wall = time.perf_counter() - t_phase
     log(f"[ppft-learn] DSM step {summary['dsm_step_ms']:.2f} ms, update {update_s:.3f} s; the two "
         f"scripts {scripts_wall:.1f} s (limit {LEARN_PHASE_LIMIT_S:.0f} s), the phase with the "
         f"B={LEARN_DSM_BATCH} L={L} K1 timings {wall:.1f} s; {card}")
     return dict(dsm_launches=dsm["launches"], dsm_backwards=dsm["backwards"],
                 check_launches=check_launches, ppft_launches=launches, ppft_backwards=ppft_backwards,
-                fwd=fwd, bwd=bwd)
+                fwd=fwd)
 
 
 def _h16_case(k1, ptxas, gen, B, Lq, Lk, cp, dname, masked=0, tag="k1-h16"):
@@ -2384,7 +2506,8 @@ def phase_mesh_train(k1, ptxas, card):
                 sum(int(m.sum()) for m in held.values()), sum(m.size for m in held.values()))
 
     readings = {}
-    for i, (name, route) in enumerate((("data=2", "tc_f32"), ("model=2", "tc16_f32"))):
+    for i, (name, route, bwd_route) in enumerate((("data=2", "tc_f32", "bwd_tc_f32"),
+                                                  ("model=2", "tc16_f32", "torch"))):
         outs = [r[i] for r in ranks]
         o = outs[0]
         grad_tol = MESH_GRAD_TOL[name]
@@ -2393,7 +2516,8 @@ def phase_mesh_train(k1, ptxas, card):
         step_ms = float(np.median(o["step_ms"]))
         for r, x in enumerate(outs):
             log(f"[mesh-train] (a) {name} rank {r}: K1 launches by route {x['launches_by_route']}, "
-                f"backward passes {x['backward_calls']} (expected {N_LAYERS} each, on {route}); "
+                f"backward passes {x['backward_calls']} by route {x['backward_calls_by_route']} "
+                f"(expected {N_LAYERS} each, on {route} and {bwd_route}); "
                 f"step ms {', '.join(f'{t:.1f}' for t in x['step_ms'])}; all-reduces a step "
                 f"{x['all_reduces']:.0f}, their wall with the wait for the other rank "
                 f"{x['all_reduce_ms']:.1f} ms")
@@ -2422,12 +2546,15 @@ def phase_mesh_train(k1, ptxas, card):
         if not ok:
             raise AssertionError(f"the {name} step disagrees with one process")
         for x in outs:
-            if x["launches_by_route"] != {**zero, route: N_LAYERS} or x["backward_calls"] != N_LAYERS:
+            if (x["launches_by_route"] != {**zero, route: N_LAYERS} or x["backward_calls"] != N_LAYERS
+                    or x["backward_calls_by_route"] != only_bwd_routes(k1, **{bwd_route: N_LAYERS})):
                 raise AssertionError(f"the {name} step launched K1 {x['launches_by_route']} "
-                                     f"with {x['backward_calls']} backward passes")
+                                     f"with backward passes {x['backward_calls_by_route']}")
         readings[name] = dict(step_ms=step_ms, all_reduce_ms=o["all_reduce_ms"],
                               launches=sum(x["launches_by_route"][route] for x in outs),
-                              backwards=sum(x["backward_calls"] for x in outs))
+                              backwards=sum(x["backward_calls"] for x in outs),
+                              bwd_route=bwd_route,
+                              bwd_launches=sum(x["backward_calls_by_route"][bwd_route] for x in outs))
 
     # (b) The CLI's rank function: full run, interrupted run, resume.
     runs = [[r[j] for r in ranks] for j in (2, 3, 4)]
@@ -2437,8 +2564,10 @@ def phase_mesh_train(k1, ptxas, card):
             log(f"[mesh-train] (b) model={MESH_RANKS} bf16 B={TRAIN_BATCH} L=64, {label}, rank "
                 f"{x['rank']}: {x['wall_s']:.1f} s with set-up; logged losses {x['history']}; K1 "
                 f"launches by route {x['launches_by_route']}, backward passes "
-                f"{x['backward_calls']} (expected {n} each, on tc16)")
-            if x["launches_by_route"] != {**zero, "tc16": n} or x["backward_calls"] != n:
+                f"{x['backward_calls']} by route {x['backward_calls_by_route']} (expected {n} each, "
+                f"on tc16 and torch)")
+            if (x["launches_by_route"] != {**zero, "tc16": n} or x["backward_calls"] != n
+                    or x["backward_calls_by_route"] != only_bwd_routes(k1, torch=n)):
                 raise AssertionError(f"the CLI rank ({label}) launched K1 {x['launches_by_route']}")
     if not all(np.isfinite(x["history"]).all() for x in runs[0]):
         raise AssertionError("non-finite loss in the mesh run")
@@ -2521,7 +2650,6 @@ def phase_sp_pp_train(k1, ptxas, card):
     t_phase = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(20)
     new = {case: _forward_case(k1, ptxas, gen, *case, 0) for case in NEW_K1_CASES}
-    slab_bwd = _grad_case(k1, gen, SPT_B, SPT_L, "float32", 0, Lq=SPT_L // 2)
 
     so3 = dict(BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache"))
     sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**so3, device=DEVICE))
@@ -2597,8 +2725,8 @@ def phase_sp_pp_train(k1, ptxas, card):
     same = all(np.array_equal(x["grads"][k], sp[0]["grads"][k]) for x in sp[1:] for k in grads)
     for x in sp:
         log(f"[sp-pp-train] (a) SP rank rows {x['rows']}: K1 launches by route "
-            f"{x['launches_by_route']}, backward passes {x['backward_calls']} (expected "
-            f"{N_LAYERS} each, on tc_f32)")
+            f"{x['launches_by_route']}, backward passes {x['backward_calls']} by route "
+            f"{x['backward_calls_by_route']} (expected {N_LAYERS} each, on tc_f32 and bwd_tc_f32)")
     log(f"[sp-pp-train] (a) SP f32 full width B={SPT_B} L={SPT_L}, one step against this "
         f"process's: loss {sp[0]['loss']:.6f} vs {loss:.6f} rel_err={loss_err:.2e} (tol "
         f"{SPPP_LOSS_TOL:.0e}); clipped gradients max_rel_err={g_err:.2e} ({g_key}; tol "
@@ -2607,7 +2735,8 @@ def phase_sp_pp_train(k1, ptxas, card):
         raise AssertionError("the SP step disagrees with one process")
     for x in sp:
         if (x["launches_by_route"] != {**zero, "tc_f32": N_LAYERS}
-                or x["backward_calls"] != N_LAYERS):
+                or x["backward_calls"] != N_LAYERS
+                or x["backward_calls_by_route"] != only_bwd_routes(k1, bwd_tc_f32=N_LAYERS)):
             raise AssertionError(f"the SP step launched K1 {x['launches_by_route']} with "
                                  f"{x['backward_calls']} backward passes")
 
@@ -2639,9 +2768,9 @@ def phase_sp_pp_train(k1, ptxas, card):
     n_step = 2 * PP_M * layers_a_stage
     for x in pps:
         log(f"[sp-pp-train] (b) PP step stage {x['stage']}: K1 launches by route "
-            f"{x['launches_by_route']}, backward passes {x['backward_calls']} (expected {n_step} "
-            f"forward launches, the backward's recompute included, and {n_step // 2} backward "
-            "passes, on tc_f32)")
+            f"{x['launches_by_route']}, backward passes {x['backward_calls']} by route "
+            f"{x['backward_calls_by_route']} (expected {n_step} forward launches, the backward's "
+            f"recompute included, on tc_f32, and {n_step // 2} backward passes on bwd_tc_f32)")
     log(f"[sp-pp-train] (b) PP f32 step against this process's: loss {pps[0]['losses'][0]:.6f} vs "
         f"{loss:.6f} rel_err={loss_err:.2e} (tol {SPPP_LOSS_TOL:.0e}); clipped gradients "
         f"max_rel_err={g_err:.2e} ({g_key}; tol {SPPP_TOL:.0e} x each one's largest entry); {card}")
@@ -2649,7 +2778,8 @@ def phase_sp_pp_train(k1, ptxas, card):
         raise AssertionError("the PP step disagrees with one process")
     for x in pps:
         if (x["launches_by_route"] != {**zero, "tc_f32": n_step}
-                or x["backward_calls"] != n_step // 2):
+                or x["backward_calls"] != n_step // 2
+                or x["backward_calls_by_route"] != only_bwd_routes(k1, bwd_tc_f32=n_step // 2)):
             raise AssertionError(f"the PP step launched K1 {x['launches_by_route']}")
     bf = [r[3] for r in ranks]
     gaps = [abs(a - b) / abs(b) for a, b in zip(bf[0]["losses"], ref["bf16"])]
@@ -2658,19 +2788,23 @@ def phase_sp_pp_train(k1, ptxas, card):
         + ", ".join(f"{b:.5f}" for b in ref["bf16"])
         + f"; largest gap {max(gaps):.2e} relative (tol {PP_BF16_RTOL:.0e}); first step's K1 "
         f"launches by route {bf[0]['launches_by_route']}, backward passes "
-        f"{bf[0]['backward_calls']} a rank (expected {n_step} on tc, {n_step // 2})")
+        f"{bf[0]['backward_calls']} a rank by route {bf[0]['backward_calls_by_route']} (expected "
+        f"{n_step} on tc, {n_step // 2} on bwd_tc)")
     if (max(gaps) > PP_BF16_RTOL or not all(x["losses"] == bf[0]["losses"] for x in bf)
             or any(x["launches_by_route"] != {**zero, "tc": n_step} for x in bf)
+            or any(x["backward_calls_by_route"] != only_bwd_routes(k1, bwd_tc=n_step // 2)
+                   for x in bf)
             or not np.isfinite(bf[0]["losses"]).all()):
         raise AssertionError("the PP bf16 steps disagree with one process")
     wall = time.perf_counter() - t_phase
     log(f"[sp-pp-train] phase wall {wall:.1f} s (the spawn {spawn_s:.1f} s); {card}")
-    return dict(new=new, slab_bwd=slab_bwd,
+    return dict(new=new,
                 sp_launches=sum(x["launches_by_route"]["tc_f32"] for x in sp),
                 sp_backwards=sum(x["backward_calls"] for x in sp),
                 pp_launches=sum(x["launches_by_route"]["tc_f32"] for x in fwd + pps),
                 pp_backwards=sum(x["backward_calls"] for x in pps),
-                pp_bf16_launches=sum(x["launches_by_route"]["tc"] for x in bf))
+                pp_bf16_launches=sum(x["launches_by_route"]["tc"] for x in bf),
+                pp_bf16_backwards=sum(x["backward_calls_by_route"]["bwd_tc"] for x in bf))
 
 
 def _analytic_model(sdes):
@@ -3112,6 +3246,27 @@ def _h16_entry(case, l77, bwd):
     }
 
 
+def _bwd_keys(prefix, case):
+    """A backward case's readings for the kernels line, under ``prefix``."""
+    return {f"{prefix}_{k}": case[k] for k in ("ms", "torch_ms", "plain_ms", "bound_ms", "bound_by",
+                                                "bytes_bound_ms", "max_rel_err", "peak_mb")}
+
+
+def _bwd_entry(case):
+    """The kernels line's readings of a backward kernel at its main shape:
+    ``ms`` the kernel's (timed in turns with the PyTorch backward,
+    ``torch_ms``), ``plain_ms`` autograd through the plain version,
+    ``bound_ms`` the larger of the bytes bound (``bytes_bound_ms``) and the
+    design's operations on their units (``design_ops_ms``; ``ops_bound_ms``
+    every operation in f32 on CUDA cores), the device kernel time and count of
+    each, and peak memory of the Function's forward and backward against
+    plain autograd's."""
+    keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bytes_bound_ms", "design_ops_ms", "ops_bound_ms", "torch_ms", "kernel_ms", "kernels",
+            "torch_kernel_ms", "torch_kernels", "peak_mb", "plain_peak_mb")
+    return {**{k: case[k] for k in keys}, "library_ms": None, "verdict": "pass"}
+
+
 def main() -> int:
     try:
         import torch
@@ -3146,7 +3301,7 @@ def main() -> int:
     del bundle
     grad_results = phase_kernel_grad(k1)
     phase_dsm_grad(k1)
-    train_launches, train_backwards = phase_train_path(k1, card)
+    train_launches, train_backwards, train_bwd_routes = phase_train_path(k1, card)
     phase_train_throughput(k1, card)
     slab_results = phase_sp_kernel(k1)
     sp_rank_launches = phase_parallel(k1, card)
@@ -3175,7 +3330,8 @@ def main() -> int:
     main_case = k1_results[K1_CASES[0][:3]]
     ppft_case = k1_results[(256, 56, "bfloat16")]
     f32_case, f32_ppft, f32_train = (k1_results[(B, L, "float32")] for B, L in ((40, 100), (256, 56), (16, 100)))
-    bwd_case = grad_results[K1_GRAD_CASES[0][:3]]
+    bwd_case = grad_results[(TRAIN_BATCH, 100, "bfloat16", 100)]
+    bwd_f32 = grad_results[(TRAIN_BATCH, 100, "float32", 100)]
     sp_case = slab_results[SLAB_CASES[0]]
     h4_case = inkernel[(PPFT_BATCH, 56, 4, 32, "float32", False)]
     ft_case = inkernel[(PPFT_BATCH, 56, 4, 32, "float32", True)]
@@ -3250,10 +3406,11 @@ def main() -> int:
         "h4_plain_ms": h4_case["plain_ms"],
         "h4_bound_ms": h4_case["bound_ms"],
         "h4_bound_by": h4_case["bound_by"],
-        # The backward (B=16, L=100, bf16) is PyTorch: the JAX package's is XLA
-        # code. backward_calls: autograd's backward passes in the training run.
-        "backward_route": "torch",
-        "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        # The backward (B=16, L=100, bf16) is the kernel "bwd_tc" (its own
+        # entry below); backward_calls: autograd's backward passes in the
+        # training run.
+        "backward_route": bwd_case["route"],
+        "backward_source": "se3diff_torch/csrc/ipa_attention_bwd_tc.cu",
         "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
         "backward_calls": train_backwards,
         "backward_max_abs_err": bwd_case["max_abs_err"],
@@ -3263,11 +3420,6 @@ def main() -> int:
         "backward_bound_ms": bwd_case["bound_ms"],
         "backward_bound_by": bwd_case["bound_by"],
         "backward_calls_ppft_learn_dsm": learn["dsm_backwards"],
-        "backward_B32_L56_ms": learn["bwd"]["ms"],
-        "backward_B32_L56_plain_ms": learn["bwd"]["plain_ms"],
-        "backward_B32_L56_bound_ms": learn["bwd"]["bound_ms"],
-        "backward_B32_L56_bound_by": learn["bwd"]["bound_by"],
-        "backward_B32_L56_max_rel_err": learn["bwd"]["max_rel_err"],
         # Phase 21: a Picard sweep of em-200 at B=1 (K1 at B=200), launches
         # of one run at each sweep count; phase 20 (b): the bf16 PP step's
         # microbatch (B=4), its first step summed over the 2 stages.
@@ -3353,17 +3505,13 @@ def main() -> int:
         "h4_bound_ms": inkernel["sp_h4"]["bound_ms"],
         "h4_prev_ms": inkernel["sp_h4"]["prev_ms"],
         # Phase 20 (a): the f32 SP DSM step (150-row slabs of L=300 on
-        # tc_f32), summed over its 2 ranks, and K1's backward on one slab.
+        # tc_f32), summed over its 2 ranks; the backward on one slab is
+        # ipa_attention_backward_f32's B4_L300_rows150 readings (phase 6).
         "launches_sp_train": sppp["sp_launches"],
         "backward_calls_sp_train": sppp["sp_backwards"],
-        "backward_route": "torch",
-        "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        "backward_route": grad_results[(4, 300, "float32", 150)]["route"],
+        "backward_source": "se3diff_torch/csrc/ipa_attention_bwd_tc.cu",
         "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
-        "backward_ms": sppp["slab_bwd"]["ms"],
-        "backward_plain_ms": sppp["slab_bwd"]["plain_ms"],
-        "backward_bound_ms": sppp["slab_bwd"]["bound_ms"],
-        "backward_bound_by": sppp["slab_bwd"]["bound_by"],
-        "backward_max_rel_err": sppp["slab_bwd"]["max_rel_err"],
     }, {
         "name": "ipa_attention_in_kernel_pair_bias",
         "route": "cuda",
@@ -3460,6 +3608,42 @@ def main() -> int:
         "backward_source": "se3diff_torch/ops/ipa_attention.py",
         "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
         "backward_calls": bench["train_backwards"],
+    }, {
+        # K1's backward at 32 heads with the streamed pair bias in bf16 (route
+        # bwd_tc): autograd's backward passes in the train CLI's run (phase 8),
+        # and at the train step's shape (B=16, L=100) its gradients against
+        # autograd of the plain version, timed in turns with the PyTorch
+        # backward (torch_ms). No Pallas kernel: "replaces" is the XLA
+        # backward behind fused_ipa_attention_diff's custom VJP.
+        "name": "ipa_attention_backward",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_bwd_tc.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "launches": train_bwd_routes["bwd_tc"],
+        **_bwd_entry(bwd_case),
+        # The PPFT learning run's DSM steps (phase 18), the bf16 PP step's
+        # first step summed over its 2 stages (phase 20 (b)), and phase 6's
+        # further shapes.
+        "launches_ppft_learn_dsm": learn["dsm_backwards"],
+        "launches_pp_bf16_step": sppp["pp_bf16_backwards"],
+        **_bwd_keys("B32_L56", grad_results[(LEARN_DSM_BATCH, LEARN_L, "bfloat16", LEARN_L)]),
+        **_bwd_keys("B4_L300_rows150", grad_results[(4, 300, "bfloat16", 150)]),
+        **_bwd_keys("B16_L77_masked", grad_results[(TRAIN_BATCH, 77, "bfloat16", 77)]),
+        **_bwd_keys("B4_L200", grad_results[(4, 200, "bfloat16", 200)]),
+    }, {
+        # The same in f32 (route bwd_tc_f32, the train CLI's default dtype):
+        # the data=2 mesh step (phase 19 (a)), summed over its 2 ranks; the
+        # SP and PP f32 steps (phase 20).
+        "name": "ipa_attention_backward_f32",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_bwd_tc.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "launches": mesh["readings"]["data=2"]["bwd_launches"],
+        **_bwd_entry(bwd_f32),
+        "launches_sp_train": sppp["sp_backwards"],
+        "launches_pp": sppp["pp_backwards"],
+        **_bwd_keys("B4_L300_rows150", grad_results[(4, 300, "float32", 150)]),
+        **_bwd_keys("B16_L77_masked", grad_results[(TRAIN_BATCH, 77, "float32", 77)]),
     }]}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels))

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Where the time of K1's backward kernel goes, by kernel, on one H100.
+
+    python3 scripts/k1_bwd_parts.py
+
+from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
+CUDA build of PyTorch. Builds the IPA attention library, then for each
+shape the training paths give the backward (32 heads of 16, Cp=256, the
+streamed pair bias: the train step's B=16 L=100 in bf16 and f32, the PPFT
+learning run's B=32 L=56 bf16, an SP slab of 150 rows of L=300 in f32)
+calls ``ops.ipa_attention._launch_backward`` (route "bwd_tc" or
+"bwd_tc_f32") once to warm up and once under ``torch.profiler``, and prints
+the device time of every kernel of the call (the row kernel ``bwd_rows``,
+the column kernel ``bwd_cols``, the two ``bmm`` and the casts and copies
+around them) beside the call's time by CUDA events (the median of 20),
+then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+# (B, query rows, key columns, dtype)
+SHAPES = [(16, 100, 100, "bfloat16"), (16, 100, 100, "float32"), (32, 56, 56, "bfloat16"),
+          (4, 150, 300, "float32")]
+
+
+def _inputs(B, Lq, Lk, dtype, gen):
+    import torch
+
+    H, dk, cp = 32, 16, 256
+    r = lambda *s, scale=1.0: torch.randn(s, generator=gen, device="cuda") * scale  # noqa: E731
+    args = [r(B, H, Lq, dk).to(dtype), r(B, H, Lk, dk).to(dtype), r(B, H, Lk, dk).to(dtype),
+            r(B, 3, H * 4, Lq, scale=0.3), r(B, 3, H * 4, Lk, scale=0.3), r(B, H, Lk, 24, scale=2.0),
+            r(B, Lq, Lk, cp, scale=0.5).to(dtype), r(H, cp, dk, scale=0.06).to(dtype),
+            torch.zeros(B, Lk, device="cuda"), r(B, H, Lq, Lk).to(dtype)]
+    cts = (r(B, H, Lq, dk).to(dtype), r(B, H, Lq, 24), r(B, H, Lq, dk).to(dtype))
+    return args, cts
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k1_bwd_parts: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from se3diff_torch.ops import ipa_attention as k1
+    from se3diff_torch.utils.profiling import profile_device
+
+    k1.build_library()
+    kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, Lq, Lk, dname in SHAPES:
+        args, cts = _inputs(B, Lq, Lk, getattr(torch, dname), gen)
+
+        def call():
+            return k1._launch_backward(args, cts, kw["scalar_w"], kw["pair_w"], counted=False)
+
+        call()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(20):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        prof = profile_device(call)
+        print(f"[k1-bwd-parts] B={B} Lq={Lq} Lk={Lk} {dname}: call {statistics.median(times):.4f} ms "
+              f"by events (median of 20); device kernel time {prof.total_ms:.4f} ms in "
+              f"{prof.count} kernels:")
+        for row in prof.rows:
+            print(f"[k1-bwd-parts]   {row.total_ms:8.4f} ms x{row.count} {row.name[:100]}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

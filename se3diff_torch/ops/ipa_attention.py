@@ -51,10 +51,17 @@ static rule on the widths (:func:`kernel_route`) picks one:
   heads, 8 heads, the in-kernel pair bias at 16 and 32 heads, ``Cp % 32 !=
   0``), on CUDA-core FMAs.
 
-Nothing falls back at run time. Its backward is
-:func:`ipa_attention_backward` on both devices: the JAX package's backward
-is XLA code (``_fused_backward_chunked``), not a Pallas kernel, so the port's
-is PyTorch.
+Nothing falls back at run time. The backward (the JAX package's is XLA
+code, ``_fused_backward_chunked``, not a Pallas kernel) dispatches by device
+and by a static rule on the widths (:func:`backward_route`): CPU tensors,
+and every CUDA width but the two below, run :func:`ipa_attention_backward`
+(PyTorch, row-chunked; route ``"torch"``); at 32 heads with the streamed
+pair bias and ``Cp % 32 == 0`` (the score model's backward on every
+training path) CUDA tensors launch ``csrc/ipa_attention_bwd_tc.cu``, route
+``"bwd_tc"`` in bf16 and ``"bwd_tc_f32"`` in f32, or raise. Its algebra
+(a statistics sweep, D from row aggregates, column sums from saved row
+statistics, the tensor-core operands' roundings) is
+:func:`ipa_attention_backward_tiled`, which no path calls.
 
 :func:`sp_ipa_attention` is the sequence-parallel form: one rank's slab of
 query rows against every column, the same kernel launched on the slab.
@@ -76,6 +83,7 @@ __all__ = [
     "NEG_INF",
     "ipa_attention",
     "ipa_attention_backward",
+    "ipa_attention_backward_tiled",
     "ipa_attention_plain",
     "sp_ipa_attention",
     "build_library",
@@ -84,6 +92,7 @@ __all__ = [
     "H4_MAX_CP",
     "check_card_widths",
     "kernel_route",
+    "backward_route",
 ]
 
 # Finite mask value for column biases: the online softmax never meets inf-inf.
@@ -111,15 +120,23 @@ _ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "tc_f32": "ipa_attention_tc_f32_
 _TC_ROUTES = {(32, torch.bfloat16): "tc", (32, torch.float32): "tc_f32",
               (16, torch.bfloat16): "tc16", (16, torch.float32): "tc16_f32"}
 
+# The backward design each backward route launches, by C symbol; "torch"
+# (ipa_attention_backward) launches none.
+_BWD_ROUTE_SYMBOLS = {"bwd_tc": "ipa_attention_bwd_tc", "bwd_tc_f32": "ipa_attention_bwd_tc_f32"}
+_BWD_TC_ROUTES = {torch.bfloat16: "bwd_tc", torch.float32: "bwd_tc_f32"}
+
 # Forward kernel launches made through ipa_attention (plain-version calls and
 # backward passes do not count), in all, by variant ("pa" streams the pair
 # bias, "w_pb" computes it in the kernel) and by route (see kernel_route).
 launches = 0
 launches_by_variant = {"pa": 0, "w_pb": 0}
 launches_by_route = dict.fromkeys(_ROUTE_SYMBOLS, 0)
-# Backward passes of ipa_attention run by autograd, on either device (direct
-# calls of ipa_attention_backward do not count).
+# Backward passes of ipa_attention run by autograd, on either device, in all
+# and by backward route (see backward_route; "torch" on the CPU too). Direct
+# calls of ipa_attention_backward and the uncounted launches of
+# _launch_backward do not count.
 backward_calls = 0
+backward_calls_by_route = dict.fromkeys((*_BWD_ROUTE_SYMBOLS, "torch"), 0)
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
@@ -167,6 +184,21 @@ def kernel_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -> 
     if H == 4 and not has_pa and dtype == torch.float32 and cp <= H4_MAX_CP:
         return "h4"
     return "simt"
+
+
+def backward_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -> str:
+    """The backward that CUDA operands of these widths run: for 32 heads,
+    the streamed pair bias and ``Cp % 32 == 0``, the kernel
+    ``csrc/ipa_attention_bwd_tc.cu``, ``"bwd_tc"`` in bf16 and
+    ``"bwd_tc_f32"`` in f32; ``"torch"`` (:func:`ipa_attention_backward`)
+    for every other width in :data:`CARD_WIDTHS`. CPU operands always run
+    ``"torch"``. Raises ``ValueError`` for widths the card refuses."""
+    err = _widths_error(H, dk, cp)
+    if err is not None:
+        raise ValueError(err)
+    if has_pa and H == 32 and cp % 32 == 0 and dtype in _BWD_TC_ROUTES:
+        return _BWD_TC_ROUTES[dtype]
+    return "torch"
 
 
 def _nvcc() -> str:
@@ -234,6 +266,14 @@ def _library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * 14 + [ci] * 8 + [cf, cf, vp]
                 fn.restype = ci
+            # Backward: 12 operands, 13 outputs and scratch, 6 sizes, 2
+            # weights, the stream.
+            for name in _BWD_ROUTE_SYMBOLS.values():
+                fn = getattr(lib, name)
+                fn.argtypes = [vp] * 25 + [ci] * 6 + [cf, cf, vp]
+                fn.restype = ci
+            lib.ipa_attention_bwd_cols_smem_bytes.argtypes = []
+            lib.ipa_attention_bwd_cols_smem_bytes.restype = ci
             lib.ipa_attention_error_string.argtypes = [ci]
             lib.ipa_attention_error_string.restype = ctypes.c_char_p
             lib.ipa_attention_takes_heads.argtypes = [ci]
@@ -242,6 +282,7 @@ def _library() -> ctypes.CDLL:
             for name in ("ipa_attention_tc_f32_smem_bytes", "ipa_attention_h4_smem_bytes",
                          "ipa_attention_tc16_smem_bytes", "ipa_attention_tc16_f32_smem_bytes",
                          "ipa_attention_tc16_blocks_per_sm",
+                         "ipa_attention_bwd_tc_smem_bytes", "ipa_attention_bwd_tc_f32_smem_bytes",
                          "ipa_attention_tc16_f32_blocks_per_sm"):
                 getattr(lib, name).argtypes = [ci]
                 getattr(lib, name).restype = ci
@@ -515,9 +556,179 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
     ) + ((d_wpb,) if rest else ())
 
 
+def _launch_backward(inputs, grad_outputs, scalar_w: float, pair_w: float, counted: bool = True):
+    """Input gradients of :func:`ipa_attention` from the backward kernel
+    (``csrc/ipa_attention_bwd_tc.cu``, :func:`backward_route`'s design) on
+    the current stream; raises if it cannot run. ``inputs`` are the ten
+    operands up to ``pa`` on the card, ``grad_outputs`` ``(d_out_s, d_out_p,
+    d_out_pair)``. The two plain products around the kernel go to
+    ``torch.bmm``, as JAX leaves them to XLA: ``g_wx2d = ct_pr @ w_pv^T``
+    before it, ``d_w_pv = wx2d^T ct_pr`` after it. Counts the call in
+    :data:`backward_calls_by_route` when ``counted`` (autograd's calls);
+    ``chip_smoke.py`` and the card tests call it uncounted to compare.
+    Returns :func:`ipa_attention_backward`'s ten gradients."""
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs[:10]
+    if pa is None:
+        raise ValueError("the backward kernel takes the streamed pair bias (pa)")
+    _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, None)
+    B, H, Lq, dk = q_s.shape
+    Lk, Cp = k_s.shape[2], x2d.shape[-1]
+    route = backward_route(q_s.dtype, H, dk, Cp, True)
+    if route == "torch":
+        raise ValueError(f"no backward kernel takes {H} heads, Cp={Cp} in {q_s.dtype}")
+    f32, dev = torch.float32, q_s.device
+    ct_s = grad_outputs[0].to(q_s.dtype).contiguous()
+    ct_p = grad_outputs[1].to(f32).contiguous()
+    ct_pr = grad_outputs[2].to(f32)
+    for name, t, shape in (("d_out_s", ct_s, (B, H, Lq, dk)), ("d_out_p", ct_p, (B, H, Lq, 24)),
+                           ("d_out_pair", ct_pr, (B, H, Lq, dk))):
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, expected {shape} on {dev}")
+    if any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, pa, ct_s, ct_p)):
+        raise ValueError("the backward kernel needs 16-byte aligned q_s, v_s, v_p, pa and cotangents")
+    ct_pr_h = ct_pr.transpose(0, 1).reshape(H, B * Lq, dk)      # heads first
+    g_wx2d = torch.bmm(ct_pr_h, w_pv.to(f32).transpose(1, 2))   # [H, B*Lq, Cp]
+    d_qs, d_ks, d_vs = torch.empty_like(q_s), torch.empty_like(k_s), torch.empty_like(v_s)
+    d_qp, d_kp, d_vp = torch.empty_like(q_p), torch.empty_like(k_p), torch.empty_like(v_p)
+    d_x2d, d_pa = torch.empty_like(x2d), torch.empty_like(pa)
+    wx2d = torch.empty((H, B * Lq, Cp), dtype=f32, device=dev)
+    ds, logits, dvals = (torch.empty((B, H, Lq, Lk), dtype=f32, device=dev) for _ in range(3))
+    stats = torch.empty((B, H, Lq, 2), dtype=f32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, _BWD_ROUTE_SYMBOLS[route])(
+            *(t.data_ptr() for t in (q_s, k_s, v_s, q_p, k_p, v_p, x2d, bias, pa, ct_s, ct_p,
+                                     g_wx2d, d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_pa,
+                                     wx2d, ds, logits, dvals, stats)),
+            B, H, Lq, Lk, dk, Cp, float(scalar_w), float(pair_w),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ipa_attention backward kernel launch ({route}) failed: "
+                           + lib.ipa_attention_error_string(err).decode())
+    d_wpv = torch.bmm(wx2d.transpose(1, 2), ct_pr_h).to(w_pv.dtype)  # [H, Cp, dk]
+    if counted:
+        backward_calls_by_route[route] += 1
+    return d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_wpv, None, d_pa
+
+
+def _backward(saved, grad_outputs, scalar_w: float, pair_w: float):
+    """Autograd's backward of :func:`ipa_attention` on the saved operands
+    (eleven, ``w_pb`` last): counts the pass and dispatches it, CPU tensors
+    to :func:`ipa_attention_backward`, CUDA tensors by
+    :func:`backward_route`. Returns eleven gradients."""
+    global backward_calls
+    backward_calls += 1
+    q_s, x2d, pa = saved[0], saved[6], saved[9]
+    route = "torch"
+    if q_s.device.type == "cuda":
+        route = backward_route(q_s.dtype, q_s.shape[1], q_s.shape[3], x2d.shape[-1], pa is not None)
+    if route == "torch":
+        backward_calls_by_route["torch"] += 1
+        return ipa_attention_backward(saved, grad_outputs, scalar_w=scalar_w, pair_w=pair_w)
+    return _launch_backward(saved[:10], grad_outputs, scalar_w, pair_w) + (None,)
+
+
+def _tf32(x):
+    """``x`` rounded to TF32 (10 fraction bits, to nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds it."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _terms(x, model_dtype):
+    """The two terms the backward kernel feeds its tensor cores for an f32
+    operand ``x``: bf16 ``hi + lo`` for a bf16 model, TF32 ``big + small``
+    for an f32 one."""
+    if model_dtype == torch.bfloat16:
+        hi = x.to(torch.bfloat16).float()
+        return hi, (x - hi).to(torch.bfloat16).float()
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _tc_einsum(eq, a, b, model_dtype, b_exact):
+    """``einsum(eq, a, b)`` as the backward kernel's tensor cores compute it:
+    ``a`` as two terms; ``b`` as it is where ``b_exact`` (bf16 x2d), else as
+    two terms too, the small x small product dropped."""
+    a1, a2 = _terms(a, model_dtype)
+    if b_exact:
+        return torch.einsum(eq, a2, b) + torch.einsum(eq, a1, b)
+    b1, b2 = _terms(b, model_dtype)
+    return torch.einsum(eq, a2, b1) + torch.einsum(eq, a1, b2) + torch.einsum(eq, a1, b1)
+
+
+def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_w: float,
+                                 tile: int = 16):
+    """Input gradients of :func:`ipa_attention` with the streamed pair bias,
+    computed the way the backward kernel (``csrc/ipa_attention_bwd_tc.cu``)
+    computes them; no path calls it (the CPU tests hold it against JAX's
+    ``_fused_backward_chunked`` and :func:`ipa_attention_backward`).
+
+    Where its algebra differs from :func:`ipa_attention_backward`: the row
+    statistics come from a sweep of their own, online over key tiles of
+    ``tile`` columns; the softmax's row term is ``D = sum_j a (ct_s.v_s +
+    ct_p.v_p) + g.wx2d`` from the row aggregate ``wx2d``, ``g = ct_pr @
+    w_pv^T``; the column sums use the same ``a`` (recomputed in the kernel
+    from the saved statistics) and ``ds``; point distances are explicit
+    differences; and the three x2d contractions take their operands as the
+    tensor cores do (:func:`_tc_einsum`: bf16 x2d exact, f32 operands as
+    two bf16 terms; in f32, 3xTF32). Same arguments and result as
+    :func:`ipa_attention_backward`, ``pa`` given."""
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs[:10]
+    ct_s, ct_p, ct_pr = grad_outputs
+    f32, dt = torch.float32, q_s.dtype
+    B, H, Lq, _ = q_s.shape
+    Lk = k_s.shape[2]
+    bf = dt == torch.bfloat16
+    qs, ks, x = q_s.float() * scalar_w, k_s.float(), x2d.float()
+    diff = q_p.float()[..., :, None] - k_p.float()[..., None, :]  # [B, 3, H4, Lq, Lk]
+    d2 = (diff * diff).sum(1)
+    dist = torch.sqrt(d2.clamp_min(0.0) + 1e-24)
+    s = (torch.einsum("bhid,bhjd->bhij", qs, ks) - dist.reshape(B, H, 4, Lq, Lk).sum(2)
+         + pair_w * pa.float() + bias.float()[:, None, None, :])
+
+    # Sweep 1: the row statistics, online over key tiles.
+    m = torch.full((B, H, Lq), -1e30)
+    total = torch.zeros(B, H, Lq)
+    for j0 in range(0, Lk, tile):
+        st = s[..., j0:j0 + tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        total = total * torch.exp(m - m_new) + torch.exp(st - m_new[..., None]).sum(-1)
+        m = m_new
+    a = torch.exp(s - m[..., None]) * (1.0 / total)[..., None]
+
+    # Sweep 2: wx2d and D from row aggregates.
+    g = torch.einsum("bhid,hpd->bhip", ct_pr.float(), w_pv.float())
+    wx2d = _tc_einsum("bhij,bijp->bhip", a, x, dt, b_exact=bf)
+    dv = (torch.einsum("bhid,bhjd->bhij", ct_s.float(), v_s.float())
+          + torch.einsum("bhic,bhjc->bhij", ct_p.float(), v_p.float()))
+    g_held = sum(_terms(g, dt)) if bf else g  # the bf16 kernel holds g as hi + lo
+    D = (a * dv).sum(-1) + (g_held * wx2d).sum(-1)
+
+    # Sweep 3: ds, the row gradients and d_x2d.
+    ds = a * (dv + _tc_einsum("bhip,bijp->bhij", g, x, dt, b_exact=bf) - D[..., None])
+    inv = torch.where(d2 > 0.0, 1.0 / torch.sqrt(d2 + 1e-24), torch.zeros_like(d2))
+    w = ((-ds)[:, :, None] * inv.reshape(B, H, 4, Lq, Lk)).reshape(B, -1, Lq, Lk)[:, None] * diff
+    d_x2d = _tc_einsum("bhij,bhip->bijp", a, g, dt, b_exact=False)
+
+    # The column sums, from the same a and ds.
+    return (
+        (scalar_w * torch.einsum("bhij,bhjd->bhid", ds, ks)).to(dt),
+        torch.einsum("bhij,bhid->bhjd", ds, qs).to(k_s.dtype),
+        torch.einsum("bhij,bhid->bhjd", a, ct_s.float()).to(v_s.dtype),
+        w.sum(-1).to(q_p.dtype),
+        (-w.sum(-2)).to(k_p.dtype),
+        torch.einsum("bhij,bhic->bhjc", a, ct_p.float()).to(v_p.dtype),
+        d_x2d.to(x2d.dtype),
+        torch.einsum("bhip,bhid->hpd", wx2d, ct_pr.float()).to(w_pv.dtype),
+        None,
+        (pair_w * ds).to(pa.dtype),
+    )
+
+
 class _IPAAttention(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version) forward and
-    :func:`ipa_attention_backward`. The operands are saved by reference:
+    """The kernel (or, on the CPU, the plain version) forward and the
+    backward :func:`_backward` dispatches. The operands are saved by reference:
     ``x2d``, shared by every layer, is not copied. One of ``pa`` and
     ``w_pb`` is None."""
 
@@ -536,11 +747,7 @@ class _IPAAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_s, ct_p, ct_pr):
-        global backward_calls
-        backward_calls += 1
-        grads = ipa_attention_backward(
-            ctx.saved_tensors, (ct_s, ct_p, ct_pr), scalar_w=ctx.scalar_w, pair_w=ctx.pair_w
-        )
+        grads = _backward(ctx.saved_tensors, (ct_s, ct_p, ct_pr), ctx.scalar_w, ctx.pair_w)
         return (
             *(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
             None, None,
@@ -558,8 +765,9 @@ def ipa_attention(
     ``fused_ipa_attention``. CPU operands run :func:`ipa_attention_plain`.
     CUDA operands launch the Hopper kernel on the current stream, or raise
     if it cannot be built, does not take these shapes, or fails to launch.
-    Differentiable in every operand but ``bias``, through
-    :func:`ipa_attention_backward`.
+    Differentiable in every operand but ``bias``: the backward is
+    :func:`ipa_attention_backward` or, on CUDA tensors of the widths
+    :func:`backward_route` names, the backward kernel.
     """
     if (pa is None) == (w_pb is None):
         raise ValueError("give exactly one of pa (streamed pair bias) and w_pb (in-kernel)")

@@ -55,6 +55,7 @@ def in_turn(ctx: RankContext, steps: Sequence[tuple[Callable, tuple]]) -> list[A
 def _reset_k1() -> None:
     k1.launches = k1.backward_calls = 0
     k1.launches_by_route.update(dict.fromkeys(k1.launches_by_route, 0))
+    k1.backward_calls_by_route.update(dict.fromkeys(k1.backward_calls_by_route, 0))
 
 
 def _synchronize(ctx: RankContext) -> None:
@@ -169,7 +170,8 @@ def mesh_step(
     (``TrainConfig(lr)``: AdamW, the global-norm clip). Returns the
     global loss, the updated full weights and the step's clipped full
     gradients, gathered over the model group (numpy), and the rank's K1
-    forward launches by route and backward passes in the step. With
+    forward launches by route and backward passes (in all and by backward
+    route) in the step. With
     ``timed_steps``, that many more steps follow on the same inputs, timed
     (``step_ms``), then as many with a device synchronization before and
     after every ``all_reduce`` (``all_reduce_ms``, ``all_reduces``: their
@@ -194,6 +196,7 @@ def mesh_step(
     loss = float(step())
     out = {"loss": loss, "launches_by_route": dict(k1.launches_by_route),
            "backward_calls": k1.backward_calls,
+           "backward_calls_by_route": dict(k1.backward_calls_by_route),
            "weights": _numpy(gather_state_dict(net.state_dict(), mesh.model_group)),
            "grads": _numpy(gather_state_dict({n: p.grad for n, p in net.named_parameters()},
                                              mesh.model_group))}
@@ -236,7 +239,8 @@ def train_rank(ctx: RankContext, argv: Sequence[str], data: int, model: int,
     ``--mesh`` spawns on every rank. With ``stop_at``, every rank stops when
     it asks for step ``stop_at``'s batch, as an interrupted run stops, and
     returns. Returns the logged global losses, the run's wall, and the
-    rank's K1 forward launches by route and backward passes."""
+    rank's K1 forward launches by route and backward passes (in all and by
+    backward route)."""
     logging.basicConfig(level=logging.INFO)
     args = train.build_parser().parse_args(list(argv))
     mesh = init_mesh(ctx, data, model)
@@ -264,7 +268,8 @@ def train_rank(ctx: RankContext, argv: Sequence[str], data: int, model: int,
     _synchronize(ctx)
     return {"history": history, "wall_s": time.perf_counter() - t0, "rank": ctx.rank,
             "launches_by_route": dict(k1.launches_by_route),
-            "backward_calls": k1.backward_calls}
+            "backward_calls": k1.backward_calls,
+            "backward_calls_by_route": dict(k1.backward_calls_by_route)}
 
 
 def gather_rows_probe(ctx: RankContext, w: np.ndarray, x: np.ndarray) -> dict[str, np.ndarray]:
@@ -301,7 +306,8 @@ def sp_step(
     ``weights`` on the whole ``batch`` with ``noise`` ``(t, z, rot_t)``,
     with the train loop's defaults (``TrainConfig(lr)``). Returns the loss,
     the step's clipped gradients and updated weights (numpy), the rank's
-    row slab and its K1 forward launches by route and backward passes."""
+    row slab and its K1 forward launches by route and backward passes (in
+    all and by backward route)."""
     k1.check_card_widths(model_cfg, ctx.device)
     model = DiGConditionalScoreModel(**model_cfg, dtype=getattr(torch, dtype), sp=ctx)
     sdes, opt = _dsm_setup(ctx, model, weights, so3_kwargs, lr)
@@ -312,6 +318,7 @@ def sp_step(
     _synchronize(ctx)
     return {"loss": loss, "rows": ctx.rows(b["pos"].shape[1]),
             "launches_by_route": dict(k1.launches_by_route), "backward_calls": k1.backward_calls,
+            "backward_calls_by_route": dict(k1.backward_calls_by_route),
             "weights": _numpy(model.state_dict()),
             "grads": _numpy({n: p.grad for n, p in model.named_parameters()})}
 
@@ -361,7 +368,8 @@ def pp_step(
     Returns the global losses, the first step's clipped gradients and the
     weights after it of the parameters the rank holds a gradient of (its
     stage's layers and the replicated ones), the rank's stage and its K1
-    forward launches by route and backward passes in the first step."""
+    forward launches by route and backward passes (in all and by backward
+    route) in the first step."""
     mesh, model = _pp_model(ctx, data, pipe, model_cfg, weights, dtype)
     sdes, opt = _dsm_setup(ctx, model, weights, so3_kwargs, lr)
     fn = make_pp_score_fn(model, mesh, n_microbatches)
@@ -379,6 +387,7 @@ def pp_step(
             held = {n for n, p in model.named_parameters() if p.grad is not None}
             out = {"launches_by_route": dict(k1.launches_by_route),
                    "backward_calls": k1.backward_calls,
+                   "backward_calls_by_route": dict(k1.backward_calls_by_route),
                    "grads": _numpy({n: p.grad for n, p in model.named_parameters() if n in held}),
                    "weights": _numpy({n: p for n, p in model.named_parameters() if n in held})}
     _synchronize(ctx)

@@ -5,7 +5,10 @@ and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
 "tc" in bf16 and "tc_f32" in f32, at 16 heads, a tensor-parallel rank's,
 "tc16" and "tc16_f32") and the 4-head in-kernel design (route "h4": f32,
 ``w_pb``, the PPFT control net) against the plain version and against the
-CUDA-core design on the same inputs.
+CUDA-core design on the same inputs; and the backward kernel (streamed
+``pa`` at 32 heads: route "bwd_tc" in bf16, "bwd_tc_f32" in f32) against
+the PyTorch backward ``ipa_attention_backward`` and against itself, bit for
+bit, on a second call.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip. They
 import neither JAX nor the JAX package, so a machine with only PyTorch runs
@@ -218,3 +221,102 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         k1.ipa_attention(*bad, **KW)
     with pytest.raises(ValueError, match="take 4, 8, 16, 32 heads"):
         k1.ipa_attention(*_args(cuda_device, 1, 8, 8, torch.float32, 0, H=12, CP=32), **KW)
+
+
+# Shapes of the backward kernel: ragged row and column tiles with masked
+# columns, rows != columns with a partial last tile, one row and column,
+# every column masked, an SP slab (150 rows of 300), and L=77 and L=56.
+BWD_CASES = [(2, 37, 37, 5), (2, 5, 70, 0), (1, 1, 1, 0), (2, 33, 33, 33), (2, 150, 300, 0),
+             (3, 77, 77, 9), (4, 56, 56, 0)]
+# Each side rounds its bf16 gradients once from f32 sums taken in another
+# order, so the two may lie a bf16 ulp apart: 2^-7 of a value in bf16.
+BWD_ROUTES = [(torch.bfloat16, "bwd_tc", 2.0**-7 + 1e-4), (torch.float32, "bwd_tc_f32", 1e-4)]
+
+
+def _cotangents(args, seed=1):
+    q_s = args[0]
+    gen = torch.Generator(device=q_s.device).manual_seed(seed)
+    B, H, Lq, _ = q_s.shape
+    return (torch.randn(B, H, Lq, DK, generator=gen, device=q_s.device).to(q_s.dtype),
+            torch.randn(B, H, Lq, 24, generator=gen, device=q_s.device),
+            torch.randn(B, H, Lq, DK, generator=gen, device=q_s.device).to(q_s.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route,tol", BWD_ROUTES)
+@pytest.mark.parametrize("CP", [256, 96, 32])
+@pytest.mark.parametrize("B,Lq,Lk,masked", BWD_CASES)
+def test_backward_kernel_matches_the_pytorch_backward(cuda_device, B, Lq, Lk, masked, CP, dtype,
+                                                      route, tol):
+    """Each gradient of the backward kernel within ``tol`` of the largest
+    entry of ``ipa_attention_backward``'s on the same inputs (f32: sums in
+    another order; bf16: plus a bf16 ulp between the two roundings, 2^-7),
+    that largest entry taken as at least 1e-2; and autograd on CUDA tensors
+    of these widths runs the kernel route. With one key column the softmax
+    is 1 and ds is zero but for rounding (the kernel's D sums dphat's terms
+    in another order): the gradients made from ds, exactly zero, are held
+    at 1e-5 absolute (residues of f32 sums of terms of some 10)."""
+    args = _args(cuda_device, B, Lq, Lk, dtype, masked, CP=CP)[:10]
+    cts = _cotangents(args)
+    assert k1.backward_route(dtype, 32, DK, CP, True) == route
+    got = k1._launch_backward(args, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    want = k1.ipa_attention_backward(args, cts, **KW)
+    torch.cuda.synchronize()
+    from_ds = ("q_s", "k_s", "q_p", "k_p", "pa")
+    for name, g, w, p in zip(NAMES, got, want, args):
+        if name == "bias":
+            assert g is None and w is None
+            continue
+        assert g.dtype == p.dtype and g.shape == p.shape and torch.isfinite(g).all(), name
+        err = (g.float() - w.float()).abs().max().item()
+        if Lk == 1 and name in from_ds:
+            assert err <= 1e-5, name
+        else:
+            assert err <= tol * max(w.float().abs().max().item(), 1e-2), name
+    leaves = [t.clone().requires_grad_(n != "bias") for n, t in zip(NAMES, args)]
+    before = dict(k1.backward_calls_by_route)
+    outs = k1.ipa_attention(*leaves, **KW)
+    torch.autograd.grad(outs, [t for n, t in zip(NAMES, leaves) if n != "bias"], cts)
+    assert k1.backward_calls_by_route == {**before, route: before[route] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route,tol", BWD_ROUTES)
+@pytest.mark.parametrize("B,Lq,Lk,masked", [(16, 100, 100, 0), (3, 77, 77, 9), (4, 150, 300, 0)])
+def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype, route, tol):
+    """Two calls on the same inputs give the same gradients bit for bit: no
+    atomics, every sum in a fixed order."""
+    args = _args(cuda_device, B, Lq, Lk, dtype, masked)[:10]
+    cts = _cotangents(args)
+    first = k1._launch_backward(args, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    second = k1._launch_backward(args, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    for name, x, y in zip(NAMES, first, second):
+        assert (x is None and y is None) or torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device):
+    import re
+    from pathlib import Path
+
+    src = (Path(k1.__file__).resolve().parents[1] / "csrc" / "ipa_attention_bwd_tc.cu").read_text()
+    m = re.search(r"Shared memory of bwd_rows at Cp = 256: ([\d,]+) bytes \(bf16\), ([\d,]+) "
+                  r"\(f32\);\s*// bwd_cols: ([\d,]+) bytes", src)
+    bf16, f32, cols = (int(x.replace(",", "")) for x in m.groups())
+    lib = k1._library()
+    assert lib.ipa_attention_bwd_tc_smem_bytes(256) == bf16
+    assert lib.ipa_attention_bwd_tc_f32_smem_bytes(256) == f32
+    assert lib.ipa_attention_bwd_cols_smem_bytes() == cols
+
+
+@pytest.mark.cuda
+def test_backward_kernel_refuses_what_it_does_not_take(cuda_device):
+    args = list(_args(cuda_device, 1, 8, 8, torch.float32, 0))
+    cts = _cotangents(args)
+    with pytest.raises(ValueError, match="streamed pair bias"):
+        k1._launch_backward(args[:9] + [None], cts, 1.0, 1.0)
+    with pytest.raises(ValueError, match="no backward kernel takes 16 heads"):
+        small = list(_args(cuda_device, 1, 8, 8, torch.float32, 0, H=16, CP=64))[:10]
+        k1._launch_backward(small, _cotangents(small), 1.0, 1.0)
+    with pytest.raises(ValueError, match="d_out_p"):
+        k1._launch_backward(args[:10], (cts[0], cts[1][..., :12], cts[2]), 1.0, 1.0)

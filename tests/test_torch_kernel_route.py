@@ -79,6 +79,82 @@ def test_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa)
         k1.kernel_route(dtype, H, dk, cp, has_pa)
 
 
+@pytest.mark.parametrize("dtype,H,dk,cp,has_pa,route", [
+    (BF16, 32, 16, 256, True, "bwd_tc"),       # the score model's backward in bf16
+    (BF16, 32, 16, 96, True, "bwd_tc"),
+    (BF16, 32, 16, 32, True, "bwd_tc"),
+    (F32, 32, 16, 256, True, "bwd_tc_f32"),    # the same at the train CLI's default f32
+    (F32, 32, 16, 128, True, "bwd_tc_f32"),
+    (F32, 32, 16, 32, True, "bwd_tc_f32"),
+    (BF16, 32, 16, 36, True, "torch"),         # Cp not a multiple of 32
+    (F32, 32, 16, 36, True, "torch"),
+    (F32, 32, 16, 256, False, "torch"),        # the in-kernel pair bias
+    (BF16, 32, 16, 256, False, "torch"),
+    (F32, 4, 16, 32, False, "torch"),          # the PPFT control net (B2-h4)
+    (F32, 4, 16, 32, True, "torch"),
+    (BF16, 16, 16, 256, True, "torch"),        # a tensor-parallel rank (B2-tc16)
+    (F32, 16, 16, 256, True, "torch"),
+    (F32, 8, 16, 256, True, "torch"),
+])
+def test_backward_route_rule(dtype, H, dk, cp, has_pa, route):
+    assert k1.backward_route(dtype, H, dk, cp, has_pa) == route
+
+
+@pytest.mark.parametrize("dtype,H,dk,cp,has_pa", [
+    (BF16, 12, 16, 256, True), (F32, 32, 8, 256, True), (BF16, 32, 16, 260, True),
+])
+def test_backward_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa):
+    with pytest.raises(ValueError, match=WIDTHS_MSG):
+        k1.backward_route(dtype, H, dk, cp, has_pa)
+
+
+def test_each_backward_symbol_has_exactly_one_extern_c_definition():
+    """Every backward route's C symbol is defined once across ``csrc/*.cu``,
+    inside an ``extern "C"`` block, with the 34 arguments the binding
+    declares; the counts hold one entry a backward route and "torch"."""
+    for symbol in k1._BWD_ROUTE_SYMBOLS.values():
+        found = []
+        for path in CSRC.glob("*.cu"):
+            text = path.read_text()
+            for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', text, re.S):
+                for m in re.finditer(rf"\bint {symbol}\(", block):
+                    signature = block[m.start():]
+                    assert signature[:signature.index(")")].count(",") == 33, symbol
+                    found.append(path.name)
+        assert found == ["ipa_attention_bwd_tc.cu"], (symbol, found)
+    assert set(k1.backward_calls_by_route) == {"bwd_tc", "bwd_tc_f32", "torch"}
+
+
+def test_backward_kernel_source_states_widths_and_shared_memory():
+    """The backward source takes the widths its route names, and the shared
+    memory it states fits what a block may opt into on Hopper."""
+    text = (CSRC / "ipa_attention_bwd_tc.cu").read_text()
+    assert "constexpr int kH = 32;" in text
+    assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in text
+    assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in text
+    stated = re.search(r"Shared memory of bwd_rows at Cp = 256: ([\d,]+) bytes \(bf16\), "
+                       r"([\d,]+) \(f32\)", text)
+    assert stated is not None
+    assert all(int(x.replace(",", "")) <= 232_448 for x in stated.groups())
+
+
+def test_cpu_backward_counts_the_torch_route():
+    """CPU tensors run ipa_attention_backward whatever the widths: the pass
+    counts under "torch", never under a kernel route."""
+    B, H, L, dk, cp = 1, 32, 3, 16, 32
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g)
+    args = [r(B, H, L, dk), r(B, H, L, dk), r(B, H, L, dk), r(B, 3, H * 4, L), r(B, 3, H * 4, L),
+            r(B, H, L, 24), r(B, L, L, cp), r(H, cp, dk), torch.zeros(B, L), r(B, H, L, L)]
+    assert k1.backward_route(torch.float32, H, dk, cp, True) == "bwd_tc_f32"
+    leaves = [t.requires_grad_(i != 8) for i, t in enumerate(args)]
+    before, calls = dict(k1.backward_calls_by_route), k1.backward_calls
+    out = k1.ipa_attention(*leaves, scalar_w=0.25, pair_w=0.5)
+    sum(o.sum() for o in out).backward()
+    assert k1.backward_calls == calls + 1
+    assert k1.backward_calls_by_route == {**before, "torch": before["torch"] + 1}
+
+
 def test_card_widths_name_what_the_cuda_sources_instantiate():
     src = (CSRC / "ipa_attention.cu").read_text()
     switch = src[src.index("switch (H) {"):]
