@@ -10,8 +10,10 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    attention kernels from ``se3diff_torch/csrc`` with nvcc, one process a
    source (time, ptxas report: registers, spills and shared memory of the
    "tc", "tc_f32", "h4", "tc16" and "tc16_f32" kernels, the 16-head
-   designs' resident blocks an SM, and the backward kernels' row and column
-   kernels, "bwd_tc" and "bwd_tc_f32");
+   designs' resident blocks an SM, the backward kernels' row and column
+   kernels, "bwd_tc" and "bwd_tc_f32", and "bwd_h4"'s two row
+   instantiations, column kernel and weight-gradient reduction, with its
+   row kernel's shared memory);
 2. the kernel against its plain PyTorch version on the card, at the main
    path's shape (B=40, L=100, 32 heads of 16, Cp=256, streamed pair bias) in
    bf16 and f32, at a ragged L=77 with masked columns, and at the PPFT score
@@ -84,7 +86,13 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    in-kernel row slabs at 4 heads; every 4-head in-kernel f32 case and
    slab takes the "h4" design, timed in turns with the CUDA-core design
    ("simt", ``prev_ms``) on the same inputs, with its error against it; the
-   Function's gradients with ``w_pb`` against autograd of the plain version;
+   Function's gradients with ``w_pb`` against autograd of the plain version
+   (at 4 heads in f32 on the backward kernel "bwd_h4": B=256 and B=64 at
+   L=56, L=57 with 5 masked columns, Cp=64, B=64 L=100 and a 28-row slab of
+   L=56, each against the PyTorch backward, a second call bit for bit,
+   timed in turns with it beside its bound and plain autograd's time, and
+   peak memory; at B=256 L=56 the kernel's no more than the PyTorch
+   backward's);
    the streamed 16-head cases (B=40 L=77 masked, Cp=96, and B=2 with 5 rows
    of 70 columns, a partial last key tile) take "tc16" in bf16 and
    "tc16_f32" in f32, held against the plain version and the CUDA-core
@@ -96,13 +104,14 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    losses and gradients, moved control-net weights, checkpoints and
    history.json, K1 launches by variant and by route (streamed "tc",
    in-kernel "h4") and backward passes as counted (all the control net's,
-   on the PyTorch backward, route "torch");
+   on the backward kernel "bwd_h4", none on "torch");
 13. ``[ppft-step]``: one PPFT step at ``bench.py --finetune``'s shape (L=56,
    path batch 256, heun_finetune 100 steps): path generation, replay
    gradient and step seconds, ``finetune_steps_per_hour_L56_B256_heun100``,
    peak memory, K1 launches by variant and by route, and the device's busy
    share from a profile of a step cut to 10 heun steps, with the score
-   model's and the control net's K1 time;
+   model's and the control net's K1 time and the control net's backward
+   kernels' ("bwd_h4", by name);
 14. ``[sample-cli]``: ``python -m se3diff_torch.sample``'s main with
    ``--denoiser heun`` (100 steps, 2 evaluations a step) and ``--denoiser
    euler_maruyama`` (200 steps, 1) for GYDPETGTWG x10 (L=100), one batch of
@@ -113,7 +122,8 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 15. ``[ppft-sde-dpm]``: phase 12's CLI run recording with
    ``sde_dpm_solver_finetune`` at its 50 steps (2 evaluations a step), and
    ``[ppft-sde-dpm-step]``: phase 13's step with it (800 streamed K1
-   launches on "tc", 400 in-kernel on "h4", 100 K1 backward passes; finite
+   launches on "tc", 400 in-kernel on "h4", 100 K1 backward passes on
+   "bwd_h4"; finite
    path, loss and gradients), printed beside phase 13's heun step;
 16. ``[toy]``: ``examples/torch_toy_so3.py``'s ``main`` (``examples/toy_so3.py``
    on ``se3diff_torch.toy``) at its full settings on the card: the
@@ -144,7 +154,8 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    and 1 validation mutants, path batch 256, EM-200): validation at epochs 0
    and 1 finite, the epoch-0 path KL under 1e-6, a positive training path
    KL, ``finetune_model.npz`` equal to the best epoch's checkpoint, K1
-   launches streamed on "tc" and in-kernel on "h4" at the recorder's counts;
+   launches streamed on "tc" and in-kernel on "h4" at the recorder's counts,
+   every backward pass on "bwd_h4";
    the DSM step ms, the update wall and the phase wall; K1 timed at the DSM
    step's shape (B=32, L=56, bf16; its backward there is phase 6's);
 19. ``[mesh-train]``: DP+TP DSM training (``python -m se3diff_torch.train
@@ -290,8 +301,15 @@ INKERNEL_CASES = [(40, 100, 32, 256, "bfloat16", 0, True), (40, 100, 32, 256, "f
                   (256, 57, 4, 32, "float32", 5, False),
                   (40, 100, 8, 256, "bfloat16", 0, False), (40, 100, 8, 256, "float32", 0, False),
                   (40, 77, 16, 256, "bfloat16", 9, False), (40, 77, 16, 256, "float32", 9, False)]
-INKERNEL_GRAD_CASES = [(256, 56, 4, 32, "float32", 0), (16, 100, 32, 256, "bfloat16", 0),
-                       (16, 77, 32, 256, "float32", 9)]
+# K1's gradient with the in-kernel pair bias: (B, L, heads, Cp, dtype, masked
+# columns, query rows). At 4 heads in f32 the backward takes the kernel
+# "bwd_h4": the PPFT step's batch (the first, the kernels line's shape), the
+# PPFT CLI's path batch of 64, L=57 masked, the largest Cp, L=100 (two key
+# chunks of 64) and a 28-row slab of L=56; at 32 heads (no path) "torch".
+INKERNEL_GRAD_CASES = [(256, 56, 4, 32, "float32", 0, 56), (64, 56, 4, 32, "float32", 0, 56),
+                       (256, 57, 4, 32, "float32", 5, 57), (256, 56, 4, 64, "float32", 0, 56),
+                       (64, 100, 4, 32, "float32", 0, 100), (256, 56, 4, 32, "float32", 0, 28),
+                       (16, 100, 32, 256, "bfloat16", 0, 100), (16, 77, 32, 256, "float32", 9, 77)]
 # K1 at a tensor-parallel rank's 16 heads with the streamed pair bias: the
 # route of each dtype, and (B, Lq, Lk, Cp, dtype, masked columns) of phase
 # 11's further cases: Cp=96 (three n-tile pairs a warp), and a partial last
@@ -543,7 +561,15 @@ def phase_build():
         ptxas[route] = (f"rows: {ptxas_summary(report, f'bwd_rowsI{t}E')}; dynamic shared memory "
                         f"{smem} bytes at Cp=256 | cols: {ptxas_summary(report, f'bwd_colsI{t}E')}; "
                         f"dynamic shared memory {cols} bytes")
-    for route in ("tc_f32", "h4", "tc16", "tc16_f32", "bwd_tc", "bwd_tc_f32"):
+    # bwd_h4: two row instantiations (Cp <= 32, every path; Cp <= 64), the
+    # column kernel and the reduction of d_w_pv's and d_w_pb's partials.
+    ptxas["bwd_h4"] = (
+        f"rows Cp <= 32: {ptxas_summary(report, 'bwd_h4_rowsILi32E')}; dynamic shared memory "
+        f"{lib.ipa_attention_bwd_h4_smem_bytes(32)} bytes at Cp=32 (56 rows) | rows Cp <= 64: "
+        f"{ptxas_summary(report, 'bwd_h4_rowsILi64E')}; dynamic shared memory "
+        f"{lib.ipa_attention_bwd_h4_smem_bytes(64)} bytes at Cp=64 (32 rows) | cols: "
+        f"{ptxas_summary(report, 'bwd_h4_cols')} | wsum: {ptxas_summary(report, 'bwd_h4_wsum')}")
+    for route in ("tc_f32", "h4", "tc16", "tc16_f32", "bwd_tc", "bwd_tc_f32", "bwd_h4"):
         log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
 
@@ -832,8 +858,9 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     """Least time for one backward call on ``route``: the larger of the bytes
     (inputs and cotangents read once, gradients written once) over the HBM
     rate and the design's operations over the peak of the units that run
-    them. On "torch" every operation is f32 on CUDA cores. The kernel routes
-    run the three x2d contractions (2 Cp operations each per head, row and
+    them. On "torch" and "bwd_h4" (4 heads: every contraction too thin for
+    tensor cores) every operation is f32 on CUDA cores. The other kernel
+    routes run the three x2d contractions (2 Cp operations each per head, row and
     column) on tensor cores, each product as many times as it has terms
     ("bwd_tc": a x2d and g x2d two bf16 terms, a g three; "bwd_tc_f32":
     3xTF32, three TF32 terms each), and the rest in f32 on CUDA cores; the
@@ -853,7 +880,7 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     pairs = B * H * Lq * Lk
     ops = pairs * (10 * dk + (12 if in_kernel else 6) * cp + 217) + 4 * B * H * Lq * cp * dk
     f32_ms = lambda n: n / H100_OPS_PER_S["float32"] * 1e3
-    if route == "torch":
+    if route in ("torch", "bwd_h4"):
         ops_ms = f32_ms(ops)
     else:
         terms, rate = {"bwd_tc": (2 + 2 + 3, H100_OPS_PER_S["bfloat16"]),
@@ -877,32 +904,38 @@ def peak_mb(fn):
     return (torch.cuda.max_memory_allocated() - base) / 1e6
 
 
-def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
-    """One streamed case of K1's gradient on the card (``H`` heads, ``Lq``
-    query rows of ``L`` columns: a row slab when fewer): the autograd
+def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=False,
+               tag="k1-grad"):
+    """One case of K1's gradient on the card (``H`` heads, pair width
+    ``cp``, the pair bias streamed or, with ``in_kernel``, from ``w_pb``;
+    ``Lq`` query rows of ``L`` columns: a row slab when fewer): the autograd
     Function against autograd through the plain version in f32 (fatal
     beyond ``GRAD_TOL``), its backward on ``backward_route``'s route (fatal
-    otherwise). On a kernel route ("bwd_tc", "bwd_tc_f32") the kernel's
-    gradients against ``ipa_attention_backward``'s (fatal beyond twice
-    ``GRAD_TOL``: each is within it of the f32 reference), its second call
-    equal to its first bit for bit (fatal otherwise), and the two timed in
-    turns (kernel, PyTorch, kernel, PyTorch), each with its device kernel
+    otherwise). On a kernel route ("bwd_tc", "bwd_tc_f32", "bwd_h4") the
+    kernel's gradients against ``ipa_attention_backward``'s (fatal beyond
+    twice ``GRAD_TOL``: each is within it of the f32 reference), its second
+    call equal to its first bit for bit (fatal otherwise), and the two timed
+    in turns (kernel, PyTorch, kernel, PyTorch), each with its device kernel
     time and count. Then the
     forward's and the route's backward times beside their bounds (the
     backward's: ``k1_bwd_bound`` on its route, with its bytes bound, its
     operations on the route's units and every operation in f32 on CUDA
-    cores printed), the plain autograd backward's time and both peak
-    memories."""
+    cores printed), the plain autograd backward's time and the peak
+    memories of the Function's forward and backward, of plain autograd and
+    (on a kernel route) of the forward with the PyTorch backward."""
     import torch
 
     kw = K1_KW
-    names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa")
+    names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa",
+             *(("w_pb",) if in_kernel else ()))
     dtype = getattr(torch, dname)
     Lq = L if Lq is None else Lq
-    route = k1.backward_route(dtype, H, 16, 256, True)
-    args = k1_inputs(B, L, dtype, gen, masked, H=H, Lq=Lq)
-    leaves = [t.clone().requires_grad_(n != "bias") for n, t in zip(names, args)]
-    diff = [t for n, t in zip(names, leaves) if n != "bias"]
+    route = k1.backward_route(dtype, H, 16, cp, not in_kernel)
+    args = k1_inputs(B, L, dtype, gen, masked, H=H, cp=cp, in_kernel=in_kernel, Lq=Lq)
+    leaves = [None if t is None else t.clone().requires_grad_(n != "bias")
+              for n, t in zip(names, args)]
+    grad_names = [n for n, t in zip(names, leaves) if t is not None and n != "bias"]
+    diff = [leaves[names.index(n)] for n in grad_names]
     cts = tuple(
         torch.randn(shape, generator=gen, device=DEVICE).to(dt)
         for shape, dt in (((B, H, Lq, 16), dtype), ((B, H, Lq, 24), torch.float32),
@@ -916,13 +949,14 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
     if k1.backward_calls_by_route != {**bwd_before, route: bwd_before[route] + 1}:
         raise AssertionError(f"autograd's backward left the {route!r} route: "
                              f"{k1.backward_calls_by_route} after {bwd_before}")
-    ref = [t.detach().float().requires_grad_(n != "bias") for n, t in zip(names, args)]
+    ref = [None if t is None else t.detach().float().requires_grad_(n != "bias")
+           for n, t in zip(names, args)]
     want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **kw),
-                               [t for n, t in zip(names, ref) if n != "bias"],
+                               [ref[names.index(n)] for n in grad_names],
                                [c.float() for c in cts])
     torch.cuda.synchronize()
     rel, abs_err = {}, 0.0  # max |error| / max |reference| of each gradient
-    for name, g, p, w in zip([n for n in names if n != "bias"], got, diff, want):
+    for name, g, p, w in zip(grad_names, got, diff, want):
         if g.dtype != p.dtype or g.shape != w.shape or not torch.isfinite(g).all():
             raise AssertionError(f"d_{name}: dtype/shape mismatch or non-finite values")
         err = (g.float() - w).abs().max().item()
@@ -933,7 +967,7 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
                              f"{rel[worst]:.3e} x max|reference| > {GRAD_TOL[dname]:.3e}")
     del ref, want
     plain_outs = k1.ipa_attention_plain(*leaves, **kw)
-    plain_args = [t.detach() for t in leaves]
+    plain_args = [None if t is None else t.detach() for t in leaves]
     sw, pw = kw["scalar_w"], kw["pair_w"]
     with torch.no_grad():
         fwd_ms = cuda_time_ms(lambda: k1.ipa_attention(*plain_args, **kw), reps=20)
@@ -959,6 +993,8 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
             times = [cuda_time_ms(fn, reps=10) for fn in (kernel_bwd, pytorch_bwd) * 2]
             bwd_ms, torch_ms = (times[0] + times[2]) / 2, (times[1] + times[3]) / 2
             kernel_ms, kernels = kernel_time_ms(kernel_bwd)
+            if kernels == 0:  # the profiler saw none of the library's kernels: not measured
+                kernel_ms = None
             torch_kernel_ms, torch_kernels = kernel_time_ms(pytorch_bwd)
             detail = (f"; the PyTorch backward (ipa_attention_backward) ms={torch_ms:.4f} "
                       f"({times[1]:.4f}, {times[3]:.4f}; {torch_ms / bwd_ms:.2f}x the kernel's), "
@@ -974,16 +1010,26 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
     del plain_outs, outs, got
     mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention(*leaves, **kw), diff, cts))
     plain_mem = peak_mb(lambda: torch.autograd.grad(k1.ipa_attention_plain(*leaves, **kw), diff, cts))
+
+    def torch_fwd_bwd():
+        with torch.no_grad():
+            k1.ipa_attention(*plain_args, **kw)
+            return k1.ipa_attention_backward(plain_args, cts, **kw)
+
+    torch_mem = None if route == "torch" else peak_mb(torch_fwd_bwd)
     log(
-        f"[k1-grad] H={H} B={B} Lq={Lq} L={L} {dname} masked_cols={masked} backward route "
-        f"{route}: gradient errors x max|f32 reference| "
+        f"[{tag}] H={H} Cp={cp} {'w_pb' if in_kernel else 'pa'} B={B} Lq={Lq} L={L} {dname} "
+        f"masked_cols={masked} backward route {route}: gradient errors x max|f32 reference| "
         + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
         + f" (tol {GRAD_TOL[dname]:.2e}); forward ms={fwd_ms:.4f} bound_ms={fwd_bound:.4f} "
-        f"({fwd_by}); backward ({route}) ms={bwd_ms:.4f}, device kernel time {kernel_ms:.4f} ms "
-        f"in {kernels} kernels{detail}; backward bound_ms={bwd_bound:.4f} ({bwd_by}; the route's "
+        f"({fwd_by}); backward ({route}) ms={bwd_ms:.4f}, device kernel time "
+        + ("not measured (the profiler saw no kernel of the call)" if kernel_ms is None
+           else f"{kernel_ms:.4f} ms in {kernels} kernels")
+        + f"{detail}; backward bound_ms={bwd_bound:.4f} ({bwd_by}; the route's "
         f"operations on their units {design_ms:.4f} ms, bytes {nbytes / 1e6:.1f} MB {bytes_ms:.4f} "
         f"ms; all {ops / 1e9:.2f} GFLOP in f32 on CUDA cores {ops_ms:.4f} ms); plain autograd backward ms={plain_bwd_ms:.4f}; peak memory of forward + backward "
         f"{mem:.1f} MB, plain autograd {plain_mem:.1f} MB"
+        + ("" if torch_mem is None else f", forward + the PyTorch backward {torch_mem:.1f} MB")
     )
     if route != "torch" and not (identical and vs_torch <= 2 * GRAD_TOL[dname]):
         raise AssertionError(f"the {route} kernel is not deterministic or disagrees with "
@@ -994,7 +1040,7 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None):
         design_ops_ms=design_ms,
         route=route, torch_ms=torch_ms, kernel_ms=kernel_ms, kernels=kernels,
         torch_kernel_ms=torch_kernel_ms, torch_kernels=torch_kernels, peak_mb=mem,
-        plain_peak_mb=plain_mem,
+        plain_peak_mb=plain_mem, torch_peak_mb=torch_mem,
     )
 
 
@@ -1523,7 +1569,9 @@ def phase_inkernel(k1, ptxas):
     the control net's 4 heads, against the plain version; row slabs of the
     in-kernel variant at 4 heads; the "h4" route timed in turns with the
     CUDA-core design; the Function's gradients with ``w_pb`` against
-    autograd of the plain version. Returns per-case results."""
+    autograd of the plain version (``_grad_case``: at 4 heads in f32 the
+    backward kernel "bwd_h4", against the PyTorch backward and itself,
+    timed in turns with the former). Returns per-case results."""
     import torch
 
     from se3diff_torch.parallel.mesh import row_slabs
@@ -1594,50 +1642,20 @@ def phase_inkernel(k1, ptxas):
     results["sp_h4"] = dict(max_abs_err=err, **slabs[0])
     del args, want, got
 
-    names = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pv", "bias", "pa", "w_pb")
-    for B, L, H, cp, dname, masked in INKERNEL_GRAD_CASES:
-        dtype = getattr(torch, dname)
-        args = k1_inputs(B, L, dtype, gen, masked, H=H, cp=cp, in_kernel=True)
-        leaves = [None if t is None else t.clone().requires_grad_(n != "bias") for n, t in zip(names, args)]
-        grad_names = [n for n, t in zip(names, leaves) if t is not None and n != "bias"]
-        diff = [leaves[names.index(n)] for n in grad_names]
-        cts = tuple(torch.randn(shape, generator=gen, device=DEVICE).to(dt) for shape, dt in (
-            ((B, H, L, 16), dtype), ((B, H, L, 24), torch.float32), ((B, H, L, 16), dtype)))
-        outs = k1.ipa_attention(*leaves, **kw)
-        got = torch.autograd.grad(outs, diff, cts)
-        ref = [None if t is None else t.detach().float().requires_grad_(n != "bias")
-               for n, t in zip(names, args)]
-        want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **kw),
-                                   [ref[names.index(n)] for n in grad_names], [c.float() for c in cts])
-        torch.cuda.synchronize()
-        rel, abs_err = {}, 0.0
-        for name, g, prm, w in zip(grad_names, got, diff, want):
-            if g.dtype != prm.dtype or g.shape != w.shape or not torch.isfinite(g).all():
-                raise AssertionError(f"d_{name}: dtype/shape mismatch or non-finite values")
-            err = (g.float() - w).abs().max().item()
-            rel[name], abs_err = err / w.abs().max().item(), max(abs_err, err)
-        worst = max(rel, key=rel.get)
-        if not rel[worst] <= GRAD_TOL[dname]:
-            raise AssertionError(f"d_{worst} disagrees with autograd of the plain version: "
-                                 f"{rel[worst]:.3e} x max|reference| > {GRAD_TOL[dname]:.3e}")
-        del ref, want, outs, got
-        plain_args = [None if t is None else t.detach() for t in leaves]
-        plain_outs = k1.ipa_attention_plain(*leaves, **kw)
-        with torch.no_grad():
-            grads = k1.ipa_attention_backward(plain_args, cts, **kw)
-            bwd_ms = cuda_time_ms(lambda: k1.ipa_attention_backward(plain_args, cts, **kw), reps=10)
-        plain_bwd_ms = cuda_time_ms(
-            lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
-        bwd_bound, bwd_by, nbytes, ops, _ = k1_bwd_bound(plain_args, cts, grads)
-        log(f"[k1-inkernel] gradients has_pa=False B={B} L={L} H={H} {dname} masked_cols={masked}: "
-            "errors x max|f32 reference| " + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
-            + f" (tol {GRAD_TOL[dname]:.2e}); backward ms={bwd_ms:.4f} bound_ms={bwd_bound:.4f} "
-            f"({bwd_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32); plain autograd "
-            f"backward ms={plain_bwd_ms:.4f}")
-        results[("grad", B, L, H, dname)] = dict(
-            max_abs_err=abs_err, max_rel_err=rel[worst], ms=bwd_ms, plain_ms=plain_bwd_ms,
-            bound_ms=bwd_bound, bound_by=bwd_by)
-        del args, leaves, diff, grads, plain_args, plain_outs
+    # The Function's gradients with w_pb: 4 heads in f32 on the kernel
+    # "bwd_h4", timed in turns with the PyTorch backward; its forward and
+    # backward's peak memory at the PPFT step's shape no more than the
+    # forward with the PyTorch backward's.
+    for B, L, H, cp, dname, masked, Lq in INKERNEL_GRAD_CASES:
+        res = _grad_case(k1, gen, B, L, dname, masked, H=H, Lq=Lq, cp=cp, in_kernel=True,
+                         tag="k1-inkernel")
+        if (H, dname) == (4, "float32") and res["route"] != "bwd_h4":
+            raise AssertionError(f"the control net's backward took route {res['route']!r}, not 'bwd_h4'")
+        results[("grad", B, L, H, cp, dname, Lq)] = res
+    main = results[("grad",) + INKERNEL_GRAD_CASES[0][:5] + INKERNEL_GRAD_CASES[0][6:]]
+    if not main["peak_mb"] <= main["torch_peak_mb"]:
+        raise AssertionError(f"bwd_h4's forward + backward peaks at {main['peak_mb']:.1f} MB, above "
+                             f"the forward with the PyTorch backward's {main['torch_peak_mb']:.1f} MB")
 
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     for B, Lq, Lk, cp, dname, masked in K1_H16_CASES:
@@ -1693,13 +1711,13 @@ def _check_ppft_routes(k1, launches):
     """The score model's streamed bf16 launches take the tensor-core route,
     the control net's in-kernel f32 launches at 4 heads the "h4" design;
     every backward pass is the control net's (the score model is frozen),
-    on the PyTorch backward ("torch")."""
+    on the backward kernel "bwd_h4" and none on the PyTorch backward."""
     routes = dict(k1.launches_by_route)
     if routes != only_routes(k1, tc=launches["pa"], h4=launches["w_pb"]):
         raise AssertionError(f"PPFT launches by route {routes} do not follow their variants {launches}")
     bwd_routes = dict(k1.backward_calls_by_route)
-    if bwd_routes != only_bwd_routes(k1, torch=k1.backward_calls):
-        raise AssertionError(f"PPFT backward passes by route {bwd_routes}: expected all on torch")
+    if bwd_routes != only_bwd_routes(k1, bwd_h4=k1.backward_calls):
+        raise AssertionError(f"PPFT backward passes by route {bwd_routes}: expected all on bwd_h4")
     return routes
 
 
@@ -1875,20 +1893,26 @@ def phase_ppft_step(k1, files, card, denoiser="heun_finetune", beside=None):
     total = prof.total_ms
     if not total > 0:
         raise AssertionError("the profiler recorded no device time for the PPFT step")
+    # The backward's three kernels (rows, cols, wsum) by name: a launch
+    # through ctypes carries no record_function label.
     k1_split = {"tc": sum(t for k, t, _ in kernels if "ipa_attention_tc_kernel" in k),
-                "h4": sum(t for k, t, _ in kernels if "ipa_attention_h4_kernel" in k)}
+                "h4": sum(t for k, t, _ in kernels if "ipa_attention_h4_kernel" in k),
+                "bwd_h4": sum(t for k, t, _ in kernels if "bwd_h4_" in k)}
+    bwd_h4_count = sum(n for k, _, n in kernels if "bwd_h4_rows" in k)
     wall_ms = (t_path_c + t_grad_c) * 1e3
     log(f"{tag} profile of a step cut to {cut} steps: device kernel time {total:.1f} ms "
         f"in {sum(n for _, _, n in kernels)} kernels against an unprofiled wall of {wall_ms:.1f} ms, "
         f"so the device is busy {100 * total / wall_ms:.1f}%; K1 score model (32 heads, streamed, "
         f"tensor-core design) {k1_split['tc']:.1f} ms, K1 control net (4 heads, in-kernel, "
-        f"h4 design) {k1_split['h4']:.1f} ms")
+        f"h4 design) {k1_split['h4']:.1f} ms, its backward (bwd_h4_rows, bwd_h4_cols, "
+        f"bwd_h4_wsum) {k1_split['bwd_h4']:.1f} ms in {bwd_h4_count} calls")
     for key, t, n in kernels[:10]:
         log(f"[ppft-profile]   {t:9.2f} ms {100 * t / total:5.1f}%  x{n:<6d} {key[:90]}")
     log(f"{tag} {metric} = {value:.1f}")
     return dict(value=value, launches=launches, backwards=backwards, busy=total / wall_ms,
-                control_net_k1_ms=k1_split["h4"], denoiser=denoiser, steps=steps, t_path=t_path,
-                t_grad=t_grad, final_pos=final_pos)
+                control_net_k1_ms=k1_split["h4"], control_net_bwd_ms=k1_split["bwd_h4"],
+                control_net_bwd_calls=bwd_h4_count, denoiser=denoiser, steps=steps,
+                t_path=t_path, t_grad=t_grad, final_pos=final_pos)
 
 
 def phase_sample_cli(k1, files, card, dpm_f32_wall):
@@ -3337,7 +3361,8 @@ def main() -> int:
     ft_case = inkernel[(PPFT_BATCH, 56, 4, 32, "float32", True)]
     ft57_case = inkernel[(PPFT_BATCH, 57, 4, 32, "float32", True)]
     ft32_case = inkernel[(40, 100, 32, 256, "bfloat16", True)]
-    ft_bwd = inkernel[("grad",) + INKERNEL_GRAD_CASES[0][:3] + INKERNEL_GRAD_CASES[0][4:5]]
+    ft_bwd = inkernel[("grad",) + INKERNEL_GRAD_CASES[0][:5] + INKERNEL_GRAD_CASES[0][6:]]
+    ft_bwd_cases = {c[:5] + c[6:]: inkernel[("grad",) + c[:5] + c[6:]] for c in INKERNEL_GRAD_CASES}
     h16_l77 = {dname: inkernel[(40, 77, 16, 256, dname, False)] for dname in H16_ROUTES}
     log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}, PPFT "
         f"CLI {ppft_launches}, PPFT step {step['launches']}, sample CLI heun "
@@ -3551,8 +3576,9 @@ def main() -> int:
         "h32_ms": ft32_case["ms"],
         "h32_plain_ms": ft32_case["plain_ms"],
         "h32_bound_ms": ft32_case["bound_ms"],
-        "backward_route": "torch",
-        "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        # The backward is the kernel "bwd_h4" (its own entry below).
+        "backward_route": ft_bwd["route"],
+        "backward_source": "se3diff_torch/csrc/ipa_attention_bwd_h4.cu",
         "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
         "backward_calls": ppft_backwards,
         "backward_calls_ppft_sde_dpm": sde_backwards,
@@ -3644,6 +3670,34 @@ def main() -> int:
         "launches_pp": sppp["pp_backwards"],
         **_bwd_keys("B4_L300_rows150", grad_results[(4, 300, "float32", 150)]),
         **_bwd_keys("B16_L77_masked", grad_results[(TRAIN_BATCH, 77, "float32", 77)]),
+    }, {
+        # K1's backward at the PPFT control net's widths (route bwd_h4: f32, 4
+        # heads, in-kernel w_pb, Cp <= 64): autograd's backward passes in the
+        # PPFT step (phase 13), and at its shape (B=256, L=56, Cp=32) the
+        # gradients against autograd of the plain version, timed in turns
+        # with the PyTorch backward (torch_ms). No Pallas kernel: "replaces"
+        # is the XLA backward's has_pa=False branch.
+        "name": "ipa_attention_backward_h4",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_bwd_h4.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "launches": step["backwards"],
+        **_bwd_entry(ft_bwd),
+        "torch_peak_mb": ft_bwd["torch_peak_mb"],
+        # The PPFT CLI runs (phases 12, 15), the sde_dpm step (phase 15) and
+        # the learning run's fine-tuning (phase 18); the backward kernels'
+        # device time and calls in phase 13's 10-step profile.
+        "launches_ppft_cli": ppft_backwards,
+        "launches_ppft_sde_dpm": sde_backwards,
+        "launches_ppft_sde_dpm_step": sde_step["backwards"],
+        "launches_ppft_learn": learn["ppft_backwards"],
+        "ppft_profile_ms": step["control_net_bwd_ms"],
+        "ppft_profile_calls": step["control_net_bwd_calls"],
+        **_bwd_keys("B64_L56", ft_bwd_cases[(64, 56, 4, 32, "float32", 56)]),
+        **_bwd_keys("B256_L57_masked", ft_bwd_cases[(256, 57, 4, 32, "float32", 57)]),
+        **_bwd_keys("B256_L56_Cp64", ft_bwd_cases[(256, 56, 4, 64, "float32", 56)]),
+        **_bwd_keys("B64_L100", ft_bwd_cases[(64, 100, 4, 32, "float32", 100)]),
+        **_bwd_keys("B256_L56_rows28", ft_bwd_cases[(256, 56, 4, 32, "float32", 28)]),
     }]}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels))

@@ -54,14 +54,22 @@ static rule on the widths (:func:`kernel_route`) picks one:
 Nothing falls back at run time. The backward (the JAX package's is XLA
 code, ``_fused_backward_chunked``, not a Pallas kernel) dispatches by device
 and by a static rule on the widths (:func:`backward_route`): CPU tensors,
-and every CUDA width but the two below, run :func:`ipa_attention_backward`
-(PyTorch, row-chunked; route ``"torch"``); at 32 heads with the streamed
-pair bias and ``Cp % 32 == 0`` (the score model's backward on every
-training path) CUDA tensors launch ``csrc/ipa_attention_bwd_tc.cu``, route
-``"bwd_tc"`` in bf16 and ``"bwd_tc_f32"`` in f32, or raise. Its algebra
-(a statistics sweep, D from row aggregates, column sums from saved row
-statistics, the tensor-core operands' roundings) is
-:func:`ipa_attention_backward_tiled`, which no path calls.
+and every CUDA width but the three below, run :func:`ipa_attention_backward`
+(PyTorch, row-chunked; route ``"torch"``); CUDA tensors of these widths
+launch a kernel or raise:
+
+- ``"bwd_tc"`` / ``"bwd_tc_f32"`` (``csrc/ipa_attention_bwd_tc.cu``): 32
+  heads, the streamed pair bias and ``Cp % 32 == 0``, bf16 / f32: the score
+  model's backward on every training path. Its algebra (a statistics sweep,
+  D from row aggregates, column sums from saved row statistics, the
+  tensor-core operands' roundings) is :func:`ipa_attention_backward_tiled`;
+- ``"bwd_h4"`` (``csrc/ipa_attention_bwd_h4.cu``): f32, 4 heads, the
+  in-kernel pair bias and ``Cp <= H4_MAX_CP``: the PPFT control net's
+  backward. Its algebra (one sweep over x2d carrying the statistics, D and
+  the x2d aggregates online; d_w_pb from them; a second sweep without x2d)
+  is :func:`ipa_attention_backward_h4_tiled`.
+
+No path calls the two ``*_tiled`` functions.
 
 :func:`sp_ipa_attention` is the sequence-parallel form: one rank's slab of
 query rows against every column, the same kernel launched on the slab.
@@ -84,6 +92,7 @@ __all__ = [
     "ipa_attention",
     "ipa_attention_backward",
     "ipa_attention_backward_tiled",
+    "ipa_attention_backward_h4_tiled",
     "ipa_attention_plain",
     "sp_ipa_attention",
     "build_library",
@@ -122,7 +131,8 @@ _TC_ROUTES = {(32, torch.bfloat16): "tc", (32, torch.float32): "tc_f32",
 
 # The backward design each backward route launches, by C symbol; "torch"
 # (ipa_attention_backward) launches none.
-_BWD_ROUTE_SYMBOLS = {"bwd_tc": "ipa_attention_bwd_tc", "bwd_tc_f32": "ipa_attention_bwd_tc_f32"}
+_BWD_ROUTE_SYMBOLS = {"bwd_tc": "ipa_attention_bwd_tc", "bwd_tc_f32": "ipa_attention_bwd_tc_f32",
+                      "bwd_h4": "ipa_attention_bwd_h4"}
 _BWD_TC_ROUTES = {torch.bfloat16: "bwd_tc", torch.float32: "bwd_tc_f32"}
 
 # Forward kernel launches made through ipa_attention (plain-version calls and
@@ -190,14 +200,19 @@ def backward_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -
     """The backward that CUDA operands of these widths run: for 32 heads,
     the streamed pair bias and ``Cp % 32 == 0``, the kernel
     ``csrc/ipa_attention_bwd_tc.cu``, ``"bwd_tc"`` in bf16 and
-    ``"bwd_tc_f32"`` in f32; ``"torch"`` (:func:`ipa_attention_backward`)
-    for every other width in :data:`CARD_WIDTHS`. CPU operands always run
-    ``"torch"``. Raises ``ValueError`` for widths the card refuses."""
+    ``"bwd_tc_f32"`` in f32; for f32 at 4 heads with the in-kernel pair bias
+    and ``Cp <= H4_MAX_CP`` (the PPFT control net), the kernel
+    ``csrc/ipa_attention_bwd_h4.cu``, ``"bwd_h4"``; ``"torch"``
+    (:func:`ipa_attention_backward`) for every other width in
+    :data:`CARD_WIDTHS`. CPU operands always run ``"torch"``. Raises
+    ``ValueError`` for widths the card refuses."""
     err = _widths_error(H, dk, cp)
     if err is not None:
         raise ValueError(err)
     if has_pa and H == 32 and cp % 32 == 0 and dtype in _BWD_TC_ROUTES:
         return _BWD_TC_ROUTES[dtype]
+    if not has_pa and H == 4 and dtype == torch.float32 and cp <= H4_MAX_CP:
+        return "bwd_h4"
     return "torch"
 
 
@@ -266,12 +281,15 @@ def _library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * 14 + [ci] * 8 + [cf, cf, vp]
                 fn.restype = ci
-            # Backward: 12 operands, 13 outputs and scratch, 6 sizes, 2
-            # weights, the stream.
+            # Backward: bwd_tc's 12 operands, 13 outputs and scratch; or
+            # bwd_h4's 13 operands (w_pb in, no pa), 9 outputs (d_w_pv and
+            # d_w_pb, no d_pa) and 3 scratch; 6 sizes, 2 weights, the stream.
             for name in _BWD_ROUTE_SYMBOLS.values():
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * 25 + [ci] * 6 + [cf, cf, vp]
                 fn.restype = ci
+            lib.ipa_attention_bwd_h4_row_blocks.argtypes = [ci, ci, ci]
+            lib.ipa_attention_bwd_h4_row_blocks.restype = ci
             lib.ipa_attention_bwd_cols_smem_bytes.argtypes = []
             lib.ipa_attention_bwd_cols_smem_bytes.restype = ci
             lib.ipa_attention_error_string.argtypes = [ci]
@@ -283,6 +301,7 @@ def _library() -> ctypes.CDLL:
                          "ipa_attention_tc16_smem_bytes", "ipa_attention_tc16_f32_smem_bytes",
                          "ipa_attention_tc16_blocks_per_sm",
                          "ipa_attention_bwd_tc_smem_bytes", "ipa_attention_bwd_tc_f32_smem_bytes",
+                         "ipa_attention_bwd_h4_smem_bytes",
                          "ipa_attention_tc16_f32_blocks_per_sm"):
                 getattr(lib, name).argtypes = [ci]
                 getattr(lib, name).restype = ci
@@ -557,19 +576,45 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
 
 
 def _launch_backward(inputs, grad_outputs, scalar_w: float, pair_w: float, counted: bool = True):
-    """Input gradients of :func:`ipa_attention` from the backward kernel
-    (``csrc/ipa_attention_bwd_tc.cu``, :func:`backward_route`'s design) on
-    the current stream; raises if it cannot run. ``inputs`` are the ten
-    operands up to ``pa`` on the card, ``grad_outputs`` ``(d_out_s, d_out_p,
-    d_out_pair)``. The two plain products around the kernel go to
-    ``torch.bmm``, as JAX leaves them to XLA: ``g_wx2d = ct_pr @ w_pv^T``
-    before it, ``d_w_pv = wx2d^T ct_pr`` after it. Counts the call in
+    """Input gradients of :func:`ipa_attention` from :func:`backward_route`'s
+    kernel on the current stream; raises if it cannot run. ``inputs`` are the
+    operands on the card up to ``pa`` (ten), or with ``w_pb`` after it
+    (eleven), ``grad_outputs`` ``(d_out_s, d_out_p, d_out_pair)``. With
+    ``pa`` given, the kernel ``csrc/ipa_attention_bwd_tc.cu``; with ``pa``
+    None and ``w_pb`` given, :func:`_launch_backward_h4`. Counts the call in
     :data:`backward_calls_by_route` when ``counted`` (autograd's calls);
     ``chip_smoke.py`` and the card tests call it uncounted to compare.
-    Returns :func:`ipa_attention_backward`'s ten gradients."""
-    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs[:10]
+    Returns :func:`ipa_attention_backward`'s gradients, one per input."""
+    pa, w_pb = inputs[9], (inputs[10] if len(inputs) > 10 else None)
     if pa is None:
-        raise ValueError("the backward kernel takes the streamed pair bias (pa)")
+        if w_pb is None:
+            raise ValueError("the backward kernels take the streamed pair bias (pa) or w_pb")
+        return _launch_backward_h4(inputs, grad_outputs, scalar_w, pair_w, counted)
+    grads = _launch_backward_tc(inputs[:10], grad_outputs, scalar_w, pair_w, counted)
+    return grads + ((None,) if len(inputs) > 10 else ())
+
+
+def _cotangents(q_s, grad_outputs, s_dtype):
+    """The three cotangents, contiguous: ``d_out_s`` in ``s_dtype``,
+    ``d_out_p`` and ``d_out_pair`` in f32; raises on a wrong shape or
+    device."""
+    B, H, Lq, dk = q_s.shape
+    cts = (grad_outputs[0].to(s_dtype).contiguous(), grad_outputs[1].float().contiguous(),
+           grad_outputs[2].float().contiguous())
+    for name, t, shape in zip(("d_out_s", "d_out_p", "d_out_pair"), cts,
+                              ((B, H, Lq, dk), (B, H, Lq, 24), (B, H, Lq, dk))):
+        if tuple(t.shape) != shape or t.device != q_s.device:
+            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, expected {shape} on "
+                             f"{q_s.device}")
+    return cts
+
+
+def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, counted: bool):
+    """:func:`_launch_backward` with the streamed pair bias: the kernel
+    ``csrc/ipa_attention_bwd_tc.cu``. The two plain products around it go
+    to ``torch.bmm``, as JAX leaves them to XLA: ``g_wx2d = ct_pr @ w_pv^T``
+    before it, ``d_w_pv = wx2d^T ct_pr`` after it. Returns ten gradients."""
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs
     _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, None)
     B, H, Lq, dk = q_s.shape
     Lk, Cp = k_s.shape[2], x2d.shape[-1]
@@ -577,13 +622,7 @@ def _launch_backward(inputs, grad_outputs, scalar_w: float, pair_w: float, count
     if route == "torch":
         raise ValueError(f"no backward kernel takes {H} heads, Cp={Cp} in {q_s.dtype}")
     f32, dev = torch.float32, q_s.device
-    ct_s = grad_outputs[0].to(q_s.dtype).contiguous()
-    ct_p = grad_outputs[1].to(f32).contiguous()
-    ct_pr = grad_outputs[2].to(f32)
-    for name, t, shape in (("d_out_s", ct_s, (B, H, Lq, dk)), ("d_out_p", ct_p, (B, H, Lq, 24)),
-                           ("d_out_pair", ct_pr, (B, H, Lq, dk))):
-        if tuple(t.shape) != shape or t.device != dev:
-            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, expected {shape} on {dev}")
+    ct_s, ct_p, ct_pr = _cotangents(q_s, grad_outputs, q_s.dtype)
     if any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, pa, ct_s, ct_p)):
         raise ValueError("the backward kernel needs 16-byte aligned q_s, v_s, v_p, pa and cotangents")
     ct_pr_h = ct_pr.transpose(0, 1).reshape(H, B * Lq, dk)      # heads first
@@ -612,6 +651,54 @@ def _launch_backward(inputs, grad_outputs, scalar_w: float, pair_w: float, count
     return d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_wpv, None, d_pa
 
 
+def _launch_backward_h4(inputs, grad_outputs, scalar_w: float, pair_w: float, counted: bool):
+    """:func:`_launch_backward` with the pair bias computed in the kernel
+    (``pa`` None, ``w_pb [Cp, 4]`` f32 last): the kernel
+    ``csrc/ipa_attention_bwd_h4.cu`` (route ``"bwd_h4"``: f32, 4 heads,
+    ``Cp <= H4_MAX_CP``), which computes every gradient itself, ``d_w_pv``
+    and ``d_w_pb`` from its row blocks' partials added in a fixed order.
+    Returns eleven gradients, ``d_w_pb`` last, shaped as ``w_pb``; None for
+    the bias and ``pa``."""
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb = inputs
+    _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb)
+    B, H, Lq, dk = q_s.shape
+    Lk, Cp = k_s.shape[2], x2d.shape[-1]
+    route = backward_route(q_s.dtype, H, dk, Cp, False)
+    if route != "bwd_h4":
+        raise ValueError(f"no backward kernel takes {H} heads, Cp={Cp} in {q_s.dtype} with w_pb")
+    f32, dev = torch.float32, q_s.device
+    ct_s, ct_p, ct_pr = _cotangents(q_s, grad_outputs, f32)
+    if any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv, w_pb, ct_s, ct_p, ct_pr)):
+        raise ValueError("the bwd_h4 kernel needs 16-byte aligned q_s, v_s, v_p, w_pv, w_pb and "
+                         "cotangents")
+    d_qs, d_ks, d_vs = torch.empty_like(q_s), torch.empty_like(k_s), torch.empty_like(v_s)
+    d_qp, d_kp, d_vp = torch.empty_like(q_p), torch.empty_like(k_p), torch.empty_like(v_p)
+    d_x2d, d_wpv, d_wpb = torch.empty_like(x2d), torch.empty_like(w_pv), torch.empty_like(w_pb)
+    lib = _library()
+    with torch.cuda.device(dev):
+        blocks = lib.ipa_attention_bwd_h4_row_blocks(B, Lq, Cp)
+        if blocks < 1:
+            raise RuntimeError("the bwd_h4 kernel could not read the device")
+        # Scratch: s and dphat, then a and ds, at a row stride of Lk rounded
+        # up to 4; a row block's partials of d_w_pv and d_w_pb.
+        a_buf, ds_buf = (torch.empty((B, H, Lq, -(-Lk // 4) * 4), dtype=f32, device=dev)
+                         for _ in range(2))
+        w_part = torch.empty((blocks, H * Cp * (dk + 1)), dtype=f32, device=dev)
+        err = lib.ipa_attention_bwd_h4(
+            *(t.data_ptr() for t in (q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, w_pb, ct_s,
+                                     ct_p, ct_pr, d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_wpv,
+                                     d_wpb, a_buf, ds_buf, w_part)),
+            B, H, Lq, Lk, dk, Cp, float(scalar_w), float(pair_w),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ipa_attention backward kernel launch ({route}) failed: "
+                           + lib.ipa_attention_error_string(err).decode())
+    if counted:
+        backward_calls_by_route[route] += 1
+    return d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_wpv, None, None, d_wpb
+
+
 def _backward(saved, grad_outputs, scalar_w: float, pair_w: float):
     """Autograd's backward of :func:`ipa_attention` on the saved operands
     (eleven, ``w_pb`` last): counts the pass and dispatches it, CPU tensors
@@ -626,7 +713,7 @@ def _backward(saved, grad_outputs, scalar_w: float, pair_w: float):
     if route == "torch":
         backward_calls_by_route["torch"] += 1
         return ipa_attention_backward(saved, grad_outputs, scalar_w=scalar_w, pair_w=pair_w)
-    return _launch_backward(saved[:10], grad_outputs, scalar_w, pair_w) + (None,)
+    return _launch_backward(saved, grad_outputs, scalar_w, pair_w)
 
 
 def _tf32(x):
@@ -723,6 +810,95 @@ def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_
         torch.einsum("bhip,bhid->hpd", wx2d, ct_pr.float()).to(w_pv.dtype),
         None,
         (pair_w * ds).to(pa.dtype),
+    )
+
+
+def ipa_attention_backward_h4_tiled(inputs, grad_outputs, *, scalar_w: float, pair_w: float,
+                                    tile: int = 4, rows: int = 56):
+    """Input gradients of :func:`ipa_attention` with the pair bias computed
+    in the kernel (``pa`` None, ``w_pb`` last), computed the way the backward
+    kernel ``csrc/ipa_attention_bwd_h4.cu`` computes them; no path calls it
+    (the CPU tests hold it against JAX's ``_fused_backward_chunked`` and
+    :func:`ipa_attention_backward`).
+
+    Where its algebra differs from :func:`ipa_attention_backward`: one sweep
+    over key tiles of ``tile`` columns carries, online, the row statistics,
+    ``sum_j p dphat`` (so ``D`` is that over the sum), ``U = sum_j p x2d``
+    and ``V = sum_j p dphat x2d``; ``wx2d`` is ``U`` over the sum and a row's
+    ``sum_j ds x2d`` is ``(V - D U)`` over the sum, so ``d_w_pb`` needs no
+    second pass over x2d: each block of ``rows`` query rows adds its rows'
+    terms in row order, and the blocks' partials are added in order. The
+    pair bias takes ``w_pb`` times ``pair_w``, as the kernel holds it; point
+    distances are explicit differences; ``d_x2d = a g + ds (pair_w w_pb)``
+    with ``g = ct_pr @ w_pv^T``. Same arguments and result as
+    :func:`ipa_attention_backward` with ``w_pb`` given (eleven gradients)."""
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, _, w_pb = inputs
+    ct_s, ct_p, ct_pr = (c.float() for c in grad_outputs)
+    B, H, Lq, _ = q_s.shape
+    Lk, Cp = k_s.shape[2], x2d.shape[-1]
+    qs, ks, x = q_s.float() * scalar_w, k_s.float(), x2d.float()
+    wpb = w_pb.float() * pair_w
+    diff = q_p.float()[..., :, None] - k_p.float()[..., None, :]  # [B, 3, H4, Lq, Lk]
+    d2 = (diff * diff).sum(1)
+    dist = torch.sqrt(d2.clamp_min(0.0) + 1e-24)
+    g = torch.einsum("bhid,hcd->bhic", ct_pr, w_pv.float())
+    s = (torch.einsum("bhid,bhjd->bhij", qs, ks) - dist.reshape(B, H, 4, Lq, Lk).sum(2)
+         + torch.einsum("bijc,ch->bhij", x, wpb) + bias.float()[:, None, None, :])
+    dphat = (torch.einsum("bhid,bhjd->bhij", ct_s, v_s.float())
+             + torch.einsum("bhic,bhjc->bhij", ct_p, v_p.float())
+             + torch.einsum("bhic,bijc->bhij", g, x))
+
+    # Sweep 1: the statistics, D's sum and the x2d aggregates, online.
+    m = torch.full((B, H, Lq), -1e30)
+    total, pd = torch.zeros(B, H, Lq), torch.zeros(B, H, Lq)
+    U, V = torch.zeros(B, H, Lq, Cp), torch.zeros(B, H, Lq, Cp)
+    for j0 in range(0, Lk, tile):
+        st, dt, xt = s[..., j0:j0 + tile], dphat[..., j0:j0 + tile], x[:, :, j0:j0 + tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        total = total * corr + p.sum(-1)
+        pd = pd * corr + (p * dt).sum(-1)
+        U = U * corr[..., None] + torch.einsum("bhij,bijc->bhic", p, xt)
+        V = V * corr[..., None] + torch.einsum("bhij,bijc->bhic", p * dt, xt)
+        m = m_new
+    inv = 1.0 / total
+    D = pd * inv
+
+    # d_w_pb: each row's pair_w (V - D U) / sum; a block's rows in order,
+    # then the blocks (batch element first) in order.
+    term = pair_w * (V - D[..., None] * U) * inv[..., None]     # [B, H, Lq, Cp]
+    nblk = -(-Lq // rows)
+    term = torch.nn.functional.pad(term, (0, 0, 0, nblk * rows - Lq))
+    term = term.reshape(B, H, nblk, rows, Cp)
+    part = torch.zeros(B, H, nblk, Cp)
+    for r in range(rows):
+        part = part + term[:, :, :, r]
+    d_wpb = torch.zeros(H, Cp)
+    for p_ in part.permute(0, 2, 1, 3).reshape(B * nblk, H, Cp):
+        d_wpb = d_wpb + p_
+
+    # Sweep 2: a and ds from the kept s and dphat; d_x2d and the rows' sums.
+    a = torch.exp(s - m[..., None]) * inv[..., None]
+    ds = a * (dphat - D[..., None])
+    d_x2d = torch.einsum("bhij,bhic->bijc", a, g) + torch.einsum("bhij,ch->bijc", ds, wpb)
+    inv_dist = torch.where(d2 > 0.0, 1.0 / torch.sqrt(d2 + 1e-24), torch.zeros_like(d2))
+    w = ((-ds)[:, :, None] * inv_dist.reshape(B, H, 4, Lq, Lk)).reshape(B, -1, Lq, Lk)[:, None] * diff
+    wx2d = U * inv[..., None]
+
+    # The column sums, from the same a and ds.
+    return (
+        scalar_w * torch.einsum("bhij,bhjd->bhid", ds, ks),
+        torch.einsum("bhij,bhid->bhjd", ds, qs),
+        torch.einsum("bhij,bhid->bhjd", a, ct_s),
+        w.sum(-1),
+        -w.sum(-2),
+        torch.einsum("bhij,bhic->bhjc", a, ct_p),
+        d_x2d,
+        torch.einsum("bhic,bhid->hcd", wx2d, ct_pr),
+        None,
+        None,
+        d_wpb.t().contiguous(),
     )
 
 

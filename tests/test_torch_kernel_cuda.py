@@ -8,7 +8,9 @@ and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
 CUDA-core design on the same inputs; and the backward kernel (streamed
 ``pa`` at 32 heads: route "bwd_tc" in bf16, "bwd_tc_f32" in f32) against
 the PyTorch backward ``ipa_attention_backward`` and against itself, bit for
-bit, on a second call.
+bit, on a second call; and the backward kernel at the PPFT control net's
+widths (route "bwd_h4": f32, 4 heads, ``w_pb``) against autograd of the
+plain version and against itself.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip. They
 import neither JAX nor the JAX package, so a machine with only PyTorch runs
@@ -281,15 +283,22 @@ def test_backward_kernel_matches_the_pytorch_backward(cuda_device, B, Lq, Lk, ma
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,route,tol", BWD_ROUTES)
+@pytest.mark.parametrize("dtype,route,H,CP,variant", [
+    (torch.bfloat16, "bwd_tc", 32, 256, "pa"), (torch.float32, "bwd_tc_f32", 32, 256, "pa"),
+    (torch.float32, "bwd_h4", 4, 32, "w_pb")])
 @pytest.mark.parametrize("B,Lq,Lk,masked", [(16, 100, 100, 0), (3, 77, 77, 9), (4, 150, 300, 0)])
-def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype, route, tol):
+def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype, route, H, CP,
+                                          variant):
     """Two calls on the same inputs give the same gradients bit for bit: no
-    atomics, every sum in a fixed order."""
-    args = _args(cuda_device, B, Lq, Lk, dtype, masked)[:10]
+    atomics, every sum (bwd_h4's weight gradients over the rows included) in
+    a fixed order."""
+    args = list(_args(cuda_device, B, Lq, Lk, dtype, masked, H=H, CP=CP, variant=variant))
+    args = args[:10] if variant == "pa" else args
+    assert k1.backward_route(dtype, H, DK, CP, variant == "pa") == route
     cts = _cotangents(args)
     first = k1._launch_backward(args, cts, KW["scalar_w"], KW["pair_w"], counted=False)
     second = k1._launch_backward(args, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    assert len(first) == len(args)
     for name, x, y in zip(NAMES, first, second):
         assert (x is None and y is None) or torch.equal(x, y), name
 
@@ -320,3 +329,63 @@ def test_backward_kernel_refuses_what_it_does_not_take(cuda_device):
         k1._launch_backward(small, _cotangents(small), 1.0, 1.0)
     with pytest.raises(ValueError, match="d_out_p"):
         k1._launch_backward(args[:10], (cts[0], cts[1][..., :12], cts[2]), 1.0, 1.0)
+
+
+# Shapes of the bwd_h4 kernel: a small batch, the PPFT CLI's masked L=57 at
+# B=8 (ragged row and column tiles, two row blocks), ragged cases, one row
+# and column, every column masked, a 28-row slab of 56 columns, and L=100
+# (two key chunks of 64).
+H4_BWD_CASES = [(2, 9, 9, 0), (8, 57, 57, 5), (3, 37, 37, 5), (2, 5, 70, 0), (1, 1, 1, 0),
+                (2, 33, 33, 33), (4, 28, 56, 0), (2, 100, 100, 0)]
+# GRAD_TOL["float32"] of chip_smoke.py: 1e-4 x max|reference|, the reference
+# autograd through the plain version in f32 (same function, sums in another
+# order).
+H4_GRAD_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("CP", [32, 4, 64])
+@pytest.mark.parametrize("B,Lq,Lk,masked", H4_BWD_CASES)
+def test_h4_backward_kernel_matches_autograd_of_plain(cuda_device, B, Lq, Lk, masked, CP):
+    """f32, 4 heads, ``w_pb``: autograd through ``ipa_attention`` runs the
+    "bwd_h4" kernel, and each gradient is within ``H4_GRAD_TOL`` of the
+    largest entry of autograd's through the plain version on the same
+    values. With one key column the softmax is 1 and ds is zero but for
+    rounding (the kernel forms D and d_w_pb's row term in another order):
+    the gradients made from ds alone are held at 1e-5 absolute."""
+    args = _args(cuda_device, B, Lq, Lk, torch.float32, masked, H=4, CP=CP, variant="w_pb")
+    cts = _cotangents(args)
+    assert k1.backward_route(torch.float32, 4, DK, CP, False) == "bwd_h4"
+    names = [n for n, t in zip(NAMES, args) if t is not None and n != "bias"]
+    leaves = [None if t is None else t.clone().requires_grad_(n != "bias") for n, t in zip(NAMES, args)]
+    diff = [leaves[NAMES.index(n)] for n in names]
+    before = dict(k1.backward_calls_by_route)
+    got = torch.autograd.grad(k1.ipa_attention(*leaves, **KW), diff, cts)
+    assert k1.backward_calls_by_route == {**before, "bwd_h4": before["bwd_h4"] + 1}
+    ref = [None if t is None else t.detach().clone().requires_grad_(n != "bias")
+           for n, t in zip(NAMES, args)]
+    want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **KW),
+                               [ref[NAMES.index(n)] for n in names], cts)
+    torch.cuda.synchronize()
+    from_ds = ("q_s", "k_s", "q_p", "k_p", "w_pb")
+    for name, g, w, p in zip(names, got, want, diff):
+        assert g.dtype == p.dtype and g.shape == p.shape and torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        if Lk == 1 and name in from_ds:
+            assert err <= 1e-5, name
+        else:
+            assert err <= H4_GRAD_TOL * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_h4_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device):
+    import re
+    from pathlib import Path
+
+    src = (Path(k1.__file__).resolve().parents[1] / "csrc" / "ipa_attention_bwd_h4.cu").read_text()
+    m = re.search(r"Shared memory of bwd_h4_rows: ([\d,]+) bytes at Cp = 32 \(56 rows\), "
+                  r"([\d,]+) at Cp = 64", src)
+    at32, at64 = (int(x.replace(",", "")) for x in m.groups())
+    lib = k1._library()
+    assert lib.ipa_attention_bwd_h4_smem_bytes(32) == at32
+    assert lib.ipa_attention_bwd_h4_smem_bytes(64) == at64

@@ -90,8 +90,15 @@ def test_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa)
     (F32, 32, 16, 36, True, "torch"),
     (F32, 32, 16, 256, False, "torch"),        # the in-kernel pair bias
     (BF16, 32, 16, 256, False, "torch"),
-    (F32, 4, 16, 32, False, "torch"),          # the PPFT control net (B2-h4)
-    (F32, 4, 16, 32, True, "torch"),
+    (F32, 4, 16, 32, False, "bwd_h4"),         # the PPFT control net
+    (F32, 4, 16, 4, False, "bwd_h4"),
+    (F32, 4, 16, 36, False, "bwd_h4"),
+    (F32, 4, 16, 64, False, "bwd_h4"),         # the h4 designs' largest Cp
+    (F32, 4, 16, 68, False, "torch"),          # Cp above it
+    (F32, 4, 16, 96, False, "torch"),
+    (BF16, 4, 16, 32, False, "torch"),         # bf16 at 4 heads
+    (F32, 4, 16, 32, True, "torch"),           # the streamed variant at 4 heads
+    (F32, 8, 16, 64, False, "torch"),          # 8 heads in-kernel
     (BF16, 16, 16, 256, True, "torch"),        # a tensor-parallel rank (B2-tc16)
     (F32, 16, 16, 256, True, "torch"),
     (F32, 8, 16, 256, True, "torch"),
@@ -110,9 +117,12 @@ def test_backward_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp
 
 def test_each_backward_symbol_has_exactly_one_extern_c_definition():
     """Every backward route's C symbol is defined once across ``csrc/*.cu``,
-    inside an ``extern "C"`` block, with the 34 arguments the binding
-    declares; the counts hold one entry a backward route and "torch"."""
-    for symbol in k1._BWD_ROUTE_SYMBOLS.values():
+    inside an ``extern "C"`` block of its design's source, with the 34
+    arguments the binding declares; the counts hold one entry a backward
+    route and "torch"."""
+    sources = {"bwd_tc": "ipa_attention_bwd_tc.cu", "bwd_tc_f32": "ipa_attention_bwd_tc.cu",
+               "bwd_h4": "ipa_attention_bwd_h4.cu"}
+    for route, symbol in k1._BWD_ROUTE_SYMBOLS.items():
         found = []
         for path in CSRC.glob("*.cu"):
             text = path.read_text()
@@ -121,8 +131,8 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
                     signature = block[m.start():]
                     assert signature[:signature.index(")")].count(",") == 33, symbol
                     found.append(path.name)
-        assert found == ["ipa_attention_bwd_tc.cu"], (symbol, found)
-    assert set(k1.backward_calls_by_route) == {"bwd_tc", "bwd_tc_f32", "torch"}
+        assert found == [sources[route]], (symbol, found)
+    assert set(k1.backward_calls_by_route) == {"bwd_tc", "bwd_tc_f32", "bwd_h4", "torch"}
 
 
 def test_backward_kernel_source_states_widths_and_shared_memory():
@@ -153,6 +163,48 @@ def test_cpu_backward_counts_the_torch_route():
     sum(o.sum() for o in out).backward()
     assert k1.backward_calls == calls + 1
     assert k1.backward_calls_by_route == {**before, "torch": before["torch"] + 1}
+
+
+def test_h4_backward_source_states_widths_and_shared_memory():
+    """The bwd_h4 source takes the widths its route names (4 heads of 16, Cp
+    up to ``H4_MAX_CP``), states its row kernel's shared memory within what
+    a block may opt into on Hopper, exports it, and the route takes every
+    Cp % 4 == 0 up to ``H4_MAX_CP`` in f32 with ``w_pb`` and nothing else
+    at 4 heads."""
+    text = (CSRC / "ipa_attention_bwd_h4.cu").read_text()
+    assert "constexpr int kH = 4;" in text
+    assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in text
+    assert f"constexpr int kMaxCp = {k1.H4_MAX_CP};" in text
+    stated = re.search(r"Shared memory of bwd_h4_rows: ([\d,]+) bytes at Cp = 32 \(56 rows\), "
+                       r"([\d,]+) at Cp = 64 \(32 rows\)", text)
+    assert stated is not None
+    assert all(int(x.replace(",", "")) <= 232_448 for x in stated.groups())
+    assert re.search(r"\bint ipa_attention_bwd_h4_smem_bytes\(int Cp\)", text)
+    for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
+        assert k1.backward_route(F32, 4, 16, cp, False) == ("bwd_h4" if cp <= k1.H4_MAX_CP
+                                                           else "torch"), cp
+        assert k1.backward_route(BF16, 4, 16, cp, False) == "torch", cp
+        assert k1.backward_route(F32, 4, 16, cp, True) == "torch", cp
+
+
+def test_cpu_in_kernel_backward_counts_the_torch_route():
+    """CPU tensors with ``w_pb`` at the control net's widths run
+    ipa_attention_backward, though CUDA tensors of these widths take
+    "bwd_h4": the pass counts under "torch", and ``w_pb`` gets its
+    gradient shaped as itself."""
+    B, H, L, dk, cp = 2, 4, 5, 16, 32
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g)
+    args = [r(B, H, L, dk), r(B, H, L, dk), r(B, H, L, dk), r(B, 3, H * 4, L), r(B, 3, H * 4, L),
+            r(B, H, L, 24), r(B, L, L, cp), r(H, cp, dk), torch.zeros(B, L), None, r(cp, H)]
+    assert k1.backward_route(torch.float32, H, dk, cp, False) == "bwd_h4"
+    leaves = [t if t is None else t.requires_grad_(i != 8) for i, t in enumerate(args)]
+    before, calls = dict(k1.backward_calls_by_route), k1.backward_calls
+    out = k1.ipa_attention(*leaves, scalar_w=0.25, pair_w=0.5)
+    sum(o.sum() for o in out).backward()
+    assert k1.backward_calls == calls + 1
+    assert k1.backward_calls_by_route == {**before, "torch": before["torch"] + 1}
+    assert leaves[10].grad.shape == (cp, H) and torch.isfinite(leaves[10].grad).all()
 
 
 def test_card_widths_name_what_the_cuda_sources_instantiate():
