@@ -11,7 +11,8 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    source (time, ptxas report: registers, spills and shared memory of the
    "tc", "tc_f32", "h4", "tc16" and "tc16_f32" kernels, the 16-head
    designs' resident blocks an SM, the backward kernels' row and column
-   kernels, "bwd_tc" and "bwd_tc_f32", and "bwd_h4"'s two row
+   kernels, "bwd_tc" and "bwd_tc_f32", "bwd_tc16" and "bwd_tc16_f32" (with
+   the row kernel's resident blocks an SM), and "bwd_h4"'s two row
    instantiations, column kernel and weight-gradient reduction, with its
    row kernel's shared memory);
 2. the kernel against its plain PyTorch version on the card, at the main
@@ -38,9 +39,12 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 5. a profile of one main-path batch: device time by kernel;
 6. K1's gradient on the card: the autograd Function (kernel forward; the
    backward kernel, "bwd_tc" in bf16 and "bwd_tc_f32" in f32, at 32 heads)
-   against autograd through the plain version at B=16, L=100 (bf16, f32),
+   against autograd through the plain version (in f64: in f32 its point
+   gradients lose up to some 1e-4 to cancellation) at B=16, L=100 (bf16, f32),
    L=77 with 9 masked columns, B=4, L=200, an SP slab (B=4, rows 0-150 of
-   L=300, f32 and bf16) and the learning run's B=32, L=56 (bf16); each
+   L=300, f32 and bf16) and the learning run's B=32, L=56 (bf16), and at a
+   tensor-parallel rank's 16 heads B=40, L=77 with 9 masked columns (bf16
+   on "bwd_tc16", f32 on "bwd_tc16_f32"); each
    gradient's error beside its tolerance; autograd's backward on the route
    of its widths; the kernel's second call equal to its first bit for bit;
    the kernel timed in turns with the PyTorch backward
@@ -164,7 +168,7 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    (a) one f32 step at bioemu-v1.0 widths (seed-0 weights), B=16, L=100,
    fixed noise, as ``data=2`` (K1 on "tc_f32", 8 rows a rank, its backward
    on "bwd_tc_f32") and as ``model=2`` (K1 on "tc16_f32" at 16 heads, its
-   backward on "torch"), each against this process's
+   backward on "bwd_tc16_f32"), each against this process's
    one-device step on the whole batch: the loss within 1e-5 relative, the
    clipped gradients of ``model=2`` within 1e-4 of each one's largest
    entry; ``data=2`` equals, bit for bit, this process's step with the
@@ -177,13 +181,14 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    bf16 on the two test ensembles (one L=64 bucket), batch 16: 10 steps
    with checkpoints every 5, then 5 steps, interrupted, and a resume to 10,
    which must equal the uninterrupted weights bit for bit; 80 "tc16"
-   launches and 80 backward passes ("torch") a rank; the export loads through
+   launches and 80 backward passes ("bwd_tc16") a rank; the export loads through
    ``load_bundle`` and one score evaluation runs from it. K1 at 16 heads
    ("tc16_f32" at the f32 step's shape, "tc16" at the CLI's) is held
    against its plain version and the CUDA-core design and timed in turns
    with the latter beside its bound, and its gradients against autograd of
-   the plain version with the backward timed beside its bound, at both
-   shapes;
+   the plain version, the backward kernel ("bwd_tc16_f32", "bwd_tc16")
+   against the PyTorch backward and against itself bit for bit, timed in
+   turns with it beside its bound, with peak memory, at both shapes;
 20. ``[sp-pp-train]``: (c) K1 at this slice's new shapes against its plain
    version, each timed in turns with the CUDA-core design beside its bound:
    a PP microbatch B=4 L=100 (bf16 "tc", f32 "tc_f32"), a Picard sweep's
@@ -272,10 +277,15 @@ K1_GRAD_CASES = [(TRAIN_BATCH, 100, "bfloat16", 0), (TRAIN_BATCH, 100, "float32"
 # (phase 20 (a)) and the PPFT learning run's DSM step (phase 18).
 K1_GRAD_PATH_CASES = [(4, 300, "float32", 0, 150), (4, 300, "bfloat16", 0, 150),
                       (32, 56, "bfloat16", 0, None)]
+# Phase 6 at a tensor-parallel rank's 16 heads (routes "bwd_tc16" and
+# "bwd_tc16_f32"; phase 19 times the mesh paths' shapes): B=40, L=77 with 9
+# masked columns (ragged row and key tiles), (B, L, dtype, masked columns).
+K1_GRAD_H16_CASES = [(40, 77, "bfloat16", 9), (40, 77, "float32", 9)]
 # Gradient tolerances x max|reference| of each gradient, the reference being
-# autograd through the plain version on the same values in f32: f32, sums
-# in another order; bf16, the same plus one rounding of the f32 gradient to
-# bf16 (8 significant bits: at most 2^-8 of the value).
+# autograd through the plain version on the same values (in f64 on a kernel
+# route, in f32 on "torch": see _grad_case): f32, sums in another order;
+# bf16, the same plus one rounding of the f32 gradient to bf16 (8
+# significant bits: at most 2^-8 of the value).
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0**-8 + 1e-4}
 SP_SEQ = "GYDPETGTWG" * 30                       # L=300
 SP_RANKS, SP_BATCH, SP_SAMPLES = 2, 4, 8
@@ -559,8 +569,17 @@ def phase_build():
     for route, t, smem in (("bwd_tc", "13__nv_bfloat16", lib.ipa_attention_bwd_tc_smem_bytes(256)),
                            ("bwd_tc_f32", "f", lib.ipa_attention_bwd_tc_f32_smem_bytes(256))):
         ptxas[route] = (f"rows: {ptxas_summary(report, f'bwd_rowsI{t}E')}; dynamic shared memory "
-                        f"{smem} bytes at Cp=256 | cols: {ptxas_summary(report, f'bwd_colsI{t}E')}; "
-                        f"dynamic shared memory {cols} bytes")
+                        f"{smem} bytes at Cp=256 | cols: "
+                        f"{ptxas_summary(report, f'bwd_colsI{t}Li32E')}; dynamic shared memory "
+                        f"{cols} bytes")
+    # The 16-head backward: its row kernel's resident blocks an SM beside.
+    for route, t in (("bwd_tc16", "13__nv_bfloat16"), ("bwd_tc16_f32", "f")):
+        smem = getattr(lib, f"ipa_attention_{route}_smem_bytes")(256)
+        blocks = getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256)
+        ptxas[route] = (f"rows: {ptxas_summary(report, f'bwd16_rowsI{t}E')}; dynamic shared "
+                        f"memory {smem} bytes at Cp=256, {blocks} blocks an SM resident | cols: "
+                        f"{ptxas_summary(report, f'bwd_colsI{t}Li16E')}; dynamic shared memory "
+                        f"{cols} bytes")
     # bwd_h4: two row instantiations (Cp <= 32, every path; Cp <= 64), the
     # column kernel and the reduction of d_w_pv's and d_w_pb's partials.
     ptxas["bwd_h4"] = (
@@ -569,7 +588,8 @@ def phase_build():
         f"{ptxas_summary(report, 'bwd_h4_rowsILi64E')}; dynamic shared memory "
         f"{lib.ipa_attention_bwd_h4_smem_bytes(64)} bytes at Cp=64 (32 rows) | cols: "
         f"{ptxas_summary(report, 'bwd_h4_cols')} | wsum: {ptxas_summary(report, 'bwd_h4_wsum')}")
-    for route in ("tc_f32", "h4", "tc16", "tc16_f32", "bwd_tc", "bwd_tc_f32", "bwd_h4"):
+    for route in ("tc_f32", "h4", "tc16", "tc16_f32", "bwd_tc", "bwd_tc_f32", "bwd_tc16",
+                  "bwd_tc16_f32", "bwd_h4"):
         log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
 
@@ -862,8 +882,9 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     tensor cores) every operation is f32 on CUDA cores. The other kernel
     routes run the three x2d contractions (2 Cp operations each per head, row and
     column) on tensor cores, each product as many times as it has terms
-    ("bwd_tc": a x2d and g x2d two bf16 terms, a g three; "bwd_tc_f32":
-    3xTF32, three TF32 terms each), and the rest in f32 on CUDA cores; the
+    ("bwd_tc", "bwd_tc16": a x2d and g x2d two bf16 terms, a g three;
+    "bwd_tc_f32", "bwd_tc16_f32": 3xTF32, three TF32 terms each), and the
+    rest in f32 on CUDA cores; the
     two units' times are added. Returns the bound, what bounds it, the
     bytes, the all-f32 operation count and the design's operations time
     (ms)."""
@@ -883,8 +904,8 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     if route in ("torch", "bwd_h4"):
         ops_ms = f32_ms(ops)
     else:
-        terms, rate = {"bwd_tc": (2 + 2 + 3, H100_OPS_PER_S["bfloat16"]),
-                       "bwd_tc_f32": (3 + 3 + 3, H100_TF32_OPS_PER_S)}[route]
+        terms, rate = ((3 + 3 + 3, H100_TF32_OPS_PER_S) if route.endswith("_f32")
+                       else (2 + 2 + 3, H100_OPS_PER_S["bfloat16"]))
         tensor_ops = pairs * 2 * cp * terms
         ops_ms = tensor_ops / rate * 1e3 + f32_ms(ops - pairs * 6 * cp)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -909,11 +930,14 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
     """One case of K1's gradient on the card (``H`` heads, pair width
     ``cp``, the pair bias streamed or, with ``in_kernel``, from ``w_pb``;
     ``Lq`` query rows of ``L`` columns: a row slab when fewer): the autograd
-    Function against autograd through the plain version in f32 (fatal
-    beyond ``GRAD_TOL``), its backward on ``backward_route``'s route (fatal
-    otherwise). On a kernel route ("bwd_tc", "bwd_tc_f32", "bwd_h4") the
-    kernel's gradients against ``ipa_attention_backward``'s (fatal beyond
-    twice ``GRAD_TOL``: each is within it of the f32 reference), its second
+    Function against autograd through the plain version (fatal beyond
+    ``GRAD_TOL``; in f64 on a kernel route, whose errors against the plain
+    version in f32 are printed beside, in f32 on "torch"), its backward on
+    ``backward_route``'s route (fatal otherwise). On a kernel route
+    ("bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32", "bwd_h4") the
+    kernel's gradients against ``ipa_attention_backward``'s on the same
+    values in f64 (fatal beyond twice ``GRAD_TOL``: each is within it of the
+    reference; against its f32 gradients printed), its second
     call equal to its first bit for bit (fatal otherwise), and the two timed
     in turns (kernel, PyTorch, kernel, PyTorch), each with its device kernel
     time and count. Then the
@@ -949,23 +973,39 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
     if k1.backward_calls_by_route != {**bwd_before, route: bwd_before[route] + 1}:
         raise AssertionError(f"autograd's backward left the {route!r} route: "
                              f"{k1.backward_calls_by_route} after {bwd_before}")
-    ref = [None if t is None else t.detach().float().requires_grad_(n != "bias")
-           for n, t in zip(names, args)]
-    want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **kw),
-                               [ref[names.index(n)] for n in grad_names],
-                               [c.float() for c in cts])
+    def plain_grads(dtype):
+        ref = [None if t is None else t.detach().to(dtype).requires_grad_(n != "bias")
+               for n, t in zip(names, args)]
+        return torch.autograd.grad(k1.ipa_attention_plain(*ref, **kw),
+                                   [ref[names.index(n)] for n in grad_names],
+                                   [c.to(dtype) for c in cts])
+
+    def errors(grads, want):
+        rel = {n: (g.to(w.dtype) - w).abs().max().item() / w.abs().max().item()
+               for n, g, w in zip(grad_names, grads, want)}
+        return rel, max((g.to(w.dtype) - w).abs().max().item() for g, w in zip(grads, want))
+
+    # The reference: the plain version's gradients in f32 on route "torch",
+    # which forms d2 = q2 + k2 - 2 q.k in f32 as the plain version does; in
+    # f64 on the kernel routes, which take point distances from explicit
+    # differences. In f32 that form loses up to some 1e-4 of the largest
+    # point gradient at close point pairs, which the kernels do not (both
+    # printed on the kernel routes).
+    ref_dtype, ref_name = ((torch.float32, "f32") if route == "torch"
+                           else (torch.float64, "f64"))
+    want = plain_grads(ref_dtype)
     torch.cuda.synchronize()
-    rel, abs_err = {}, 0.0  # max |error| / max |reference| of each gradient
     for name, g, p, w in zip(grad_names, got, diff, want):
         if g.dtype != p.dtype or g.shape != w.shape or not torch.isfinite(g).all():
             raise AssertionError(f"d_{name}: dtype/shape mismatch or non-finite values")
-        err = (g.float() - w).abs().max().item()
-        rel[name], abs_err = err / w.abs().max().item(), max(abs_err, err)
+    rel, abs_err = errors(got, want)  # max |error| / max |reference| of each gradient
     worst = max(rel, key=rel.get)
     if not rel[worst] <= GRAD_TOL[dname]:
-        raise AssertionError(f"d_{worst} disagrees with autograd of the plain version: "
-                             f"{rel[worst]:.3e} x max|reference| > {GRAD_TOL[dname]:.3e}")
-    del ref, want
+        raise AssertionError(f"d_{worst} disagrees with autograd of the plain version in "
+                             f"{ref_name}: {rel[worst]:.3e} x max|reference| > "
+                             f"{GRAD_TOL[dname]:.3e}")
+    rel32 = None if route == "torch" else errors(got, plain_grads(torch.float32))[0]
+    del want
     plain_outs = k1.ipa_attention_plain(*leaves, **kw)
     plain_args = [None if t is None else t.detach() for t in leaves]
     sw, pw = kw["scalar_w"], kw["pair_w"]
@@ -984,12 +1024,21 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
             def kernel_bwd():
                 return k1._launch_backward(plain_args, cts, sw, pw, counted=False)
 
+            def largest_rel(got, want):
+                return max((a.to(b.dtype) - b).abs().max().item() / b.abs().max().item()
+                           for a, b in zip(got, want) if a is not None)
+
             first, second = kernel_bwd(), kernel_bwd()
             identical = all(a is None and b is None or torch.equal(a, b)
                             for a, b in zip(first, second))
-            vs_torch = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
-                           for a, b in zip(first, grads) if a is not None)
-            del first, second
+            # Against the PyTorch backward on the same values in f64 (its f32
+            # point gradients carry the plain version's cancellation), and
+            # in f32 (printed).
+            torch64 = k1.ipa_attention_backward(
+                [None if t is None else t.double() for t in plain_args],
+                [c.double() for c in cts], **kw)
+            vs_torch, vs_torch32 = largest_rel(first, torch64), largest_rel(first, grads)
+            del first, second, torch64
             times = [cuda_time_ms(fn, reps=10) for fn in (kernel_bwd, pytorch_bwd) * 2]
             bwd_ms, torch_ms = (times[0] + times[2]) / 2, (times[1] + times[3]) / 2
             kernel_ms, kernels = kernel_time_ms(kernel_bwd)
@@ -999,8 +1048,9 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
             detail = (f"; the PyTorch backward (ipa_attention_backward) ms={torch_ms:.4f} "
                       f"({times[1]:.4f}, {times[3]:.4f}; {torch_ms / bwd_ms:.2f}x the kernel's), "
                       f"device kernel time {torch_kernel_ms:.4f} ms in {torch_kernels} kernels; "
-                      f"kernel against it: largest gradient error {vs_torch:.2e} x its max "
-                      f"(tol {2 * GRAD_TOL[dname]:.2e}); second kernel call "
+                      f"kernel against it in f64: largest gradient error {vs_torch:.2e} x its "
+                      f"max (tol {2 * GRAD_TOL[dname]:.2e}; in f32 {vs_torch32:.2e}); second "
+                      "kernel call "
                       + ("bit for bit equal to the first" if identical else "DIFFERS from the first"))
     plain_bwd_ms = cuda_time_ms(
         lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
@@ -1019,9 +1069,13 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
     torch_mem = None if route == "torch" else peak_mb(torch_fwd_bwd)
     log(
         f"[{tag}] H={H} Cp={cp} {'w_pb' if in_kernel else 'pa'} B={B} Lq={Lq} L={L} {dname} "
-        f"masked_cols={masked} backward route {route}: gradient errors x max|f32 reference| "
+        f"masked_cols={masked} backward route {route}: gradient errors x max|"
+        f"{ref_name} reference| "
         + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
-        + f" (tol {GRAD_TOL[dname]:.2e}); forward ms={fwd_ms:.4f} bound_ms={fwd_bound:.4f} "
+        + f" (tol {GRAD_TOL[dname]:.2e}"
+        + ("" if rel32 is None else "; against the plain version in f32 "
+           + ", ".join(f"d_{n} {v:.2e}" for n, v in rel32.items()))
+        + f"); forward ms={fwd_ms:.4f} bound_ms={fwd_bound:.4f} "
         f"({fwd_by}); backward ({route}) ms={bwd_ms:.4f}, device kernel time "
         + ("not measured (the profiler saw no kernel of the call)" if kernel_ms is None
            else f"{kernel_ms:.4f} ms in {kernels} kernels")
@@ -1033,9 +1087,10 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
     )
     if route != "torch" and not (identical and vs_torch <= 2 * GRAD_TOL[dname]):
         raise AssertionError(f"the {route} kernel is not deterministic or disagrees with "
-                             f"ipa_attention_backward ({vs_torch:.3e})")
+                             f"ipa_attention_backward in f64 ({vs_torch:.3e})")
     return dict(
         max_abs_err=abs_err, max_rel_err=rel[worst], fwd_ms=fwd_ms, ms=bwd_ms, plain_ms=plain_bwd_ms,
+        max_rel_err_vs_f32_plain=None if rel32 is None else max(rel32.values()),
         bound_ms=bwd_bound, bound_by=bwd_by, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
         design_ops_ms=design_ms,
         route=route, torch_ms=torch_ms, kernel_ms=kernel_ms, kernels=kernels,
@@ -1049,8 +1104,12 @@ def phase_kernel_grad(k1):
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     cases = [(*c, None) for c in K1_GRAD_CASES] + K1_GRAD_PATH_CASES
-    return {(B, L, dname, Lq or L): _grad_case(k1, gen, B, L, dname, masked, Lq=Lq)
-            for B, L, dname, masked, Lq in cases}
+    results = {(B, L, dname, Lq or L): _grad_case(k1, gen, B, L, dname, masked, Lq=Lq)
+               for B, L, dname, masked, Lq in cases}
+    # At 16 heads, keyed with the heads last.
+    for B, L, dname, masked in K1_GRAD_H16_CASES:
+        results[B, L, dname, L, 16] = _grad_case(k1, gen, B, L, dname, masked, H=16)
+    return results
 
 
 def phase_dsm_grad(k1):
@@ -2531,7 +2590,7 @@ def phase_mesh_train(k1, ptxas, card):
 
     readings = {}
     for i, (name, route, bwd_route) in enumerate((("data=2", "tc_f32", "bwd_tc_f32"),
-                                                  ("model=2", "tc16_f32", "torch"))):
+                                                  ("model=2", "tc16_f32", "bwd_tc16_f32"))):
         outs = [r[i] for r in ranks]
         o = outs[0]
         grad_tol = MESH_GRAD_TOL[name]
@@ -2589,9 +2648,9 @@ def phase_mesh_train(k1, ptxas, card):
                 f"{x['rank']}: {x['wall_s']:.1f} s with set-up; logged losses {x['history']}; K1 "
                 f"launches by route {x['launches_by_route']}, backward passes "
                 f"{x['backward_calls']} by route {x['backward_calls_by_route']} (expected {n} each, "
-                f"on tc16 and torch)")
+                f"on tc16 and bwd_tc16)")
             if (x["launches_by_route"] != {**zero, "tc16": n} or x["backward_calls"] != n
-                    or x["backward_calls_by_route"] != only_bwd_routes(k1, torch=n)):
+                    or x["backward_calls_by_route"] != only_bwd_routes(k1, bwd_tc16=n)):
                 raise AssertionError(f"the CLI rank ({label}) launched K1 {x['launches_by_route']}")
     if not all(np.isfinite(x["history"]).all() for x in runs[0]):
         raise AssertionError("non-finite loss in the mesh run")
@@ -2621,7 +2680,8 @@ def phase_mesh_train(k1, ptxas, card):
     log(f"[mesh-train] phase wall {wall:.1f} s (the spawn {spawn_s:.1f} s); {card}")
     return dict(h16=h16, bwd=bwd, readings=readings,
                 cli_launches=sum(x["launches_by_route"]["tc16"] for x in runs[0]),
-                cli_backwards=sum(x["backward_calls"] for x in runs[0]))
+                cli_backwards=sum(x["backward_calls"] for x in runs[0]),
+                cli_bwd_launches=sum(x["backward_calls_by_route"]["bwd_tc16"] for x in runs[0]))
 
 
 def _numpy_batch(B, L, seed):
@@ -3253,7 +3313,8 @@ def _case_keys(prefix, case):
 def _h16_entry(case, l77, bwd):
     """The kernels line's readings of a 16-head design: its case at a mesh
     path's shape, at B=40 L=77 with 9 masked columns, and K1's backward at
-    the path's shape."""
+    the path's shape (the kernel ``csrc/ipa_attention_bwd_tc16.cu``, timed
+    in turns with the PyTorch backward, ``backward_torch_ms``)."""
     return {
         "max_abs_err": case["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
         "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
@@ -3262,9 +3323,11 @@ def _h16_entry(case, l77, bwd):
         "max_abs_err_vs_prev": case["err_vs_prev"],
         "B40_L77_masked_ms": l77["ms"], "B40_L77_masked_prev_ms": l77["prev_ms"],
         "B40_L77_masked_bound_ms": l77["bound_ms"], "B40_L77_masked_max_abs_err": l77["max_abs_err"],
-        "backward_route": "torch", "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        "backward_route": bwd["route"],
+        "backward_source": "se3diff_torch/csrc/ipa_attention_bwd_tc16.cu",
         "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
-        "backward_ms": bwd["ms"], "backward_plain_ms": bwd["plain_ms"],
+        "backward_ms": bwd["ms"], "backward_torch_ms": bwd["torch_ms"],
+        "backward_plain_ms": bwd["plain_ms"],
         "backward_bound_ms": bwd["bound_ms"], "backward_bound_by": bwd["bound_by"],
         "backward_max_rel_err": bwd["max_rel_err"],
     }
@@ -3284,8 +3347,10 @@ def _bwd_entry(case):
     design's operations on their units (``design_ops_ms``; ``ops_bound_ms``
     every operation in f32 on CUDA cores), the device kernel time and count of
     each, and peak memory of the Function's forward and backward against
-    plain autograd's."""
-    keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    plain autograd's; the errors are against the plain version in f64
+    (``max_rel_err_vs_f32_plain`` in f32)."""
+    keys = ("max_abs_err", "max_rel_err", "max_rel_err_vs_f32_plain", "ms", "plain_ms",
+            "bound_ms", "bound_by",
             "bytes_bound_ms", "design_ops_ms", "ops_bound_ms", "torch_ms", "kernel_ms", "kernels",
             "torch_kernel_ms", "torch_kernels", "peak_mb", "plain_peak_mb")
     return {**{k: case[k] for k in keys}, "library_ms": None, "verdict": "pass"}
@@ -3376,7 +3441,9 @@ def main() -> int:
         f"mesh training (2 ranks): the data=2 step {mesh['readings']['data=2']['launches']} "
         f"tc_f32, the model=2 step {mesh['readings']['model=2']['launches']} tc16_f32, the CLI's "
         f"10 steps at model=2 {mesh['cli_launches']} tc16 and {mesh['cli_backwards']} backward "
-        f"passes; SP training (2 ranks) {sppp['sp_launches']} slab launches on tc_f32 and "
+        f"passes ({mesh['cli_bwd_launches']} on bwd_tc16), the model=2 step's "
+        f"{mesh['readings']['model=2']['bwd_launches']} on bwd_tc16_f32; SP training (2 "
+        f"ranks) {sppp['sp_launches']} slab launches on tc_f32 and "
         f"{sppp['sp_backwards']} backward passes; PP (2 stages) f32 forward and step "
         f"{sppp['pp_launches']} on tc_f32, {sppp['pp_backwards']} backward passes, bf16 first "
         f"step {sppp['pp_bf16_launches']} on tc; Picard bf16 "
@@ -3670,6 +3737,32 @@ def main() -> int:
         "launches_pp": sppp["pp_backwards"],
         **_bwd_keys("B4_L300_rows150", grad_results[(4, 300, "float32", 150)]),
         **_bwd_keys("B16_L77_masked", grad_results[(TRAIN_BATCH, 77, "float32", 77)]),
+    }, {
+        # K1's backward at a TP rank's 16 heads with the streamed pair bias in
+        # bf16 (route bwd_tc16): autograd's backward passes in the train CLI's
+        # 10 mesh steps at model=2 (phase 19 (b)), summed over its 2 ranks, and
+        # at its shape (B=16, L=64) the gradients against autograd of the
+        # plain version, timed in turns with the PyTorch backward (torch_ms);
+        # phase 6's B=40 L=77 masked beside.
+        "name": "ipa_attention_backward_16_heads",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_bwd_tc16.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "launches": mesh["cli_bwd_launches"],
+        **_bwd_entry(mesh["bwd"]["bf16"]),
+        "torch_peak_mb": mesh["bwd"]["bf16"]["torch_peak_mb"],
+        **_bwd_keys("B40_L77_masked", grad_results[(40, 77, "bfloat16", 77, 16)]),
+    }, {
+        # The same in f32 (route bwd_tc16_f32): the model=2 mesh step (phase
+        # 19 (a)), summed over its 2 ranks, at its shape (B=16, L=100).
+        "name": "ipa_attention_backward_16_heads_f32",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_bwd_tc16.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "launches": mesh["readings"]["model=2"]["bwd_launches"],
+        **_bwd_entry(mesh["bwd"]["f32"]),
+        "torch_peak_mb": mesh["bwd"]["f32"]["torch_peak_mb"],
+        **_bwd_keys("B40_L77_masked", grad_results[(40, 77, "float32", 77, 16)]),
     }, {
         # K1's backward at the PPFT control net's widths (route bwd_h4: f32, 4
         # heads, in-kernel w_pb, Cp <= 64): autograd's backward passes in the

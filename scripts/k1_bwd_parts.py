@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of K1's backward kernel goes, by kernel, on one H100.
 
-    python3 scripts/k1_bwd_parts.py [tc] [h4]
+    python3 scripts/k1_bwd_parts.py [tc] [tc16] [h4]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
-CUDA build of PyTorch (no argument: both). Builds the IPA attention library,
+CUDA build of PyTorch (no argument: all three). Builds the IPA attention library,
 then for each shape the paths give a backward kernel calls
 ``ops.ipa_attention._launch_backward`` once to warm up and once under
 ``torch.profiler``, and prints the device time of every kernel of the call
@@ -13,7 +13,11 @@ name and power limit. ``tc``: 32 heads of 16, Cp=256, the streamed pair
 bias (routes "bwd_tc", "bwd_tc_f32": the row kernel ``bwd_rows``, the
 column kernel ``bwd_cols``, the two ``bmm`` and the casts and copies around
 them) at the train step's B=16 L=100 in bf16 and f32, the PPFT learning
-run's B=32 L=56 bf16 and an SP slab of 150 rows of L=300 in f32. ``h4``: 4
+run's B=32 L=56 bf16 and an SP slab of 150 rows of L=300 in f32. ``tc16``:
+the same at a tensor-parallel rank's 16 heads (routes "bwd_tc16",
+"bwd_tc16_f32": ``bwd16_rows``, ``bwd_cols``) at the ``--mesh model=2``
+f32 step's B=16 L=100, the train CLI's B=16 L=64 bf16, and B=40 L=77 with 9
+masked columns in both dtypes. ``h4``: 4
 heads of 16, f32, the pair bias from ``w_pb`` (route "bwd_h4": ``bwd_h4_rows``,
 ``bwd_h4_cols``, ``bwd_h4_wpb``, the ``bmm`` for d_w_pv and its transpose
 copy) at the PPFT step's B=256 L=56 Cp=32, L=57 with 5 masked columns, Cp=64
@@ -32,13 +36,15 @@ REPO = Path(__file__).resolve().parents[1]
 SHAPES = {
     "tc": [(16, 100, 100, "bfloat16", 32, 256, 0), (16, 100, 100, "float32", 32, 256, 0),
            (32, 56, 56, "bfloat16", 32, 256, 0), (4, 150, 300, "float32", 32, 256, 0)],
+    "tc16": [(16, 100, 100, "float32", 16, 256, 0), (16, 64, 64, "bfloat16", 16, 256, 0),
+             (40, 77, 77, "bfloat16", 16, 256, 9), (40, 77, 77, "float32", 16, 256, 9)],
     "h4": [(256, 56, 56, "float32", 4, 32, 0), (256, 57, 57, "float32", 4, 32, 5),
            (256, 56, 56, "float32", 4, 64, 0), (64, 100, 100, "float32", 4, 32, 0)],
 }
 
 
-def _inputs(B, Lq, Lk, dtype, H, cp, masked, gen):
-    """The streamed pair bias at 32 heads; at 4 heads ``w_pb`` in its place."""
+def _inputs(B, Lq, Lk, dtype, H, cp, masked, gen, in_kernel):
+    """The streamed pair bias, or with ``in_kernel`` ``w_pb`` in its place."""
     import torch
 
     dk = 16
@@ -49,7 +55,7 @@ def _inputs(B, Lq, Lk, dtype, H, cp, masked, gen):
     args = [r(B, H, Lq, dk).to(dtype), r(B, H, Lk, dk).to(dtype), r(B, H, Lk, dk).to(dtype),
             r(B, 3, H * 4, Lq, scale=0.3), r(B, 3, H * 4, Lk, scale=0.3), r(B, H, Lk, 24, scale=2.0),
             r(B, Lq, Lk, cp, scale=0.5).to(dtype), r(H, cp, dk, scale=0.06).to(dtype), bias]
-    args += [r(B, H, Lq, Lk).to(dtype)] if H == 32 else [None, r(cp, H, scale=cp**-0.5)]
+    args += [None, r(cp, H, scale=cp**-0.5)] if in_kernel else [r(B, H, Lq, Lk).to(dtype)]
     cts = (r(B, H, Lq, dk).to(dtype), r(B, H, Lq, 24), r(B, H, Lq, dk).to(dtype))
     return args, cts
 
@@ -71,8 +77,8 @@ def main() -> int:
     k1.build_library()
     kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, Lq, Lk, dname, H, cp, masked in (s for d in designs for s in SHAPES[d]):
-        args, cts = _inputs(B, Lq, Lk, getattr(torch, dname), H, cp, masked, gen)
+    for design, (B, Lq, Lk, dname, H, cp, masked) in ((d, s) for d in designs for s in SHAPES[d]):
+        args, cts = _inputs(B, Lq, Lk, getattr(torch, dname), H, cp, masked, gen, design == "h4")
 
         def call():
             return k1._launch_backward(args, cts, kw["scalar_w"], kw["pair_w"], counted=False)
@@ -88,7 +94,9 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         prof = profile_device(call)
-        print(f"[k1-bwd-parts] H={H} Cp={cp} B={B} Lq={Lq} Lk={Lk} masked={masked} {dname}: call "
+        route = k1.backward_route(args[0].dtype, H, 16, cp, design != "h4")
+        print(f"[k1-bwd-parts] H={H} Cp={cp} B={B} Lq={Lq} Lk={Lk} masked={masked} {dname} "
+              f"route {route}: call "
               f"{statistics.median(times):.4f} ms "
               f"by events (median of 20); device kernel time {prof.total_ms:.4f} ms in "
               f"{prof.count} kernels:")

@@ -54,7 +54,7 @@ static rule on the widths (:func:`kernel_route`) picks one:
 Nothing falls back at run time. The backward (the JAX package's is XLA
 code, ``_fused_backward_chunked``, not a Pallas kernel) dispatches by device
 and by a static rule on the widths (:func:`backward_route`): CPU tensors,
-and every CUDA width but the three below, run :func:`ipa_attention_backward`
+and every CUDA width but those below, run :func:`ipa_attention_backward`
 (PyTorch, row-chunked; route ``"torch"``); CUDA tensors of these widths
 launch a kernel or raise:
 
@@ -63,6 +63,10 @@ launch a kernel or raise:
   model's backward on every training path. Its algebra (a statistics sweep,
   D from row aggregates, column sums from saved row statistics, the
   tensor-core operands' roundings) is :func:`ipa_attention_backward_tiled`;
+- ``"bwd_tc16"`` / ``"bwd_tc16_f32"`` (``csrc/ipa_attention_bwd_tc16.cu``):
+  the same at 16 heads, a tensor-parallel rank's backward at ``--mesh
+  model=2``: the same algebra at one m16 tile a row's heads, two 256-thread
+  blocks an SM;
 - ``"bwd_h4"`` (``csrc/ipa_attention_bwd_h4.cu``): f32, 4 heads, the
   in-kernel pair bias and ``Cp <= H4_MAX_CP``: the PPFT control net's
   backward. Its algebra (one sweep over x2d carrying the statistics, D and
@@ -132,8 +136,13 @@ _TC_ROUTES = {(32, torch.bfloat16): "tc", (32, torch.float32): "tc_f32",
 # The backward design each backward route launches, by C symbol; "torch"
 # (ipa_attention_backward) launches none.
 _BWD_ROUTE_SYMBOLS = {"bwd_tc": "ipa_attention_bwd_tc", "bwd_tc_f32": "ipa_attention_bwd_tc_f32",
+                      "bwd_tc16": "ipa_attention_bwd_tc16",
+                      "bwd_tc16_f32": "ipa_attention_bwd_tc16_f32",
                       "bwd_h4": "ipa_attention_bwd_h4"}
-_BWD_TC_ROUTES = {torch.bfloat16: "bwd_tc", torch.float32: "bwd_tc_f32"}
+# The tensor-core backward designs of the streamed pair bias, by head count
+# and dtype (Cp % 32 == 0).
+_BWD_TC_ROUTES = {(32, torch.bfloat16): "bwd_tc", (32, torch.float32): "bwd_tc_f32",
+                  (16, torch.bfloat16): "bwd_tc16", (16, torch.float32): "bwd_tc16_f32"}
 
 # Forward kernel launches made through ipa_attention (plain-version calls and
 # backward passes do not count), in all, by variant ("pa" streams the pair
@@ -200,17 +209,19 @@ def backward_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -
     """The backward that CUDA operands of these widths run: for 32 heads,
     the streamed pair bias and ``Cp % 32 == 0``, the kernel
     ``csrc/ipa_attention_bwd_tc.cu``, ``"bwd_tc"`` in bf16 and
-    ``"bwd_tc_f32"`` in f32; for f32 at 4 heads with the in-kernel pair bias
-    and ``Cp <= H4_MAX_CP`` (the PPFT control net), the kernel
-    ``csrc/ipa_attention_bwd_h4.cu``, ``"bwd_h4"``; ``"torch"``
+    ``"bwd_tc_f32"`` in f32; the same at 16 heads (a tensor-parallel rank
+    at ``--mesh model=2``), the kernel ``csrc/ipa_attention_bwd_tc16.cu``,
+    ``"bwd_tc16"`` and ``"bwd_tc16_f32"``; for f32 at 4 heads with the
+    in-kernel pair bias and ``Cp <= H4_MAX_CP`` (the PPFT control net), the
+    kernel ``csrc/ipa_attention_bwd_h4.cu``, ``"bwd_h4"``; ``"torch"``
     (:func:`ipa_attention_backward`) for every other width in
     :data:`CARD_WIDTHS`. CPU operands always run ``"torch"``. Raises
     ``ValueError`` for widths the card refuses."""
     err = _widths_error(H, dk, cp)
     if err is not None:
         raise ValueError(err)
-    if has_pa and H == 32 and cp % 32 == 0 and dtype in _BWD_TC_ROUTES:
-        return _BWD_TC_ROUTES[dtype]
+    if has_pa and cp % 32 == 0 and (H, dtype) in _BWD_TC_ROUTES:
+        return _BWD_TC_ROUTES[H, dtype]
     if not has_pa and H == 4 and dtype == torch.float32 and cp <= H4_MAX_CP:
         return "bwd_h4"
     return "torch"
@@ -302,6 +313,10 @@ def _library() -> ctypes.CDLL:
                          "ipa_attention_tc16_blocks_per_sm",
                          "ipa_attention_bwd_tc_smem_bytes", "ipa_attention_bwd_tc_f32_smem_bytes",
                          "ipa_attention_bwd_h4_smem_bytes",
+                         "ipa_attention_bwd_tc16_smem_bytes",
+                         "ipa_attention_bwd_tc16_f32_smem_bytes",
+                         "ipa_attention_bwd_tc16_blocks_per_sm",
+                         "ipa_attention_bwd_tc16_f32_blocks_per_sm",
                          "ipa_attention_tc16_f32_blocks_per_sm"):
                 getattr(lib, name).argtypes = [ci]
                 getattr(lib, name).restype = ci
@@ -310,9 +325,10 @@ def _library() -> ctypes.CDLL:
 
 
 def _pair_bias(x2d, w_pb):
-    """``x2d @ w_pb`` as ``[B, H, Lq, Lk]`` f32, with ``w_pb`` rounded to
-    ``x2d``'s dtype first (pallas_ipa.py:402-405)."""
-    return torch.einsum("bijp,ph->bhij", x2d.float(), w_pb.to(x2d.dtype).float())
+    """``x2d @ w_pb`` as ``[B, H, Lq, Lk]`` f32 (f64 for f64 ``x2d``), with
+    ``w_pb`` rounded to ``x2d``'s dtype first (pallas_ipa.py:402-405)."""
+    acc = torch.promote_types(x2d.dtype, torch.float32)
+    return torch.einsum("bijp,ph->bhij", x2d.to(acc), w_pb.to(x2d.dtype).to(acc))
 
 
 def ipa_attention_plain(
@@ -325,28 +341,29 @@ def ipa_attention_plain(
     bf16 is exact (bf16 products fit in f32): bf16 operands, f32 sums. The
     softmax weights that multiply ``v_s`` and ``x2d`` are rounded to the
     model dtype first, as in the kernel. With ``pa=None`` the pair bias is
-    ``x2d @ w_pb`` in f32.
+    ``x2d @ w_pb`` in f32. f64 operands are computed in f64: the card's
+    gradient checks take autograd through it in f64 as their reference.
     """
-    f32 = torch.float32
+    acc = torch.promote_types(q_s.dtype, torch.float32)
     B, H, Lq, _ = q_s.shape
-    s = torch.einsum("bhid,bhjd->bhij", q_s.to(f32), k_s.to(f32)) * scalar_w
+    s = torch.einsum("bhid,bhjd->bhij", q_s.to(acc), k_s.to(acc)) * scalar_w
 
-    qp, kp = q_p.to(f32), k_p.to(f32)
+    qp, kp = q_p.to(acc), k_p.to(acc)
     q2 = (qp * qp).sum(1)                                   # [B, H*4, Lq]
     k2 = (kp * kp).sum(1)                                   # [B, H*4, Lk]
     qk = torch.einsum("bxpi,bxpj->bpij", qp, kp)            # [B, H*4, Lq, Lk]
     d2 = q2[..., :, None] + k2[..., None, :] - 2.0 * qk
     d2 = torch.where(d2 > 0.0, d2, torch.full_like(d2, 1e-24))
     pdist = torch.sqrt(d2).reshape(B, H, 4, Lq, -1).sum(2)  # [B, H, Lq, Lk]
-    pair = _pair_bias(x2d, w_pb) if pa is None else pa.to(f32)
-    s = s - pdist + pair_w * pair + bias.to(f32)[:, None, None, :]
+    pair = _pair_bias(x2d, w_pb) if pa is None else pa.to(acc)
+    s = s - pdist + pair_w * pair + bias.to(acc)[:, None, None, :]
 
     a = torch.softmax(s, dim=-1)
-    a16 = a.to(v_s.dtype).to(f32)
-    out_s = torch.einsum("bhij,bhjd->bhid", a16, v_s.to(f32)).to(q_s.dtype)
-    out_p = torch.einsum("bhij,bhjc->bhic", a, v_p.to(f32))
-    wx2d = torch.einsum("bhij,bijp->bhip", a16, x2d.to(f32))
-    out_pair = torch.einsum("bhip,hpd->bhid", wx2d, w_pv.to(f32)).to(q_s.dtype)
+    a16 = a.to(v_s.dtype).to(acc)
+    out_s = torch.einsum("bhij,bhjd->bhid", a16, v_s.to(acc)).to(q_s.dtype)
+    out_p = torch.einsum("bhij,bhjc->bhic", a, v_p.to(acc))
+    wx2d = torch.einsum("bhij,bijp->bhip", a16, x2d.to(acc))
+    out_pair = torch.einsum("bhip,hpd->bhid", wx2d, w_pv.to(acc)).to(q_s.dtype)
     return out_s, out_p, out_pair
 
 
@@ -471,7 +488,8 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
     dtype (at most 1 bf16 ulp), and the distance gradient is exactly zero
     wherever ``d2 <= 0``, the clamp's true subgradient (coincident bf16
     points are common; dividing by ``sqrt(1e-24)`` there made bf16 training
-    diverge). All arithmetic is f32; each gradient is cast to its input's
+    diverge). All arithmetic is f32 (f64 for f64 operands, which the card's
+    gradient checks compare against); each gradient is cast to its input's
     dtype at the end.
 
     ``inputs``: the operands of :func:`ipa_attention` up to ``pa``, and
@@ -483,38 +501,38 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
     q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *rest = inputs
     w_pb = rest[0] if rest else None
     ct_s, ct_p, ct_pr = grad_outputs
-    f32 = torch.float32
+    acc = torch.promote_types(q_s.dtype, torch.float32)
     B, H, Lq, dk = q_s.shape
     Lk = k_s.shape[2]
     H4 = q_p.shape[2]
     scalar_w, pair_w = float(scalar_w), float(pair_w)
 
-    ks, vs = k_s.to(f32), v_s.to(f32)
-    kp, vp = k_p.to(f32), v_p.to(f32)                 # [B, 3, H4, Lk], [B, H, Lk, 24]
+    ks, vs = k_s.to(acc), v_s.to(acc)
+    kp, vp = k_p.to(acc), v_p.to(acc)                 # [B, 3, H4, Lk], [B, H, Lk, 24]
     k2 = (kp * kp).sum(1)                             # [B, H4, Lk]
-    wpv = w_pv.to(f32)
-    bias_row = bias.to(f32)[:, None, None, :]
+    wpv = w_pv.to(acc)
+    bias_row = bias.to(acc)[:, None, None, :]
 
     d_ks, d_kp = torch.zeros_like(ks), torch.zeros_like(kp)
     d_vs, d_vp = torch.zeros_like(vs), torch.zeros_like(vp)
     d_wpv = torch.zeros_like(wpv)
     d_qs = torch.empty_like(q_s)
-    d_qp = torch.empty_like(q_p, dtype=f32)
+    d_qp = torch.empty_like(q_p, dtype=acc)
     d_x2d = torch.empty_like(x2d)
     if pa is not None:
         d_pa, d_wpb = torch.empty_like(pa), None
     else:
-        wpb = w_pb.to(f32)
+        wpb = w_pb.to(acc)
         d_pa, d_wpb = None, torch.zeros_like(wpb)
 
     for r0, r1 in _row_chunks(Lq, row_chunk):
         R = r1 - r0
-        qs_i = q_s[:, :, r0:r1].to(f32)               # [B, H, R, dk]
-        qp_i = q_p[..., r0:r1].to(f32)                # [B, 3, H4, R]
-        x2f_i = x2d[:, r0:r1].to(f32)                 # [B, R, Lk, Cp]
-        ct_s_i = ct_s[:, :, r0:r1].to(f32)
-        ct_p_i = ct_p[:, :, r0:r1].to(f32)
-        ct_pr_i = ct_pr[:, :, r0:r1].to(f32)
+        qs_i = q_s[:, :, r0:r1].to(acc)               # [B, H, R, dk]
+        qp_i = q_p[..., r0:r1].to(acc)                # [B, 3, H4, R]
+        x2f_i = x2d[:, r0:r1].to(acc)                 # [B, R, Lk, Cp]
+        ct_s_i = ct_s[:, :, r0:r1].to(acc)
+        ct_p_i = ct_p[:, :, r0:r1].to(acc)
+        ct_pr_i = ct_pr[:, :, r0:r1].to(acc)
 
         # Recompute the chunk's attention rows.
         s = torch.einsum("bhid,bhjd->bhij", qs_i, ks) * scalar_w
@@ -524,7 +542,7 @@ def ipa_attention_backward(inputs, grad_outputs, *, scalar_w: float, pair_w: flo
         dist = torch.sqrt(d2 + 1e-24)                 # [B, H4, R, Lk]
         s = s - dist.reshape(B, H, 4, R, Lk).sum(2)
         if pa is not None:
-            pa_i = pa[:, :, r0:r1].to(f32)
+            pa_i = pa[:, :, r0:r1].to(acc)
         else:
             pa_i = torch.einsum("bijp,ph->bhij", x2f_i, wpb)
         s = s + pair_w * pa_i + bias_row
@@ -580,7 +598,7 @@ def _launch_backward(inputs, grad_outputs, scalar_w: float, pair_w: float, count
     kernel on the current stream; raises if it cannot run. ``inputs`` are the
     operands on the card up to ``pa`` (ten), or with ``w_pb`` after it
     (eleven), ``grad_outputs`` ``(d_out_s, d_out_p, d_out_pair)``. With
-    ``pa`` given, the kernel ``csrc/ipa_attention_bwd_tc.cu``; with ``pa``
+    ``pa`` given, :func:`_launch_backward_tc`; with ``pa``
     None and ``w_pb`` given, :func:`_launch_backward_h4`. Counts the call in
     :data:`backward_calls_by_route` when ``counted`` (autograd's calls);
     ``chip_smoke.py`` and the card tests call it uncounted to compare.
@@ -611,9 +629,11 @@ def _cotangents(q_s, grad_outputs, s_dtype):
 
 def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, counted: bool):
     """:func:`_launch_backward` with the streamed pair bias: the kernel
-    ``csrc/ipa_attention_bwd_tc.cu``. The two plain products around it go
-    to ``torch.bmm``, as JAX leaves them to XLA: ``g_wx2d = ct_pr @ w_pv^T``
-    before it, ``d_w_pv = wx2d^T ct_pr`` after it. Returns ten gradients."""
+    ``csrc/ipa_attention_bwd_tc.cu`` at 32 heads,
+    ``csrc/ipa_attention_bwd_tc16.cu`` at 16. The two plain products around
+    it go to ``torch.bmm``, as JAX leaves them to XLA: ``g_wx2d = ct_pr @
+    w_pv^T`` before it, ``d_w_pv = wx2d^T ct_pr`` after it. Returns ten
+    gradients."""
     q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs
     _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, None)
     B, H, Lq, dk = q_s.shape
@@ -747,8 +767,9 @@ def _tc_einsum(eq, a, b, model_dtype, b_exact):
 def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_w: float,
                                  tile: int = 16):
     """Input gradients of :func:`ipa_attention` with the streamed pair bias,
-    computed the way the backward kernel (``csrc/ipa_attention_bwd_tc.cu``)
-    computes them; no path calls it (the CPU tests hold it against JAX's
+    computed the way the backward kernels (``csrc/ipa_attention_bwd_tc.cu``
+    at 32 heads, ``csrc/ipa_attention_bwd_tc16.cu`` at 16) compute them; no
+    path calls it (the CPU tests hold it against JAX's
     ``_fused_backward_chunked`` and :func:`ipa_attention_backward`).
 
     Where its algebra differs from :func:`ipa_attention_backward`: the row

@@ -1,8 +1,9 @@
 """K1's backward the kernel's way: ``ipa_attention_backward_tiled`` against
 JAX ``_fused_backward_chunked`` and against ``ipa_attention_backward``.
 
-``ipa_attention_backward_tiled`` is the algebra of the backward kernel
-(``se3diff_torch/csrc/ipa_attention_bwd_tc.cu``): a statistics sweep over key
+``ipa_attention_backward_tiled`` is the algebra of the backward kernels
+(``se3diff_torch/csrc/ipa_attention_bwd_tc.cu`` at 32 heads,
+``ipa_attention_bwd_tc16.cu`` at 16): a statistics sweep over key
 tiles of 16, D from the row aggregate wx2d, the column sums from the saved
 statistics and ds, explicit point differences, and the tensor cores'
 operand roundings (bf16: f32 operands as two bf16 terms, x2d exact; f32:
@@ -79,7 +80,8 @@ def _assert_close(name, got, want, dtype):
 
 # (dtype, B, Lq, Lk, masked columns, heads, head width, Cp): Lq != Lk (a row
 # slab), key tiles ragged at 16 (Lk = 20, 37, 24), masked columns, and the
-# kernel's own widths (32 heads of 16, Cp = 64).
+# kernels' own widths (Cp = 64 at 32 heads of 16, ipa_attention_bwd_tc.cu,
+# and at a tensor-parallel rank's 16, ipa_attention_bwd_tc16.cu).
 CASES = [
     ("float32", 2, 16, 16, 0, 4, 8, 32),
     ("float32", 1, 12, 37, 5, 4, 8, 32),
@@ -87,6 +89,8 @@ CASES = [
     ("bfloat16", 1, 10, 24, 4, 4, 8, 32),
     ("float32", 1, 7, 19, 2, 32, 16, 64),
     ("bfloat16", 1, 7, 19, 2, 32, 16, 64),
+    ("float32", 2, 9, 37, 5, 16, 16, 64),
+    ("bfloat16", 1, 7, 19, 2, 16, 16, 64),
 ]
 
 
@@ -161,3 +165,35 @@ def test_operand_terms_carry_sixteen_bits():
     assert ((big + small - x).abs() <= 2.0**-21 * x.abs()).all()
     ties = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-12], dtype=torch.float32)
     assert k1._tf32(ties).tolist() == [1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0]
+
+
+def test_point_gradients_hold_against_f64_where_f32_plain_autograd_loses_them(rng):
+    """The kernels' algebra takes point distances from explicit differences:
+    at a near-coincident query and key point (1e-3 apart, 16 heads of 16,
+    Cp = 64), its f32 point gradients stay within 1e-5 of the largest of
+    autograd through the plain version in f64, while autograd of the plain
+    version in f32, whose d2 = q2 + k2 - 2 q.k cancels there, is off by ten
+    times more: why the card's gradient checks hold the kernel routes
+    against the plain version, and the PyTorch backward, in f64 (which the
+    PyTorch backward on f64 operands matches to 1e-10)."""
+    a, ct = _inputs(rng, 2, 9, 37, 5, H=16, dk=16, cp=64)
+    a["k_p"][0, :, 0, 3] = a["q_p"][0, :, 0, 2] + np.float32(1e-3 / np.sqrt(3))
+    ins, cts = _torch(a, ct, "float32")
+    got = k1.ipa_attention_backward_tiled(ins, cts, **_kw(16))
+
+    def plain_grads(dtype):
+        leaves = [t.to(dtype).requires_grad_(n != "bias") for n, t in zip(NAMES, ins)]
+        outs = k1.ipa_attention_plain(*leaves, **_kw(16))
+        return dict(zip(("q_p", "k_p"), torch.autograd.grad(
+            outs, [leaves[NAMES.index("q_p")], leaves[NAMES.index("k_p")]],
+            [c.to(dtype) for c in cts])))
+
+    truth, f32 = plain_grads(torch.float64), plain_grads(torch.float32)
+    chunked64 = k1.ipa_attention_backward([t.double() for t in ins], [c.double() for c in cts],
+                                          **_kw(16))
+    for name in ("q_p", "k_p"):
+        scale = truth[name].abs().max().item()
+        err = (got[NAMES.index(name)].double() - truth[name]).abs().max().item() / scale
+        err32 = (f32[name].double() - truth[name]).abs().max().item() / scale
+        err64 = (chunked64[NAMES.index(name)] - truth[name]).abs().max().item() / scale
+        assert err <= 1e-5 and err32 >= 10 * err and err64 <= 1e-10, (name, err, err32, err64)

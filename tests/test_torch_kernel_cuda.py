@@ -6,7 +6,8 @@ and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
 "tc16" and "tc16_f32") and the 4-head in-kernel design (route "h4": f32,
 ``w_pb``, the PPFT control net) against the plain version and against the
 CUDA-core design on the same inputs; and the backward kernel (streamed
-``pa`` at 32 heads: route "bwd_tc" in bf16, "bwd_tc_f32" in f32) against
+``pa`` at 32 heads: route "bwd_tc" in bf16, "bwd_tc_f32" in f32; at 16
+heads "bwd_tc16" and "bwd_tc16_f32") against
 the PyTorch backward ``ipa_attention_backward`` and against itself, bit for
 bit, on a second call; and the backward kernel at the PPFT control net's
 widths (route "bwd_h4": f32, 4 heads, ``w_pb``) against autograd of the
@@ -231,8 +232,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
 BWD_CASES = [(2, 37, 37, 5), (2, 5, 70, 0), (1, 1, 1, 0), (2, 33, 33, 33), (2, 150, 300, 0),
              (3, 77, 77, 9), (4, 56, 56, 0)]
 # Each side rounds its bf16 gradients once from f32 sums taken in another
-# order, so the two may lie a bf16 ulp apart: 2^-7 of a value in bf16.
-BWD_ROUTES = [(torch.bfloat16, "bwd_tc", 2.0**-7 + 1e-4), (torch.float32, "bwd_tc_f32", 1e-4)]
+# order, so the two may lie a bf16 ulp apart: 2^-7 of a value in bf16. The
+# streamed routes at 32 heads and at a tensor-parallel rank's 16.
+BWD_ROUTES = [(torch.bfloat16, "bwd_tc", 32, 2.0**-7 + 1e-4),
+              (torch.float32, "bwd_tc_f32", 32, 1e-4),
+              (torch.bfloat16, "bwd_tc16", 16, 2.0**-7 + 1e-4),
+              (torch.float32, "bwd_tc16_f32", 16, 1e-4)]
 
 
 def _cotangents(args, seed=1):
@@ -245,11 +250,11 @@ def _cotangents(args, seed=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,route,tol", BWD_ROUTES)
+@pytest.mark.parametrize("dtype,route,H,tol", BWD_ROUTES)
 @pytest.mark.parametrize("CP", [256, 96, 32])
 @pytest.mark.parametrize("B,Lq,Lk,masked", BWD_CASES)
 def test_backward_kernel_matches_the_pytorch_backward(cuda_device, B, Lq, Lk, masked, CP, dtype,
-                                                      route, tol):
+                                                      route, H, tol):
     """Each gradient of the backward kernel within ``tol`` of the largest
     entry of ``ipa_attention_backward``'s on the same inputs (f32: sums in
     another order; bf16: plus a bf16 ulp between the two roundings, 2^-7),
@@ -258,9 +263,9 @@ def test_backward_kernel_matches_the_pytorch_backward(cuda_device, B, Lq, Lk, ma
     is 1 and ds is zero but for rounding (the kernel's D sums dphat's terms
     in another order): the gradients made from ds, exactly zero, are held
     at 1e-5 absolute (residues of f32 sums of terms of some 10)."""
-    args = _args(cuda_device, B, Lq, Lk, dtype, masked, CP=CP)[:10]
+    args = _args(cuda_device, B, Lq, Lk, dtype, masked, H=H, CP=CP)[:10]
     cts = _cotangents(args)
-    assert k1.backward_route(dtype, 32, DK, CP, True) == route
+    assert k1.backward_route(dtype, H, DK, CP, True) == route
     got = k1._launch_backward(args, cts, KW["scalar_w"], KW["pair_w"], counted=False)
     want = k1.ipa_attention_backward(args, cts, **KW)
     torch.cuda.synchronize()
@@ -285,6 +290,7 @@ def test_backward_kernel_matches_the_pytorch_backward(cuda_device, B, Lq, Lk, ma
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,route,H,CP,variant", [
     (torch.bfloat16, "bwd_tc", 32, 256, "pa"), (torch.float32, "bwd_tc_f32", 32, 256, "pa"),
+    (torch.bfloat16, "bwd_tc16", 16, 256, "pa"), (torch.float32, "bwd_tc16_f32", 16, 256, "pa"),
     (torch.float32, "bwd_h4", 4, 32, "w_pb")])
 @pytest.mark.parametrize("B,Lq,Lk,masked", [(16, 100, 100, 0), (3, 77, 77, 9), (4, 150, 300, 0)])
 def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype, route, H, CP,
@@ -304,18 +310,26 @@ def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype,
 
 
 @pytest.mark.cuda
-def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device):
+@pytest.mark.parametrize("route,rows", [("bwd_tc", "bwd_rows"), ("bwd_tc16", "bwd16_rows")])
+def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device, route, rows):
+    """The library's row kernel's and the shared column kernel's shared
+    memory at Cp=256 are what the source's header states; the 16-head
+    design's row kernel keeps two blocks resident an SM in both dtypes."""
     import re
     from pathlib import Path
 
-    src = (Path(k1.__file__).resolve().parents[1] / "csrc" / "ipa_attention_bwd_tc.cu").read_text()
-    m = re.search(r"Shared memory of bwd_rows at Cp = 256: ([\d,]+) bytes \(bf16\), ([\d,]+) "
-                  r"\(f32\);\s*// bwd_cols: ([\d,]+) bytes", src)
-    bf16, f32, cols = (int(x.replace(",", "")) for x in m.groups())
+    csrc = Path(k1.__file__).resolve().parents[1] / "csrc"
+    src = (csrc / f"ipa_attention_{route}.cu").read_text()
+    m = re.search(rf"Shared memory of {rows} at Cp = 256: ([\d,]+) bytes \(bf16\), ([\d,]+) "
+                  r"\(f32\)[^;]*;\s*(?://\s*)?bwd_cols: ([\d,]+) bytes", src)
+    bf16, f32, col = (int(x.replace(",", "")) for x in m.groups())
     lib = k1._library()
-    assert lib.ipa_attention_bwd_tc_smem_bytes(256) == bf16
-    assert lib.ipa_attention_bwd_tc_f32_smem_bytes(256) == f32
-    assert lib.ipa_attention_bwd_cols_smem_bytes() == cols
+    assert getattr(lib, f"ipa_attention_{route}_smem_bytes")(256) == bf16
+    assert getattr(lib, f"ipa_attention_{route}_f32_smem_bytes")(256) == f32
+    assert lib.ipa_attention_bwd_cols_smem_bytes() == col
+    if route == "bwd_tc16":
+        assert lib.ipa_attention_bwd_tc16_blocks_per_sm(256) == 2
+        assert lib.ipa_attention_bwd_tc16_f32_blocks_per_sm(256) == 2
 
 
 @pytest.mark.cuda
@@ -324,8 +338,8 @@ def test_backward_kernel_refuses_what_it_does_not_take(cuda_device):
     cts = _cotangents(args)
     with pytest.raises(ValueError, match="streamed pair bias"):
         k1._launch_backward(args[:9] + [None], cts, 1.0, 1.0)
-    with pytest.raises(ValueError, match="no backward kernel takes 16 heads"):
-        small = list(_args(cuda_device, 1, 8, 8, torch.float32, 0, H=16, CP=64))[:10]
+    with pytest.raises(ValueError, match="no backward kernel takes 8 heads"):
+        small = list(_args(cuda_device, 1, 8, 8, torch.float32, 0, H=8, CP=64))[:10]
         k1._launch_backward(small, _cotangents(small), 1.0, 1.0)
     with pytest.raises(ValueError, match="d_out_p"):
         k1._launch_backward(args[:10], (cts[0], cts[1][..., :12], cts[2]), 1.0, 1.0)

@@ -99,9 +99,18 @@ def test_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa)
     (BF16, 4, 16, 32, False, "torch"),         # bf16 at 4 heads
     (F32, 4, 16, 32, True, "torch"),           # the streamed variant at 4 heads
     (F32, 8, 16, 64, False, "torch"),          # 8 heads in-kernel
-    (BF16, 16, 16, 256, True, "torch"),        # a tensor-parallel rank (B2-tc16)
-    (F32, 16, 16, 256, True, "torch"),
+    (BF16, 16, 16, 256, True, "bwd_tc16"),     # a tensor-parallel rank at --mesh model=2
+    (F32, 16, 16, 256, True, "bwd_tc16_f32"),
     (F32, 8, 16, 256, True, "torch"),
+    (BF16, 16, 16, 96, True, "bwd_tc16"),
+    (BF16, 16, 16, 32, True, "bwd_tc16"),
+    (F32, 16, 16, 128, True, "bwd_tc16_f32"),
+    (F32, 16, 16, 32, True, "bwd_tc16_f32"),
+    (BF16, 16, 16, 36, True, "torch"),         # 16 heads, Cp not a multiple of 32
+    (F32, 16, 16, 100, True, "torch"),
+    (BF16, 16, 16, 256, False, "torch"),       # 16 heads, the in-kernel pair bias
+    (F32, 16, 16, 64, False, "torch"),
+    (BF16, 8, 16, 256, True, "torch"),         # 8 heads streamed (a rank at --mesh model=4)
 ])
 def test_backward_route_rule(dtype, H, dk, cp, has_pa, route):
     assert k1.backward_route(dtype, H, dk, cp, has_pa) == route
@@ -121,7 +130,8 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
     arguments the binding declares; the counts hold one entry a backward
     route and "torch"."""
     sources = {"bwd_tc": "ipa_attention_bwd_tc.cu", "bwd_tc_f32": "ipa_attention_bwd_tc.cu",
-               "bwd_h4": "ipa_attention_bwd_h4.cu"}
+               "bwd_tc16": "ipa_attention_bwd_tc16.cu",
+               "bwd_tc16_f32": "ipa_attention_bwd_tc16.cu", "bwd_h4": "ipa_attention_bwd_h4.cu"}
     for route, symbol in k1._BWD_ROUTE_SYMBOLS.items():
         found = []
         for path in CSRC.glob("*.cu"):
@@ -132,20 +142,30 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
                     assert signature[:signature.index(")")].count(",") == 33, symbol
                     found.append(path.name)
         assert found == [sources[route]], (symbol, found)
-    assert set(k1.backward_calls_by_route) == {"bwd_tc", "bwd_tc_f32", "bwd_h4", "torch"}
+    assert set(k1.backward_calls_by_route) == {"bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32",
+                                               "bwd_h4", "torch"}
 
 
 def test_backward_kernel_source_states_widths_and_shared_memory():
-    """The backward source takes the widths its route names, and the shared
-    memory it states fits what a block may opt into on Hopper."""
-    text = (CSRC / "ipa_attention_bwd_tc.cu").read_text()
-    assert "constexpr int kH = 32;" in text
-    assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in text
-    assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in text
-    stated = re.search(r"Shared memory of bwd_rows at Cp = 256: ([\d,]+) bytes \(bf16\), "
-                       r"([\d,]+) \(f32\)", text)
-    assert stated is not None
-    assert all(int(x.replace(",", "")) <= 232_448 for x in stated.groups())
+    """Each streamed backward source takes the widths its routes name (32
+    heads in ``ipa_attention_bwd_tc.cu``, 16 in ``ipa_attention_bwd_tc16.cu``;
+    the head width and largest Cp in the header both include), and the
+    shared memory its row kernel states fits what a block may opt into on
+    Hopper; the shared column kernel's grid follows the heads."""
+    common = (CSRC / "ipa_attention_bwd_common.cuh").read_text()
+    assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in common
+    assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in common
+    for name, heads, rows in (("ipa_attention_bwd_tc.cu", 32, "bwd_rows"),
+                              ("ipa_attention_bwd_tc16.cu", 16, "bwd16_rows")):
+        text = (CSRC / name).read_text()
+        assert '#include "ipa_attention_bwd_common.cuh"' in text, name
+        assert f"constexpr int kH = {heads};" in text, name
+        assert "const dim3 cgrid((Lk + 31) / 32, kH / kColHeads, B);" in text, name
+        assert "bwd_cols<T, kH><<<cgrid" in text, name
+        stated = re.search(rf"Shared memory of {rows} at Cp = 256: ([\d,]+) bytes \(bf16\), "
+                           r"([\d,]+) \(f32\)", text)
+        assert stated is not None, name
+        assert all(int(x.replace(",", "")) <= 232_448 for x in stated.groups()), name
 
 
 def test_cpu_backward_counts_the_torch_route():
@@ -280,26 +300,55 @@ def test_h4_cp_limit_is_the_sources_constant():
         assert k1.kernel_route(F32, 4, 16, cp, False) == want, cp
 
 
-@pytest.mark.parametrize("route,dtype", [("tc16", BF16), ("tc16_f32", F32)])
+@pytest.mark.parametrize("route,dtype", [("tc16", BF16), ("tc16_f32", F32),
+                                         ("bwd_tc16", BF16), ("bwd_tc16_f32", F32)])
 def test_16_head_designs_state_a_layout_two_blocks_an_sm_can_hold(route, dtype):
-    """Each 16-head tensor-core source states its shared memory at Cp=256,
-    within what two blocks of one Hopper SM may hold (233,472 bytes less
-    1,024 a block), exports that layout and its resident blocks an SM, and
-    its design takes every Cp % 32 == 0 up to 256 at 16 heads with the
-    streamed pair bias and nothing else; the card tests hold the library's
-    ``*_smem_bytes(256)`` to the stated number."""
-    src = (CSRC / f"ipa_attention_{route}.cu").read_text()
-    stated = re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes \(two 256-thread blocks an SM\)",
-                       src)
+    """Each 16-head tensor-core source (the forwards, and the backward of
+    both dtypes in ``ipa_attention_bwd_tc16.cu``) states its shared memory
+    at Cp=256, within what two blocks of one Hopper SM may hold (233,472
+    bytes less 1,024 a block), exports that layout and its resident blocks
+    an SM, and its design takes every Cp % 32 == 0 up to 256 at 16 heads
+    with the streamed pair bias and nothing else; the card tests hold the
+    library's ``*_smem_bytes(256)`` to the stated number."""
+    backward = route.startswith("bwd_")
+    src = (CSRC / f"ipa_attention_{'bwd_tc16' if backward else route}.cu").read_text()
+    if backward:
+        stated = re.search(r"Shared memory of bwd16_rows at Cp = 256: ([\d,]+) bytes \(bf16\), "
+                           r"([\d,]+) \(f32\)\s*// \(two 256-thread blocks an SM\)", src)
+        stated = stated and stated.group(1 if dtype == BF16 else 2)
+    else:
+        stated = re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes \(two 256-thread blocks an "
+                           r"SM\)", src)
+        stated = stated and stated.group(1)
     assert stated is not None
-    assert int(stated.group(1).replace(",", "")) <= (233_472 - 2 * 1_024) // 2
+    assert int(stated.replace(",", "")) <= (233_472 - 2 * 1_024) // 2
     assert "constexpr int kThreads = 256;" in src and "__launch_bounds__(kThreads, 2)" in src
     for name in (f"ipa_attention_{route}_smem_bytes", f"ipa_attention_{route}_blocks_per_sm"):
         assert re.search(rf"\bint {name}\(int Cp\)", src), name
+    route_of, other = (k1.backward_route, "torch") if backward else (k1.kernel_route, "simt")
     for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
-        want = route if cp % 32 == 0 else "simt"
-        assert k1.kernel_route(dtype, 16, 16, cp, True) == want, cp
-        assert k1.kernel_route(dtype, 16, 16, cp, False) == "simt", cp
+        want = route if cp % 32 == 0 else other
+        assert route_of(dtype, 16, 16, cp, True) == want, cp
+        assert route_of(dtype, 16, 16, cp, False) == other, cp
+
+
+@pytest.mark.parametrize("dtype,route,bwd_route", [(BF16, "tc16", "bwd_tc16"),
+                                                   (F32, "tc16_f32", "bwd_tc16_f32")])
+def test_a_tensor_parallel_rank_at_model_2_takes_the_16_head_designs(dtype, route, bwd_route):
+    """The attention layer of bioemu-v1.0's score model split over two model
+    ranks (``--mesh model=2``) holds 16 heads of 16 with the streamed pair
+    bias: its forward and backward take the 16-head tensor-core designs."""
+    from types import SimpleNamespace
+
+    from se3diff_torch.models.dig import SAAttention
+
+    cfg = BIOEMU_V1_MODEL
+    layer = SAAttention(cfg["dim_model"], cfg["dim_pair"], cfg["num_heads"],
+                        tp=SimpleNamespace(model=2))
+    H, dk, cp = layer.n_head, layer.head_dim, layer.d_pair
+    assert (H, dk, cp) == (16, 16, 256)
+    assert k1.kernel_route(dtype, H, dk, cp, True) == route
+    assert k1.backward_route(dtype, H, dk, cp, True) == bwd_route
 
 
 def test_check_card_widths():
