@@ -9,8 +9,9 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 1. device and build: the card's name and power limit; build the IPA
    attention kernels from ``se3diff_torch/csrc`` with nvcc, one process a
    source (time, ptxas report: registers, spills and shared memory of the
-   "tc", "tc_f32", "h4", "tc16" and "tc16_f32" kernels, the 16-head
-   designs' resident blocks an SM, the backward kernels' row and column
+   "tc", "tc_f32", "h4", "tc16", "tc16_f32", "tc8" and "tc8_f32" kernels,
+   the 16- and 8-head designs' resident blocks an SM, the backward kernels'
+   row and column
    kernels, "bwd_tc" and "bwd_tc_f32", "bwd_tc16" and "bwd_tc16_f32" (with
    the row kernel's resident blocks an SM), and "bwd_h4"'s two row
    instantiations, column kernel and weight-gradient reduction, with its
@@ -99,8 +100,10 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    backward's);
    the streamed 16-head cases (B=40 L=77 masked, Cp=96, and B=2 with 5 rows
    of 70 columns, a partial last key tile) take "tc16" in bf16 and
-   "tc16_f32" in f32, held against the plain version and the CUDA-core
-   design at ``TOL`` and timed in turns with the latter;
+   "tc16_f32" in f32, the streamed 8-head ones (B=40 L=100, B=40 L=77
+   masked, Cp=96, 5 rows of 70 columns) "tc8" and "tc8_f32", each held
+   against the plain version and the CUDA-core design at ``TOL`` and timed
+   in turns with the latter;
 12. ``[ppft]``: ``python -m se3diff_torch.finetune``'s main on the card at
    bioemu-v1.0 widths (score model seed 0, bf16; near-zero 2-layer d64
    control net, f32), 2 training and 1 validation GRB2-SH3 mutants, dummy
@@ -188,7 +191,17 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    with the latter beside its bound, and its gradients against autograd of
    the plain version, the backward kernel ("bwd_tc16_f32", "bwd_tc16")
    against the PyTorch backward and against itself bit for bit, timed in
-   turns with it beside its bound, with peak memory, at both shapes;
+   turns with it beside its bound, with peak memory, at both shapes. Then
+   one spawn of 4 gloo ranks sharing the card at ``model=4`` (8 heads a
+   rank): (a) the f32 step as ``model=4`` against this process's whole-batch
+   step at ``model=2``'s limits, the four ranks' weights and gradients
+   equal, 8 "tc8_f32" forwards and 8 backward passes on "torch" (no
+   backward kernel takes 8 heads) a rank; (b) the train CLI's rank function
+   as ``--mesh model=4`` at bf16, batch 16, 3 steps: finite losses, 24 "tc8"
+   launches and 24 backward passes on "torch" a rank, none on "simt". K1
+   at 8 heads ("tc8_f32" at the f32 step's shape, "tc8" at the CLI's) is
+   held against its plain version and the CUDA-core design and timed in
+   turns with the latter beside its bound;
 20. ``[sp-pp-train]``: (c) K1 at this slice's new shapes against its plain
    version, each timed in turns with the CUDA-core design beside its bound:
    a PP microbatch B=4 L=100 (bf16 "tc", f32 "tc_f32"), a Picard sweep's
@@ -310,6 +323,7 @@ INKERNEL_CASES = [(40, 100, 32, 256, "bfloat16", 0, True), (40, 100, 32, 256, "f
                   (256, 56, 4, 64, "float32", 0, True), (256, 56, 4, 32, "float32", 0, False),
                   (256, 57, 4, 32, "float32", 5, False),
                   (40, 100, 8, 256, "bfloat16", 0, False), (40, 100, 8, 256, "float32", 0, False),
+                  (40, 77, 8, 256, "bfloat16", 9, False), (40, 77, 8, 256, "float32", 9, False),
                   (40, 77, 16, 256, "bfloat16", 9, False), (40, 77, 16, 256, "float32", 9, False)]
 # K1's gradient with the in-kernel pair bias: (B, L, heads, Cp, dtype, masked
 # columns, query rows). At 4 heads in f32 the backward takes the kernel
@@ -327,6 +341,12 @@ INKERNEL_GRAD_CASES = [(256, 56, 4, 32, "float32", 0, 56), (64, 56, 4, 32, "floa
 H16_ROUTES = {"bfloat16": "tc16", "float32": "tc16_f32"}
 K1_H16_CASES = [(16, 100, 100, 96, dt, 0) for dt in H16_ROUTES] + [
     (2, 5, 70, 256, dt, 0) for dt in H16_ROUTES]
+# The same at a rank's 8 heads at --mesh model=4 (B=40 L=100 and L=77
+# masked are in INKERNEL_CASES), and the design of each head count.
+H8_ROUTES = {"bfloat16": "tc8", "float32": "tc8_f32"}
+K1_H8_CASES = [(16, 100, 100, 96, dt, 0) for dt in H8_ROUTES] + [
+    (2, 5, 70, 256, dt, 0) for dt in H8_ROUTES]
+TP_ROUTES = {16: H16_ROUTES, 8: H8_ROUTES}
 # PPFT (python -m se3diff_torch.finetune): GRB2-SH3 (L=56) mutants from the
 # repository's CSV, bioemu-v1.0's 2-layer d64 control net (bench.py:63-67).
 GRB2_CSV = "assets/reference_h/GRB2_SH3_high_confidence.csv"
@@ -391,9 +411,14 @@ LEARN_PHASE_LIMIT_S = 90.0
 # data=2 against the whole batch is held at 1e-2.
 MESH_RANKS, MESH_B, MESH_L, MESH_LR, MESH_TIMED = 2, 16, 100, 1e-4, 3
 MESH_LOSS_TOL, MESH_WEIGHT_TOL = 1e-5, 1e-5
-MESH_GRAD_TOL = {"data=2": 1e-2, "model=2": 1e-4}
+# model=4 splits the heads four ways as model=2 splits them two ways, on
+# the whole batch: the same limit.
+MESH_GRAD_TOL = {"data=2": 1e-2, "model=2": 1e-4, "model=4": 1e-4}
 # (b) the train CLI's rank function at model=2, bf16, batch 16.
 MESH_STEPS, MESH_CKPT_EVERY, MESH_STOP = 10, 5, 5
+# Then one spawn of 4 ranks at model=4 (8 heads a rank): (a) the f32 step,
+# (b) the CLI's rank function, bf16, batch 16, a few steps.
+MESH4_RANKS, MESH4_CLI_STEPS = 4, 3
 # Phase 20: SP and PP training on 2 gloo ranks sharing the card, bioemu-v1.0
 # widths, seed-0 weights, at the trainer's default lr. (a) one f32 SP step at
 # B=4, L=300 (150-row slabs); (b) PP at pipe=2 (4 layers a stage), B=16,
@@ -560,7 +585,7 @@ def phase_build():
              **{r: ptxas_summary(report, f"ipa_attention_{r}_kernel") + "; dynamic shared memory "
                 f"{getattr(lib, f'ipa_attention_{r}_smem_bytes')(256)} bytes at Cp=256, "
                 f"{getattr(lib, f'ipa_attention_{r}_blocks_per_sm')(256)} blocks an SM resident"
-                for r in ("tc16", "tc16_f32")},
+                for r in ("tc16", "tc16_f32", "tc8", "tc8_f32")},
              # Two instantiations: Cp <= 32 (every path) and Cp <= 64.
              "h4": f"Cp <= 32: {ptxas_summary(report, 'ipa_attention_h4_kernelILi32E')}; dynamic "
                    f"shared memory {lib.ipa_attention_h4_smem_bytes(32)} bytes at Cp=32 | Cp <= 64: "
@@ -588,8 +613,8 @@ def phase_build():
         f"{ptxas_summary(report, 'bwd_h4_rowsILi64E')}; dynamic shared memory "
         f"{lib.ipa_attention_bwd_h4_smem_bytes(64)} bytes at Cp=64 (32 rows) | cols: "
         f"{ptxas_summary(report, 'bwd_h4_cols')} | wsum: {ptxas_summary(report, 'bwd_h4_wsum')}")
-    for route in ("tc_f32", "h4", "tc16", "tc16_f32", "bwd_tc", "bwd_tc_f32", "bwd_tc16",
-                  "bwd_tc16_f32", "bwd_h4"):
+    for route in ("tc_f32", "h4", "tc16", "tc16_f32", "tc8", "tc8_f32", "bwd_tc", "bwd_tc_f32",
+                  "bwd_tc16", "bwd_tc16_f32", "bwd_h4"):
         log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
 
@@ -1656,7 +1681,7 @@ def phase_inkernel(k1, ptxas):
         tol = TOL[dname] * scale
         res, detail = _timed_with_simt(k1, lambda: k1.ipa_attention(*args, **kw), args, kw, route,
                                        ptxas)
-        if route in H16_ROUTES.values() and not res["err_vs_prev"] <= tol:
+        if route in (*H16_ROUTES.values(), *H8_ROUTES.values()) and not res["err_vs_prev"] <= tol:
             raise AssertionError(f"{route} disagrees with the CUDA-core design: "
                                  f"{res['err_vs_prev']} > {tol}")
         plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **kw), reps=5)
@@ -1717,9 +1742,10 @@ def phase_inkernel(k1, ptxas):
                              f"the forward with the PyTorch backward's {main['torch_peak_mb']:.1f} MB")
 
     gen = torch.Generator(device=DEVICE).manual_seed(11)
-    for B, Lq, Lk, cp, dname, masked in K1_H16_CASES:
-        results[("h16", B, Lq, Lk, cp, dname)] = _h16_case(k1, ptxas, gen, B, Lq, Lk, cp, dname,
-                                                            masked, tag="k1-inkernel")
+    for H, cases in ((16, K1_H16_CASES), (8, K1_H8_CASES)):
+        for B, Lq, Lk, cp, dname, masked in cases:
+            results[(f"h{H}", B, Lq, Lk, cp, dname)] = _tp_case(
+                k1, ptxas, gen, H, B, Lq, Lk, cp, dname, masked, tag="k1-inkernel")
     return results
 
 
@@ -2432,25 +2458,26 @@ def phase_ppft_learn(k1, ptxas, card):
                 fwd=fwd)
 
 
-def _h16_case(k1, ptxas, gen, B, Lq, Lk, cp, dname, masked=0, tag="k1-h16"):
-    """K1 at a tensor-parallel rank's 16 heads with the streamed pair bias
-    (route "tc16" in bf16, "tc16_f32" in f32): one counted launch against
-    the plain version and against the CUDA-core design on the same inputs
-    (each fatal beyond ``TOL``), then its time in turns with the CUDA-core
-    design's, beside the plain version's and the bound."""
+def _tp_case(k1, ptxas, gen, H, B, Lq, Lk, cp, dname, masked=0, tag="k1-tp"):
+    """K1 at a tensor-parallel rank's H heads with the streamed pair bias
+    (16 heads at model=2: route "tc16" in bf16, "tc16_f32" in f32; 8 heads
+    at model=4: "tc8", "tc8_f32"): one counted launch against the plain
+    version and against the CUDA-core design on the same inputs (each fatal
+    beyond ``TOL``), then its time in turns with the CUDA-core design's,
+    beside the plain version's and the bound."""
     import torch
 
     dtype = getattr(torch, dname)
-    args = k1_inputs(B, Lk, dtype, gen, masked, H=16, cp=cp, Lq=Lq)
-    route = k1.kernel_route(dtype, 16, 16, cp, True)
-    if route != H16_ROUTES[dname]:
-        raise AssertionError(f"K1 at 16 heads, Cp={cp}, {dname} takes route {route!r}, not "
-                             f"{H16_ROUTES[dname]!r}")
+    args = k1_inputs(B, Lk, dtype, gen, masked, H=H, cp=cp, Lq=Lq)
+    route = k1.kernel_route(dtype, H, 16, cp, True)
+    if route != TP_ROUTES[H][dname]:
+        raise AssertionError(f"K1 at {H} heads, Cp={cp}, {dname} takes route {route!r}, not "
+                             f"{TP_ROUTES[H][dname]!r}")
     before = dict(k1.launches_by_route)
     got = k1.ipa_attention(*args, **K1_KW)
     torch.cuda.synchronize()
     if k1.launches_by_route != {**before, route: before[route] + 1}:
-        raise AssertionError(f"ipa_attention at 16 heads did not launch the {route!r} design once")
+        raise AssertionError(f"ipa_attention at {H} heads did not launch the {route!r} design once")
     want = k1.ipa_attention_plain(*args, **K1_KW)
     err, scale = max_err(got, want)
     tol = TOL[dname] * scale
@@ -2458,7 +2485,7 @@ def _h16_case(k1, ptxas, gen, B, Lq, Lk, cp, dname, masked=0, tag="k1-h16"):
     bound_ms, bound_by, nbytes, ops = k1_bound(args, got, dname)
     res, detail = _timed_with_simt(k1, lambda: k1.ipa_attention(*args, **K1_KW), args, K1_KW,
                                    route, ptxas)
-    log(f"[{tag}] 16 heads B={B} Lq={Lq} Lk={Lk} Cp={cp} {dname} masked_cols={masked}: "
+    log(f"[{tag}] {H} heads B={B} Lq={Lq} Lk={Lk} Cp={cp} {dname} masked_cols={masked}: "
         f"max_abs_err={err:.3e} (tol {tol:.3e}) {detail} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; "
         f"{res['ms'] / bound_ms:.1f}x the bound) library_ms=null (no single PyTorch call "
@@ -2497,8 +2524,10 @@ def phase_mesh_train(k1, ptxas, card):
         raise AssertionError(f"a rank at model={MESH_RANKS} has {heads} heads, not 16")
     # K1 at a TP rank's heads at both of this phase's shapes: the forward in
     # turns with the CUDA-core design, then the gradients and the backward.
-    h16 = {"f32": _h16_case(k1, ptxas, gen, MESH_B, MESH_L, MESH_L, 256, "float32", tag="mesh-k1"),
-           "bf16": _h16_case(k1, ptxas, gen, TRAIN_BATCH, 64, 64, 256, "bfloat16", tag="mesh-k1")}
+    h16 = {"f32": _tp_case(k1, ptxas, gen, 16, MESH_B, MESH_L, MESH_L, 256, "float32",
+                           tag="mesh-k1"),
+           "bf16": _tp_case(k1, ptxas, gen, 16, TRAIN_BATCH, 64, 64, 256, "bfloat16",
+                            tag="mesh-k1")}
     bwd = {"f32": _grad_case(k1, gen, MESH_B, MESH_L, "float32", 0, H=heads),
            "bf16": _grad_case(k1, gen, TRAIN_BATCH, 64, "bfloat16", 0, H=heads)}
 
@@ -2543,15 +2572,16 @@ def phase_mesh_train(k1, ptxas, card):
     for d in (full, part):
         shutil.rmtree(d, ignore_errors=True)
 
-    def argv(ckpt_dir):
+    def argv(ckpt_dir, model=MESH_RANKS, steps=MESH_STEPS, ckpt_every=MESH_CKPT_EVERY,
+             log_every=5):
         a = [x for traj, top in ENSEMBLES for x in ("--trajectory", str(REPO / traj),
                                                       "--topology", str(REPO / top))]
         return a + [
             "--bucket", "32", "--batch_size", str(TRAIN_BATCH), "--dtype", "bfloat16",
-            "--steps", str(MESH_STEPS), "--ckpt_every", str(MESH_CKPT_EVERY), "--log_every", "5",
-            "--ckpt_dir", str(ckpt_dir), "--embeds_backend", "dummy", "--cache_embeds_dir",
-            str(OUT / "embeds"), "--so3_cache_dir", str(OUT / "so3_cache"), "--mesh",
-            f"model={MESH_RANKS}", "--device", "cuda",
+            "--steps", str(steps), "--ckpt_every", str(ckpt_every), "--log_every",
+            str(log_every), "--ckpt_dir", str(ckpt_dir), "--embeds_backend", "dummy",
+            "--cache_embeds_dir", str(OUT / "embeds"), "--so3_cache_dir", str(OUT / "so3_cache"),
+            "--mesh", f"model={model}", "--device", "cuda",
         ]
 
     step = partial(programs.mesh_step, lr=MESH_LR, timed_steps=MESH_TIMED)
@@ -2676,12 +2706,98 @@ def phase_mesh_train(k1, ptxas, card):
         raise AssertionError("score evaluation from the mesh export failed")
     log(f"[mesh-train] (b) export {full.relative_to(REPO)}/params.npz + config.yaml loads through "
         f"load_bundle; one bf16 score evaluation from it is finite")
+    del bundle, pos, rot
+    torch.cuda.empty_cache()
+    mesh4 = _mesh4(k1, ptxas, card, gen, step, args, ref["whole batch"], errors, largest_w,
+                   argv(OUT / "mesh4_cli", model=MESH4_RANKS, steps=MESH4_CLI_STEPS,
+                        ckpt_every=MESH4_CLI_STEPS, log_every=1))
     wall = time.perf_counter() - t_phase
-    log(f"[mesh-train] phase wall {wall:.1f} s (the spawn {spawn_s:.1f} s); {card}")
-    return dict(h16=h16, bwd=bwd, readings=readings,
+    log(f"[mesh-train] phase wall {wall:.1f} s (the 2-rank spawn {spawn_s:.1f} s, the 4-rank "
+        f"spawn {mesh4['spawn_s']:.1f} s); {card}")
+    return dict(h16=h16, bwd=bwd, readings=readings, mesh4=mesh4,
                 cli_launches=sum(x["launches_by_route"]["tc16"] for x in runs[0]),
                 cli_backwards=sum(x["backward_calls"] for x in runs[0]),
                 cli_bwd_launches=sum(x["backward_calls_by_route"]["bwd_tc16"] for x in runs[0]))
+
+
+def _mesh4(k1, ptxas, card, gen, step, args, whole, errors, largest_w, cli_argv):
+    """Phase 19's ``model=4`` spawn: K1 at a rank's 8 heads at both of its
+    shapes against its plain version and the CUDA-core design, timed in
+    turns with the latter; then one spawn of MESH4_RANKS gloo ranks on the
+    card: (a) the f32 mesh step against ``whole`` (this process's step on
+    the whole batch), (b) the train CLI's rank function with ``cli_argv``.
+    Every forward on "tc8_f32" / "tc8", none on "simt"; every backward on
+    "torch". Returns the readings the kernels line carries."""
+    from datetime import timedelta
+
+    import numpy as np
+
+    from se3diff_torch.parallel import programs, run_ranks
+
+    h8 = {"f32": _tp_case(k1, ptxas, gen, 8, MESH_B, MESH_L, MESH_L, 256, "float32",
+                          tag="mesh-k1"),
+          "bf16": _tp_case(k1, ptxas, gen, 8, TRAIN_BATCH, 64, 64, 256, "bfloat16", tag="mesh-k1")}
+    shutil.rmtree(cli_argv[cli_argv.index("--ckpt_dir") + 1], ignore_errors=True)
+    steps = [(step, (1, MESH4_RANKS, *args)), (programs.train_rank, (cli_argv, 1, MESH4_RANKS))]
+    t0 = time.perf_counter()
+    ranks = run_ranks(programs.in_turn, MESH4_RANKS, [DEVICE + ":0"] * MESH4_RANKS, args=(steps,),
+                      timeout=900.0, group_timeout=timedelta(seconds=300))
+    spawn_s = time.perf_counter() - t0
+    log(f"[mesh-train] {MESH4_RANKS} gloo ranks spawned on {DEVICE}:0 ran model={MESH4_RANKS} (a)-(b) "
+        f"in {spawn_s:.1f} s with start-up")
+
+    # (a) The f32 step at model=4.
+    name, grad_tol = f"model={MESH4_RANKS}", MESH_GRAD_TOL[f"model={MESH4_RANKS}"]
+    outs = [r[0] for r in ranks]
+    o = outs[0]
+    same = all(np.array_equal(x[key][k], o[key][k]) for x in outs[1:]
+               for key in ("weights", "grads") for k in o[key])
+    step_ms = float(np.median(o["step_ms"]))
+    for r, x in enumerate(outs):
+        log(f"[mesh-train] (a) {name} rank {r}: K1 launches by route {x['launches_by_route']}, "
+            f"backward passes {x['backward_calls']} by route {x['backward_calls_by_route']} "
+            f"(expected {N_LAYERS} each, on tc8_f32 and torch); step ms "
+            f"{', '.join(f'{t:.1f}' for t in x['step_ms'])}; all-reduces a step "
+            f"{x['all_reduces']:.0f}, their wall with the wait for the other ranks "
+            f"{x['all_reduce_ms']:.1f} ms")
+    loss_err, w_all, w_err, (g_err, g_key), n_held, n_all = errors(o, whole, grad_tol)
+    log(f"[mesh-train] (a) {name}, f32 full width B={MESH_B} L={MESH_L}, one step against this "
+        f"process's on the whole batch: loss {o['loss']:.6f} vs {whole[0]:.6f} "
+        f"rel_err={loss_err:.2e} (tol {MESH_LOSS_TOL:.0e}); clipped gradients "
+        f"max_rel_err={g_err:.2e} ({g_key}; tol {grad_tol:.0e} x each one's largest entry); "
+        f"updated weights max_abs_err={w_err:.2e} on the {n_held} of {n_all} entries whose "
+        f"gradient exceeds {2 * grad_tol:.0e} of its tensor's largest (tol "
+        f"{MESH_WEIGHT_TOL * largest_w:.2e}), {w_all:.2e} on all; the {MESH4_RANKS} ranks' "
+        f"weights and gradients equal: {same}; median step {step_ms:.1f} ms; {card}")
+    if not (loss_err <= MESH_LOSS_TOL and g_err <= grad_tol
+            and w_err <= MESH_WEIGHT_TOL * largest_w and same):
+        raise AssertionError(f"the {name} step disagrees with one process")
+    fwd_ok = lambda x, route, n: x["launches_by_route"] == only_routes(k1, **{route: n})
+    bwd_ok = lambda x, n: (x["backward_calls"] == n
+                           and x["backward_calls_by_route"] == only_bwd_routes(k1, torch=n))
+    for x in outs:
+        if not (fwd_ok(x, "tc8_f32", N_LAYERS) and bwd_ok(x, N_LAYERS)):
+            raise AssertionError(f"the {name} step launched K1 {x['launches_by_route']} with "
+                                 f"backward passes {x['backward_calls_by_route']}")
+
+    # (b) The CLI's rank function at model=4, bf16.
+    n = N_LAYERS * MESH4_CLI_STEPS
+    cli = [r[1] for r in ranks]
+    for x in cli:
+        log(f"[mesh-train] (b) {name} bf16 B={TRAIN_BATCH} L=64, {MESH4_CLI_STEPS} steps, rank "
+            f"{x['rank']}: {x['wall_s']:.1f} s with set-up; logged losses {x['history']}; K1 "
+            f"launches by route {x['launches_by_route']}, backward passes {x['backward_calls']} "
+            f"by route {x['backward_calls_by_route']} (expected {n} each, on tc8 and torch)")
+        if not (fwd_ok(x, "tc8", n) and bwd_ok(x, n)):
+            raise AssertionError(f"the {name} CLI rank launched K1 {x['launches_by_route']} with "
+                                 f"backward passes {x['backward_calls_by_route']}")
+        if len(x["history"]) != MESH4_CLI_STEPS or not np.isfinite(x["history"]).all():
+            raise AssertionError(f"the {name} CLI rank logged losses {x['history']}")
+    return dict(h8=h8, spawn_s=spawn_s, step_ms=step_ms, all_reduce_ms=o["all_reduce_ms"],
+                launches=sum(x["launches_by_route"]["tc8_f32"] for x in outs),
+                backwards=sum(x["backward_calls"] for x in outs),
+                cli_launches=sum(x["launches_by_route"]["tc8"] for x in cli),
+                cli_backwards=sum(x["backward_calls"] for x in cli))
 
 
 def _numpy_batch(B, L, seed):
@@ -3333,6 +3449,21 @@ def _h16_entry(case, l77, bwd):
     }
 
 
+def _h8_entry(case, path_name, path, l77):
+    """The kernels line's readings of an 8-head design: its case at B=40
+    L=100, at the model=4 path's shape (``path``, under ``path_name``) and
+    at B=40 L=77 with 9 masked columns, each beside the CUDA-core design
+    timed in turns (``prev_ms``)."""
+    return {
+        "max_abs_err": case["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
+        "verdict": "pass", "design": case["design"],
+        "prev_source": "se3diff_torch/csrc/ipa_attention.cu", "prev_ms": case["prev_ms"],
+        "max_abs_err_vs_prev": case["err_vs_prev"],
+        **_case_keys(path_name, path), **_case_keys("B40_L77_masked", l77),
+    }
+
+
 def _bwd_keys(prefix, case):
     """A backward case's readings for the kernels line, under ``prefix``."""
     return {f"{prefix}_{k}": case[k] for k in ("ms", "torch_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3429,6 +3560,9 @@ def main() -> int:
     ft_bwd = inkernel[("grad",) + INKERNEL_GRAD_CASES[0][:5] + INKERNEL_GRAD_CASES[0][6:]]
     ft_bwd_cases = {c[:5] + c[6:]: inkernel[("grad",) + c[:5] + c[6:]] for c in INKERNEL_GRAD_CASES}
     h16_l77 = {dname: inkernel[(40, 77, 16, 256, dname, False)] for dname in H16_ROUTES}
+    h8_main = {dname: inkernel[(40, 100, 8, 256, dname, False)] for dname in H8_ROUTES}
+    h8_l77 = {dname: inkernel[(40, 77, 8, 256, dname, False)] for dname in H8_ROUTES}
+    mesh4 = mesh["mesh4"]
     log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}, PPFT "
         f"CLI {ppft_launches}, PPFT step {step['launches']}, sample CLI heun "
         f"{cli['heun']['launches']} and euler_maruyama {cli['euler_maruyama']['launches']}, PPFT "
@@ -3442,7 +3576,10 @@ def main() -> int:
         f"tc_f32, the model=2 step {mesh['readings']['model=2']['launches']} tc16_f32, the CLI's "
         f"10 steps at model=2 {mesh['cli_launches']} tc16 and {mesh['cli_backwards']} backward "
         f"passes ({mesh['cli_bwd_launches']} on bwd_tc16), the model=2 step's "
-        f"{mesh['readings']['model=2']['bwd_launches']} on bwd_tc16_f32; SP training (2 "
+        f"{mesh['readings']['model=2']['bwd_launches']} on bwd_tc16_f32; mesh training (4 "
+        f"ranks): the model=4 step {mesh4['launches']} tc8_f32, the CLI's {MESH4_CLI_STEPS} steps "
+        f"at model=4 {mesh4['cli_launches']} tc8, their backward passes {mesh4['backwards']} and "
+        f"{mesh4['cli_backwards']} on torch; SP training (2 "
         f"ranks) {sppp['sp_launches']} slab launches on tc_f32 and "
         f"{sppp['sp_backwards']} backward passes; PP (2 stages) f32 forward and step "
         f"{sppp['pp_launches']} on tc_f32, {sppp['pp_backwards']} backward passes, bf16 first "
@@ -3679,6 +3816,31 @@ def main() -> int:
         "launches": mesh["readings"]["model=2"]["launches"],
         **_h16_entry(mesh["h16"]["f32"], h16_l77["float32"], mesh["bwd"]["f32"]),
         "backward_calls": mesh["readings"]["model=2"]["backwards"],
+    }, {
+        # K1 at a TP rank's 8 heads in bf16 (route tc8): the train CLI's
+        # steps at model=4 (phase 19 (b)), summed over its 4 ranks; ms at
+        # B=40 L=100, with the CLI's shape (B=16 L=64) and B=40 L=77 masked
+        # beside; prev_ms is the CUDA-core design (prev_source) on the same
+        # inputs, timed in turns. Its backward is PyTorch's ("torch").
+        "name": "ipa_attention_8_heads",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_tc8.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
+        "launches": mesh4["cli_launches"],
+        **_h8_entry(h8_main["bfloat16"], "B16_L64", mesh4["h8"]["bf16"], h8_l77["bfloat16"]),
+        "backward_route": "torch",
+        "backward_calls": mesh4["cli_backwards"],
+    }, {
+        # The same at f32 (route tc8_f32): the model=4 mesh step (phase 19
+        # (a)), summed over its 4 ranks; its shape B=16 L=100 beside.
+        "name": "ipa_attention_8_heads_f32",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_tc8_f32.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
+        "launches": mesh4["launches"],
+        **_h8_entry(h8_main["float32"], "B16_L100", mesh4["h8"]["f32"], h8_l77["float32"]),
+        "backward_route": "torch",
+        "backward_calls": mesh4["backwards"],
     }, {
         # K1 at 4 heads of 16 with the streamed pair bias, f32 (route simt,
         # the CUDA-core design): the training example on the card (phase 22

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of K1's hand-written designs goes, by ablation, on one H100.
 
-    python3 scripts/k1_ablation.py [tc] [tc_f32] [tc16] [tc16_f32] [h4]
+    python3 scripts/k1_ablation.py [tc] [tc_f32] [tc16] [tc16_f32] [tc8] [tc8_f32] [h4]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
 CUDA build of PyTorch. For each design named (all by default: "tc",
 ``se3diff_torch/csrc/ipa_attention_tc.cu``, bf16; "tc_f32",
 ``se3diff_torch/csrc/ipa_attention_tc_f32.cu``, f32; "tc16" and
 "tc16_f32", ``se3diff_torch/csrc/ipa_attention_tc16{,_f32}.cu``, the same
-at 16 heads; "h4", ``se3diff_torch/csrc/ipa_attention_h4.cu``, f32, the
+at 16 heads; "tc8" and "tc8_f32", ``se3diff_torch/csrc/ipa_attention_tc8{,_f32}.cu``,
+at 8 heads; "h4", ``se3diff_torch/csrc/ipa_attention_h4.cu``, f32, the
 in-kernel pair bias)
 it compiles the source as it is and in variants that each cut one part of
 the work (a loop made empty, a copy not issued), one nvcc process a
@@ -16,7 +17,9 @@ variant, all started together, and times every variant with CUDA events
 at the design's widths and the shapes of the paths that launch it (the
 32-head tensor-core designs: Cp=256, the sampling path's and the PPFT
 score model's shapes; the 16-head ones: Cp=256, a tensor-parallel rank's
-shapes in the mesh trainer, B=16 at L=100 and L=64; "h4": 4 heads, Cp=32,
+shapes in the mesh trainer, B=16 at L=100 and L=64; the 8-head ones:
+Cp=256, B=40 L=100 and a rank's shape at ``--mesh model=4``, B=16 L=64 in
+bf16 and L=100 in f32; "h4": 4 heads, Cp=32,
 the PPFT control net's B=256 L=56 and a batch of 64). A variant's outputs are wrong by construction: only its time is
 read, as the share of the full kernel's time that the part it cuts costs.
 Prints one line a variant with ptxas's register and spill report, then the
@@ -49,6 +52,13 @@ _TC16 = {
     "rescale": [("if (rescale && nt < nt_count) {", "if (false) {")],
     "x2d_copy": [("for (int k = 0; k < kMaxCp / 32; ++k)", "for (int k = 0; k < 0; ++k)")],
     "pa_copy": [("if (tid >= kTI * kH * kPaChunks) return;", "return;")],
+}
+# The 8-head designs' cuts that both sources share (their accumulators are
+# m-tiles of channels, their x2d copies a warp's own row).
+_TC8 = {
+    **{k: v for k, v in _TC16.items() if k not in ("rescale", "x2d_copy")},
+    "rescale": [("if (rescale && mt < mt_count) {", "if (false) {")],
+    "x2d_copy": [("for (int k = 0; k < kMaxCp / 16; ++k)", "for (int k = 0; k < 0; ++k)")],
 }
 # Each cut: (text in the source, its replacement). Every text must occur once.
 CUTS = {
@@ -92,6 +102,21 @@ CUTS = {
         # 3xTF32 down to one TF32 product a term in phase B.
         "small_terms": [("  mma_tf32(d, as, bb0, bb1);\n  mma_tf32(d, ab, bs0, bs1);\n", "")],
     },
+    "tc8": {
+        **_TC8,
+        "phase_b_mma": [("if (mt < mt_count) {\n          uint32_t a[4];",
+                         "if (false) {\n          uint32_t a[4];")],
+        "finalize_mma": [("for (int k0 = 0; k0 < Cp; k0 += 16) {",
+                          "for (int k0 = 0; k0 < 0; k0 += 16) {")],
+    },
+    "tc8_f32": {
+        **_TC8,
+        "phase_b_mma": [("if (mt < mt_count) {\n          const float2 x0",
+                         "if (false) {\n          const float2 x0")],
+        "projection": [("for (int c = cq; c < Cp; c += kTI) {", "for (int c = cq; c < 0; c += kTI) {")],
+        # 3xTF32 down to one TF32 product a term in phase B.
+        "small_terms": [("  mma_tf32(d, as, bb0, bb1);\n  mma_tf32(d, ab, bs0, bs1);\n", "")],
+    },
     "h4": {
         "logits": [("    for (int jj = 0; jj < kTJ; ++jj) {\n      float part[kH]",
                     "    for (int jj = 0; jj < 0; ++jj) {\n      float part[kH]")],
@@ -121,6 +146,10 @@ DESIGNS = {  # source, C symbol, dtype name, heads, Cp, has_pa, shapes (B, L)
              [(16, 64), (16, 100)]),
     "tc16_f32": ("ipa_attention_tc16_f32.cu", "ipa_attention_tc16_f32_fwd", "float32", 16, 256,
                  True, [(16, 100), (16, 64)]),
+    "tc8": ("ipa_attention_tc8.cu", "ipa_attention_tc8_fwd", "bfloat16", 8, 256, True,
+            [(40, 100), (16, 64)]),
+    "tc8_f32": ("ipa_attention_tc8_f32.cu", "ipa_attention_tc8_f32_fwd", "float32", 8, 256, True,
+                [(40, 100), (16, 100)]),
     "h4": ("ipa_attention_h4.cu", "ipa_attention_h4_fwd", "float32", 4, 32, False,
            [(256, 56), (64, 56)]),
 }
@@ -130,7 +159,7 @@ def variants(design: str) -> dict[str, list[tuple[str, str]]]:
     cuts = CUTS[design]
     if design == "h4":
         return {"full": [], **{f"no_{k}": v for k, v in cuts.items()}}
-    proj = "finalize_mma" if design in ("tc", "tc16") else "projection"
+    proj = "finalize_mma" if design in ("tc", "tc16", "tc8") else "projection"
     return {"full": [], **{f"no_{k}": v for k, v in cuts.items()},
             f"no_phase_a_no_{proj}": cuts["phase_a"] + cuts[proj]}
 

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Design variants of K1's 16-head kernels, timed in turns with the sources
-as committed, on one H100.
+"""Design variants of K1's 16- and 8-head kernels, timed in turns with the
+sources as committed, on one H100.
 
     python3 scripts/k1_variants.py [variant ...]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
 CUDA build of PyTorch. A variant is ``se3diff_torch/csrc/ipa_attention_tc16.cu``
-("tc16", bf16) or ``ipa_attention_tc16_f32.cu`` ("tc16_f32", f32) with text
-patches applied, each patch's text found once. Every variant named (all by
-default) and the committed sources are built with nvcc, one process a
-source, all started together. At a tensor-parallel rank's shapes (16
-heads, Cp=256, B=16 at L=100 and L=64) and at B=40 L=77 with 9 masked
-columns, each variant is held against the plain version at
+("tc16", bf16), ``ipa_attention_tc16_f32.cu`` ("tc16_f32", f32),
+``ipa_attention_tc8.cu`` ("tc8") or ``ipa_attention_tc8_f32.cu`` ("tc8_f32")
+with text patches applied, each patch's text found once. Every variant
+named (all by default) and the committed sources are built with nvcc, one
+process a source, all started together. At a tensor-parallel rank's
+shapes (Cp=256; 16 heads at B=16, L=100 and L=64; 8 heads at B=40 L=100
+and the ``model=4`` path's B=16 L=64 bf16, L=100 f32) and at B=40 L=77 with
+9 masked columns, each variant is held against the plain version at
 ``chip_smoke.TOL`` and timed by ``chip_smoke.cuda_time_ms`` in turns with
 the committed source on the same inputs (committed, variant, variant,
 committed). Prints a line a variant and shape with ptxas's register and
@@ -28,7 +30,11 @@ The variants are designs measured against the committed ones and not kept:
   head over all four rows;
 - ``row_pairs_layout_a`` (f32): that, with 8 query rows and 512 threads a
   block, one block an SM;
-- ``l1_prefetch`` (both): the next key tile prefetched to L1, not L2.
+- ``l1_prefetch`` (both): the next key tile prefetched to L1, not L2;
+- ``double_buffer`` (the 8-head designs): two x2d stages a block, each
+  warp refilling its row of the stage it just read with the tile after
+  next, so a copy has a whole tile to land in; one block an SM, up to 255
+  registers a thread.
 """
 
 from __future__ import annotations
@@ -241,6 +247,38 @@ LAYOUT_A = [("constexpr int kTI = 4; ", "constexpr int kTI = 8; "),
             ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)")]
 L1_PREFETCH = [('asm volatile("prefetch.global.L2 [%0];" ::"l"(p));',
                 'asm volatile("prefetch.global.L1 [%0];" ::"l"(p));')]
+
+
+def _double_buffer(el: str) -> list[tuple[str, str]]:
+    """Two x2d stages for the 8-head designs: tile t+2 is copied into the
+    stage tile t was read from; tile t's wait leaves only tile t+1's copy in
+    flight (pa gets a commit group of its own); one block an SM."""
+    stage = "kTI * kTJ * L.xs_stride"
+    return [
+        (f"pas = kTI * kTJ * xs_stride * {el};", f"pas = 2 * kTI * kTJ * xs_stride * {el};"),
+        ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)"),
+        ("  if (ntiles > 1) issue_pa(pas + kTileP, pa, pa_elems, b, i0, kTJ, Lq, Lk, tid, stream);\n"
+         "  cp_async_commit();\n",
+         "  if (ntiles > 1) issue_pa(pas + kTileP, pa, pa_elems, b, i0, kTJ, Lq, Lk, tid, stream);\n"
+         "  cp_async_commit();\n"
+         "  if (ntiles > 1)\n"
+         f"    issue_x2d_row(xs_row + {stage}, x2d_b, i0 + warp, kTJ, Lq, Lk, Cp, L.xs_stride, lane,\n"
+         "                  stream);\n"
+         "  cp_async_commit();\n"),
+        ("  cp_async_wait<1>();  // the first pa tile", "  cp_async_wait<2>();  // the first pa tile"),
+        ("    cp_async_wait<0>();\n    __syncthreads();\n    if (t + 2 < ntiles)\n"
+         "      issue_pa(pas + buf * kTileP, pa, pa_elems, b, i0, j0 + 2 * kTJ, Lq, Lk, tid, stream);\n",
+         "    cp_async_wait<1>();\n    __syncthreads();\n    if (t + 2 < ntiles)\n"
+         "      issue_pa(pas + buf * kTileP, pa, pa_elems, b, i0, j0 + 2 * kTJ, Lq, Lk, tid, stream);\n"
+         "    cp_async_commit();\n"),
+        ("xs_row + ((lane & 7)", f"xs_row + buf * {stage} + ((lane & 7)")
+        if el == "2" else
+        ("const float* xa = xs_row + q", f"const float* xa = xs_row + buf * {stage} + q"),
+        ("    if (t + 1 < ntiles)\n      issue_x2d_row(xs_row, x2d_b, i0 + warp, j0 + kTJ,",
+         f"    if (t + 2 < ntiles)\n      issue_x2d_row(xs_row + buf * {stage}, x2d_b, i0 + warp, j0 + 2 * kTJ,"),
+    ]
+
+
 VARIANTS = {  # name: (design, patches)
     "tc16:two_barrier": ("tc16", _two_barrier("2", "__nv_bfloat16")),
     "tc16_f32:two_barrier": ("tc16_f32", _two_barrier("4", "float")),
@@ -248,10 +286,14 @@ VARIANTS = {  # name: (design, patches)
     "tc16_f32:row_pairs_layout_a": ("tc16_f32", ROW_PAIRS + LAYOUT_A),
     "tc16:l1_prefetch": ("tc16", L1_PREFETCH),
     "tc16_f32:l1_prefetch": ("tc16_f32", L1_PREFETCH),
+    "tc8:double_buffer": ("tc8", _double_buffer("2")),
+    "tc8_f32:double_buffer": ("tc8_f32", _double_buffer("4")),
 }
-# Per design: dtype and the (B, L, masked columns) shapes timed.
-DESIGNS = {"tc16": ("bfloat16", [(16, 64, 0), (16, 100, 0), (40, 77, 9)]),
-           "tc16_f32": ("float32", [(16, 100, 0), (16, 64, 0), (40, 77, 9)])}
+# Per design: dtype, heads and the (B, L, masked columns) shapes timed.
+DESIGNS = {"tc16": ("bfloat16", 16, [(16, 64, 0), (16, 100, 0), (40, 77, 9)]),
+           "tc16_f32": ("float32", 16, [(16, 100, 0), (16, 64, 0), (40, 77, 9)]),
+           "tc8": ("bfloat16", 8, [(40, 100, 0), (16, 64, 0), (40, 77, 9)]),
+           "tc8_f32": ("float32", 8, [(40, 100, 0), (16, 100, 0), (40, 77, 9)])}
 
 
 def patched(design: str, patches) -> str:
@@ -303,14 +345,14 @@ def main(argv: list[str]) -> int:
 
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-    def launcher(name, design, args, B, L):
+    def launcher(name, design, args, B, L, H):
         fn = getattr(ctypes.CDLL(str(built[name][0])), f"ipa_attention_{design}_fwd")
         fn.argtypes, fn.restype = [vp] * 14 + [ci] * 8 + [cf, cf, vp], ci
-        outs = (torch.empty_like(args[0]), torch.empty(B, 16, L, 24, device="cuda"),
+        outs = (torch.empty_like(args[0]), torch.empty(B, H, L, 24, device="cuda"),
                 torch.empty_like(args[0]))
 
         def run():
-            err = fn(*(t.data_ptr() for t in args), None, *(t.data_ptr() for t in outs), B, 16, L,
+            err = fn(*(t.data_ptr() for t in args), None, *(t.data_ptr() for t in outs), B, H, L,
                      L, 16, 256, int(args[0].dtype == torch.bfloat16), 1, cs.K1_KW["scalar_w"],
                      cs.K1_KW["pair_w"], torch.cuda.current_stream().cuda_stream)
             if err:
@@ -321,11 +363,12 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name in names:
         design = VARIANTS[name][0]
-        dname, shapes = DESIGNS[design]
+        dname, H, shapes = DESIGNS[design]
         for B, L, masked in shapes:
-            args = cs.k1_inputs(B, L, getattr(torch, dname), gen, masked, H=16)
+            args = cs.k1_inputs(B, L, getattr(torch, dname), gen, masked, H=H)
             want = k1.ipa_attention_plain(*args, **cs.K1_KW)
-            base, var = launcher(design, design, args, B, L), launcher(name, design, args, B, L)
+            base = launcher(design, design, args, B, L, H)
+            var = launcher(name, design, args, B, L, H)
             errs = [cs.max_err(f(), want) for f in (base, var)]
             t = [cs.cuda_time_ms(f, reps=20) for f in (base, var, var, base)]
             ok = all(e <= cs.TOL[dname] * s for e, s in errs)

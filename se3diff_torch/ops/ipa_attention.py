@@ -28,7 +28,7 @@ device of its operands alone: CPU tensors go through
 kernel or raise. The card takes the widths in :data:`CARD_WIDTHS` (4, 8,
 16 or 32 heads of width 16, ``Cp <= 256``, ``Cp % 4 == 0``);
 :func:`check_card_widths` holds a model config against them before a model
-is bound to the card. Six kernel designs, all built with ``nvcc`` for
+is bound to the card. Eight kernel designs, all built with ``nvcc`` for
 ``sm_90a`` at first use into one library bound through ``ctypes``, and a
 static rule on the widths (:func:`kernel_route`) picks one:
 
@@ -43,13 +43,19 @@ static rule on the widths (:func:`kernel_route`) picks one:
   and f32, the launches of every tensor-parallel rank at ``--mesh
   model=2``: one m16 tile of ``mma.sync`` a query row's heads, two
   256-thread blocks an SM;
+- ``"tc8"`` (``csrc/ipa_attention_tc8.cu``) and ``"tc8_f32"``
+  (``csrc/ipa_attention_tc8_f32.cu``): the same widths at 8 heads, bf16
+  and f32, the launches of every tensor-parallel rank at ``--mesh
+  model=4``: the x2d product transposed (channels as M, the 8 heads as
+  N), a warp a query row of a block's 8, one x2d stage, two 256-thread
+  blocks an SM;
 - ``"h4"`` (``csrc/ipa_attention_h4.cu``): f32, 4 heads, the in-kernel pair
   bias and ``Cp <= H4_MAX_CP``, every attention of the PPFT control net: a
   warp a query row with its 4 heads, x2d tiles staged once by ``cp.async``
   and read twice from shared memory, on CUDA-core FMAs;
 - ``"simt"`` (``csrc/ipa_attention.cu``): every other card width (bf16 at 4
-  heads, 8 heads, the in-kernel pair bias at 16 and 32 heads, ``Cp % 32 !=
-  0``), on CUDA-core FMAs.
+  heads, the streamed variant at 4 heads, the in-kernel pair bias at 8, 16
+  and 32 heads, ``Cp % 32 != 0``), on CUDA-core FMAs.
 
 Nothing falls back at run time. The backward (the JAX package's is XLA
 code, ``_fused_backward_chunked``, not a Pallas kernel) dispatches by device
@@ -128,10 +134,12 @@ H4_MAX_CP = 64
 # The kernel design each route launches, by C symbol.
 _ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "tc_f32": "ipa_attention_tc_f32_fwd",
                   "tc16": "ipa_attention_tc16_fwd", "tc16_f32": "ipa_attention_tc16_f32_fwd",
+                  "tc8": "ipa_attention_tc8_fwd", "tc8_f32": "ipa_attention_tc8_f32_fwd",
                   "h4": "ipa_attention_h4_fwd", "simt": "ipa_attention_fwd"}
 # The tensor-core designs of the streamed pair bias, by head count and dtype.
 _TC_ROUTES = {(32, torch.bfloat16): "tc", (32, torch.float32): "tc_f32",
-              (16, torch.bfloat16): "tc16", (16, torch.float32): "tc16_f32"}
+              (16, torch.bfloat16): "tc16", (16, torch.float32): "tc16_f32",
+              (8, torch.bfloat16): "tc8", (8, torch.float32): "tc8_f32"}
 
 # The backward design each backward route launches, by C symbol; "torch"
 # (ipa_attention_backward) launches none.
@@ -191,9 +199,11 @@ def check_card_widths(model_cfg, device) -> None:
 def kernel_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -> str:
     """The kernel design that CUDA operands of these widths launch: for 32
     heads, the streamed pair bias and ``Cp % 32 == 0``, ``"tc"`` in bf16 and
-    ``"tc_f32"`` in f32, and at 16 heads ``"tc16"`` and ``"tc16_f32"``;
-    ``"h4"`` for f32 at 4 heads with the in-kernel pair bias and ``Cp <=
-    H4_MAX_CP``; ``"simt"`` for every other width in :data:`CARD_WIDTHS`.
+    ``"tc_f32"`` in f32, at 16 heads ``"tc16"`` and ``"tc16_f32"`` (a
+    tensor-parallel rank at ``--mesh model=2``), and at 8 heads ``"tc8"``
+    and ``"tc8_f32"`` (a rank at ``--mesh model=4``); ``"h4"`` for f32 at 4
+    heads with the in-kernel pair bias and ``Cp <= H4_MAX_CP``; ``"simt"``
+    for every other width in :data:`CARD_WIDTHS`.
     Raises ``ValueError`` for widths none takes."""
     err = _widths_error(H, dk, cp)
     if err is not None:
@@ -311,6 +321,8 @@ def _library() -> ctypes.CDLL:
             for name in ("ipa_attention_tc_f32_smem_bytes", "ipa_attention_h4_smem_bytes",
                          "ipa_attention_tc16_smem_bytes", "ipa_attention_tc16_f32_smem_bytes",
                          "ipa_attention_tc16_blocks_per_sm",
+                         "ipa_attention_tc8_smem_bytes", "ipa_attention_tc8_f32_smem_bytes",
+                         "ipa_attention_tc8_blocks_per_sm", "ipa_attention_tc8_f32_blocks_per_sm",
                          "ipa_attention_bwd_tc_smem_bytes", "ipa_attention_bwd_tc_f32_smem_bytes",
                          "ipa_attention_bwd_h4_smem_bytes",
                          "ipa_attention_bwd_tc16_smem_bytes",
@@ -418,8 +430,8 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scal
     counted, design = design is None, design or route
     if design in _TC_ROUTES.values() and pa.data_ptr() % 16:
         raise ValueError("the tensor-core designs need a 16-byte aligned pa")
-    if design in ("tc_f32", "tc16_f32") and w_pv.data_ptr() % 16:
-        raise ValueError("the f32 tensor-core designs need a 16-byte aligned w_pv")
+    if design in ("tc_f32", "tc16_f32", "tc8", "tc8_f32") and w_pv.data_ptr() % 16:
+        raise ValueError(f"the {design!r} design needs a 16-byte aligned w_pv")
     if design == "h4" and any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv, w_pb)):
         raise ValueError("the h4 design needs 16-byte aligned q_s, v_s, v_p, w_pv and w_pb")
     lib = _library()

@@ -190,3 +190,39 @@ def test_plain_matches_jnp_twin_at_more_card_head_counts(rng, dtype, heads, cp):
     ]
     want = [np.concatenate([np.asarray(o[k], np.float32) for o in per_b]) for k in range(3)]
     _check([o.float().numpy() for o in got], want, dtype, Lq)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_kernel_at_a_model_4_rank(rng, dtype):
+    """8 heads of width 16 at the full pair width 256: a tensor-parallel
+    rank of the bioemu-v1.0 score model at ``--mesh model=4``, whose CUDA
+    operands take the 8-head designs ("tc8", "tc8_f32"). The plain version
+    against the Pallas kernel in interpret mode, ragged (rows != columns,
+    padded for the JAX kernel) with masked columns."""
+    heads, dk, cp = 8, 16, 256
+    B, Lq, Lk, pad_q, pad_k, tile = 1, 11, 13, 16, 16, 8
+    g = lambda *shape, scale=1.0: (rng.standard_normal(shape) * scale).astype(np.float32)
+    bias = np.zeros((B, Lk), np.float32)
+    bias[:, -3:] = NEG_INF
+    a = dict(
+        q_s=g(B, heads, Lq, dk), k_s=g(B, heads, Lk, dk), v_s=g(B, heads, Lk, dk),
+        q_p=g(B, 3, heads * 4, Lq, scale=0.6), k_p=g(B, 3, heads * 4, Lk, scale=0.6),
+        v_p=g(B, heads, Lk, 24), x2d=g(B, Lq, Lk, cp, scale=0.5),
+        w_pb=g(cp, heads, scale=0.15), w_pv=g(heads, cp, dk, scale=0.15), bias=bias,
+    )
+    pa = _pa(a)
+    md = getattr(torch, dtype)
+    t = lambda name: torch.from_numpy(a[name])
+    scalar_w = 1.0 / np.sqrt(3 * dk)
+    got = k1.ipa_attention(
+        t("q_s").to(md), t("k_s").to(md), t("v_s").to(md), t("q_p"), t("k_p"), t("v_p"),
+        t("x2d").to(md), t("w_pv").to(md), t("bias"), torch.from_numpy(pa).to(md),
+        scalar_w=scalar_w, pair_w=PAIR_W,
+    )
+    ja, jpa = _pad(a, pa, pad_q, pad_k)
+    args = _jax_args(ja, dtype)
+    kernel = fused_ipa_attention(
+        *args, jnp.asarray(jpa).astype(args[0].dtype), scalar_w=scalar_w, pair_w=PAIR_W,
+        ti=tile, tj=tile, interpret=True,
+    )
+    _check([o.float().numpy() for o in got], kernel, dtype, Lq)

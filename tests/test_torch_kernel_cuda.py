@@ -2,8 +2,9 @@
 heads (the score model, Cp=256), 4 heads (the PPFT control net, Cp=32) and 8
 and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
 (``w_pb``); and the tensor-core designs (streamed ``pa``: at 32 heads route
-"tc" in bf16 and "tc_f32" in f32, at 16 heads, a tensor-parallel rank's,
-"tc16" and "tc16_f32") and the 4-head in-kernel design (route "h4": f32,
+"tc" in bf16 and "tc_f32" in f32, at 16 heads, a tensor-parallel rank's at
+``--mesh model=2``, "tc16" and "tc16_f32", at 8 heads, a rank's at
+``--mesh model=4``, "tc8" and "tc8_f32") and the 4-head in-kernel design (route "h4": f32,
 ``w_pb``, the PPFT control net) against the plain version and against the
 CUDA-core design on the same inputs; and the backward kernel (streamed
 ``pa`` at 32 heads: route "bwd_tc" in bf16, "bwd_tc_f32" in f32; at 16
@@ -126,15 +127,18 @@ def test_gradients_on_the_card_match_autograd_of_plain(cuda_device, dtype, tol, 
 @pytest.mark.parametrize("H,dtype,route,tol", [(32, torch.bfloat16, "tc", 3e-2),
                                                (32, torch.float32, "tc_f32", 2e-4),
                                                (16, torch.bfloat16, "tc16", 3e-2),
-                                               (16, torch.float32, "tc16_f32", 2e-4)])
+                                               (16, torch.float32, "tc16_f32", 2e-4),
+                                               (8, torch.bfloat16, "tc8", 3e-2),
+                                               (8, torch.float32, "tc8_f32", 2e-4)])
 @pytest.mark.parametrize("CP", [256, 96, 32])
 @pytest.mark.parametrize("B,Lq,Lk,masked", TC_CASES)
 def test_tensor_core_route_matches_plain_and_the_cuda_core_design(cuda_device, B, Lq, Lk, masked, CP,
                                                                   H, dtype, route, tol):
-    """32 or 16 heads, streamed pa: ipa_attention launches the tensor-core
-    design of the heads and dtype ("tc"/"tc16" for bf16, "tc_f32"/"tc16_f32"
-    for f32); within ``tol`` x max|plain| of the plain version and of the
-    CUDA-core design (``_launch_design("simt")``) on the same inputs."""
+    """32, 16 or 8 heads, streamed pa: ipa_attention launches the
+    tensor-core design of the heads and dtype ("tc"/"tc16"/"tc8" for bf16,
+    "tc_f32"/"tc16_f32"/"tc8_f32" for f32); within ``tol`` x max|plain| of
+    the plain version and of the CUDA-core design (``_launch_design("simt")``)
+    on the same inputs."""
     args = _args(cuda_device, B, Lq, Lk, dtype, masked, H=H, CP=CP)
     before = dict(k1.launches_by_route)
     got = k1.ipa_attention(*args, **KW)
@@ -210,6 +214,69 @@ def test_16_head_designs_use_the_shared_memory_their_sources_state(cuda_device, 
     assert getattr(lib, f"ipa_attention_{route}_smem_bytes")(256) == stated
     assert getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256) == 2
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tc8", "tc8_f32"])
+def test_8_head_designs_use_the_shared_memory_their_sources_state(cuda_device, route):
+    """The library's 8-head layouts at Cp=256 are the totals the sources'
+    headers state, and two blocks of each are resident on an SM."""
+    import re
+    from pathlib import Path
+
+    src = (Path(k1.__file__).resolve().parents[1] / "csrc" / f"ipa_attention_{route}.cu").read_text()
+    stated = int(re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes", src).group(1).replace(",", ""))
+    lib = k1._library()
+    assert getattr(lib, f"ipa_attention_{route}_smem_bytes")(256) == stated
+    assert getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route,tol", [(torch.bfloat16, "tc8", 3e-2),
+                                             (torch.float32, "tc8_f32", 2e-4)])
+def test_8_head_slab_matches_plain_and_the_cuda_core_design(cuda_device, dtype, route, tol):
+    """A 5-row slab of 70 columns at 8 heads, Cp=256 (``sp_ipa_attention``,
+    a sequence-parallel rank's rows of a model=4 rank's heads): one launch
+    of the route's design, within ``tol`` x max|plain| of the plain version
+    on the slab and of the CUDA-core design on the same operands."""
+    from se3diff_torch.ops.ipa_attention import sp_ipa_attention
+
+    full = _args(cuda_device, 2, 70, 70, dtype, 0, H=8, CP=256)
+    r0, r1 = 30, 35
+    slab = list(full)
+    for i, dim in ((0, 2), (3, 3), (6, 1), (9, 2)):
+        slab[i] = full[i].narrow(dim, r0, r1 - r0).contiguous()
+    before = dict(k1.launches_by_route)
+    got = sp_ipa_attention((r0, r1), *slab, **KW)
+    prev = k1._launch_design("simt", *slab, **KW)
+    torch.cuda.synchronize()
+    assert k1.launches_by_route == {**before, route: before[route] + 1}
+    want = [o.narrow(2, r0, r1 - r0) for o in k1.ipa_attention_plain(*full, **KW)]
+    for g, p, w in zip(got, prev, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        scale = max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+        assert (g.float() - p.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc8"), (torch.float32, "tc8_f32")])
+def test_8_head_designs_refuse_misaligned_operands_on_the_card(cuda_device, dtype, route):
+    """A pa or w_pv that starts 4 bytes into its storage is refused with a
+    ValueError, counted nowhere and never handed to another design."""
+    args = list(_args(cuda_device, 2, 9, 9, dtype, 0, H=8, CP=64))
+    assert k1.kernel_route(dtype, 8, 16, 64, True) == route
+    for i, name in ((9, "pa"), (7, "w_pv")):
+        t = args[i]
+        off = 4 // t.element_size()
+        bad = list(args)
+        bad[i] = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)[off:].view(t.shape)
+        bad[i].copy_(t)
+        assert bad[i].data_ptr() % 16
+        before = dict(k1.launches_by_route)
+        with pytest.raises(ValueError, match=f"16-byte aligned {name}"):
+            k1.ipa_attention(*bad, **KW)
+        assert k1.launches_by_route == before
 
 @pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):

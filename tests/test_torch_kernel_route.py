@@ -47,11 +47,18 @@ REFUSED = [dict(dim_model=32, dim_pair=32, num_heads=4), dict(dim_model=192, dim
     (F32, 4, 16, 256, False, "simt"),
     (BF16, 4, 16, 32, False, "simt"),    # bf16 at 4 heads
     (F32, 4, 16, 32, True, "simt"),      # the streamed variant at 4 heads
-    (F32, 8, 16, 32, False, "simt"),     # 8 heads
+    (F32, 8, 16, 32, False, "simt"),     # 8 heads, the in-kernel pair bias
     (BF16, 4, 16, 32, True, "simt"),
-    (BF16, 8, 16, 64, True, "simt"),
-    (BF16, 8, 16, 256, True, "simt"),    # 8 heads (a rank at --mesh model=4)
-    (F32, 8, 16, 256, True, "simt"),
+    (BF16, 8, 16, 64, True, "tc8"),
+    (BF16, 8, 16, 256, True, "tc8"),     # 8 heads (a rank at --mesh model=4), bf16
+    (F32, 8, 16, 256, True, "tc8_f32"),  # the same at the train CLI's default f32
+    (BF16, 8, 16, 32, True, "tc8"),
+    (F32, 8, 16, 96, True, "tc8_f32"),
+    (F32, 8, 16, 32, True, "tc8_f32"),
+    (BF16, 8, 16, 36, True, "simt"),     # 8 heads, Cp not a multiple of 32
+    (F32, 8, 16, 100, True, "simt"),
+    (BF16, 8, 16, 256, False, "simt"),   # 8 heads, the in-kernel pair bias
+    (F32, 8, 16, 256, False, "simt"),
     (F32, 16, 16, 128, False, "simt"),
     (BF16, 16, 16, 256, True, "tc16"),   # a tensor-parallel rank at --mesh model=2, bf16
     (BF16, 16, 16, 128, True, "tc16"),
@@ -239,13 +246,16 @@ def test_card_widths_name_what_the_cuda_sources_instantiate():
     tc = (CSRC / "ipa_attention_tc.cu").read_text()
     tc_f32 = (CSRC / "ipa_attention_tc_f32.cu").read_text()
     tc16 = [(CSRC / f"ipa_attention_{r}.cu").read_text() for r in ("tc16", "tc16_f32")]
-    for text in (src, tc, tc_f32, *tc16):
+    tc8 = [(CSRC / f"ipa_attention_{r}.cu").read_text() for r in ("tc8", "tc8_f32")]
+    for text in (src, tc, tc_f32, *tc16, *tc8):
         assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in text
         assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in text
     for text in (tc, tc_f32):
         assert "constexpr int kH = 32;" in text
     for text in tc16:
         assert "constexpr int kH = 16;" in text
+    for text in tc8:
+        assert "constexpr int kH = 8;" in text
     # The f32 design states its shared memory at Cp=256, within what a block
     # may opt into on Hopper (232,448 bytes).
     stated = re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes", tc_f32)
@@ -264,10 +274,12 @@ def test_every_route_names_an_entry_the_cuda_sources_define():
         signature = text[text.index(f"int {symbol}("):]
         assert signature[:signature.index(")")].count(",") == 24
     assert set(k1.launches_by_route) == set(k1._ROUTE_SYMBOLS) == {
-        "tc", "tc_f32", "tc16", "tc16_f32", "h4", "simt"}
+        "tc", "tc_f32", "tc16", "tc16_f32", "tc8", "tc8_f32", "h4", "simt"}
     assert k1._ROUTE_SYMBOLS["tc_f32"] == "ipa_attention_tc_f32_fwd"
     assert k1._ROUTE_SYMBOLS["tc16"] == "ipa_attention_tc16_fwd"
     assert k1._ROUTE_SYMBOLS["tc16_f32"] == "ipa_attention_tc16_f32_fwd"
+    assert k1._ROUTE_SYMBOLS["tc8"] == "ipa_attention_tc8_fwd"
+    assert k1._ROUTE_SYMBOLS["tc8_f32"] == "ipa_attention_tc8_f32_fwd"
     assert k1._ROUTE_SYMBOLS["h4"] == "ipa_attention_h4_fwd"
 
 
@@ -350,6 +362,69 @@ def test_a_tensor_parallel_rank_at_model_2_takes_the_16_head_designs(dtype, rout
     assert k1.kernel_route(dtype, H, dk, cp, True) == route
     assert k1.backward_route(dtype, H, dk, cp, True) == bwd_route
 
+
+
+@pytest.mark.parametrize("route,dtype", [("tc8", BF16), ("tc8_f32", F32)])
+def test_8_head_designs_state_a_layout_two_blocks_an_sm_can_hold(route, dtype):
+    """Each 8-head tensor-core source states its shared memory at Cp=256,
+    within what two blocks of one Hopper SM may hold (233,472 bytes less
+    1,024 a block), exports that layout and its resident blocks an SM, and
+    its design takes every Cp % 32 == 0 up to 256 at 8 heads with the
+    streamed pair bias and nothing else; the card tests hold the library's
+    ``*_smem_bytes(256)`` to the stated number."""
+    src = (CSRC / f"ipa_attention_{route}.cu").read_text()
+    stated = re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes \(two 256-thread blocks an "
+                       r"SM\)", src)
+    assert stated is not None
+    assert int(stated.group(1).replace(",", "")) <= (233_472 - 2 * 1_024) // 2
+    assert "constexpr int kThreads = 256;" in src and "__launch_bounds__(kThreads, 2)" in src
+    for name in (f"ipa_attention_{route}_smem_bytes", f"ipa_attention_{route}_blocks_per_sm"):
+        assert re.search(rf"\bint {name}\(int Cp\)", src), name
+    for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
+        assert k1.kernel_route(dtype, 8, 16, cp, True) == (route if cp % 32 == 0 else "simt"), cp
+        assert k1.kernel_route(dtype, 8, 16, cp, False) == "simt", cp
+
+
+@pytest.mark.parametrize("dtype,route", [(BF16, "tc8"), (F32, "tc8_f32")])
+def test_a_tensor_parallel_rank_at_model_4_takes_the_8_head_designs(dtype, route):
+    """The attention layer of bioemu-v1.0's score model split over four
+    model ranks (``--mesh model=4``) holds 8 heads of 16 with the streamed
+    pair bias: its forward takes the 8-head tensor-core designs, its
+    backward the PyTorch one ("torch": no backward kernel takes 8 heads)."""
+    from types import SimpleNamespace
+
+    from se3diff_torch.models.dig import SAAttention
+
+    cfg = BIOEMU_V1_MODEL
+    layer = SAAttention(cfg["dim_model"], cfg["dim_pair"], cfg["num_heads"],
+                        tp=SimpleNamespace(model=4))
+    H, dk, cp = layer.n_head, layer.head_dim, layer.d_pair
+    assert (H, dk, cp) == (8, 16, 256)
+    assert k1.kernel_route(dtype, H, dk, cp, True) == route
+    assert k1.backward_route(dtype, H, dk, cp, True) == "torch"
+
+
+@pytest.mark.parametrize("design,dtype", [("tc8", BF16), ("tc8_f32", F32)])
+def test_8_head_designs_refuse_misaligned_operands(design, dtype):
+    """At their widths the 8-head designs need 16-byte aligned pa and w_pv
+    (x2d and k_s are checked for every design): a view 4 bytes into its
+    storage is refused with a ValueError before any build, never taken by
+    another design."""
+    B, H, L, dk, cp = 1, 8, 3, 16, 32
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt)
+    args = [z(B, H, L, dk, dt=dtype), z(B, H, L, dk, dt=dtype), z(B, H, L, dk, dt=dtype),
+            z(B, 3, H * 4, L), z(B, 3, H * 4, L), z(B, H, L, 24), z(B, L, L, cp, dt=dtype),
+            z(H, cp, dk, dt=dtype), z(B, L), z(B, H, L, L, dt=dtype)]
+    assert k1.kernel_route(dtype, H, dk, cp, True) == design
+    shifted = lambda t: torch.zeros(t.numel() + 4 // t.element_size(), dtype=t.dtype)[
+        4 // t.element_size():].view(t.shape)
+    kw = dict(scalar_w=1.0, pair_w=1.0)
+    for i, name in ((9, "pa"), (7, "w_pv")):
+        bad = list(args)
+        bad[i] = shifted(args[i])
+        assert bad[i].is_contiguous() and bad[i].data_ptr() % 16
+        with pytest.raises(ValueError, match=f"16-byte aligned {name}"):
+            k1._launch_design(design, *bad, **kw)
 
 def test_check_card_widths():
     for cfg in (BIOEMU_V1_MODEL, dict(dim_model=64, dim_pair=32, num_heads=4),
