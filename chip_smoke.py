@@ -12,8 +12,9 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    "tc", "tc_f32", "h4", "tc16", "tc16_f32", "tc8" and "tc8_f32" kernels,
    the 16- and 8-head designs' resident blocks an SM, the backward kernels'
    row and column
-   kernels, "bwd_tc" and "bwd_tc_f32", "bwd_tc16" and "bwd_tc16_f32" (with
-   the row kernel's resident blocks an SM), and "bwd_h4"'s two row
+   kernels, "bwd_tc" and "bwd_tc_f32", "bwd_tc16" and "bwd_tc16_f32",
+   "bwd_tc8" and "bwd_tc8_f32" (with the row kernel's resident blocks an
+   SM), and "bwd_h4"'s two row
    instantiations, column kernel and weight-gradient reduction, with its
    row kernel's shared memory);
 2. the kernel against its plain PyTorch version on the card, at the main
@@ -45,7 +46,8 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    L=77 with 9 masked columns, B=4, L=200, an SP slab (B=4, rows 0-150 of
    L=300, f32 and bf16) and the learning run's B=32, L=56 (bf16), and at a
    tensor-parallel rank's 16 heads B=40, L=77 with 9 masked columns (bf16
-   on "bwd_tc16", f32 on "bwd_tc16_f32"); each
+   on "bwd_tc16", f32 on "bwd_tc16_f32") and at a rank's 8 heads the same
+   (bf16 on "bwd_tc8", f32 on "bwd_tc8_f32"); each
    gradient's error beside its tolerance; autograd's backward on the route
    of its widths; the kernel's second call equal to its first bit for bit;
    the kernel timed in turns with the PyTorch backward
@@ -195,13 +197,16 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    one spawn of 4 gloo ranks sharing the card at ``model=4`` (8 heads a
    rank): (a) the f32 step as ``model=4`` against this process's whole-batch
    step at ``model=2``'s limits, the four ranks' weights and gradients
-   equal, 8 "tc8_f32" forwards and 8 backward passes on "torch" (no
-   backward kernel takes 8 heads) a rank; (b) the train CLI's rank function
-   as ``--mesh model=4`` at bf16, batch 16, 3 steps: finite losses, 24 "tc8"
-   launches and 24 backward passes on "torch" a rank, none on "simt". K1
-   at 8 heads ("tc8_f32" at the f32 step's shape, "tc8" at the CLI's) is
-   held against its plain version and the CUDA-core design and timed in
-   turns with the latter beside its bound;
+   equal, 8 "tc8_f32" forwards and 8 backward passes on "bwd_tc8_f32" a
+   rank; (b) the train CLI's rank function as ``--mesh model=4`` at bf16,
+   batch 16, 3 steps: finite losses, 24 "tc8" launches and 24 backward
+   passes on "bwd_tc8" a rank, none on "simt" or "torch". K1 at 8 heads
+   ("tc8_f32" at the f32 step's shape, "tc8" at the CLI's) is held against
+   its plain version and the CUDA-core design and timed in turns with the
+   latter beside its bound, and its gradients against autograd of the plain
+   version, the backward kernel ("bwd_tc8_f32", "bwd_tc8") against the
+   PyTorch backward and against itself bit for bit, timed in turns with it
+   beside its bound, with peak memory, at both shapes;
 20. ``[sp-pp-train]``: (c) K1 at this slice's new shapes against its plain
    version, each timed in turns with the CUDA-core design beside its bound:
    a PP microbatch B=4 L=100 (bf16 "tc", f32 "tc_f32"), a Picard sweep's
@@ -291,9 +296,10 @@ K1_GRAD_CASES = [(TRAIN_BATCH, 100, "bfloat16", 0), (TRAIN_BATCH, 100, "float32"
 K1_GRAD_PATH_CASES = [(4, 300, "float32", 0, 150), (4, 300, "bfloat16", 0, 150),
                       (32, 56, "bfloat16", 0, None)]
 # Phase 6 at a tensor-parallel rank's 16 heads (routes "bwd_tc16" and
-# "bwd_tc16_f32"; phase 19 times the mesh paths' shapes): B=40, L=77 with 9
-# masked columns (ragged row and key tiles), (B, L, dtype, masked columns).
-K1_GRAD_H16_CASES = [(40, 77, "bfloat16", 9), (40, 77, "float32", 9)]
+# "bwd_tc16_f32") and 8 heads (routes "bwd_tc8" and "bwd_tc8_f32"; phase 19
+# times the mesh paths' shapes): B=40, L=77 with 9 masked columns (ragged
+# row and key tiles), (B, L, dtype, masked columns).
+K1_GRAD_TP_CASES = [(40, 77, "bfloat16", 9), (40, 77, "float32", 9)]
 # Gradient tolerances x max|reference| of each gradient, the reference being
 # autograd through the plain version on the same values (in f64 on a kernel
 # route, in f32 on "torch": see _grad_case): f32, sums in another order;
@@ -597,14 +603,17 @@ def phase_build():
                         f"{smem} bytes at Cp=256 | cols: "
                         f"{ptxas_summary(report, f'bwd_colsI{t}Li32E')}; dynamic shared memory "
                         f"{cols} bytes")
-    # The 16-head backward: its row kernel's resident blocks an SM beside.
-    for route, t in (("bwd_tc16", "13__nv_bfloat16"), ("bwd_tc16_f32", "f")):
+    # The 16- and 8-head backward: the row kernel's resident blocks an SM beside.
+    for route, rows, heads, t in (("bwd_tc16", "bwd16_rows", 16, "13__nv_bfloat16"),
+                                  ("bwd_tc16_f32", "bwd16_rows", 16, "f"),
+                                  ("bwd_tc8", "bwd8_rows", 8, "13__nv_bfloat16"),
+                                  ("bwd_tc8_f32", "bwd8_rows", 8, "f")):
         smem = getattr(lib, f"ipa_attention_{route}_smem_bytes")(256)
         blocks = getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256)
-        ptxas[route] = (f"rows: {ptxas_summary(report, f'bwd16_rowsI{t}E')}; dynamic shared "
+        ptxas[route] = (f"rows: {ptxas_summary(report, f'{rows}I{t}E')}; dynamic shared "
                         f"memory {smem} bytes at Cp=256, {blocks} blocks an SM resident | cols: "
-                        f"{ptxas_summary(report, f'bwd_colsI{t}Li16E')}; dynamic shared memory "
-                        f"{cols} bytes")
+                        f"{ptxas_summary(report, f'bwd_colsI{t}Li{heads}E')}; dynamic shared "
+                        f"memory {cols} bytes")
     # bwd_h4: two row instantiations (Cp <= 32, every path; Cp <= 64), the
     # column kernel and the reduction of d_w_pv's and d_w_pb's partials.
     ptxas["bwd_h4"] = (
@@ -614,7 +623,7 @@ def phase_build():
         f"{lib.ipa_attention_bwd_h4_smem_bytes(64)} bytes at Cp=64 (32 rows) | cols: "
         f"{ptxas_summary(report, 'bwd_h4_cols')} | wsum: {ptxas_summary(report, 'bwd_h4_wsum')}")
     for route in ("tc_f32", "h4", "tc16", "tc16_f32", "tc8", "tc8_f32", "bwd_tc", "bwd_tc_f32",
-                  "bwd_tc16", "bwd_tc16_f32", "bwd_h4"):
+                  "bwd_tc16", "bwd_tc16_f32", "bwd_tc8", "bwd_tc8_f32", "bwd_h4"):
         log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
 
@@ -907,8 +916,9 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     tensor cores) every operation is f32 on CUDA cores. The other kernel
     routes run the three x2d contractions (2 Cp operations each per head, row and
     column) on tensor cores, each product as many times as it has terms
-    ("bwd_tc", "bwd_tc16": a x2d and g x2d two bf16 terms, a g three;
-    "bwd_tc_f32", "bwd_tc16_f32": 3xTF32, three TF32 terms each), and the
+    ("bwd_tc", "bwd_tc16", "bwd_tc8": a x2d and g x2d two bf16 terms, a g
+    three; "bwd_tc_f32", "bwd_tc16_f32", "bwd_tc8_f32": 3xTF32, three TF32
+    terms each), and the
     rest in f32 on CUDA cores; the
     two units' times are added. Returns the bound, what bounds it, the
     bytes, the all-f32 operation count and the design's operations time
@@ -959,7 +969,8 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
     ``GRAD_TOL``; in f64 on a kernel route, whose errors against the plain
     version in f32 are printed beside, in f32 on "torch"), its backward on
     ``backward_route``'s route (fatal otherwise). On a kernel route
-    ("bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32", "bwd_h4") the
+    ("bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32", "bwd_tc8",
+    "bwd_tc8_f32", "bwd_h4") the
     kernel's gradients against ``ipa_attention_backward``'s on the same
     values in f64 (fatal beyond twice ``GRAD_TOL``: each is within it of the
     reference; against its f32 gradients printed), its second
@@ -1131,9 +1142,10 @@ def phase_kernel_grad(k1):
     cases = [(*c, None) for c in K1_GRAD_CASES] + K1_GRAD_PATH_CASES
     results = {(B, L, dname, Lq or L): _grad_case(k1, gen, B, L, dname, masked, Lq=Lq)
                for B, L, dname, masked, Lq in cases}
-    # At 16 heads, keyed with the heads last.
-    for B, L, dname, masked in K1_GRAD_H16_CASES:
-        results[B, L, dname, L, 16] = _grad_case(k1, gen, B, L, dname, masked, H=16)
+    # At 16 and 8 heads, keyed with the heads last.
+    for H in (16, 8):
+        for B, L, dname, masked in K1_GRAD_TP_CASES:
+            results[B, L, dname, L, H] = _grad_case(k1, gen, B, L, dname, masked, H=H)
     return results
 
 
@@ -2723,11 +2735,13 @@ def phase_mesh_train(k1, ptxas, card):
 def _mesh4(k1, ptxas, card, gen, step, args, whole, errors, largest_w, cli_argv):
     """Phase 19's ``model=4`` spawn: K1 at a rank's 8 heads at both of its
     shapes against its plain version and the CUDA-core design, timed in
-    turns with the latter; then one spawn of MESH4_RANKS gloo ranks on the
+    turns with the latter, and its gradients and the backward kernel
+    (``_grad_case``); then one spawn of MESH4_RANKS gloo ranks on the
     card: (a) the f32 mesh step against ``whole`` (this process's step on
     the whole batch), (b) the train CLI's rank function with ``cli_argv``.
     Every forward on "tc8_f32" / "tc8", none on "simt"; every backward on
-    "torch". Returns the readings the kernels line carries."""
+    "bwd_tc8_f32" / "bwd_tc8", none on "torch". Returns the readings the
+    kernels line carries."""
     from datetime import timedelta
 
     import numpy as np
@@ -2737,6 +2751,8 @@ def _mesh4(k1, ptxas, card, gen, step, args, whole, errors, largest_w, cli_argv)
     h8 = {"f32": _tp_case(k1, ptxas, gen, 8, MESH_B, MESH_L, MESH_L, 256, "float32",
                           tag="mesh-k1"),
           "bf16": _tp_case(k1, ptxas, gen, 8, TRAIN_BATCH, 64, 64, 256, "bfloat16", tag="mesh-k1")}
+    bwd = {"f32": _grad_case(k1, gen, MESH_B, MESH_L, "float32", 0, H=8),
+           "bf16": _grad_case(k1, gen, TRAIN_BATCH, 64, "bfloat16", 0, H=8)}
     shutil.rmtree(cli_argv[cli_argv.index("--ckpt_dir") + 1], ignore_errors=True)
     steps = [(step, (1, MESH4_RANKS, *args)), (programs.train_rank, (cli_argv, 1, MESH4_RANKS))]
     t0 = time.perf_counter()
@@ -2756,7 +2772,7 @@ def _mesh4(k1, ptxas, card, gen, step, args, whole, errors, largest_w, cli_argv)
     for r, x in enumerate(outs):
         log(f"[mesh-train] (a) {name} rank {r}: K1 launches by route {x['launches_by_route']}, "
             f"backward passes {x['backward_calls']} by route {x['backward_calls_by_route']} "
-            f"(expected {N_LAYERS} each, on tc8_f32 and torch); step ms "
+            f"(expected {N_LAYERS} each, on tc8_f32 and bwd_tc8_f32); step ms "
             f"{', '.join(f'{t:.1f}' for t in x['step_ms'])}; all-reduces a step "
             f"{x['all_reduces']:.0f}, their wall with the wait for the other ranks "
             f"{x['all_reduce_ms']:.1f} ms")
@@ -2773,10 +2789,10 @@ def _mesh4(k1, ptxas, card, gen, step, args, whole, errors, largest_w, cli_argv)
             and w_err <= MESH_WEIGHT_TOL * largest_w and same):
         raise AssertionError(f"the {name} step disagrees with one process")
     fwd_ok = lambda x, route, n: x["launches_by_route"] == only_routes(k1, **{route: n})
-    bwd_ok = lambda x, n: (x["backward_calls"] == n
-                           and x["backward_calls_by_route"] == only_bwd_routes(k1, torch=n))
+    bwd_ok = lambda x, route, n: (x["backward_calls"] == n and x["backward_calls_by_route"]
+                                  == only_bwd_routes(k1, **{route: n}))
     for x in outs:
-        if not (fwd_ok(x, "tc8_f32", N_LAYERS) and bwd_ok(x, N_LAYERS)):
+        if not (fwd_ok(x, "tc8_f32", N_LAYERS) and bwd_ok(x, "bwd_tc8_f32", N_LAYERS)):
             raise AssertionError(f"the {name} step launched K1 {x['launches_by_route']} with "
                                  f"backward passes {x['backward_calls_by_route']}")
 
@@ -2787,17 +2803,19 @@ def _mesh4(k1, ptxas, card, gen, step, args, whole, errors, largest_w, cli_argv)
         log(f"[mesh-train] (b) {name} bf16 B={TRAIN_BATCH} L=64, {MESH4_CLI_STEPS} steps, rank "
             f"{x['rank']}: {x['wall_s']:.1f} s with set-up; logged losses {x['history']}; K1 "
             f"launches by route {x['launches_by_route']}, backward passes {x['backward_calls']} "
-            f"by route {x['backward_calls_by_route']} (expected {n} each, on tc8 and torch)")
-        if not (fwd_ok(x, "tc8", n) and bwd_ok(x, n)):
+            f"by route {x['backward_calls_by_route']} (expected {n} each, on tc8 and bwd_tc8)")
+        if not (fwd_ok(x, "tc8", n) and bwd_ok(x, "bwd_tc8", n)):
             raise AssertionError(f"the {name} CLI rank launched K1 {x['launches_by_route']} with "
                                  f"backward passes {x['backward_calls_by_route']}")
         if len(x["history"]) != MESH4_CLI_STEPS or not np.isfinite(x["history"]).all():
             raise AssertionError(f"the {name} CLI rank logged losses {x['history']}")
-    return dict(h8=h8, spawn_s=spawn_s, step_ms=step_ms, all_reduce_ms=o["all_reduce_ms"],
+    return dict(h8=h8, bwd=bwd, spawn_s=spawn_s, step_ms=step_ms, all_reduce_ms=o["all_reduce_ms"],
                 launches=sum(x["launches_by_route"]["tc8_f32"] for x in outs),
                 backwards=sum(x["backward_calls"] for x in outs),
+                bwd_launches=sum(x["backward_calls_by_route"]["bwd_tc8_f32"] for x in outs),
                 cli_launches=sum(x["launches_by_route"]["tc8"] for x in cli),
-                cli_backwards=sum(x["backward_calls"] for x in cli))
+                cli_backwards=sum(x["backward_calls"] for x in cli),
+                cli_bwd_launches=sum(x["backward_calls_by_route"]["bwd_tc8"] for x in cli))
 
 
 def _numpy_batch(B, L, seed):
@@ -3578,8 +3596,9 @@ def main() -> int:
         f"passes ({mesh['cli_bwd_launches']} on bwd_tc16), the model=2 step's "
         f"{mesh['readings']['model=2']['bwd_launches']} on bwd_tc16_f32; mesh training (4 "
         f"ranks): the model=4 step {mesh4['launches']} tc8_f32, the CLI's {MESH4_CLI_STEPS} steps "
-        f"at model=4 {mesh4['cli_launches']} tc8, their backward passes {mesh4['backwards']} and "
-        f"{mesh4['cli_backwards']} on torch; SP training (2 "
+        f"at model=4 {mesh4['cli_launches']} tc8, their backward passes {mesh4['backwards']} "
+        f"({mesh4['bwd_launches']} on bwd_tc8_f32) and {mesh4['cli_backwards']} "
+        f"({mesh4['cli_bwd_launches']} on bwd_tc8); SP training (2 "
         f"ranks) {sppp['sp_launches']} slab launches on tc_f32 and "
         f"{sppp['sp_backwards']} backward passes; PP (2 stages) f32 forward and step "
         f"{sppp['pp_launches']} on tc_f32, {sppp['pp_backwards']} backward passes, bf16 first "
@@ -3821,14 +3840,17 @@ def main() -> int:
         # steps at model=4 (phase 19 (b)), summed over its 4 ranks; ms at
         # B=40 L=100, with the CLI's shape (B=16 L=64) and B=40 L=77 masked
         # beside; prev_ms is the CUDA-core design (prev_source) on the same
-        # inputs, timed in turns. Its backward is PyTorch's ("torch").
+        # inputs, timed in turns. Its backward is the kernel "bwd_tc8" (its
+        # own entry below).
         "name": "ipa_attention_8_heads",
         "route": "cuda",
         "source": "se3diff_torch/csrc/ipa_attention_tc8.cu",
         "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
         "launches": mesh4["cli_launches"],
         **_h8_entry(h8_main["bfloat16"], "B16_L64", mesh4["h8"]["bf16"], h8_l77["bfloat16"]),
-        "backward_route": "torch",
+        "backward_route": mesh4["bwd"]["bf16"]["route"],
+        "backward_source": "se3diff_torch/csrc/ipa_attention_bwd_tc8.cu",
+        "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
         "backward_calls": mesh4["cli_backwards"],
     }, {
         # The same at f32 (route tc8_f32): the model=4 mesh step (phase 19
@@ -3839,7 +3861,9 @@ def main() -> int:
         "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
         "launches": mesh4["launches"],
         **_h8_entry(h8_main["float32"], "B16_L100", mesh4["h8"]["f32"], h8_l77["float32"]),
-        "backward_route": "torch",
+        "backward_route": mesh4["bwd"]["f32"]["route"],
+        "backward_source": "se3diff_torch/csrc/ipa_attention_bwd_tc8.cu",
+        "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
         "backward_calls": mesh4["backwards"],
     }, {
         # K1 at 4 heads of 16 with the streamed pair bias, f32 (route simt,
@@ -3925,6 +3949,32 @@ def main() -> int:
         **_bwd_entry(mesh["bwd"]["f32"]),
         "torch_peak_mb": mesh["bwd"]["f32"]["torch_peak_mb"],
         **_bwd_keys("B40_L77_masked", grad_results[(40, 77, "float32", 77, 16)]),
+    }, {
+        # K1's backward at a TP rank's 8 heads with the streamed pair bias in
+        # bf16 (route bwd_tc8): autograd's backward passes in the train CLI's
+        # steps at model=4 (phase 19 (b)), summed over its 4 ranks, and at
+        # its shape (B=16, L=64) the gradients against autograd of the plain
+        # version, timed in turns with the PyTorch backward (torch_ms);
+        # phase 6's B=40 L=77 masked beside.
+        "name": "ipa_attention_backward_8_heads",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_bwd_tc8.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "launches": mesh4["cli_bwd_launches"],
+        **_bwd_entry(mesh4["bwd"]["bf16"]),
+        "torch_peak_mb": mesh4["bwd"]["bf16"]["torch_peak_mb"],
+        **_bwd_keys("B40_L77_masked", grad_results[(40, 77, "bfloat16", 77, 8)]),
+    }, {
+        # The same in f32 (route bwd_tc8_f32): the model=4 mesh step (phase
+        # 19 (a)), summed over its 4 ranks, at its shape (B=16, L=100).
+        "name": "ipa_attention_backward_8_heads_f32",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_bwd_tc8.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "launches": mesh4["bwd_launches"],
+        **_bwd_entry(mesh4["bwd"]["f32"]),
+        "torch_peak_mb": mesh4["bwd"]["f32"]["torch_peak_mb"],
+        **_bwd_keys("B40_L77_masked", grad_results[(40, 77, "float32", 77, 8)]),
     }, {
         # K1's backward at the PPFT control net's widths (route bwd_h4: f32, 4
         # heads, in-kernel w_pb, Cp <= 64): autograd's backward passes in the

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of K1's backward kernel goes, by kernel, on one H100.
 
-    python3 scripts/k1_bwd_parts.py [tc] [tc16] [h4]
+    python3 scripts/k1_bwd_parts.py [tc] [tc16] [tc8] [h4]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
-CUDA build of PyTorch (no argument: all three). Builds the IPA attention library,
+CUDA build of PyTorch (no argument: all four). Builds the IPA attention library,
 then for each shape the paths give a backward kernel calls
 ``ops.ipa_attention._launch_backward`` once to warm up and once under
 ``torch.profiler``, and prints the device time of every kernel of the call
@@ -17,7 +17,9 @@ run's B=32 L=56 bf16 and an SP slab of 150 rows of L=300 in f32. ``tc16``:
 the same at a tensor-parallel rank's 16 heads (routes "bwd_tc16",
 "bwd_tc16_f32": ``bwd16_rows``, ``bwd_cols``) at the ``--mesh model=2``
 f32 step's B=16 L=100, the train CLI's B=16 L=64 bf16, and B=40 L=77 with 9
-masked columns in both dtypes. ``h4``: 4
+masked columns in both dtypes. ``tc8``: the same at a rank's 8 heads at
+``--mesh model=4`` (routes "bwd_tc8", "bwd_tc8_f32": ``bwd8_rows``,
+``bwd_cols``) at the same four shapes. ``h4``: 4
 heads of 16, f32, the pair bias from ``w_pb`` (route "bwd_h4": ``bwd_h4_rows``,
 ``bwd_h4_cols``, ``bwd_h4_wpb``, the ``bmm`` for d_w_pv and its transpose
 copy) at the PPFT step's B=256 L=56 Cp=32, L=57 with 5 masked columns, Cp=64
@@ -38,6 +40,8 @@ SHAPES = {
            (32, 56, 56, "bfloat16", 32, 256, 0), (4, 150, 300, "float32", 32, 256, 0)],
     "tc16": [(16, 100, 100, "float32", 16, 256, 0), (16, 64, 64, "bfloat16", 16, 256, 0),
              (40, 77, 77, "bfloat16", 16, 256, 9), (40, 77, 77, "float32", 16, 256, 9)],
+    "tc8": [(16, 100, 100, "float32", 8, 256, 0), (16, 64, 64, "bfloat16", 8, 256, 0),
+            (40, 77, 77, "bfloat16", 8, 256, 9), (40, 77, 77, "float32", 8, 256, 9)],
     "h4": [(256, 56, 56, "float32", 4, 32, 0), (256, 57, 57, "float32", 4, 32, 5),
            (256, 56, 56, "float32", 4, 64, 0), (64, 100, 100, "float32", 4, 32, 0)],
 }

@@ -73,6 +73,11 @@ launch a kernel or raise:
   the same at 16 heads, a tensor-parallel rank's backward at ``--mesh
   model=2``: the same algebra at one m16 tile a row's heads, two 256-thread
   blocks an SM;
+- ``"bwd_tc8"`` / ``"bwd_tc8_f32"`` (``csrc/ipa_attention_bwd_tc8.cu``): the
+  same at 8 heads, a tensor-parallel rank's backward at ``--mesh model=4``:
+  the same algebra with the x2d contractions shaped to the 8 heads (N of
+  the aggregate and of G, K of d_x2d), one pass over x2d, two 256-thread
+  blocks an SM;
 - ``"bwd_h4"`` (``csrc/ipa_attention_bwd_h4.cu``): f32, 4 heads, the
   in-kernel pair bias and ``Cp <= H4_MAX_CP``: the PPFT control net's
   backward. Its algebra (one sweep over x2d carrying the statistics, D and
@@ -146,11 +151,14 @@ _TC_ROUTES = {(32, torch.bfloat16): "tc", (32, torch.float32): "tc_f32",
 _BWD_ROUTE_SYMBOLS = {"bwd_tc": "ipa_attention_bwd_tc", "bwd_tc_f32": "ipa_attention_bwd_tc_f32",
                       "bwd_tc16": "ipa_attention_bwd_tc16",
                       "bwd_tc16_f32": "ipa_attention_bwd_tc16_f32",
+                      "bwd_tc8": "ipa_attention_bwd_tc8",
+                      "bwd_tc8_f32": "ipa_attention_bwd_tc8_f32",
                       "bwd_h4": "ipa_attention_bwd_h4"}
 # The tensor-core backward designs of the streamed pair bias, by head count
 # and dtype (Cp % 32 == 0).
 _BWD_TC_ROUTES = {(32, torch.bfloat16): "bwd_tc", (32, torch.float32): "bwd_tc_f32",
-                  (16, torch.bfloat16): "bwd_tc16", (16, torch.float32): "bwd_tc16_f32"}
+                  (16, torch.bfloat16): "bwd_tc16", (16, torch.float32): "bwd_tc16_f32",
+                  (8, torch.bfloat16): "bwd_tc8", (8, torch.float32): "bwd_tc8_f32"}
 
 # Forward kernel launches made through ipa_attention (plain-version calls and
 # backward passes do not count), in all, by variant ("pa" streams the pair
@@ -221,7 +229,9 @@ def backward_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -
     ``csrc/ipa_attention_bwd_tc.cu``, ``"bwd_tc"`` in bf16 and
     ``"bwd_tc_f32"`` in f32; the same at 16 heads (a tensor-parallel rank
     at ``--mesh model=2``), the kernel ``csrc/ipa_attention_bwd_tc16.cu``,
-    ``"bwd_tc16"`` and ``"bwd_tc16_f32"``; for f32 at 4 heads with the
+    ``"bwd_tc16"`` and ``"bwd_tc16_f32"``, and at 8 heads (a rank at
+    ``--mesh model=4``), the kernel ``csrc/ipa_attention_bwd_tc8.cu``,
+    ``"bwd_tc8"`` and ``"bwd_tc8_f32"``; for f32 at 4 heads with the
     in-kernel pair bias and ``Cp <= H4_MAX_CP`` (the PPFT control net), the
     kernel ``csrc/ipa_attention_bwd_h4.cu``, ``"bwd_h4"``; ``"torch"``
     (:func:`ipa_attention_backward`) for every other width in
@@ -329,6 +339,10 @@ def _library() -> ctypes.CDLL:
                          "ipa_attention_bwd_tc16_f32_smem_bytes",
                          "ipa_attention_bwd_tc16_blocks_per_sm",
                          "ipa_attention_bwd_tc16_f32_blocks_per_sm",
+                         "ipa_attention_bwd_tc8_smem_bytes",
+                         "ipa_attention_bwd_tc8_f32_smem_bytes",
+                         "ipa_attention_bwd_tc8_blocks_per_sm",
+                         "ipa_attention_bwd_tc8_f32_blocks_per_sm",
                          "ipa_attention_tc16_f32_blocks_per_sm"):
                 getattr(lib, name).argtypes = [ci]
                 getattr(lib, name).restype = ci
@@ -642,7 +656,8 @@ def _cotangents(q_s, grad_outputs, s_dtype):
 def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, counted: bool):
     """:func:`_launch_backward` with the streamed pair bias: the kernel
     ``csrc/ipa_attention_bwd_tc.cu`` at 32 heads,
-    ``csrc/ipa_attention_bwd_tc16.cu`` at 16. The two plain products around
+    ``csrc/ipa_attention_bwd_tc16.cu`` at 16,
+    ``csrc/ipa_attention_bwd_tc8.cu`` at 8. The two plain products around
     it go to ``torch.bmm``, as JAX leaves them to XLA: ``g_wx2d = ct_pr @
     w_pv^T`` before it, ``d_w_pv = wx2d^T ct_pr`` after it. Returns ten
     gradients."""
@@ -780,7 +795,8 @@ def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_
                                  tile: int = 16):
     """Input gradients of :func:`ipa_attention` with the streamed pair bias,
     computed the way the backward kernels (``csrc/ipa_attention_bwd_tc.cu``
-    at 32 heads, ``csrc/ipa_attention_bwd_tc16.cu`` at 16) compute them; no
+    at 32 heads, ``csrc/ipa_attention_bwd_tc16.cu`` at 16,
+    ``csrc/ipa_attention_bwd_tc8.cu`` at 8) compute them; no
     path calls it (the CPU tests hold it against JAX's
     ``_fused_backward_chunked`` and :func:`ipa_attention_backward`).
 

@@ -3,12 +3,13 @@ JAX ``_fused_backward_chunked`` and against ``ipa_attention_backward``.
 
 ``ipa_attention_backward_tiled`` is the algebra of the backward kernels
 (``se3diff_torch/csrc/ipa_attention_bwd_tc.cu`` at 32 heads,
-``ipa_attention_bwd_tc16.cu`` at 16): a statistics sweep over key
-tiles of 16, D from the row aggregate wx2d, the column sums from the saved
-statistics and ds, explicit point differences, and the tensor cores'
-operand roundings (bf16: f32 operands as two bf16 terms, x2d exact; f32:
-3xTF32). The kernel runs on the card only; this holds its arithmetic here
-on the same numpy inputs, in the kernel layout, with the streamed pair bias.
+``ipa_attention_bwd_tc16.cu`` at 16, ``ipa_attention_bwd_tc8.cu`` at 8): a
+statistics sweep over key tiles of 16, D from the row aggregate wx2d, the
+column sums from the saved statistics and ds, explicit point differences,
+and the tensor cores' operand roundings (bf16: f32 operands as two bf16
+terms, x2d exact; f32: 3xTF32). The kernel runs on the card only; this
+holds its arithmetic here on the same numpy inputs, in the kernel layout,
+with the streamed pair bias.
 
 Tolerances, tests/test_torch_ipa_backward.py's:
 * f32: 1e-4 absolute and 1e-3 relative. Same function, sums in another
@@ -81,7 +82,8 @@ def _assert_close(name, got, want, dtype):
 # (dtype, B, Lq, Lk, masked columns, heads, head width, Cp): Lq != Lk (a row
 # slab), key tiles ragged at 16 (Lk = 20, 37, 24), masked columns, and the
 # kernels' own widths (Cp = 64 at 32 heads of 16, ipa_attention_bwd_tc.cu,
-# and at a tensor-parallel rank's 16, ipa_attention_bwd_tc16.cu).
+# and at a tensor-parallel rank's 16, ipa_attention_bwd_tc16.cu, and 8,
+# ipa_attention_bwd_tc8.cu).
 CASES = [
     ("float32", 2, 16, 16, 0, 4, 8, 32),
     ("float32", 1, 12, 37, 5, 4, 8, 32),
@@ -91,6 +93,8 @@ CASES = [
     ("bfloat16", 1, 7, 19, 2, 32, 16, 64),
     ("float32", 2, 9, 37, 5, 16, 16, 64),
     ("bfloat16", 1, 7, 19, 2, 16, 16, 64),
+    ("float32", 2, 9, 37, 5, 8, 16, 64),
+    ("bfloat16", 1, 7, 19, 2, 8, 16, 64),
 ]
 
 

@@ -8,7 +8,8 @@ and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
 ``w_pb``, the PPFT control net) against the plain version and against the
 CUDA-core design on the same inputs; and the backward kernel (streamed
 ``pa`` at 32 heads: route "bwd_tc" in bf16, "bwd_tc_f32" in f32; at 16
-heads "bwd_tc16" and "bwd_tc16_f32") against
+heads "bwd_tc16" and "bwd_tc16_f32"; at 8 heads "bwd_tc8" and
+"bwd_tc8_f32") against
 the PyTorch backward ``ipa_attention_backward`` and against itself, bit for
 bit, on a second call; and the backward kernel at the PPFT control net's
 widths (route "bwd_h4": f32, 4 heads, ``w_pb``) against autograd of the
@@ -300,11 +301,13 @@ BWD_CASES = [(2, 37, 37, 5), (2, 5, 70, 0), (1, 1, 1, 0), (2, 33, 33, 33), (2, 1
              (3, 77, 77, 9), (4, 56, 56, 0)]
 # Each side rounds its bf16 gradients once from f32 sums taken in another
 # order, so the two may lie a bf16 ulp apart: 2^-7 of a value in bf16. The
-# streamed routes at 32 heads and at a tensor-parallel rank's 16.
+# streamed routes at 32 heads and at a tensor-parallel rank's 16 and 8.
 BWD_ROUTES = [(torch.bfloat16, "bwd_tc", 32, 2.0**-7 + 1e-4),
               (torch.float32, "bwd_tc_f32", 32, 1e-4),
               (torch.bfloat16, "bwd_tc16", 16, 2.0**-7 + 1e-4),
-              (torch.float32, "bwd_tc16_f32", 16, 1e-4)]
+              (torch.float32, "bwd_tc16_f32", 16, 1e-4),
+              (torch.bfloat16, "bwd_tc8", 8, 2.0**-7 + 1e-4),
+              (torch.float32, "bwd_tc8_f32", 8, 1e-4)]
 
 
 def _cotangents(args, seed=1):
@@ -358,6 +361,7 @@ def test_backward_kernel_matches_the_pytorch_backward(cuda_device, B, Lq, Lk, ma
 @pytest.mark.parametrize("dtype,route,H,CP,variant", [
     (torch.bfloat16, "bwd_tc", 32, 256, "pa"), (torch.float32, "bwd_tc_f32", 32, 256, "pa"),
     (torch.bfloat16, "bwd_tc16", 16, 256, "pa"), (torch.float32, "bwd_tc16_f32", 16, 256, "pa"),
+    (torch.bfloat16, "bwd_tc8", 8, 256, "pa"), (torch.float32, "bwd_tc8_f32", 8, 256, "pa"),
     (torch.float32, "bwd_h4", 4, 32, "w_pb")])
 @pytest.mark.parametrize("B,Lq,Lk,masked", [(16, 100, 100, 0), (3, 77, 77, 9), (4, 150, 300, 0)])
 def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype, route, H, CP,
@@ -377,11 +381,13 @@ def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route,rows", [("bwd_tc", "bwd_rows"), ("bwd_tc16", "bwd16_rows")])
+@pytest.mark.parametrize("route,rows", [("bwd_tc", "bwd_rows"), ("bwd_tc16", "bwd16_rows"),
+                                        ("bwd_tc8", "bwd8_rows")])
 def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device, route, rows):
     """The library's row kernel's and the shared column kernel's shared
-    memory at Cp=256 are what the source's header states; the 16-head
-    design's row kernel keeps two blocks resident an SM in both dtypes."""
+    memory at Cp=256 are what the source's header states; the 16- and
+    8-head designs' row kernels keep two blocks resident an SM in both
+    dtypes."""
     import re
     from pathlib import Path
 
@@ -394,9 +400,9 @@ def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device, r
     assert getattr(lib, f"ipa_attention_{route}_smem_bytes")(256) == bf16
     assert getattr(lib, f"ipa_attention_{route}_f32_smem_bytes")(256) == f32
     assert lib.ipa_attention_bwd_cols_smem_bytes() == col
-    if route == "bwd_tc16":
-        assert lib.ipa_attention_bwd_tc16_blocks_per_sm(256) == 2
-        assert lib.ipa_attention_bwd_tc16_f32_blocks_per_sm(256) == 2
+    if route != "bwd_tc":
+        assert getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256) == 2
+        assert getattr(lib, f"ipa_attention_{route}_f32_blocks_per_sm")(256) == 2
 
 
 @pytest.mark.cuda
@@ -406,10 +412,38 @@ def test_backward_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="streamed pair bias"):
         k1._launch_backward(args[:9] + [None], cts, 1.0, 1.0)
     with pytest.raises(ValueError, match="no backward kernel takes 8 heads"):
-        small = list(_args(cuda_device, 1, 8, 8, torch.float32, 0, H=8, CP=64))[:10]
+        small = list(_args(cuda_device, 1, 8, 8, torch.float32, 0, H=8, CP=36))[:10]
         k1._launch_backward(small, _cotangents(small), 1.0, 1.0)
     with pytest.raises(ValueError, match="d_out_p"):
         k1._launch_backward(args[:10], (cts[0], cts[1][..., :12], cts[2]), 1.0, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bwd_tc8"),
+                                         (torch.float32, "bwd_tc8_f32")])
+def test_8_head_backward_kernels_refuse_misaligned_operands(cuda_device, dtype, route):
+    """A pa, v_p or d_out_s that starts 4 bytes into its storage is refused
+    with a ValueError before the kernel launches, and the call is counted
+    on no route."""
+    args = list(_args(cuda_device, 2, 9, 9, dtype, 0, H=8, CP=64))[:10]
+    cts = list(_cotangents(args))
+    assert k1.backward_route(dtype, 8, DK, 64, True) == route
+
+    def shifted(t):
+        off = 4 // t.element_size()
+        out = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)[off:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16
+        return out
+
+    for where, i in (("args", 9), ("args", 5), ("cts", 0)):
+        bad_args, bad_cts = list(args), list(cts)
+        target = bad_args if where == "args" else bad_cts
+        target[i] = shifted(target[i])
+        before = dict(k1.backward_calls_by_route)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            k1._launch_backward(bad_args, tuple(bad_cts), KW["scalar_w"], KW["pair_w"])
+        assert k1.backward_calls_by_route == before
 
 
 # Shapes of the bwd_h4 kernel: a small batch, the PPFT CLI's masked L=57 at

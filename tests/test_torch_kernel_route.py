@@ -108,7 +108,7 @@ def test_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa)
     (F32, 8, 16, 64, False, "torch"),          # 8 heads in-kernel
     (BF16, 16, 16, 256, True, "bwd_tc16"),     # a tensor-parallel rank at --mesh model=2
     (F32, 16, 16, 256, True, "bwd_tc16_f32"),
-    (F32, 8, 16, 256, True, "torch"),
+    (F32, 8, 16, 256, True, "bwd_tc8_f32"),   # a rank at --mesh model=4
     (BF16, 16, 16, 96, True, "bwd_tc16"),
     (BF16, 16, 16, 32, True, "bwd_tc16"),
     (F32, 16, 16, 128, True, "bwd_tc16_f32"),
@@ -117,7 +117,14 @@ def test_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa)
     (F32, 16, 16, 100, True, "torch"),
     (BF16, 16, 16, 256, False, "torch"),       # 16 heads, the in-kernel pair bias
     (F32, 16, 16, 64, False, "torch"),
-    (BF16, 8, 16, 256, True, "torch"),         # 8 heads streamed (a rank at --mesh model=4)
+    (BF16, 8, 16, 256, True, "bwd_tc8"),       # 8 heads streamed (a rank at --mesh model=4)
+    (BF16, 8, 16, 32, True, "bwd_tc8"),
+    (F32, 8, 16, 32, True, "bwd_tc8_f32"),
+    (BF16, 8, 16, 96, True, "bwd_tc8"),
+    (F32, 8, 16, 96, True, "bwd_tc8_f32"),
+    (BF16, 8, 16, 36, True, "torch"),          # 8 heads, Cp not a multiple of 32
+    (F32, 8, 16, 36, True, "torch"),
+    (BF16, 8, 16, 64, False, "torch"),         # 8 heads, the in-kernel pair bias
 ])
 def test_backward_route_rule(dtype, H, dk, cp, has_pa, route):
     assert k1.backward_route(dtype, H, dk, cp, has_pa) == route
@@ -138,7 +145,9 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
     route and "torch"."""
     sources = {"bwd_tc": "ipa_attention_bwd_tc.cu", "bwd_tc_f32": "ipa_attention_bwd_tc.cu",
                "bwd_tc16": "ipa_attention_bwd_tc16.cu",
-               "bwd_tc16_f32": "ipa_attention_bwd_tc16.cu", "bwd_h4": "ipa_attention_bwd_h4.cu"}
+               "bwd_tc16_f32": "ipa_attention_bwd_tc16.cu",
+               "bwd_tc8": "ipa_attention_bwd_tc8.cu", "bwd_tc8_f32": "ipa_attention_bwd_tc8.cu",
+               "bwd_h4": "ipa_attention_bwd_h4.cu"}
     for route, symbol in k1._BWD_ROUTE_SYMBOLS.items():
         found = []
         for path in CSRC.glob("*.cu"):
@@ -150,20 +159,23 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
                     found.append(path.name)
         assert found == [sources[route]], (symbol, found)
     assert set(k1.backward_calls_by_route) == {"bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32",
-                                               "bwd_h4", "torch"}
+                                               "bwd_tc8", "bwd_tc8_f32", "bwd_h4", "torch"}
 
 
 def test_backward_kernel_source_states_widths_and_shared_memory():
     """Each streamed backward source takes the widths its routes name (32
-    heads in ``ipa_attention_bwd_tc.cu``, 16 in ``ipa_attention_bwd_tc16.cu``;
-    the head width and largest Cp in the header both include), and the
+    heads in ``ipa_attention_bwd_tc.cu``, 16 in ``ipa_attention_bwd_tc16.cu``,
+    8 in ``ipa_attention_bwd_tc8.cu``; the head width and largest Cp in the
+    header all include), and the
     shared memory its row kernel states fits what a block may opt into on
-    Hopper; the shared column kernel's grid follows the heads."""
+    Hopper (the 16- and 8-head designs' two blocks an SM); the shared column
+    kernel's grid follows the heads."""
     common = (CSRC / "ipa_attention_bwd_common.cuh").read_text()
     assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in common
     assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in common
     for name, heads, rows in (("ipa_attention_bwd_tc.cu", 32, "bwd_rows"),
-                              ("ipa_attention_bwd_tc16.cu", 16, "bwd16_rows")):
+                              ("ipa_attention_bwd_tc16.cu", 16, "bwd16_rows"),
+                              ("ipa_attention_bwd_tc8.cu", 8, "bwd8_rows")):
         text = (CSRC / name).read_text()
         assert '#include "ipa_attention_bwd_common.cuh"' in text, name
         assert f"constexpr int kH = {heads};" in text, name
@@ -173,6 +185,9 @@ def test_backward_kernel_source_states_widths_and_shared_memory():
                            r"([\d,]+) \(f32\)", text)
         assert stated is not None, name
         assert all(int(x.replace(",", "")) <= 232_448 for x in stated.groups()), name
+        if rows != "bwd_rows":  # two blocks an SM: 228 KB less 1 KB a block
+            assert all(int(x.replace(",", "")) <= 233_472 // 2 - 1024
+                       for x in stated.groups()), name
 
 
 def test_cpu_backward_counts_the_torch_route():
@@ -390,7 +405,8 @@ def test_a_tensor_parallel_rank_at_model_4_takes_the_8_head_designs(dtype, route
     """The attention layer of bioemu-v1.0's score model split over four
     model ranks (``--mesh model=4``) holds 8 heads of 16 with the streamed
     pair bias: its forward takes the 8-head tensor-core designs, its
-    backward the PyTorch one ("torch": no backward kernel takes 8 heads)."""
+    backward the 8-head backward kernel of the same dtype ("bwd_tc8",
+    "bwd_tc8_f32")."""
     from types import SimpleNamespace
 
     from se3diff_torch.models.dig import SAAttention
@@ -401,7 +417,7 @@ def test_a_tensor_parallel_rank_at_model_4_takes_the_8_head_designs(dtype, route
     H, dk, cp = layer.n_head, layer.head_dim, layer.d_pair
     assert (H, dk, cp) == (8, 16, 256)
     assert k1.kernel_route(dtype, H, dk, cp, True) == route
-    assert k1.backward_route(dtype, H, dk, cp, True) == "torch"
+    assert k1.backward_route(dtype, H, dk, cp, True) == f"bwd_{route}"
 
 
 @pytest.mark.parametrize("design,dtype", [("tc8", BF16), ("tc8_f32", F32)])
