@@ -68,7 +68,8 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 9. train-step throughput at ``bench.py --train``'s shape (L=100, B=16, bf16):
    ``dsm_train_examples_per_hour_L100_B16`` (8 backward passes a step on
    "bwd_tc"), the forward / backward / optimizer split and a profile of one
-   step, K1's backward labelled where autograd dispatches it;
+   step, K1's backward labelled where autograd dispatches it; then the same
+   in f32, the train CLI's default dtype (every backward on "bwd_tc_f32");
 10. sequence- and data-parallel sampling (``se3diff_torch.parallel``):
    (a) ``sp_ipa_attention``'s row-slab launches, concatenated, against
    ``ipa_attention_plain`` over all rows at B=4, L=300 on 2 and 4 slabs and
@@ -597,14 +598,10 @@ def phase_build():
                    f"shared memory {lib.ipa_attention_h4_smem_bytes(32)} bytes at Cp=32 | Cp <= 64: "
                    f"{ptxas_summary(report, 'ipa_attention_h4_kernelILi64E')}"}
     cols = lib.ipa_attention_bwd_cols_smem_bytes()
-    for route, t, smem in (("bwd_tc", "13__nv_bfloat16", lib.ipa_attention_bwd_tc_smem_bytes(256)),
-                           ("bwd_tc_f32", "f", lib.ipa_attention_bwd_tc_f32_smem_bytes(256))):
-        ptxas[route] = (f"rows: {ptxas_summary(report, f'bwd_rowsI{t}E')}; dynamic shared memory "
-                        f"{smem} bytes at Cp=256 | cols: "
-                        f"{ptxas_summary(report, f'bwd_colsI{t}Li32E')}; dynamic shared memory "
-                        f"{cols} bytes")
-    # The 16- and 8-head backward: the row kernel's resident blocks an SM beside.
-    for route, rows, heads, t in (("bwd_tc16", "bwd16_rows", 16, "13__nv_bfloat16"),
+    # The 32-, 16- and 8-head backward: the row kernel's resident blocks an SM beside.
+    for route, rows, heads, t in (("bwd_tc", "bwd32_rows", 32, "13__nv_bfloat16"),
+                                  ("bwd_tc_f32", "bwd32_rows", 32, "f"),
+                                  ("bwd_tc16", "bwd16_rows", 16, "13__nv_bfloat16"),
                                   ("bwd_tc16_f32", "bwd16_rows", 16, "f"),
                                   ("bwd_tc8", "bwd8_rows", 8, "13__nv_bfloat16"),
                                   ("bwd_tc8_f32", "bwd8_rows", 8, "f")):
@@ -614,6 +611,8 @@ def phase_build():
                         f"memory {smem} bytes at Cp=256, {blocks} blocks an SM resident | cols: "
                         f"{ptxas_summary(report, f'bwd_colsI{t}Li{heads}E')}; dynamic shared "
                         f"memory {cols} bytes")
+        if heads == 32:  # the value terms' kernel
+            ptxas[route] += f" | dv: {ptxas_summary(report, f'bwd32_dvI{t}E')}"
     # bwd_h4: two row instantiations (Cp <= 32, every path; Cp <= 64), the
     # column kernel and the reduction of d_w_pv's and d_w_pb's partials.
     ptxas["bwd_h4"] = (
@@ -1340,103 +1339,115 @@ def phase_train_throughput(k1, card):
     batch = {k: v.to(DEVICE) for k, v in batch.items()}
     sdes = SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(
         **dict(BIOEMU_V1_SO3, cache_dir=str(OUT / "so3_cache")), device=DEVICE))
-    model = dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL, dtype=torch.bfloat16)
-    dig.init_weights(model, torch.Generator().manual_seed(0)).to(DEVICE)
-    cfg = TrainConfig(lr=1e-4)
-    opt = make_optimizer(cfg, model.parameters())
 
-    def gen(i):
-        return step_generator(0, i, torch.device(DEVICE))
+    def case(dtype, route):
+        """The step at ``dtype``, every K1 backward on ``route``; returns
+        examples an hour from the median step."""
+        dname = str(dtype).removeprefix("torch.")
+        model = dig.DiGConditionalScoreModel(**BIOEMU_V1_MODEL, dtype=dtype)
+        dig.init_weights(model, torch.Generator().manual_seed(0)).to(DEVICE)
+        cfg = TrainConfig(lr=1e-4)
+        opt = make_optimizer(cfg, model.parameters())
 
-    def step(i):
-        return train_step(model, opt, batch, gen(i), sdes, lr=cfg.lr, grad_clip=cfg.grad_clip)
+        def gen(i):
+            return step_generator(0, i, torch.device(DEVICE))
 
-    for i in range(3):
-        step(i)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    bwd_before = dict(k1.backward_calls_by_route)
-    for i in range(3, 13):
-        t0 = time.perf_counter()
-        loss = step(i)
+        def step(i):
+            return train_step(model, opt, batch, gen(i), sdes, lr=cfg.lr, grad_clip=cfg.grad_clip)
+
+        for i in range(3):
+            step(i)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    med = float(np.median(times))
-    bwd_routes = {k: n - bwd_before[k] for k, n in k1.backward_calls_by_route.items()}
-    log(f"[train-step] L={L} B={B} bf16 full width, 10 timed steps: median {med * 1e3:.2f} ms, "
-        f"min {min(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms; loss {loss.item():.4f}; "
-        f"peak device memory {peak_gb:.2f} GB; K1 backward passes by route {bwd_routes} "
-        f"(expected {10 * N_LAYERS} on bwd_tc); {card}")
-    if bwd_routes != only_bwd_routes(k1, bwd_tc=10 * N_LAYERS):
-        raise AssertionError(f"the train step's K1 backward left the kernel route: {bwd_routes}")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        bwd_before = dict(k1.backward_calls_by_route)
+        for i in range(3, 13):
+            t0 = time.perf_counter()
+            loss = step(i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        med = float(np.median(times))
+        bwd_routes = {k: n - bwd_before[k] for k, n in k1.backward_calls_by_route.items()}
+        log(f"[train-step] L={L} B={B} {dname} full width, 10 timed steps: median {med * 1e3:.2f} ms, "
+            f"min {min(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms; loss {loss.item():.4f}; "
+            f"peak device memory {peak_gb:.2f} GB; K1 backward passes by route {bwd_routes} "
+            f"(expected {10 * N_LAYERS} on {route}); {card}")
+        if bwd_routes != only_bwd_routes(k1, **{route: 10 * N_LAYERS}):
+            raise AssertionError(f"the train step's K1 backward left the kernel route: {bwd_routes}")
 
-    # Forward / backward / optimizer split, by CUDA events, over 5 steps:
-    # the three parts train_step is made of, called in its order.
-    split = {"noise+forward": [], "backward": [], "optimizer": []}
-    for i in range(13, 18):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        loss = step_loss(model, batch, gen(i), sdes)
-        ev[1].record()
-        step_backward(opt, loss)
-        ev[2].record()
-        step_update(model, opt, lr=cfg.lr, grad_clip=cfg.grad_clip)
-        ev[3].record()
-        torch.cuda.synchronize()
-        for key, a, b in zip(split, ev[:-1], ev[1:]):
-            split[key].append(a.elapsed_time(b))
-    split_ms = {k: float(np.median(v)) for k, v in split.items()}
-    log("[train-step] split of one step (median of 5, CUDA events): "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in split_ms.items()))
-
-    # One profiled step, train_step's three parts with labels; the K1
-    # backward is labelled where autograd dispatches it (k1._backward, on
-    # either route), without touching the library. A CPU-side label's
-    # device time is the kernel time of what was launched under it.
-    bwd = k1._backward
-
-    def labelled(*a, **kw):
-        with record_function("ipa_attention_backward"):
-            return bwd(*a, **kw)
-
-    def labelled_step():
-        with record_function("forward"):
-            loss = step_loss(model, batch, gen(18), sdes)
-        step_backward(opt, loss)
-        with record_function("optimizer"):
+        # Forward / backward / optimizer split, by CUDA events, over 5 steps:
+        # the three parts train_step is made of, called in its order.
+        split = {"noise+forward": [], "backward": [], "optimizer": []}
+        for i in range(13, 18):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss = step_loss(model, batch, gen(i), sdes)
+            ev[1].record()
+            step_backward(opt, loss)
+            ev[2].record()
             step_update(model, opt, lr=cfg.lr, grad_clip=cfg.grad_clip)
+            ev[3].record()
+            torch.cuda.synchronize()
+            for key, a, b in zip(split, ev[:-1], ev[1:]):
+                split[key].append(a.elapsed_time(b))
+        split_ms = {k: float(np.median(v)) for k, v in split.items()}
+        log(f"[train-step] {dname} split of one step (median of 5, CUDA events): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in split_ms.items()))
 
-    with mock.patch.object(k1, "_backward", labelled):
-        prof = profile_device(labelled_step, labels=("forward", "optimizer", "ipa_attention_backward"))
-    kernels = [(r.name, r.total_ms, r.count) for r in prof.rows]
-    total = prof.total_ms
-    if not total > 0:
-        raise AssertionError("the profiler recorded no device time for the train step")
+        # One profiled step, train_step's three parts with labels; the K1
+        # backward is labelled where autograd dispatches it (k1._backward, on
+        # either route), without touching the library. A CPU-side label's
+        # device time is the kernel time of what was launched under it.
+        bwd = k1._backward
 
-    # Kernels launched through ctypes (the library carries its own CUDA
-    # runtime) fall under no label: K1's forward kernel and the backward
-    # kernel's bwd_rows / bwd_cols are added to their labels by name (in
-    # run 1 of PR 16 the backward's label alone held 0.94 ms of 8 calls).
-    k1_fwd = sum(t for k, t, _ in kernels if "ipa_attention" in k)
-    k1_bwd_own = sum(t for k, t, _ in kernels if "bwd_rows" in k or "bwd_cols" in k)
-    fwd_label, opt_ms, bwd_label = (prof.labels[k] for k in ("forward", "optimizer",
-                                                             "ipa_attention_backward"))
-    fwd, k1_bwd = fwd_label + k1_fwd, bwd_label + k1_bwd_own
-    bwd_ms = total - fwd - opt_ms
-    log(f"[train-profile] one step: device kernel time {total:.2f} ms in "
-        f"{sum(n for _, _, n in kernels)} kernels, busy "
-        f"{100 * total / (med * 1e3):.1f}% of the median unprofiled step; forward (noise "
-        f"included) {fwd:.2f} ms, backward {bwd_ms:.2f} ms ({100 * bwd_ms / total:.1f}%), "
-        f"optimizer {opt_ms:.2f} ms; K1 forward kernel {k1_fwd:.2f} ms ({100 * k1_fwd / total:.1f}%), "
-        f"K1 backward (8 calls, route bwd_tc) {k1_bwd:.2f} ms ({100 * k1_bwd / total:.1f}%: "
-        f"bwd_rows and bwd_cols {k1_bwd_own:.2f} ms, the ops around them {bwd_label:.2f} ms)")
-    for key, t, n in kernels[:12]:
-        log(f"[train-profile]   {t:8.2f} ms {100 * t / total:5.1f}%  x{n:<5d} {key[:90]}")
-    value = B * 3600.0 / med
-    log(f"[train-step] dsm_train_examples_per_hour_L{L}_B{B} = {value:.1f} "
-        f"(median step; {B * 3600.0 / min(times):.1f} from the fastest step)")
+        def labelled(*a, **kw):
+            with record_function("ipa_attention_backward"):
+                return bwd(*a, **kw)
+
+        def labelled_step():
+            with record_function("forward"):
+                loss = step_loss(model, batch, gen(18), sdes)
+            step_backward(opt, loss)
+            with record_function("optimizer"):
+                step_update(model, opt, lr=cfg.lr, grad_clip=cfg.grad_clip)
+
+        with mock.patch.object(k1, "_backward", labelled):
+            prof = profile_device(labelled_step, labels=("forward", "optimizer", "ipa_attention_backward"))
+        kernels = [(r.name, r.total_ms, r.count) for r in prof.rows]
+        total = prof.total_ms
+        if not total > 0:
+            raise AssertionError("the profiler recorded no device time for the train step")
+
+        # Kernels launched through ctypes (the library carries its own CUDA
+        # runtime) fall under no label: K1's forward kernel and the backward
+        # kernel's bwd32_dv / bwd32_rows / bwd_cols are added to their labels
+        # by name (the backward's label alone once held 0.94 ms of 8 calls).
+        k1_fwd = sum(t for k, t, _ in kernels if "ipa_attention" in k)
+        k1_bwd_own = sum(t for k, t, _ in kernels
+                         if any(n in k for n in ("bwd32_dv", "bwd32_rows", "bwd_cols")))
+        fwd_label, opt_ms, bwd_label = (prof.labels[k] for k in ("forward", "optimizer",
+                                                                 "ipa_attention_backward"))
+        fwd, k1_bwd = fwd_label + k1_fwd, bwd_label + k1_bwd_own
+        bwd_ms = total - fwd - opt_ms
+        log(f"[train-profile] one {dname} step: device kernel time {total:.2f} ms in "
+            f"{sum(n for _, _, n in kernels)} kernels, busy "
+            f"{100 * total / (med * 1e3):.1f}% of the median unprofiled step; forward (noise "
+            f"included) {fwd:.2f} ms, backward {bwd_ms:.2f} ms ({100 * bwd_ms / total:.1f}%), "
+            f"optimizer {opt_ms:.2f} ms; K1 forward kernel {k1_fwd:.2f} ms ({100 * k1_fwd / total:.1f}%), "
+            f"K1 backward (8 calls, route {route}) {k1_bwd:.2f} ms ({100 * k1_bwd / total:.1f}%: "
+            f"bwd32_dv, bwd32_rows and bwd_cols {k1_bwd_own:.2f} ms, the ops around them "
+            f"{bwd_label:.2f} ms)")
+        for key, t, n in kernels[:12]:
+            log(f"[train-profile]   {t:8.2f} ms {100 * t / total:5.1f}%  x{n:<5d} {key[:90]}")
+        value = B * 3600.0 / med
+        log(f"[train-step] dsm_train_examples_per_hour_L{L}_B{B} ({dname}) = {value:.1f} "
+            f"(median step; {B * 3600.0 / min(times):.1f} from the fastest step)")
+        return value
+
+    value = case(torch.bfloat16, "bwd_tc")
+    # The train CLI's default dtype: every backward on bwd_tc_f32.
+    case(torch.float32, "bwd_tc_f32")
     return value
 
 

@@ -10,7 +10,7 @@ then for each shape the paths give a backward kernel calls
 ``torch.profiler``, and prints the device time of every kernel of the call
 beside the call's time by CUDA events (the median of 20), then the card's
 name and power limit. ``tc``: 32 heads of 16, Cp=256, the streamed pair
-bias (routes "bwd_tc", "bwd_tc_f32": the row kernel ``bwd_rows``, the
+bias (routes "bwd_tc", "bwd_tc_f32": the row kernel ``bwd32_rows``, the
 column kernel ``bwd_cols``, the two ``bmm`` and the casts and copies around
 them) at the train step's B=16 L=100 in bf16 and f32, the PPFT learning
 run's B=32 L=56 bf16 and an SP slab of 150 rows of L=300 in f32. ``tc16``:

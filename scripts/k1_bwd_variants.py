@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""Variants of K1's 32-head backward kernel (``csrc/ipa_attention_bwd_tc.cu``,
+routes "bwd_tc" and "bwd_tc_f32"), timed in turns with the source as
+committed, and where its row kernel spends its time, on one H100.
+
+    python3 scripts/k1_bwd_variants.py [variant ...]
+
+from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
+CUDA build of PyTorch. A variant is the source with text patches applied,
+each patch's text found once; every variant named (all by default) and the
+committed source are built with nvcc, one process a source, all started
+together, into libraries of their own under ``.work/k1_bwd_variants/``
+(listed in .gitignore). At the train step's B=16 L=100 (bf16 and f32) and
+the learning run's B=32 L=56 (bf16), Cp=256, each variant's call
+(``ops.ipa_attention._launch_backward`` with the variant's library: the row
+and column kernels and the two ``bmm``) is timed by
+``chip_smoke.cuda_time_ms`` in turns with the committed source's on the
+same inputs (committed, variant, variant, committed), and its gradients
+are held against the committed source's (a variant that cuts work is
+timed, and its error printed, not checked). Prints a line a variant and
+shape with ptxas's register and spill report, then the card's name and
+power limit.
+
+The variants:
+
+- ``clock`` (no change to the arithmetic): thread 0 of each block of
+  ``bwd32_rows`` adds ``clock64()`` differences at the phase boundaries to
+  a device counter; prints the mean SM cycles a block spends in each phase
+  (set-up, sweep 1, sweep 2's weights and fetch, its wait and first
+  barrier, its products, its second barrier and dphat, the epilogue and D,
+  sweep 3 with the row gradients' writes);
+- ``one_stage`` (bf16 only): one x2d stage, as in f32;
+- ``unroll3``: sweep 3's tile loop unrolled twice, so a column's loads can
+  be issued under the previous column's arithmetic;
+- ``g_unroll8``: the set-up's loop over w_pv rows unrolled eight times
+  (four committed);
+- ``c2_two_pass`` (f32 only): G's four accumulators in two passes over Cp
+  (k-steps 0 and 1 mod 4, then 2 and 3), at most three live, the same
+  bits;
+- ``c1_m_outer`` (f32 only): the aggregate's loop with the m16 tile
+  outermost, one tile's split weights live at a time;
+- ``late_fetch``: the next tile's logits and dv fetched after the products
+  (not held in registers across them);
+- ``dv_rows32``, ``dv_rows64``: the value-term kernel bwd32_dv at 32 or 64
+  query rows a block, not 16;
+- ``cols_chunk8``, ``cols_chunk16``: the column kernel
+  (ipa_attention_bwd_common.cuh) stages each lane's logits and ds 8 or 16
+  rows ahead, not 4 (at 16, 139 kB of shared memory, one block an SM);
+- ``cols_unroll2``: the column kernel's row loop unrolled twice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+CSRC = REPO / "se3diff_torch" / "csrc"
+SOURCE = CSRC / "ipa_attention_bwd_tc.cu"
+HEADER = CSRC / "ipa_attention_bwd_common.cuh"
+OUT = REPO / ".work" / "k1_bwd_variants"
+PHASES = ("set-up (g, cotangents)", "sweep 1", "sweep 2: weights, fetch", "sweep 2: wait, barrier",
+          "sweep 2: C1-C3", "sweep 2: barrier, dphat", "epilogue, D", "sweep 3")
+SHAPES = [(16, 100, "bfloat16"), (16, 100, "float32"), (32, 56, "bfloat16")]
+
+
+def _mark(k: int) -> str:
+    return (f"  if (tid == 0) {{ const long long n = clock64(); "
+            f"atomicAdd(&g_clk[{k}], (unsigned long long)(n - clk)); clk = n; }}\n")
+
+
+CLOCK = [
+    ("namespace {\n\nconstexpr int kH = 32;",
+     "namespace {\n\n__device__ unsigned long long g_clk[16];\n\nconstexpr int kH = 32;"),
+    ("  const float* bias_b = bias + (size_t)b * Lk;\n\n  // ---- the rows' operands",
+     "  const float* bias_b = bias + (size_t)b * Lk;\n  long long clk = clock64();\n\n"
+     "  // ---- the rows' operands"),
+    ("  __syncthreads();  // the rows' operands\n",
+     "  __syncthreads();  // the rows' operands\n" + _mark(0)),
+    ("  // The kept logits (-inf past Lk) and dv of this thread's (row, head hp)\n",
+     _mark(1) + "  // The kept logits (-inf past Lk) and dv of this thread's (row, head hp)\n"),
+    ("    cp_async_wait_all();\n    __syncthreads();\n"
+     "    if (kStages<T> == 2 && t + 1 < ntiles) copy_tile(t + 1);\n",
+     "  " + _mark(2) + "    cp_async_wait_all();\n    __syncthreads();\n"
+     "    if (kStages<T> == 2 && t + 1 < ntiles) copy_tile(t + 1);\n  " + _mark(3)),
+    ("    __syncthreads();  // G; the stage read\n",
+     "  " + _mark(4) + "    __syncthreads();  // G; the stage read\n"),
+    ("      dvk[hp] = dv_n[hp];\n    }\n", "      dvk[hp] = dv_n[hp];\n    }\n  " + _mark(5)),
+    ("  __syncthreads();\n\n  // ================= sweep 3",
+     "  __syncthreads();\n" + _mark(6) + "\n  // ================= sweep 3"),
+    ("dqp[r][px];\n      }\n    }\n  }\n}\n",
+     "dqp[r][px];\n      }\n    }\n  }\n" + _mark(7) + "}\n"),
+    ('extern "C" {\n',
+     'extern "C" {\n\n// The phase counters: copied to host (16 values) and cleared.\n'
+     "int bwd_clk_take(unsigned long long* host) {\n"
+     "  cudaError_t err = cudaMemcpyFromSymbol(host, g_clk, sizeof(g_clk));\n"
+     "  if (err != cudaSuccess) return (int)err;\n"
+     "  static const unsigned long long zero[16] = {};\n"
+     "  return (int)cudaMemcpyToSymbol(g_clk, zero, sizeof(g_clk));\n}\n"),
+]
+
+# The f32 aggregate (C1) and G (C2) as committed, and as the variants
+# c1_m_outer and c2_two_pass write them.
+C1_F32 = """\
+#pragma unroll
+      for (int ks = 0; ks < kTJ / 8; ++ks) {
+        uint32_t ab[2][4], asm_[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const float* a0 = as + (pr * kH + m * 16 + g) * kAPS + ks * 8 + q;
+          split_tf32_trunc(a0[0], ab[m][0], asm_[m][0]);
+          split_tf32_trunc(a0[8 * kAPS], ab[m][1], asm_[m][1]);
+          split_tf32_trunc(a0[4], ab[m][2], asm_[m][2]);
+          split_tf32_trunc(a0[8 * kAPS + 4], ab[m][3], asm_[m][3]);
+        }
+#pragma unroll
+        for (int sl = 0; sl < kSlots; ++sl) {
+          const int p = ce + kRowWarps * sl;
+          if (p < npairs) {
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const float* xk = X + (ks * 8 + q) * S + (2 * p + x) * 8 + g;
+              uint32_t bb0, bs0, bb1, bs1;
+              split_tf32_trunc(xk[0], bb0, bs0);
+              split_tf32_trunc(xk[4 * S], bb1, bs1);
+#pragma unroll
+              for (int m = 0; m < 2; ++m)
+                mma_3xtf32(acc1[sl][x][m], ab[m], asm_[m], bb0, bb1, bs0, bs1);
+            }
+          }
+        }
+      }"""
+C1_F32_M_OUTER = """\
+#pragma unroll
+      for (int ks = 0; ks < kTJ / 8; ++ks) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t ab[4], asm_[4];
+          const float* a0 = as + (pr * kH + m * 16 + g) * kAPS + ks * 8 + q;
+          split_tf32_trunc(a0[0], ab[0], asm_[0]);
+          split_tf32_trunc(a0[8 * kAPS], ab[1], asm_[1]);
+          split_tf32_trunc(a0[4], ab[2], asm_[2]);
+          split_tf32_trunc(a0[8 * kAPS + 4], ab[3], asm_[3]);
+#pragma unroll
+          for (int sl = 0; sl < kSlots; ++sl) {
+            const int p = ce + kRowWarps * sl;
+            if (p < npairs) {
+#pragma unroll
+              for (int x = 0; x < 2; ++x) {
+                const float* xk = X + (ks * 8 + q) * S + (2 * p + x) * 8 + g;
+                uint32_t bb0, bs0, bb1, bs1;
+                split_tf32_trunc(xk[0], bb0, bs0);
+                split_tf32_trunc(xk[4 * S], bb1, bs1);
+                mma_3xtf32(acc1[sl][x][m], ab, asm_, bb0, bb1, bs0, bs1);
+              }
+            }
+          }
+        }
+      }"""
+C2_F32 = """\
+        const float* ga = gs + (pr * kH + cm * 16 + g) * GS + q;
+        const float* xb = Xc + g * S + q;
+        for (int k4 = 0; k4 < Cp / 32; ++k4) {
+#pragma unroll
+          for (int kk = 0; kk < kKQ; ++kk) {
+            const int c = (kKQ * k4 + kk) * 8;
+            uint32_t ab[4], asm_[4], bb0, bs0, bb1, bs1;
+            split_tf32_trunc(ga[c], ab[0], asm_[0]);
+            split_tf32_trunc(ga[8 * GS + c], ab[1], asm_[1]);
+            split_tf32_trunc(ga[c + 4], ab[2], asm_[2]);
+            split_tf32_trunc(ga[8 * GS + c + 4], ab[3], asm_[3]);
+            split_tf32_trunc(xb[c], bb0, bs0);
+            split_tf32_trunc(xb[c + 4], bb1, bs1);
+            mma_3xtf32(acc2[kk], ab, asm_, bb0, bb1, bs0, bs1);
+          }
+        }"""
+C2_F32_TWO_PASS = """\
+        const float* ga = gs + (pr * kH + cm * 16 + g) * GS + q;
+        const float* xb = Xc + g * S + q;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int k4 = 0; k4 < Cp / 32; ++k4) {
+#pragma unroll
+            for (int kk2 = 0; kk2 < 2; ++kk2) {
+              const int c = (kKQ * k4 + 2 * half + kk2) * 8;
+              uint32_t ab[4], asm_[4], bb0, bs0, bb1, bs1;
+              split_tf32_trunc(ga[c], ab[0], asm_[0]);
+              split_tf32_trunc(ga[8 * GS + c], ab[1], asm_[1]);
+              split_tf32_trunc(ga[c + 4], ab[2], asm_[2]);
+              split_tf32_trunc(ga[8 * GS + c + 4], ab[3], asm_[3]);
+              split_tf32_trunc(xb[c], bb0, bs0);
+              split_tf32_trunc(xb[c + 4], bb1, bs1);
+              if (kk2)
+                mma_3xtf32(p1, ab, asm_, bb0, bb1, bs0, bs1);
+              else
+                mma_3xtf32(p0, ab, asm_, bb0, bb1, bs0, bs1);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (half == 0) {
+              acc2[0][e] = p0[e] + p1[e];
+              acc2[1][e] = 0.f;
+            } else {
+              acc2[2][e] = p0[e];
+              acc2[3][e] = p1[e];
+            }
+          }
+        }"""
+FETCH = ("    float lg_n[kHeadsAWarp], dv_n[kHeadsAWarp];\n"
+         "    fetch(min(t + 1, ntiles - 1), lg_n, dv_n);\n")
+DPHAT = "    // dphat = dv + G.\n"
+
+VARIANTS = {  # name: (patches, dtypes it applies to, cuts work)
+    "clock": (CLOCK, ("bfloat16", "float32"), False),
+    "one_stage": ([("constexpr int kStages = std::is_same<T, bf16>::value ? 2 : 1;",
+                    "constexpr int kStages = 1;")], ("bfloat16",), False),
+    "unroll3": ([("      for (int d = 0; d < 12; ++d) dqp[r][d] = 0.f;\n    }\n"
+                  "    for (int t = 0; t < ntiles; ++t) {",
+                  "      for (int d = 0; d < 12; ++d) dqp[r][d] = 0.f;\n    }\n#pragma unroll 2\n"
+                  "    for (int t = 0; t < ntiles; ++t) {")], ("bfloat16", "float32"), False),
+    "g_unroll8": ([("#pragma unroll 4\n    for (int c = tid & 7; c < Cp; c += 8) {",
+                    "#pragma unroll 8\n    for (int c = tid & 7; c < Cp; c += 8) {")],
+                  ("bfloat16", "float32"), False),
+    "c2_two_pass": ([(C2_F32, C2_F32_TWO_PASS)], ("float32",), False),
+    "c1_m_outer": ([(C1_F32, C1_F32_M_OUTER)], ("float32",), False),
+    "late_fetch": ([(FETCH + "    cp_async_wait_all();", "    cp_async_wait_all();"),
+                    (DPHAT, FETCH + DPHAT)], ("bfloat16", "float32"), False),
+    "dv_rows32": ([("constexpr int kDvRows = 16; ", "constexpr int kDvRows = 32; ")],
+                  ("bfloat16", "float32"), False),
+    "dv_rows64": ([("constexpr int kDvRows = 16; ", "constexpr int kDvRows = 64; ")],
+                  ("bfloat16", "float32"), False),
+    "cols_chunk8": ([("constexpr int kColChunk = 4; ", "constexpr int kColChunk = 8; ")],
+                    ("bfloat16", "float32"), False),
+    "cols_chunk16": ([("constexpr int kColChunk = 4; ", "constexpr int kColChunk = 16;")],
+                     ("bfloat16", "float32"), False),
+    "cols_unroll2": ([("    stage(0);\n    for (int rr = 0; rr < nrows; ++rr) {",
+                       "    stage(0);\n#pragma unroll 2\n"
+                       "    for (int rr = 0; rr < nrows; ++rr) {")],
+                     ("bfloat16", "float32"), False),
+}
+
+
+def patched(patches) -> tuple[str, str]:
+    """The source and the shared header with each patch applied: a (text,
+    replacement) pair whose text occurs once in the source, or else in the
+    header."""
+    texts = [SOURCE.read_text(), HEADER.read_text()]
+    for old, new in patches:
+        counts = [x.count(old) for x in texts]
+        if sorted(counts) != [0, 1]:
+            raise SystemExit(f"a patch's text occurs {counts} times: {old[:80]!r}")
+        k = counts.index(1)
+        texts[k] = texts[k].replace(old, new)
+    return texts[0], texts[1]
+
+
+def build(name: str, texts: tuple[str, str], nvcc: str, flags) -> tuple[str, Path | None, str]:
+    """Builds the patched source beside its patched header, in a directory of
+    its own."""
+    (OUT / name).mkdir(parents=True, exist_ok=True)
+    src, lib = OUT / name / SOURCE.name, OUT / f"{name}.so"
+    src.write_text(texts[0])
+    (OUT / name / HEADER.name).write_text(texts[1])
+    res = subprocess.run([nvcc, *flags, "-shared", "-o", str(lib), str(src)],
+                         capture_output=True, text=True)
+    lines = (res.stdout + res.stderr).splitlines()
+    report = "; ".join(x.split(":", 1)[-1].strip() for i, x in enumerate(lines)
+                       if ("registers" in x or "spill" in x)
+                       and any("bwd32_rows" in y or "bwd_cols" in y
+                               for y in lines[max(0, i - 3):i]))
+    return name, lib if res.returncode == 0 else None, report or res.stderr[-1500:]
+
+
+def main(argv: list[str]) -> int:
+    import torch
+
+    names = argv or list(VARIANTS)
+    if any(n not in VARIANTS for n in names):
+        print(f"k1_bwd_variants: variants are {sorted(VARIANTS)}, got {names}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("k1_bwd_variants: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from se3diff_torch.ops import ipa_attention as k1
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    texts = {"committed": patched([])}
+    texts.update({n: patched(VARIANTS[n][0]) for n in names})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(texts)) as pool:
+        built = {name: (lib, report) for name, lib, report in pool.map(
+            lambda item: build(*item, k1._nvcc(), k1.NVCC_FLAGS), texts.items())}
+    print(f"[bwd-variants] {len(built)} sources built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs = {}
+    for name, (path, report) in built.items():
+        if path is None:
+            print(f"[bwd-variants] {name}: build failed: {report}")
+            return 1
+        lib = ctypes.CDLL(str(path))
+        for sym in ("ipa_attention_bwd_tc", "ipa_attention_bwd_tc_f32"):
+            fn = getattr(lib, sym)
+            fn.argtypes, fn.restype = [vp] * 26 + [ci] * 6 + [cf, cf, vp], ci
+        libs[name] = lib
+
+    sw, pw = cs.K1_KW["scalar_w"], cs.K1_KW["pair_w"]
+
+    def caller(name, args, cts):
+        def run():
+            saved = k1._lib
+            k1._lib = libs[name]  # _launch_backward's kernel from this library
+            try:
+                return k1._launch_backward(args, cts, sw, pw, counted=False)
+            finally:
+                k1._lib = saved
+        return run
+
+    def largest_rel(got, want):
+        return max((a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(),
+                                                                    1e-30)
+                   for a, b in zip(got, want) if a is not None)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, L, dname in SHAPES:
+        dtype = getattr(torch, dname)
+        args = cs.k1_inputs(B, L, dtype, gen)
+        cts = (torch.randn(B, 32, L, 16, generator=gen, device="cuda").to(dtype),
+               torch.randn(B, 32, L, 24, generator=gen, device="cuda"),
+               torch.randn(B, 32, L, 16, generator=gen, device="cuda").to(dtype))
+        base = caller("committed", args, cts)
+        want = base()
+        for name in names:
+            patches, dtypes, cuts = VARIANTS[name]
+            if dname not in dtypes:
+                continue
+            var = caller(name, args, cts)
+            err = largest_rel(var(), want)
+            t = [cs.cuda_time_ms(f, reps=20) for f in (base, var, var, base)]
+            ok = cuts or err == 0.0
+            print(f"[bwd-variants] {name:10s} B={B} L={L} {dname}: committed "
+                  f"{(t[0] + t[3]) / 2:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), variant "
+                  f"{(t[1] + t[2]) / 2:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
+                  f"{100 * ((t[1] + t[2]) / (t[0] + t[3]) - 1):+.1f}%; largest gradient error "
+                  f"against the committed source {err:.2e} x its max"
+                  f"{' (cuts work)' if cuts else ''} {'ok' if ok else 'DIFFERS'} | "
+                  f"{built[name][1]}", flush=True)
+            if name == "clock":
+                take = libs[name].bwd_clk_take
+                take.argtypes, take.restype = [ctypes.c_void_p], ci
+                host = (ctypes.c_ulonglong * 16)()
+                take(host)  # clear
+                var()
+                torch.cuda.synchronize()
+                if take(host):
+                    raise RuntimeError("bwd_clk_take failed")
+                blocks = ((L + 1) // 2) * B
+                cyc = [host[k] / blocks for k in range(len(PHASES))]
+                total = sum(cyc)
+                print(f"[bwd-variants] clock B={B} L={L} {dname}: {total:.0f} SM cycles a block of "
+                      f"bwd32_rows ({blocks} blocks): "
+                      + ", ".join(f"{p} {c:.0f} ({100 * c / total:.1f}%)"
+                                  for p, c in zip(PHASES, cyc)), flush=True)
+            if not ok:
+                return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"[bwd-variants] {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -78,7 +78,7 @@
 // statistics [B, H, Lq, 2] f32 (max, 1/sum).
 //
 // Shared memory of bwd16_rows at Cp = 256: 74,496 bytes (bf16), 92,416 (f32)
-// (two 256-thread blocks an SM); bwd_cols: 73,728 bytes.
+// (two 256-thread blocks an SM); bwd_cols: 90,112 bytes.
 // ptxas -v (sm_90a, CUDA 12.8; chip_smoke.py phase 1 prints it): bwd16_rows
 // 128 registers, no spills in bf16, 8 bytes spilled (40 loaded) in f32;
 // bwd_cols<T, 16> 128 registers, 32 / 48 bytes spilled (bf16 / f32).

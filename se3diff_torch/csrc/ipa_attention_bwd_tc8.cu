@@ -86,7 +86,7 @@
 // statistics [B, H, Lq, 2] f32 (max, 1/sum).
 //
 // Shared memory of bwd8_rows at Cp = 256: 80,128 bytes (bf16), 113,408 (f32)
-// (two 256-thread blocks an SM); bwd_cols: 73,728 bytes.
+// (two 256-thread blocks an SM); bwd_cols: 90,112 bytes.
 // In bytes, [TI][TJ][Cp + 8] x2d stage 33,792 / 67,584; g [TI][H][Cp + 8] as
 // two bf16 terms or one f32, 33,792 either way; the tile's a [TI][H][24] as
 // two bf16 terms or [TI][H][20] f32, 3,072 / 2,560; the cotangents ct_s and
@@ -136,23 +136,6 @@ struct RowLayout {
   }
 };
 
-// An L2 policy that evicts first: x2d is read once.
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
-}
-
-// 16 bytes global -> shared with an L2 cache hint; bytes past src_bytes are
-// zero-filled.
-__device__ __forceinline__ void cp_async16_hint(void* dst, const void* src, int src_bytes,
-                                                uint64_t policy) {
-  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes), "l"(policy)
-               : "memory");
-}
-
 // d += a b: a 16x8 bf16 (row), b 8x8 bf16 (col), d 16x8 f32.
 __device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
   asm volatile(
@@ -175,23 +158,6 @@ __device__ __forceinline__ void copy_x2d(T* xs, const T* x2d_b, int i0, int j0, 
     const T* src = ok ? x2d_b + ((size_t)(i0 + r) * Lk + j0 + jj) * Cp + c * kC : x2d_b;
     cp_async16_hint(xs + rj * stride + c * kC, src, ok ? 16 : 0, policy);
   }
-}
-
-// Logit without the pair bias and column bias from the row's operands in
-// registers: logit_core's arithmetic, in its order.
-__device__ __forceinline__ float logit_regs(const float (&qs)[kDK], const float (&qp)[12],
-                                            const KeyCol& kc) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < kDK; ++d) s = fmaf(qs[d], kc.k[d], s);
-#pragma unroll
-  for (int p = 0; p < kNpts; ++p) {
-    const float dx = qp[p * 3] - kc.kp[p * 3], dy = qp[p * 3 + 1] - kc.kp[p * 3 + 1],
-                dz = qp[p * 3 + 2] - kc.kp[p * 3 + 2];
-    const float d2 = fmaf(dx, dx, fmaf(dy, dy, dz * dz));
-    s -= sqrt_from_1e24(fmaxf(d2, 0.f) + 1e-24f);
-  }
-  return s;
 }
 
 // The 12 query-point coordinates (p * 3 + x) of row i, head h.

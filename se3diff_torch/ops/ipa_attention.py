@@ -154,6 +154,9 @@ _BWD_ROUTE_SYMBOLS = {"bwd_tc": "ipa_attention_bwd_tc", "bwd_tc_f32": "ipa_atten
                       "bwd_tc8": "ipa_attention_bwd_tc8",
                       "bwd_tc8_f32": "ipa_attention_bwd_tc8_f32",
                       "bwd_h4": "ipa_attention_bwd_h4"}
+# The 32-head backward design's routes: it forms g_wx2d = ct_pr @ w_pv^T
+# itself.
+_BWD_TC32 = ("bwd_tc", "bwd_tc_f32")
 # The tensor-core backward designs of the streamed pair bias, by head count
 # and dtype (Cp % 32 == 0).
 _BWD_TC_ROUTES = {(32, torch.bfloat16): "bwd_tc", (32, torch.float32): "bwd_tc_f32",
@@ -312,12 +315,14 @@ def _library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * 14 + [ci] * 8 + [cf, cf, vp]
                 fn.restype = ci
-            # Backward: bwd_tc's 12 operands, 13 outputs and scratch; or
-            # bwd_h4's 13 operands (w_pb in, no pa), 9 outputs (d_w_pv and
-            # d_w_pb, no d_pa) and 3 scratch; 6 sizes, 2 weights, the stream.
-            for name in _BWD_ROUTE_SYMBOLS.values():
+            # Backward: bwd_tc16's and bwd_tc8's 12 operands (g_wx2d last),
+            # 13 outputs and scratch; bwd_tc's 13 (ct_pr and w_pv in place
+            # of g_wx2d); or bwd_h4's 13 operands (w_pb in, no pa), 9
+            # outputs (d_w_pv and d_w_pb, no d_pa) and 3 scratch; 6 sizes, 2
+            # weights, the stream.
+            for route, name in _BWD_ROUTE_SYMBOLS.items():
                 fn = getattr(lib, name)
-                fn.argtypes = [vp] * 25 + [ci] * 6 + [cf, cf, vp]
+                fn.argtypes = [vp] * (26 if route in _BWD_TC32 else 25) + [ci] * 6 + [cf, cf, vp]
                 fn.restype = ci
             lib.ipa_attention_bwd_h4_row_blocks.argtypes = [ci, ci, ci]
             lib.ipa_attention_bwd_h4_row_blocks.restype = ci
@@ -334,6 +339,8 @@ def _library() -> ctypes.CDLL:
                          "ipa_attention_tc8_smem_bytes", "ipa_attention_tc8_f32_smem_bytes",
                          "ipa_attention_tc8_blocks_per_sm", "ipa_attention_tc8_f32_blocks_per_sm",
                          "ipa_attention_bwd_tc_smem_bytes", "ipa_attention_bwd_tc_f32_smem_bytes",
+                         "ipa_attention_bwd_tc_blocks_per_sm",
+                         "ipa_attention_bwd_tc_f32_blocks_per_sm",
                          "ipa_attention_bwd_h4_smem_bytes",
                          "ipa_attention_bwd_tc16_smem_bytes",
                          "ipa_attention_bwd_tc16_f32_smem_bytes",
@@ -657,10 +664,10 @@ def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, co
     """:func:`_launch_backward` with the streamed pair bias: the kernel
     ``csrc/ipa_attention_bwd_tc.cu`` at 32 heads,
     ``csrc/ipa_attention_bwd_tc16.cu`` at 16,
-    ``csrc/ipa_attention_bwd_tc8.cu`` at 8. The two plain products around
-    it go to ``torch.bmm``, as JAX leaves them to XLA: ``g_wx2d = ct_pr @
-    w_pv^T`` before it, ``d_w_pv = wx2d^T ct_pr`` after it. Returns ten
-    gradients."""
+    ``csrc/ipa_attention_bwd_tc8.cu`` at 8. The plain products around it go
+    to ``torch.bmm``, as JAX leaves them to XLA: ``d_w_pv = wx2d^T ct_pr``
+    after it, and at 16 and 8 heads ``g_wx2d = ct_pr @ w_pv^T`` before it
+    (the 32-head kernel forms g itself). Returns ten gradients."""
     q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs
     _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, None)
     B, H, Lq, dk = q_s.shape
@@ -673,7 +680,13 @@ def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, co
     if any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, pa, ct_s, ct_p)):
         raise ValueError("the backward kernel needs 16-byte aligned q_s, v_s, v_p, pa and cotangents")
     ct_pr_h = ct_pr.transpose(0, 1).reshape(H, B * Lq, dk)      # heads first
-    g_wx2d = torch.bmm(ct_pr_h, w_pv.to(f32).transpose(1, 2))   # [H, B*Lq, Cp]
+    if route in _BWD_TC32:  # ct_pr and w_pv, for g formed in the kernel
+        w_pv_in = w_pv.contiguous()
+        if w_pv_in.data_ptr() % 16:
+            raise ValueError("the 32-head backward kernel needs a 16-byte aligned w_pv")
+        g_in = (ct_pr, w_pv_in)
+    else:
+        g_in = (torch.bmm(ct_pr_h, w_pv.to(f32).transpose(1, 2)),)   # g_wx2d [H, B*Lq, Cp]
     d_qs, d_ks, d_vs = torch.empty_like(q_s), torch.empty_like(k_s), torch.empty_like(v_s)
     d_qp, d_kp, d_vp = torch.empty_like(q_p), torch.empty_like(k_p), torch.empty_like(v_p)
     d_x2d, d_pa = torch.empty_like(x2d), torch.empty_like(pa)
@@ -684,7 +697,7 @@ def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, co
     with torch.cuda.device(dev):
         err = getattr(lib, _BWD_ROUTE_SYMBOLS[route])(
             *(t.data_ptr() for t in (q_s, k_s, v_s, q_p, k_p, v_p, x2d, bias, pa, ct_s, ct_p,
-                                     g_wx2d, d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_pa,
+                                     *g_in, d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_pa,
                                      wx2d, ds, logits, dvals, stats)),
             B, H, Lq, Lk, dk, Cp, float(scalar_w), float(pair_w),
             torch.cuda.current_stream().cuda_stream,
@@ -692,7 +705,11 @@ def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, co
     if err != 0:
         raise RuntimeError(f"ipa_attention backward kernel launch ({route}) failed: "
                            + lib.ipa_attention_error_string(err).decode())
-    d_wpv = torch.bmm(wx2d.transpose(1, 2), ct_pr_h).to(w_pv.dtype)  # [H, Cp, dk]
+    # d_w_pv = sum over (b, i) of wx2d^T ct_pr: one bmm a (head, batch element)
+    # over its Lq rows, then the B partials summed in order (a bmm a head over
+    # all B Lq rows gives the card too few tiles, each walking every row).
+    d_wpv = torch.bmm(wx2d.view(H * B, Lq, Cp).transpose(1, 2),
+                      ct_pr_h.view(H * B, Lq, dk)).view(H, B, Cp, dk).sum(1).to(w_pv.dtype)
     if counted:
         backward_calls_by_route[route] += 1
     return d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_wpv, None, d_pa
@@ -763,31 +780,34 @@ def _backward(saved, grad_outputs, scalar_w: float, pair_w: float):
     return _launch_backward(saved, grad_outputs, scalar_w, pair_w)
 
 
-def _tf32(x):
-    """``x`` rounded to TF32 (10 fraction bits, to nearest, ties away from
-    zero), as ``cvt.rna.tf32.f32`` rounds it."""
-    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+def _tf32(x, trunc=False):
+    """``x`` rounded to TF32 (10 fraction bits): to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds it, or with ``trunc`` toward zero,
+    as the tensor cores read an f32 operand's bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits if trunc else bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _terms(x, model_dtype):
+def _terms(x, model_dtype, trunc=False):
     """The two terms the backward kernel feeds its tensor cores for an f32
     operand ``x``: bf16 ``hi + lo`` for a bf16 model, TF32 ``big + small``
-    for an f32 one."""
+    for an f32 one (``trunc``: both terms truncated, the 32-head design's
+    split)."""
     if model_dtype == torch.bfloat16:
         hi = x.to(torch.bfloat16).float()
         return hi, (x - hi).to(torch.bfloat16).float()
-    big = _tf32(x)
-    return big, _tf32(x - big)
+    big = _tf32(x, trunc)
+    return big, _tf32(x - big, trunc)
 
 
-def _tc_einsum(eq, a, b, model_dtype, b_exact):
+def _tc_einsum(eq, a, b, model_dtype, b_exact, trunc=False):
     """``einsum(eq, a, b)`` as the backward kernel's tensor cores compute it:
     ``a`` as two terms; ``b`` as it is where ``b_exact`` (bf16 x2d), else as
     two terms too, the small x small product dropped."""
-    a1, a2 = _terms(a, model_dtype)
+    a1, a2 = _terms(a, model_dtype, trunc)
     if b_exact:
         return torch.einsum(eq, a2, b) + torch.einsum(eq, a1, b)
-    b1, b2 = _terms(b, model_dtype)
+    b1, b2 = _terms(b, model_dtype, trunc)
     return torch.einsum(eq, a2, b1) + torch.einsum(eq, a1, b2) + torch.einsum(eq, a1, b1)
 
 
@@ -808,7 +828,8 @@ def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_
     from the saved statistics) and ``ds``; point distances are explicit
     differences; and the three x2d contractions take their operands as the
     tensor cores do (:func:`_tc_einsum`: bf16 x2d exact, f32 operands as
-    two bf16 terms; in f32, 3xTF32). Same arguments and result as
+    two bf16 terms; in f32, 3xTF32, its terms truncated at 32 heads and
+    rounded to nearest at 16 and 8). Same arguments and result as
     :func:`ipa_attention_backward`, ``pa`` given."""
     q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs[:10]
     ct_s, ct_p, ct_pr = grad_outputs
@@ -835,17 +856,19 @@ def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_
 
     # Sweep 2: wx2d and D from row aggregates.
     g = torch.einsum("bhid,hpd->bhip", ct_pr.float(), w_pv.float())
-    wx2d = _tc_einsum("bhij,bijp->bhip", a, x, dt, b_exact=bf)
+    trunc = H == 32  # the 32-head design splits f32 operands by truncation
+    wx2d = _tc_einsum("bhij,bijp->bhip", a, x, dt, b_exact=bf, trunc=trunc)
     dv = (torch.einsum("bhid,bhjd->bhij", ct_s.float(), v_s.float())
           + torch.einsum("bhic,bhjc->bhij", ct_p.float(), v_p.float()))
     g_held = sum(_terms(g, dt)) if bf else g  # the bf16 kernel holds g as hi + lo
     D = (a * dv).sum(-1) + (g_held * wx2d).sum(-1)
 
     # Sweep 3: ds, the row gradients and d_x2d.
-    ds = a * (dv + _tc_einsum("bhip,bijp->bhij", g, x, dt, b_exact=bf) - D[..., None])
+    ds = a * (dv + _tc_einsum("bhip,bijp->bhij", g, x, dt, b_exact=bf, trunc=trunc)
+              - D[..., None])
     inv = torch.where(d2 > 0.0, 1.0 / torch.sqrt(d2 + 1e-24), torch.zeros_like(d2))
     w = ((-ds)[:, :, None] * inv.reshape(B, H, 4, Lq, Lk)).reshape(B, -1, Lq, Lk)[:, None] * diff
-    d_x2d = _tc_einsum("bhij,bhip->bijp", a, g, dt, b_exact=False)
+    d_x2d = _tc_einsum("bhij,bhip->bijp", a, g, dt, b_exact=False, trunc=trunc)
 
     # The column sums, from the same a and ds.
     return (

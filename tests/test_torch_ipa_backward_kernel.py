@@ -83,7 +83,9 @@ def _assert_close(name, got, want, dtype):
 # slab), key tiles ragged at 16 (Lk = 20, 37, 24), masked columns, and the
 # kernels' own widths (Cp = 64 at 32 heads of 16, ipa_attention_bwd_tc.cu,
 # and at a tensor-parallel rank's 16, ipa_attention_bwd_tc16.cu, and 8,
-# ipa_attention_bwd_tc8.cu).
+# ipa_attention_bwd_tc8.cu). At 32 heads also an odd row count (the last
+# row block of two half empty) with Lk = 33 and 42, ragged at a lane's four
+# columns of a tile, at the smallest and a middle Cp.
 CASES = [
     ("float32", 2, 16, 16, 0, 4, 8, 32),
     ("float32", 1, 12, 37, 5, 4, 8, 32),
@@ -91,6 +93,8 @@ CASES = [
     ("bfloat16", 1, 10, 24, 4, 4, 8, 32),
     ("float32", 1, 7, 19, 2, 32, 16, 64),
     ("bfloat16", 1, 7, 19, 2, 32, 16, 64),
+    ("float32", 2, 5, 33, 1, 32, 16, 32),
+    ("bfloat16", 1, 3, 42, 6, 32, 16, 96),
     ("float32", 2, 9, 37, 5, 16, 16, 64),
     ("bfloat16", 1, 7, 19, 2, 16, 16, 64),
     ("float32", 2, 9, 37, 5, 8, 16, 64),

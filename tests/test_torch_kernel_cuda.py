@@ -381,13 +381,12 @@ def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route,rows", [("bwd_tc", "bwd_rows"), ("bwd_tc16", "bwd16_rows"),
+@pytest.mark.parametrize("route,rows", [("bwd_tc", "bwd32_rows"), ("bwd_tc16", "bwd16_rows"),
                                         ("bwd_tc8", "bwd8_rows")])
 def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device, route, rows):
     """The library's row kernel's and the shared column kernel's shared
-    memory at Cp=256 are what the source's header states; the 16- and
-    8-head designs' row kernels keep two blocks resident an SM in both
-    dtypes."""
+    memory at Cp=256 are what the source's header states; every design's
+    row kernel keeps two blocks resident an SM in both dtypes."""
     import re
     from pathlib import Path
 
@@ -400,9 +399,8 @@ def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device, r
     assert getattr(lib, f"ipa_attention_{route}_smem_bytes")(256) == bf16
     assert getattr(lib, f"ipa_attention_{route}_f32_smem_bytes")(256) == f32
     assert lib.ipa_attention_bwd_cols_smem_bytes() == col
-    if route != "bwd_tc":
-        assert getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256) == 2
-        assert getattr(lib, f"ipa_attention_{route}_f32_blocks_per_sm")(256) == 2
+    assert getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256) == 2
+    assert getattr(lib, f"ipa_attention_{route}_f32_blocks_per_sm")(256) == 2
 
 
 @pytest.mark.cuda

@@ -141,7 +141,8 @@ def test_backward_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp
 def test_each_backward_symbol_has_exactly_one_extern_c_definition():
     """Every backward route's C symbol is defined once across ``csrc/*.cu``,
     inside an ``extern "C"`` block of its design's source, with the 34
-    arguments the binding declares; the counts hold one entry a backward
+    arguments the binding declares (35 for the 32-head design, which takes
+    ct_pr and w_pv in place of g_wx2d); the counts hold one entry a backward
     route and "torch"."""
     sources = {"bwd_tc": "ipa_attention_bwd_tc.cu", "bwd_tc_f32": "ipa_attention_bwd_tc.cu",
                "bwd_tc16": "ipa_attention_bwd_tc16.cu",
@@ -155,7 +156,9 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
             for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', text, re.S):
                 for m in re.finditer(rf"\bint {symbol}\(", block):
                     signature = block[m.start():]
-                    assert signature[:signature.index(")")].count(",") == 33, symbol
+                    # The 32-head design takes ct_pr and w_pv in place of g_wx2d.
+                    commas = 34 if route in k1._BWD_TC32 else 33
+                    assert signature[:signature.index(")")].count(",") == commas, symbol
                     found.append(path.name)
         assert found == [sources[route]], (symbol, found)
     assert set(k1.backward_calls_by_route) == {"bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32",
@@ -167,13 +170,12 @@ def test_backward_kernel_source_states_widths_and_shared_memory():
     heads in ``ipa_attention_bwd_tc.cu``, 16 in ``ipa_attention_bwd_tc16.cu``,
     8 in ``ipa_attention_bwd_tc8.cu``; the head width and largest Cp in the
     header all include), and the
-    shared memory its row kernel states fits what a block may opt into on
-    Hopper (the 16- and 8-head designs' two blocks an SM); the shared column
-    kernel's grid follows the heads."""
+    shared memory its row kernel states fits two blocks an SM on Hopper; the
+    shared column kernel's grid follows the heads."""
     common = (CSRC / "ipa_attention_bwd_common.cuh").read_text()
     assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in common
     assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in common
-    for name, heads, rows in (("ipa_attention_bwd_tc.cu", 32, "bwd_rows"),
+    for name, heads, rows in (("ipa_attention_bwd_tc.cu", 32, "bwd32_rows"),
                               ("ipa_attention_bwd_tc16.cu", 16, "bwd16_rows"),
                               ("ipa_attention_bwd_tc8.cu", 8, "bwd8_rows")):
         text = (CSRC / name).read_text()
@@ -184,10 +186,8 @@ def test_backward_kernel_source_states_widths_and_shared_memory():
         stated = re.search(rf"Shared memory of {rows} at Cp = 256: ([\d,]+) bytes \(bf16\), "
                            r"([\d,]+) \(f32\)", text)
         assert stated is not None, name
-        assert all(int(x.replace(",", "")) <= 232_448 for x in stated.groups()), name
-        if rows != "bwd_rows":  # two blocks an SM: 228 KB less 1 KB a block
-            assert all(int(x.replace(",", "")) <= 233_472 // 2 - 1024
-                       for x in stated.groups()), name
+        # Two blocks an SM: 228 KB less 1 KB a block.
+        assert all(int(x.replace(",", "")) <= 233_472 // 2 - 1024 for x in stated.groups()), name
 
 
 def test_cpu_backward_counts_the_torch_route():
