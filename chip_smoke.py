@@ -15,8 +15,9 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    kernels, "bwd_tc" and "bwd_tc_f32", "bwd_tc16" and "bwd_tc16_f32",
    "bwd_tc8" and "bwd_tc8_f32" (with the row kernel's resident blocks an
    SM), and "bwd_h4"'s two row
-   instantiations, column kernel and weight-gradient reduction, with its
-   row kernel's shared memory);
+   instantiations, its kernel of the logits' CUDA-core terms, column kernel
+   and weight-gradient reduction, with its row kernel's shared memory and
+   resident blocks and warps an SM);
 2. the kernel against its plain PyTorch version on the card, at the main
    path's shape (B=40, L=100, 32 heads of 16, Cp=256, streamed pair bias) in
    bf16 and f32, at a ragged L=77 with masked columns, and at the PPFT score
@@ -613,13 +614,17 @@ def phase_build():
                         f"memory {cols} bytes")
         if heads == 32:  # the value terms' kernel
             ptxas[route] += f" | dv: {ptxas_summary(report, f'bwd32_dvI{t}E')}"
-    # bwd_h4: two row instantiations (Cp <= 32, every path; Cp <= 64), the
-    # column kernel and the reduction of d_w_pv's and d_w_pb's partials.
+    # bwd_h4: two row instantiations (Cp <= 32, every path; Cp <= 64) with
+    # their resident blocks (8 warps each) an SM, the kernel of the logits'
+    # CUDA-core terms, the column kernel and the reduction of d_w_pv's and
+    # d_w_pb's partials.
+    h4_rows = " | ".join(
+        f"rows Cp <= {cp}: {ptxas_summary(report, f'bwd_h4_rowsILi{cp}E')}; dynamic shared memory "
+        f"{lib.ipa_attention_bwd_h4_smem_bytes(cp)} bytes at Cp={cp} (8 rows), "
+        f"{lib.ipa_attention_bwd_h4_blocks_per_sm(cp)} blocks an SM resident "
+        f"({8 * lib.ipa_attention_bwd_h4_blocks_per_sm(cp)} warps)" for cp in (32, 64))
     ptxas["bwd_h4"] = (
-        f"rows Cp <= 32: {ptxas_summary(report, 'bwd_h4_rowsILi32E')}; dynamic shared memory "
-        f"{lib.ipa_attention_bwd_h4_smem_bytes(32)} bytes at Cp=32 (56 rows) | rows Cp <= 64: "
-        f"{ptxas_summary(report, 'bwd_h4_rowsILi64E')}; dynamic shared memory "
-        f"{lib.ipa_attention_bwd_h4_smem_bytes(64)} bytes at Cp=64 (32 rows) | cols: "
+        f"{h4_rows} | pre: {ptxas_summary(report, 'bwd_h4_pre')} | cols: "
         f"{ptxas_summary(report, 'bwd_h4_cols')} | wsum: {ptxas_summary(report, 'bwd_h4_wsum')}")
     for route in ("tc_f32", "h4", "tc16", "tc16_f32", "tc8", "tc8_f32", "bwd_tc", "bwd_tc_f32",
                   "bwd_tc16", "bwd_tc16_f32", "bwd_tc8", "bwd_tc8_f32", "bwd_h4"):
@@ -911,13 +916,13 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     """Least time for one backward call on ``route``: the larger of the bytes
     (inputs and cotangents read once, gradients written once) over the HBM
     rate and the design's operations over the peak of the units that run
-    them. On "torch" and "bwd_h4" (4 heads: every contraction too thin for
-    tensor cores) every operation is f32 on CUDA cores. The other kernel
-    routes run the three x2d contractions (2 Cp operations each per head, row and
+    them. On "torch" every operation is f32 on CUDA cores. The kernel
+    routes run the x2d contractions (2 Cp operations each per head, row and
     column) on tensor cores, each product as many times as it has terms
     ("bwd_tc", "bwd_tc16", "bwd_tc8": a x2d and g x2d two bf16 terms, a g
     three; "bwd_tc_f32", "bwd_tc16_f32", "bwd_tc8_f32": 3xTF32, three TF32
-    terms each), and the
+    terms each; "bwd_h4": the three and the in-kernel pair bias's three,
+    its recompute, d_w_pb and its d_x2d term, all 3xTF32), and the
     rest in f32 on CUDA cores; the
     two units' times are added. Returns the bound, what bounds it, the
     bytes, the all-f32 operation count and the design's operations time
@@ -935,13 +940,16 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     pairs = B * H * Lq * Lk
     ops = pairs * (10 * dk + (12 if in_kernel else 6) * cp + 217) + 4 * B * H * Lq * cp * dk
     f32_ms = lambda n: n / H100_OPS_PER_S["float32"] * 1e3
-    if route in ("torch", "bwd_h4"):
+    if route == "torch":
         ops_ms = f32_ms(ops)
     else:
         terms, rate = ((3 + 3 + 3, H100_TF32_OPS_PER_S) if route.endswith("_f32")
                        else (2 + 2 + 3, H100_OPS_PER_S["bfloat16"]))
+        products = 3
+        if route == "bwd_h4":
+            terms, rate, products = 6 * 3, H100_TF32_OPS_PER_S, 6
         tensor_ops = pairs * 2 * cp * terms
-        ops_ms = tensor_ops / rate * 1e3 + f32_ms(ops - pairs * 6 * cp)
+        ops_ms = tensor_ops / rate * 1e3 + f32_ms(ops - pairs * 2 * cp * products)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return (max(t_bytes, ops_ms), ("bytes" if t_bytes >= ops_ms else "operations"), nbytes, ops,
             ops_ms)
@@ -2001,7 +2009,7 @@ def phase_ppft_step(k1, files, card, denoiser="heun_finetune", beside=None):
     total = prof.total_ms
     if not total > 0:
         raise AssertionError("the profiler recorded no device time for the PPFT step")
-    # The backward's three kernels (rows, cols, wsum) by name: a launch
+    # The backward's four kernels (pre, rows, cols, wsum) by name: a launch
     # through ctypes carries no record_function label.
     k1_split = {"tc": sum(t for k, t, _ in kernels if "ipa_attention_tc_kernel" in k),
                 "h4": sum(t for k, t, _ in kernels if "ipa_attention_h4_kernel" in k),
@@ -2012,8 +2020,8 @@ def phase_ppft_step(k1, files, card, denoiser="heun_finetune", beside=None):
         f"in {sum(n for _, _, n in kernels)} kernels against an unprofiled wall of {wall_ms:.1f} ms, "
         f"so the device is busy {100 * total / wall_ms:.1f}%; K1 score model (32 heads, streamed, "
         f"tensor-core design) {k1_split['tc']:.1f} ms, K1 control net (4 heads, in-kernel, "
-        f"h4 design) {k1_split['h4']:.1f} ms, its backward (bwd_h4_rows, bwd_h4_cols, "
-        f"bwd_h4_wsum) {k1_split['bwd_h4']:.1f} ms in {bwd_h4_count} calls")
+        f"h4 design) {k1_split['h4']:.1f} ms, its backward (bwd_h4_pre, bwd_h4_rows, "
+        f"bwd_h4_cols, bwd_h4_wsum) {k1_split['bwd_h4']:.1f} ms in {bwd_h4_count} calls")
     for key, t, n in kernels[:10]:
         log(f"[ppft-profile]   {t:9.2f} ms {100 * t / total:5.1f}%  x{n:<6d} {key[:90]}")
     log(f"{tag} {metric} = {value:.1f}")

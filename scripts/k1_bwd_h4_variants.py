@@ -10,30 +10,35 @@ CUDA build of PyTorch. A variant is ``se3diff_torch/csrc/ipa_attention_bwd_h4.cu
 patch's text found once. Every variant named (all by default) and the
 committed source are built with nvcc, one process a source, all started
 together. At the PPFT step's shape (B=256 L=56 Cp=32) and at L=57 with 5
-masked columns, each variant's call (its row, column and reduction kernels)
-is timed by ``chip_smoke.cuda_time_ms`` in turns with the committed source
-on the same inputs (committed, variant, variant, committed). A cut (``no_*``)
-leaves part of the work out, so its outputs are wrong by construction and
-only its time is read, as the share of the call that part costs; a design
-variant computes the same function and is held against the committed
-source's gradients at ``chip_smoke.GRAD_TOL`` f32. Prints a line a variant
-and shape with ptxas's register and spill report, then the card's name and
-power limit. Outputs go to ``.work/k1_bwd_h4_variants/`` (listed in
-.gitignore).
+masked columns, each variant's call (its four kernels) is timed by
+``chip_smoke.cuda_time_ms`` in turns with the committed source on the same
+inputs (committed, variant, variant, committed). A cut (``no_*``) leaves
+part of the work out, so its outputs are wrong by construction and only its
+time is read, as the share of the call that part costs; a design variant
+computes the same function and is held against the committed source's
+gradients at ``chip_smoke.GRAD_TOL`` f32. Prints a line a variant and shape
+with ptxas's register and spill report, then the card's name and power
+limit. Outputs go to ``.work/k1_bwd_h4_variants/`` (listed in .gitignore).
 
+Cuts:
+- ``no_prologue``: the row block's logits' CUDA-core terms and value terms
+  (at L <= 64; above, ``bwd_h4_pre`` takes them);
+- ``no_uv``: sweep 1's U | V product (d_w_pv's and d_w_pb's terms);
 - ``no_sweep2``: the row kernel's second sweep (a, ds, d_x2d, d_q_s, d_q_p);
-- ``no_uv``: sweep 1's x2d aggregates U and V (d_w_pv's and d_w_pb's terms);
+- ``no_dq``: sweep 2's d_q_s and d_q_p;
 - ``no_cols``: the column kernel;
-- ``three_stage``: three x2d stages, the copy of tile t+2 issued at tile t
-  (tiles land two tiles ahead; at most one key chunk, L <= 64);
-- ``w_smem``: w_pb (times pair_w) read from shared memory where it is used,
-  not held in 16 registers a thread;
-- ``cols_lb4``: the column kernel held to 128 registers, four blocks an SM;
-- ``cols_lb4_rows8``: that, with chunks of 8 rows.
-
-Two variants measured here were faster and are the committed source now:
-sweep 1 behind the warp's barrier, not the block's, and the column kernel's
-16-row loop without an early exit.
+- ``no_copy``: sweep 1's x2d copies (the stages keep what they held);
+- ``no_pag``: sweep 1's pa | G product;
+- ``no_setup``: the row's set-up of g and w_pb (W);
+- ``no_keyload``: the row block's loads of the key side for the prologue
+  (zeros in their place).
+Design variants:
+- ``stages3``: three x2d stages a warp at Cp <= 32, not two (129 KB a
+  block: one block an SM, not two);
+- ``late_x2d``: the first x2d tiles copied after the block's other operands
+  have landed, not before.
+- ``clock``: not a variant but a reading: SM cycles of each live warp of
+  ``bwd_h4_rows`` by phase (``clock64()``), summed over 10 calls.
 """
 
 from __future__ import annotations
@@ -51,58 +56,75 @@ OUT = REPO / ".work" / "k1_bwd_h4_variants"
 # (B, L, masked columns) at 4 heads, Cp=32, f32.
 SHAPES = [(256, 56, 0), (256, 57, 5)]
 
-_WAIT = ("    cp_async_wait_all();\n    if (jl == 0) __syncthreads(); else __syncwarp();\n"
-         "    if (t + 1 < ntiles)\n"
-         "      issue_x2d<kMaxC>(xs + ((t + 1) & 1) * TI * rs, tile, j0 + kTJ, tid, policy);\n")
+_SWEEP2 = ("tt < ntiles; ++tt) {\n      const int ja = tt * kTJ + gr, jb = ja + 8;\n"
+           "      const bool oka = ja < Lk, okb = jb < Lk;\n      const float sa")
+_UV = "        if (16 * mt < C16) {\n#pragma unroll\n          for (int ks = 0; ks < 2; ++ks) {"
+_ST = "constexpr int stages(int maxc) { return maxc > 32 ? 1 : 2; }"
+_PRO = "    for (int r = 0; r < rows; ++r) {"
+_X2D0 = ("  cp_async_commit();\n#pragma unroll\n  for (int st = 0; st + 1 < kStages; ++st) {\n"
+         "    if (live && st < ntiles)\n"
+         "      issue_x2d(xs + st * kTJ * S, x_row, st * kTJ, Lk, Cp, C16 / 4, S, lane, policy);\n"
+         "    cp_async_commit();\n  }\n")
+_WAIT0 = ("  cp_async_wait<kStages - 1>();  // the query side and w_pv (the oldest group) have landed\n"
+          "  __syncthreads();\n")
 VARIANTS = {
-    "no_sweep2": [("  for (int t = 0; t < ntiles; ++t) {\n    const int j0 = t * kTJ, jl = j0 % kKC;\n"
-                   "    if (restage && jl == 0) {",
-                   "  for (int t = 0; t < 0; ++t) {\n    const int j0 = t * kTJ, jl = j0 % kKC;\n"
-                   "    if (restage && jl == 0) {")],
-    "no_uv": [("    // U += p x2d, V += p dphat x2d, from the stage.\n#pragma unroll\n"
-               "    for (int jj = 0; jj < kTJ; ++jj) {",
-               "    // U += p x2d, V += p dphat x2d, from the stage.\n#pragma unroll\n"
-               "    for (int jj = 0; jj < 0; ++jj) {")],
+    "no_prologue": [(_PRO, _PRO.replace("r < rows", "r < 0"))],
+    "no_uv": [(_UV, _UV.replace("16 * mt < C16", "false"))],
+    "no_sweep2": [(_SWEEP2, _SWEEP2.replace("tt < ntiles", "tt < 0"))],
+    "no_dq": [("        if (k ? okb : oka) {", "        if (false) {")],
     "no_cols": [("  bwd_h4_cols<<<", "  if (false) bwd_h4_cols<<<")],
-    "three_stage": [
-        ("  const int x2d = 2 * TI * kTJ * Cp,", "  const int x2d = 3 * TI * kTJ * Cp,"),
-        ("__device__ __forceinline__ void cp_async_wait_all() {",
-         "__device__ __forceinline__ void cp_async_wait_one() {\n"
-         "  asm volatile(\"cp.async.wait_group 1;\\n\" ::: \"memory\");\n}\n"
-         "__device__ __forceinline__ void cp_async_wait_all() {"),
-        ("  issue_x2d<kMaxC>(xs, tile, 0, tid, policy);\n  cp_async_commit();\n",
-         "  issue_x2d<kMaxC>(xs, tile, 0, tid, policy);\n  cp_async_commit();\n"
-         "  if (ntiles > 1) issue_x2d<kMaxC>(xs + TI * rs, tile, kTJ, tid, policy);\n"
-         "  cp_async_commit();\n"),
-        ("    const float* xr = xs + (t & 1) * TI * rs + r * rs;  // this row's 4 columns",
-         "    const float* xr = xs + (t % 3) * TI * rs + r * rs;  // this row's 4 columns"),
-        (_WAIT, "    cp_async_wait_one();\n    if (jl == 0) __syncthreads(); else __syncwarp();\n"
-                "    if (t + 2 < ntiles)\n"
-                "      issue_x2d<kMaxC>(xs + ((t + 2) % 3) * TI * rs, tile, j0 + 2 * kTJ, tid, policy);\n"),
+    "no_copy": [("    cp_async16(dst + 4 * part, ok ? src + 4 * part : x_row, ok ? 16 : 0, policy);",
+                 "    if (false) cp_async16(dst + 4 * part, ok ? src + 4 * part : x_row, ok ? 16 : 0, policy);")],
+    "no_pag": [("          mma_tf32(c, a.big, wb[ks].big[0], wb[ks].big[1]);",
+                "          if (false) mma_tf32(c, a.big, wb[ks].big[0], wb[ks].big[1]);"),
+               ("          mma_tf32(c2, a.small, wb[ks].big[0], wb[ks].big[1]);\n"
+                "          mma_tf32(c2, a.big, wb[ks].small[0], wb[ks].small[1]);\n", "")],
+    "no_setup": [("      if (h >= kH) break;", "      break;")],
+    "no_keyload": [("  if (fused) {\n    const size_t kr = ((size_t)b * kH + hp) * Lk + min(jp, Lk - 1);",
+                    "#pragma unroll\n  for (int q = 0; q < kDK; ++q) kk[q] = vv[q] = 0.f;\n#pragma unroll\n"
+                    "  for (int q = 0; q < kVp; ++q) vp[q] = 0.f;\n#pragma unroll\n"
+                    "  for (int q = 0; q < 12; ++q) kp[q] = 0.f;\n"
+                    "  if (false) {\n    const size_t kr = ((size_t)b * kH + hp) * Lk + min(jp, Lk - 1);")],
+    "stages3": [(_ST, _ST.replace("? 1 : 2", "? 1 : 3"))],
+    "late_x2d": [(_X2D0, "  cp_async_commit();\n"),
+                 (_WAIT0, _WAIT0.replace("cp_async_wait<kStages - 1>()", "cp_async_wait<0>()")
+                  + _X2D0[len("  cp_async_commit();\n"):])],
+    # SM cycles by phase: lane 0 of each live warp adds its phases' clock64()
+    # spans to a device counter, read by h4_clock_read.
+    "clock": [
+        ("namespace {\n\nconstexpr int kH = 4;",
+         "namespace {\n\n__device__ unsigned long long h4_clock[8];\n\nconstexpr int kH = 4;"),
+        ("  const uint64_t policy = evict_first_policy();\n\n  // The rows' query side",
+         "  const uint64_t policy = evict_first_policy();\n  long long ck[9];\n"
+         "#pragma unroll\n  for (int k = 0; k < 9; ++k) ck[k] = clock64();\n\n  // The rows' query side"),
+        ("have landed\n  __syncthreads();\n", "have landed\n  __syncthreads();\n  ck[1] = clock64();\n"),
+        ("  __syncthreads();  // w_pv is read: the key side goes over it\n",
+         "  __syncthreads();  // w_pv is read: the key side goes over it\n  ck[2] = clock64();\n"),
+        ("  __syncthreads();\n\n  // pa | G's B operand",
+         "  __syncthreads();\n  ck[3] = clock64();\n\n  // pa | G's B operand"),
+        ("    cp_async_wait_all();\n    __syncwarp();\n\n",
+         "    cp_async_wait_all();\n    __syncwarp();\n    ck[4] = clock64();\n\n"),
+        ("    // ================= sweep 2: a, ds, d_x2d, d_q_s, d_q_p =================",
+         "    ck[5] = clock64();\n    // ================= sweep 2: a, ds, d_x2d, d_q_s, d_q_p ================="),
+        ("    // d_q_s and d_q_p of head t: the 8 lanes' sums added in a fixed order.",
+         "    ck[6] = clock64();\n    // d_q_s and d_q_p of head t: the 8 lanes' sums added in a fixed order."),
+        ("  } else {\n    // A row past Lq adds zeros",
+         "    ck[7] = clock64();\n  } else {\n    // A row past Lq adds zeros"),
+        ("    part[e] = acc;\n  }\n}\n\n// ================= bwd_h4_cols",
+         "    part[e] = acc;\n  }\n  ck[8] = clock64();\n  if (live && lane == 0)\n"
+         "#pragma unroll\n    for (int k = 0; k < 8; ++k) atomicAdd(&h4_clock[k], (unsigned long long)(ck[k + 1] - ck[k]));\n"
+         "}\n\n// ================= bwd_h4_cols"),
+        ("}  // extern \"C\"",
+         "int h4_clock_read(unsigned long long* out) {\n"
+         "  cudaError_t err = cudaMemcpyFromSymbol(out, h4_clock, sizeof(h4_clock));\n"
+         "  if (err == cudaSuccess) {\n    static const unsigned long long zero[8] = {};\n"
+         "    err = cudaMemcpyToSymbol(h4_clock, zero, sizeof(zero));\n  }\n  return (int)err;\n}\n\n"
+         "}  // extern \"C\""),
     ],
-    "w_smem": [
-        ("  return (stage_floats(Cp, TI) + kKeyF) * 4;", "  return (stage_floats(Cp, TI) + kKeyF + 4 * kMaxCp) * 4;"),
-        ("  float4 w[kNC][4], gw[kNC][4];\n#pragma unroll\n  for (int k = 0; k < kNC; ++k) {\n"
-         "    const int c4 = g + kTPR * k;\n#pragma unroll\n    for (int cc = 0; cc < 4; ++cc) {\n"
-         "      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);\n"
-         "      if (c4 < cq) v = reinterpret_cast<const float4*>(w_pb)[4 * c4 + cc];\n"
-         "      w[k][cc] = make_float4(v.x * pair_w, v.y * pair_w, v.z * pair_w, v.w * pair_w);\n"
-         "    }\n  }\n",
-         "  float4 gw[kNC][4];\n  float* wsm = key + kKeyF;\n"
-         "  for (int e = tid; e < Cp * kH; e += nthr) wsm[e] = w_pb[e] * pair_w;\n"),
-        ("      float pa[kH] = {0.f, 0.f, 0.f, 0.f}, pg[kH] = {0.f, 0.f, 0.f, 0.f};\n",
-         "      float pa[kH] = {0.f, 0.f, 0.f, 0.f}, pg[kH] = {0.f, 0.f, 0.f, 0.f};\n"
-         "      float4 w[kNC][4];\n#pragma unroll\n      for (int k = 0; k < kNC; ++k)\n"
-         "#pragma unroll\n        for (int cc = 0; cc < 4; ++cc)\n"
-         "          w[k][cc] = g + kTPR * k < cq ? reinterpret_cast<const float4*>(wsm)[4 * (g + kTPR * k) + cc]\n"
-         "                                       : make_float4(0.f, 0.f, 0.f, 0.f);\n"),
-        ("              const float4 gg = gw[k][cc], ww = w[k][cc];",
-         "              const float4 gg = gw[k][cc], ww = reinterpret_cast<const float4*>(wsm)[4 * c4 + cc];"),
-    ],
-    "cols_lb4": [("__launch_bounds__(kColThreads)\nbwd_h4_cols(", "__launch_bounds__(kColThreads, 4)\nbwd_h4_cols(")],
-    "cols_lb4_rows8": [("__launch_bounds__(kColThreads)\nbwd_h4_cols(", "__launch_bounds__(kColThreads, 4)\nbwd_h4_cols("),
-                       ("constexpr int kColRows = 16; ", "constexpr int kColRows = 8; ")],
 }
+CLOCK_PHASES = ("loads and barrier", "set-up of W and barrier", "prologue (s0, dv) and barrier",
+                "sweep 1", "between the sweeps", "sweep 2 (before the d_q sums)",
+                "d_q sums and stores", "block barrier and partials")
 
 
 def build(name: str, nvcc: str, flags) -> tuple[str, Path | None, str]:
@@ -179,6 +201,23 @@ def main(argv: list[str]) -> int:
         want = [o.clone() for o in outs]
         for n in names:
             run = caller(fns[n])
+            if n == "clock":
+                counts = (ctypes.c_ulonglong * 8)()
+                run()
+                torch.cuda.synchronize()
+                fns[n].h4_clock_read(counts)  # reset
+                for _ in range(10):
+                    run()
+                torch.cuda.synchronize()
+                if fns[n].h4_clock_read(counts):
+                    raise RuntimeError("h4_clock_read failed")
+                total = sum(counts)
+                rows = 10 * B * L
+                print(f"[bwd-h4-variants] B={B} L={L} masked={masked} clock: "
+                      f"{total / rows:.0f} SM cycles a warp-row: " + "; ".join(
+                          f"{ph} {100 * c / total:.1f}%" for ph, c in zip(CLOCK_PHASES, counts)),
+                      flush=True)
+                continue
             run()
             torch.cuda.synchronize()
             worst = max((o - w).abs().max().item() / w.abs().max().item() for o, w in zip(outs, want))

@@ -20,10 +20,11 @@ f32 step's B=16 L=100, the train CLI's B=16 L=64 bf16, and B=40 L=77 with 9
 masked columns in both dtypes. ``tc8``: the same at a rank's 8 heads at
 ``--mesh model=4`` (routes "bwd_tc8", "bwd_tc8_f32": ``bwd8_rows``,
 ``bwd_cols``) at the same four shapes. ``h4``: 4
-heads of 16, f32, the pair bias from ``w_pb`` (route "bwd_h4": ``bwd_h4_rows``,
-``bwd_h4_cols``, ``bwd_h4_wpb``, the ``bmm`` for d_w_pv and its transpose
-copy) at the PPFT step's B=256 L=56 Cp=32, L=57 with 5 masked columns, Cp=64
-and B=64 L=100.
+heads of 16, f32, the pair bias from ``w_pb`` (route "bwd_h4": ``bwd_h4_pre``,
+``bwd_h4_rows``, ``bwd_h4_cols``, ``bwd_h4_wsum``) at the PPFT step's B=256
+L=56 Cp=32, L=57 with 5 masked columns, Cp=64, B=64 L=100 and B=64 L=56;
+before its shapes, ptxas's registers and spills of the bwd_h4 kernels and
+the row kernel's resident blocks an SM.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ SHAPES = {
     "tc8": [(16, 100, 100, "float32", 8, 256, 0), (16, 64, 64, "bfloat16", 8, 256, 0),
             (40, 77, 77, "bfloat16", 8, 256, 9), (40, 77, 77, "float32", 8, 256, 9)],
     "h4": [(256, 56, 56, "float32", 4, 32, 0), (256, 57, 57, "float32", 4, 32, 5),
-           (256, 56, 56, "float32", 4, 64, 0), (64, 100, 100, "float32", 4, 32, 0)],
+           (256, 56, 56, "float32", 4, 64, 0), (64, 100, 100, "float32", 4, 32, 0),
+           (64, 56, 56, "float32", 4, 32, 0)],
 }
 
 
@@ -78,7 +80,21 @@ def main() -> int:
     if any(d not in SHAPES for d in designs):
         print(f"k1_bwd_parts: designs are {sorted(SHAPES)}, got {designs}", file=sys.stderr)
         return 2
-    k1.build_library()
+    _, report = k1.build_library()
+    if "h4" in designs:
+        lines = report.splitlines()
+        for n, line in enumerate(lines):
+            if "Compiling entry function" in line and "bwd_h4_" in line:
+                name = line.split("'")[1] if "'" in line else line
+                usage = "; ".join(x.split(":", 1)[-1].strip() for x in lines[n + 1:n + 4]
+                                  if "registers" in x or "spill" in x)
+                print(f"[k1-bwd-parts] ptxas {name}: {usage}")
+        lib = k1._library()
+        for cp in (32, 64):
+            print(f"[k1-bwd-parts] bwd_h4_rows at Cp={cp}: "
+                  f"{lib.ipa_attention_bwd_h4_smem_bytes(cp)} bytes of shared memory, "
+                  f"{lib.ipa_attention_bwd_h4_blocks_per_sm(cp)} blocks (8 warps each) an SM "
+                  "resident")
     kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for design, (B, Lq, Lk, dname, H, cp, masked) in ((d, s) for d in designs for s in SHAPES[d]):

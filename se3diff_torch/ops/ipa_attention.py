@@ -341,7 +341,7 @@ def _library() -> ctypes.CDLL:
                          "ipa_attention_bwd_tc_smem_bytes", "ipa_attention_bwd_tc_f32_smem_bytes",
                          "ipa_attention_bwd_tc_blocks_per_sm",
                          "ipa_attention_bwd_tc_f32_blocks_per_sm",
-                         "ipa_attention_bwd_h4_smem_bytes",
+                         "ipa_attention_bwd_h4_smem_bytes", "ipa_attention_bwd_h4_blocks_per_sm",
                          "ipa_attention_bwd_tc16_smem_bytes",
                          "ipa_attention_bwd_tc16_f32_smem_bytes",
                          "ipa_attention_bwd_tc16_blocks_per_sm",
@@ -886,39 +886,50 @@ def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_
 
 
 def ipa_attention_backward_h4_tiled(inputs, grad_outputs, *, scalar_w: float, pair_w: float,
-                                    tile: int = 4, rows: int = 56):
+                                    tile: int = 16, rows: int = 8, tf32: bool = True):
     """Input gradients of :func:`ipa_attention` with the pair bias computed
     in the kernel (``pa`` None, ``w_pb`` last), computed the way the backward
     kernel ``csrc/ipa_attention_bwd_h4.cu`` computes them; no path calls it
     (the CPU tests hold it against JAX's ``_fused_backward_chunked`` and
     :func:`ipa_attention_backward`).
 
-    Where its algebra differs from :func:`ipa_attention_backward`: one sweep
-    over key tiles of ``tile`` columns carries, online, the row statistics,
-    ``sum_j p dphat`` (so ``D`` is that over the sum), ``U = sum_j p x2d``
-    and ``V = sum_j p dphat x2d``; ``wx2d`` is ``U`` over the sum and a row's
-    ``sum_j ds x2d`` is ``(V - D U)`` over the sum, so ``d_w_pb`` needs no
-    second pass over x2d: each block of ``rows`` query rows adds its rows'
-    terms in row order, and the blocks' partials are added in order. The
-    pair bias takes ``w_pb`` times ``pair_w``, as the kernel holds it; point
-    distances are explicit differences; ``d_x2d = a g + ds (pair_w w_pb)``
-    with ``g = ct_pr @ w_pv^T``. Same arguments and result as
-    :func:`ipa_attention_backward` with ``w_pb`` given (eleven gradients)."""
+    Where its algebra differs from :func:`ipa_attention_backward`: the
+    logit's terms outside x2d (``q.k``, the point distances, the column
+    bias) and the value terms ``dv`` come first; one sweep over key tiles of
+    ``tile`` columns adds the x2d products to them and carries, online, the
+    row statistics, ``sum_j p dphat`` (so ``D`` is that over the sum), ``U =
+    sum_j p x2d`` and ``V = sum_j p dphat x2d``; ``wx2d`` is ``U`` over the
+    sum and a row's ``sum_j ds x2d`` is ``(V - D U)`` over the sum, so
+    ``d_w_pb`` needs no second pass over x2d: each block of ``rows`` query
+    rows adds its rows' terms in row order, and the blocks' partials are
+    added in order. The pair bias takes ``w_pb`` times ``pair_w``, as the
+    kernel holds it; point distances are explicit differences; ``d_x2d = a g
+    + ds (pair_w w_pb)`` with ``g = ct_pr @ w_pv^T``. With ``tf32`` the x2d
+    products (the pair bias, ``g . x2d``, ``U``, ``V`` and ``d_x2d``) take
+    their operands as the kernel's tensor cores do (:func:`_tc_einsum`:
+    3xTF32, both terms truncated); without it they are f32. Same arguments
+    and result as :func:`ipa_attention_backward` with ``w_pb`` given (eleven
+    gradients)."""
     q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, _, w_pb = inputs
     ct_s, ct_p, ct_pr = (c.float() for c in grad_outputs)
     B, H, Lq, _ = q_s.shape
     Lk, Cp = k_s.shape[2], x2d.shape[-1]
     qs, ks, x = q_s.float() * scalar_w, k_s.float(), x2d.float()
     wpb = w_pb.float() * pair_w
+    if tf32:
+        def mm(eq, a, b):
+            return _tc_einsum(eq, a, b, torch.float32, b_exact=False, trunc=True)
+    else:
+        mm = torch.einsum
     diff = q_p.float()[..., :, None] - k_p.float()[..., None, :]  # [B, 3, H4, Lq, Lk]
     d2 = (diff * diff).sum(1)
     dist = torch.sqrt(d2.clamp_min(0.0) + 1e-24)
     g = torch.einsum("bhid,hcd->bhic", ct_pr, w_pv.float())
+    # The terms outside x2d, then the x2d products added to them.
     s = (torch.einsum("bhid,bhjd->bhij", qs, ks) - dist.reshape(B, H, 4, Lq, Lk).sum(2)
-         + torch.einsum("bijc,ch->bhij", x, wpb) + bias.float()[:, None, None, :])
+         + bias.float()[:, None, None, :]) + mm("bijc,ch->bhij", x, wpb)
     dphat = (torch.einsum("bhid,bhjd->bhij", ct_s, v_s.float())
-             + torch.einsum("bhic,bhjc->bhij", ct_p, v_p.float())
-             + torch.einsum("bhic,bijc->bhij", g, x))
+             + torch.einsum("bhic,bhjc->bhij", ct_p, v_p.float())) + mm("bijc,bhic->bhij", x, g)
 
     # Sweep 1: the statistics, D's sum and the x2d aggregates, online.
     m = torch.full((B, H, Lq), -1e30)
@@ -931,8 +942,8 @@ def ipa_attention_backward_h4_tiled(inputs, grad_outputs, *, scalar_w: float, pa
         p = torch.exp(st - m_new[..., None])
         total = total * corr + p.sum(-1)
         pd = pd * corr + (p * dt).sum(-1)
-        U = U * corr[..., None] + torch.einsum("bhij,bijc->bhic", p, xt)
-        V = V * corr[..., None] + torch.einsum("bhij,bijc->bhic", p * dt, xt)
+        U = U * corr[..., None] + mm("bhij,bijc->bhic", p, xt)
+        V = V * corr[..., None] + mm("bhij,bijc->bhic", p * dt, xt)
         m = m_new
     inv = 1.0 / total
     D = pd * inv
@@ -953,7 +964,7 @@ def ipa_attention_backward_h4_tiled(inputs, grad_outputs, *, scalar_w: float, pa
     # Sweep 2: a and ds from the kept s and dphat; d_x2d and the rows' sums.
     a = torch.exp(s - m[..., None]) * inv[..., None]
     ds = a * (dphat - D[..., None])
-    d_x2d = torch.einsum("bhij,bhic->bijc", a, g) + torch.einsum("bhij,ch->bijc", ds, wpb)
+    d_x2d = mm("bhij,bhic->bijc", a, g) + mm("bhij,ch->bijc", ds, wpb)
     inv_dist = torch.where(d2 > 0.0, 1.0 / torch.sqrt(d2 + 1e-24), torch.zeros_like(d2))
     w = ((-ds)[:, :, None] * inv_dist.reshape(B, H, 4, Lq, Lk)).reshape(B, -1, Lq, Lk)[:, None] * diff
     wx2d = U * inv[..., None]

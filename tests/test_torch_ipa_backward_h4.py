@@ -4,12 +4,15 @@
 
 ``ipa_attention_backward_h4_tiled`` is the algebra of the backward kernel
 ``se3diff_torch/csrc/ipa_attention_bwd_h4.cu`` (route "bwd_h4": f32, 4 heads
-of 16, the pair bias computed from ``w_pb``, Cp <= 64): one sweep over key
-tiles of 4 carrying the row statistics, D's sum and the x2d aggregates U =
-sum p x2d and V = sum p dphat x2d online; d_w_pb from (V - D U) / sum, added
-by row blocks; a second sweep on the kept logits and dphat; explicit point
-differences. The kernel runs on the card only; this holds its arithmetic
-here on the same numpy inputs, in the kernel layout.
+of 16, the pair bias computed from ``w_pb``, Cp <= 64): the logit's terms
+outside x2d and the value terms first; one sweep over key tiles of 16 adding
+the x2d products and carrying the row statistics, D's sum and the x2d
+aggregates U = sum p x2d and V = sum p dphat x2d online; d_w_pb from (V - D
+U) / sum, added by row blocks of 8; a second sweep on the kept logits and
+dphat; explicit point differences; the x2d products with the operands the
+kernel's tensor cores see (3xTF32, both terms truncated). The kernel runs on
+the card only; this holds its arithmetic here on the same numpy inputs, in
+the kernel layout.
 
 Tolerance, tests/test_torch_ipa_backward_kernel.py's f32 one: 1e-4 absolute
 and 1e-3 relative (same function, sums in another order). JAX's gradient of
@@ -93,10 +96,11 @@ def test_h4_tiled_backward_matches_jax_and_the_chunked_port(rng, B, Lq, Lk, mask
         _assert_close(name, g, other)
 
 
-@pytest.mark.parametrize("tile,rows", [(1, 1), (4, 3), (4, 56), (64, 8)])
+@pytest.mark.parametrize("tile,rows", [(1, 1), (4, 3), (4, 56), (64, 8), (16, 8), (16, 56)])
 def test_h4_sweep_is_independent_of_the_tile_and_the_row_blocks(rng, tile, rows):
     """The online statistics and aggregates over any key tile, and d_w_pb's
-    partials over any row block, give the same gradients to rounding."""
+    partials over any row block, give the same gradients to rounding (the
+    kernel's tiles of 16 and row blocks of 8 among them)."""
     a, ct = _inputs(rng, 2, 13, 37, masked_cols=4)
     ins, cts = _torch(a, ct)
     one = k1.ipa_attention_backward_h4_tiled(ins, cts, tile=64, rows=56, **KW)
@@ -120,3 +124,22 @@ def test_h4_coincident_points_give_zero_point_subgradients(rng):
         if g is not None:
             assert torch.isfinite(g).all(), name
             _assert_close(name, g, other)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,masked,cp", [(2, 13, 13, 3, 32), (2, 19, 19, 2, 64)])
+def test_h4_tensor_core_splits_keep_f32_accuracy(rng, B, Lq, Lk, masked, cp):
+    """The x2d products with the operands the kernel's tensor cores see
+    (each f32 operand as a truncated TF32 big term and a truncated TF32 rest,
+    the small x small product dropped) against the same algebra in f32: each
+    gradient within 1e-5 of its largest entry, and the split does change
+    them (the products are not f32 ones)."""
+    a, ct = _inputs(rng, B, Lq, Lk, masked, cp)
+    ins, cts = _torch(a, ct)
+    split = k1.ipa_attention_backward_h4_tiled(ins, cts, **KW)
+    exact = k1.ipa_attention_backward_h4_tiled(ins, cts, tf32=False, **KW)
+    for name, x, y in zip(NAMES, split, exact):
+        if x is None:
+            continue
+        assert not torch.equal(x, y), name
+        err = (x - y).abs().max().item()
+        assert err <= 1e-5 * y.abs().max().item(), (name, err)

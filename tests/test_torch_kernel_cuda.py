@@ -496,9 +496,12 @@ def test_h4_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device
     from pathlib import Path
 
     src = (Path(k1.__file__).resolve().parents[1] / "csrc" / "ipa_attention_bwd_h4.cu").read_text()
-    m = re.search(r"Shared memory of bwd_h4_rows: ([\d,]+) bytes at Cp = 32 \(56 rows\), "
+    m = re.search(r"Shared memory of bwd_h4_rows: ([\d,]+) bytes at Cp = 32 \(8 rows\), "
                   r"([\d,]+) at Cp = 64", src)
     at32, at64 = (int(x.replace(",", "")) for x in m.groups())
     lib = k1._library()
     assert lib.ipa_attention_bwd_h4_smem_bytes(32) == at32
     assert lib.ipa_attention_bwd_h4_smem_bytes(64) == at64
+    # Two 8-warp row blocks an SM at either instantiation, as the source says.
+    assert lib.ipa_attention_bwd_h4_blocks_per_sm(32) >= 2
+    assert lib.ipa_attention_bwd_h4_blocks_per_sm(64) >= 2

@@ -217,8 +217,8 @@ def test_h4_backward_source_states_widths_and_shared_memory():
     assert "constexpr int kH = 4;" in text
     assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in text
     assert f"constexpr int kMaxCp = {k1.H4_MAX_CP};" in text
-    stated = re.search(r"Shared memory of bwd_h4_rows: ([\d,]+) bytes at Cp = 32 \(56 rows\), "
-                       r"([\d,]+) at Cp = 64 \(32 rows\)", text)
+    stated = re.search(r"Shared memory of bwd_h4_rows: ([\d,]+) bytes at Cp = 32 \(8 rows\), "
+                       r"([\d,]+) at Cp = 64 \(8 rows\)", text)
     assert stated is not None
     assert all(int(x.replace(",", "")) <= 232_448 for x in stated.groups())
     assert re.search(r"\bint ipa_attention_bwd_h4_smem_bytes\(int Cp\)", text)
