@@ -600,20 +600,23 @@ def phase_build():
                    f"{ptxas_summary(report, 'ipa_attention_h4_kernelILi64E')}"}
     cols = lib.ipa_attention_bwd_cols_smem_bytes()
     # The 32-, 16- and 8-head backward: the row kernel's resident blocks an SM beside.
-    for route, rows, heads, t in (("bwd_tc", "bwd32_rows", 32, "13__nv_bfloat16"),
-                                  ("bwd_tc_f32", "bwd32_rows", 32, "f"),
-                                  ("bwd_tc16", "bwd16_rows", 16, "13__nv_bfloat16"),
-                                  ("bwd_tc16_f32", "bwd16_rows", 16, "f"),
-                                  ("bwd_tc8", "bwd8_rows", 8, "13__nv_bfloat16"),
-                                  ("bwd_tc8_f32", "bwd8_rows", 8, "f")):
+    # The 32- and 16-head routes run the row design bwd_rows<T, H> with the
+    # value terms' kernel bwd_dv<T> before it.
+    for route, rows, heads, t in (("bwd_tc", "bwd_rowsI13__nv_bfloat16Li32E", 32, "13__nv_bfloat16"),
+                                  ("bwd_tc_f32", "bwd_rowsIfLi32E", 32, "f"),
+                                  ("bwd_tc16", "bwd_rowsI13__nv_bfloat16Li16E", 16,
+                                   "13__nv_bfloat16"),
+                                  ("bwd_tc16_f32", "bwd_rowsIfLi16E", 16, "f"),
+                                  ("bwd_tc8", "bwd8_rowsI13__nv_bfloat16E", 8, "13__nv_bfloat16"),
+                                  ("bwd_tc8_f32", "bwd8_rowsIfE", 8, "f")):
         smem = getattr(lib, f"ipa_attention_{route}_smem_bytes")(256)
         blocks = getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256)
-        ptxas[route] = (f"rows: {ptxas_summary(report, f'{rows}I{t}E')}; dynamic shared "
+        ptxas[route] = (f"rows: {ptxas_summary(report, rows)}; dynamic shared "
                         f"memory {smem} bytes at Cp=256, {blocks} blocks an SM resident | cols: "
                         f"{ptxas_summary(report, f'bwd_colsI{t}Li{heads}E')}; dynamic shared "
                         f"memory {cols} bytes")
-        if heads == 32:  # the value terms' kernel
-            ptxas[route] += f" | dv: {ptxas_summary(report, f'bwd32_dvI{t}E')}"
+        if heads != 8:  # the value terms' kernel
+            ptxas[route] += f" | dv: {ptxas_summary(report, f'bwd_dvI{t}E')}"
     # bwd_h4: two row instantiations (Cp <= 32, every path; Cp <= 64) with
     # their resident blocks (8 warps each) an SM, the kernel of the logits'
     # CUDA-core terms, the column kernel and the reduction of d_w_pv's and
@@ -1429,11 +1432,11 @@ def phase_train_throughput(k1, card):
 
         # Kernels launched through ctypes (the library carries its own CUDA
         # runtime) fall under no label: K1's forward kernel and the backward
-        # kernel's bwd32_dv / bwd32_rows / bwd_cols are added to their labels
+        # kernel's bwd_dv / bwd_rows / bwd_cols are added to their labels
         # by name (the backward's label alone once held 0.94 ms of 8 calls).
         k1_fwd = sum(t for k, t, _ in kernels if "ipa_attention" in k)
         k1_bwd_own = sum(t for k, t, _ in kernels
-                         if any(n in k for n in ("bwd32_dv", "bwd32_rows", "bwd_cols")))
+                         if any(n in k for n in ("bwd_dv", "bwd_rows", "bwd_cols")))
         fwd_label, opt_ms, bwd_label = (prof.labels[k] for k in ("forward", "optimizer",
                                                                  "ipa_attention_backward"))
         fwd, k1_bwd = fwd_label + k1_fwd, bwd_label + k1_bwd_own
@@ -1444,7 +1447,7 @@ def phase_train_throughput(k1, card):
             f"included) {fwd:.2f} ms, backward {bwd_ms:.2f} ms ({100 * bwd_ms / total:.1f}%), "
             f"optimizer {opt_ms:.2f} ms; K1 forward kernel {k1_fwd:.2f} ms ({100 * k1_fwd / total:.1f}%), "
             f"K1 backward (8 calls, route {route}) {k1_bwd:.2f} ms ({100 * k1_bwd / total:.1f}%: "
-            f"bwd32_dv, bwd32_rows and bwd_cols {k1_bwd_own:.2f} ms, the ops around them "
+            f"bwd_dv, bwd_rows and bwd_cols {k1_bwd_own:.2f} ms, the ops around them "
             f"{bwd_label:.2f} ms)")
         for key, t, n in kernels[:12]:
             log(f"[train-profile]   {t:8.2f} ms {100 * t / total:5.1f}%  x{n:<5d} {key[:90]}")

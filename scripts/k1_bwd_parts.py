@@ -10,14 +10,15 @@ then for each shape the paths give a backward kernel calls
 ``torch.profiler``, and prints the device time of every kernel of the call
 beside the call's time by CUDA events (the median of 20), then the card's
 name and power limit. ``tc``: 32 heads of 16, Cp=256, the streamed pair
-bias (routes "bwd_tc", "bwd_tc_f32": the row kernel ``bwd32_rows``, the
-column kernel ``bwd_cols``, the two ``bmm`` and the casts and copies around
-them) at the train step's B=16 L=100 in bf16 and f32, the PPFT learning
-run's B=32 L=56 bf16 and an SP slab of 150 rows of L=300 in f32. ``tc16``:
-the same at a tensor-parallel rank's 16 heads (routes "bwd_tc16",
-"bwd_tc16_f32": ``bwd16_rows``, ``bwd_cols``) at the ``--mesh model=2``
-f32 step's B=16 L=100, the train CLI's B=16 L=64 bf16, and B=40 L=77 with 9
-masked columns in both dtypes. ``tc8``: the same at a rank's 8 heads at
+bias (routes "bwd_tc", "bwd_tc_f32": the value-term kernel ``bwd_dv``, the
+row kernel ``bwd_rows<T, 32>``, the column kernel ``bwd_cols``, the
+``bmm`` for d_w_pv and the casts and copies around them) at the train
+step's B=16 L=100 in bf16 and f32, the PPFT learning run's B=32 L=56 bf16
+and an SP slab of 150 rows of L=300 in f32. ``tc16``: the same at a
+tensor-parallel rank's 16 heads (routes "bwd_tc16", "bwd_tc16_f32":
+``bwd_dv``, ``bwd_rows<T, 16>``, ``bwd_cols``; no ``bmm`` for g) at the
+``--mesh model=2`` f32 step's B=16 L=100, the train CLI's B=16 L=64 bf16,
+and B=40 L=77 with 9 masked columns in both dtypes. ``tc8``: the same at a rank's 8 heads at
 ``--mesh model=4`` (routes "bwd_tc8", "bwd_tc8_f32": ``bwd8_rows``,
 ``bwd_cols``) at the same four shapes. ``h4``: 4
 heads of 16, f32, the pair bias from ``w_pb`` (route "bwd_h4": ``bwd_h4_pre``,

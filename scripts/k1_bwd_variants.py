@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Variants of K1's 32-head backward kernel (``csrc/ipa_attention_bwd_tc.cu``,
-routes "bwd_tc" and "bwd_tc_f32"), timed in turns with the source as
-committed, and where its row kernel spends its time, on one H100.
+"""Variants of K1's backward row design at 32 heads
+(``csrc/ipa_attention_bwd_tc.cu``, routes "bwd_tc" and "bwd_tc_f32") or at
+a tensor-parallel rank's 16 (``csrc/ipa_attention_bwd_tc16.cu``, routes
+"bwd_tc16" and "bwd_tc16_f32"), both ``csrc/ipa_attention_bwd_rows.cuh``'s
+``bwd_rows<T, H>``, timed in turns with the source as committed, and where
+the row kernel spends its time, on one H100.
 
-    python3 scripts/k1_bwd_variants.py [variant ...]
+    python3 scripts/k1_bwd_variants.py [--heads 32|16] [variant ...]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
-CUDA build of PyTorch. A variant is the source with text patches applied,
-each patch's text found once; every variant named (all by default) and the
-committed source are built with nvcc, one process a source, all started
+CUDA build of PyTorch. A variant is the sources with text patches applied,
+each patch's text found once in the design's source, the row design's
+header or the shared header; every variant named (all by default) and the
+committed sources are built with nvcc, one process a source, all started
 together, into libraries of their own under ``.work/k1_bwd_variants/``
-(listed in .gitignore). At the train step's B=16 L=100 (bf16 and f32) and
-the learning run's B=32 L=56 (bf16), Cp=256, each variant's call
-(``ops.ipa_attention._launch_backward`` with the variant's library: the row
-and column kernels and the two ``bmm``) is timed by
+(listed in .gitignore). At 32 heads (the default) at the train step's B=16
+L=100 (bf16 and f32) and the learning run's B=32 L=56 (bf16); at 16 heads
+at the ``--mesh model=2`` f32 step's B=16 L=100, the train CLI's B=16 L=64
+bf16 and B=40 L=77 with 9 masked columns (both dtypes); Cp=256. Each
+variant's call (``ops.ipa_attention._launch_backward`` with the variant's
+library: the value-term, row and column kernels and the ``bmm``) is timed by
 ``chip_smoke.cuda_time_ms`` in turns with the committed source's on the
 same inputs (committed, variant, variant, committed), and its gradients
 are held against the committed source's (a variant that cuts work is
@@ -24,12 +30,28 @@ power limit.
 The variants:
 
 - ``clock`` (no change to the arithmetic): thread 0 of each block of
-  ``bwd32_rows`` adds ``clock64()`` differences at the phase boundaries to
+  ``bwd_rows`` adds ``clock64()`` differences at the phase boundaries to
   a device counter; prints the mean SM cycles a block spends in each phase
   (set-up, sweep 1, sweep 2's weights and fetch, its wait and first
   barrier, its products, its second barrier and dphat, the epilogue and D,
   sweep 3 with the row gradients' writes);
 - ``one_stage`` (bf16 only): one x2d stage, as in f32;
+- ``early_copy``: at 16 heads the rows' operands in a region of their own
+  (3,584 B), so that the first x2d tile is copied at the block's start,
+  under g's set-up and sweep 1, not after sweep 1;
+- ``staged_keys`` (its patches in ``k1_bwd_variants_staged_keys.json``):
+  at 16 heads each thread stages its column's key side (k_s, the 12
+  key-point coordinates) for sweeps 1 and 3 by ``cp.async`` two tiles
+  ahead into two key stages over sweep 2's regions, the column bias, pa,
+  the kept logits and dphat one tile ahead in registers, g formed after
+  sweep 1;
+- ``f32_two_stages`` (f32 only; at 32 heads it does not fit two blocks an
+  SM): two x2d stages, as in bf16, the next tile copied under this tile's
+  products;
+- ``lb3``: the row kernel's launch bounds at three blocks an SM (at most 85
+  registers a thread; the 16-head layout fits three blocks' shared memory);
+- ``sweep1_unroll4``: sweep 1's tile loop unrolled four times (two
+  committed);
 - ``unroll3``: sweep 3's tile loop unrolled twice, so a column's loads can
   be issued under the previous column's arithmetic;
 - ``g_unroll8``: the set-up's loop over w_pv rows unrolled eight times
@@ -41,17 +63,26 @@ The variants:
   outermost, one tile's split weights live at a time;
 - ``late_fetch``: the next tile's logits and dv fetched after the products
   (not held in registers across them);
-- ``dv_rows32``, ``dv_rows64``: the value-term kernel bwd32_dv at 32 or 64
+- ``dv_rows32``, ``dv_rows64``: the value-term kernel bwd_dv at 32 or 64
   query rows a block, not 16;
 - ``cols_chunk8``, ``cols_chunk16``: the column kernel
   (ipa_attention_bwd_common.cuh) stages each lane's logits and ds 8 or 16
   rows ahead, not 4 (at 16, 139 kB of shared memory, one block an SM);
-- ``cols_unroll2``: the column kernel's row loop unrolled twice.
+- ``cols_unroll2``: the column kernel's row loop unrolled twice;
+- cuts (timed, their error printed, not checked): ``no_copy`` (no x2d
+  tile copied: the products read what the stage holds), ``no_fetch``
+  (sweep 2 reads no kept logits or dv), ``no_sweep1`` (no statistics
+  sweep), ``no_setup`` (g not formed: the set-up's loop over w_pv cut),
+  ``no_sweep3`` (the row
+  kernel without its third sweep: no ds, d_pa, d_q_s, d_q_p), ``no_c2``
+  (without G's products), ``no_c3`` (without d_x2d's products and
+  stores).
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
 import time
@@ -60,12 +91,15 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "se3diff_torch" / "csrc"
-SOURCE = CSRC / "ipa_attention_bwd_tc.cu"
-HEADER = CSRC / "ipa_attention_bwd_common.cuh"
+SOURCES = {32: CSRC / "ipa_attention_bwd_tc.cu", 16: CSRC / "ipa_attention_bwd_tc16.cu"}
+HEADERS = (CSRC / "ipa_attention_bwd_rows.cuh", CSRC / "ipa_attention_bwd_common.cuh")
 OUT = REPO / ".work" / "k1_bwd_variants"
 PHASES = ("set-up (g, cotangents)", "sweep 1", "sweep 2: weights, fetch", "sweep 2: wait, barrier",
           "sweep 2: C1-C3", "sweep 2: barrier, dphat", "epilogue, D", "sweep 3")
-SHAPES = [(16, 100, "bfloat16"), (16, 100, "float32"), (32, 56, "bfloat16")]
+# (B, L, dtype, masked columns), by heads.
+SHAPES = {32: [(16, 100, "bfloat16", 0), (16, 100, "float32", 0), (32, 56, "bfloat16", 0)],
+          16: [(16, 100, "float32", 0), (16, 64, "bfloat16", 0), (40, 77, "bfloat16", 9),
+               (40, 77, "float32", 9)]}
 
 
 def _mark(k: int) -> str:
@@ -74,8 +108,8 @@ def _mark(k: int) -> str:
 
 
 CLOCK = [
-    ("namespace {\n\nconstexpr int kH = 32;",
-     "namespace {\n\n__device__ unsigned long long g_clk[16];\n\nconstexpr int kH = 32;"),
+    ("namespace {\n\nconstexpr int kTI = 2; ",
+     "namespace {\n\n__device__ unsigned long long g_clk[16];\n\nconstexpr int kTI = 2; "),
     ("  const float* bias_b = bias + (size_t)b * Lk;\n\n  // ---- the rows' operands",
      "  const float* bias_b = bias + (size_t)b * Lk;\n  long long clk = clock64();\n\n"
      "  // ---- the rows' operands"),
@@ -84,9 +118,9 @@ CLOCK = [
     ("  // The kept logits (-inf past Lk) and dv of this thread's (row, head hp)\n",
      _mark(1) + "  // The kept logits (-inf past Lk) and dv of this thread's (row, head hp)\n"),
     ("    cp_async_wait_all();\n    __syncthreads();\n"
-     "    if (kStages<T> == 2 && t + 1 < ntiles) copy_tile(t + 1);\n",
+     "    if (kStages<T, H> == 2 && t + 1 < ntiles) copy_tile(t + 1);\n",
      "  " + _mark(2) + "    cp_async_wait_all();\n    __syncthreads();\n"
-     "    if (kStages<T> == 2 && t + 1 < ntiles) copy_tile(t + 1);\n  " + _mark(3)),
+     "    if (kStages<T, H> == 2 && t + 1 < ntiles) copy_tile(t + 1);\n  " + _mark(3)),
     ("    __syncthreads();  // G; the stage read\n",
      "  " + _mark(4) + "    __syncthreads();  // G; the stage read\n"),
     ("      dvk[hp] = dv_n[hp];\n    }\n", "      dvk[hp] = dv_n[hp];\n    }\n  " + _mark(5)),
@@ -108,10 +142,10 @@ CLOCK = [
 C1_F32 = """\
 #pragma unroll
       for (int ks = 0; ks < kTJ / 8; ++ks) {
-        uint32_t ab[2][4], asm_[2][4];
+        uint32_t ab[kMT][4], asm_[kMT][4];
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          const float* a0 = as + (pr * kH + m * 16 + g) * kAPS + ks * 8 + q;
+        for (int m = 0; m < kMT; ++m) {
+          const float* a0 = as + (pr * H + m * 16 + g) * kAPS + ks * 8 + q;
           split_tf32_trunc(a0[0], ab[m][0], asm_[m][0]);
           split_tf32_trunc(a0[8 * kAPS], ab[m][1], asm_[m][1]);
           split_tf32_trunc(a0[4], ab[m][2], asm_[m][2]);
@@ -128,7 +162,7 @@ C1_F32 = """\
               split_tf32_trunc(xk[0], bb0, bs0);
               split_tf32_trunc(xk[4 * S], bb1, bs1);
 #pragma unroll
-              for (int m = 0; m < 2; ++m)
+              for (int m = 0; m < kMT; ++m)
                 mma_3xtf32(acc1[sl][x][m], ab[m], asm_[m], bb0, bb1, bs0, bs1);
             }
           }
@@ -138,9 +172,9 @@ C1_F32_M_OUTER = """\
 #pragma unroll
       for (int ks = 0; ks < kTJ / 8; ++ks) {
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
+        for (int m = 0; m < kMT; ++m) {
           uint32_t ab[4], asm_[4];
-          const float* a0 = as + (pr * kH + m * 16 + g) * kAPS + ks * 8 + q;
+          const float* a0 = as + (pr * H + m * 16 + g) * kAPS + ks * 8 + q;
           split_tf32_trunc(a0[0], ab[0], asm_[0]);
           split_tf32_trunc(a0[8 * kAPS], ab[1], asm_[1]);
           split_tf32_trunc(a0[4], ab[2], asm_[2]);
@@ -162,9 +196,9 @@ C1_F32_M_OUTER = """\
         }
       }"""
 C2_F32 = """\
-        const float* ga = gs + (pr * kH + cm * 16 + g) * GS + q;
+        const float* ga = gs + (pr * H + cm * 16 + g) * GS + q;
         const float* xb = Xc + g * S + q;
-        for (int k4 = 0; k4 < Cp / 32; ++k4) {
+        for (int k4 = kh; k4 < Cp / 32; k4 += kSplit) {
 #pragma unroll
           for (int kk = 0; kk < kKQ; ++kk) {
             const int c = (kKQ * k4 + kk) * 8;
@@ -179,12 +213,12 @@ C2_F32 = """\
           }
         }"""
 C2_F32_TWO_PASS = """\
-        const float* ga = gs + (pr * kH + cm * 16 + g) * GS + q;
+        const float* ga = gs + (pr * H + cm * 16 + g) * GS + q;
         const float* xb = Xc + g * S + q;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int k4 = 0; k4 < Cp / 32; ++k4) {
+          for (int k4 = kh; k4 < Cp / 32; k4 += kSplit) {
 #pragma unroll
             for (int kk2 = 0; kk2 < 2; ++kk2) {
               const int c = (kKQ * k4 + 2 * half + kk2) * 8;
@@ -214,65 +248,135 @@ C2_F32_TWO_PASS = """\
         }"""
 FETCH = ("    float lg_n[kHeadsAWarp], dv_n[kHeadsAWarp];\n"
          "    fetch(min(t + 1, ntiles - 1), lg_n, dv_n);\n")
-DPHAT = "    // dphat = dv + G.\n"
+DPHAT = "    // dphat = dv + G, G's parts added in order.\n"
+STAGES = "constexpr int kStages = std::is_same<T, bf16>::value ? 2 : 1;"
+SWEEP3 = ("  for (int hp2 = 0; hp2 < kHeadsAWarp / 2; ++hp2) {\n"
+          "    const int h = head(2 * hp2 + hh);\n"
+          "    const T* ks_bh = k_s + ((size_t)b * H + h) * Lk * kDK;\n"
+          "    size_t row[kTI];\n    float dqs")
+C2_OPEN = "    // C2: G[pr][h][j] = sum_c g[pr][h][c] x2d[pr][j][c], the warp's m16 x n8\n"
+C3_LOOP = ("        const int p = ce + kRowWarps * sl;\n        if (p >= npairs) break;\n")
+BOTH = ("bfloat16", "float32")
+# early_copy: at 16 heads the rows' operands in a region of their own, so
+# that the first x2d tile is copied at the block's start.
+EARLY_COPY = [
+    ("template <typename T, int H>\nconstexpr int kStages = std::is_same<T, bf16>::value ? 2 : 1;"
+     "  // x2d stages\n",
+     "template <typename T, int H>\nconstexpr int kStages = std::is_same<T, bf16>::value ? 2 : 1;\n"
+     "template <int H>\nconstexpr bool kEarlyCopy = H == 16;\n"),
+    ("  int gs, as, gt, dxp, st, total;", "  int gs, as, gt, dxp, st, rows, total;"),
+    ("    gs = kStages<T, H> * xs_stage > kRowBytes ? kStages<T, H> * xs_stage : kRowBytes;",
+     "    gs = kStages<T, H> * xs_stage > kRowBytes || kEarlyCopy<H> ? kStages<T, H> * xs_stage\n"
+     "                                                                : kRowBytes;"),
+    ("    total = st + kTI * H * 3 * 4;\n",
+     "    rows = kEarlyCopy<H> ? st + kTI * H * 3 * 4 : 0;\n"
+     "    total = (kEarlyCopy<H> ? rows + kRowBytes : st + kTI * H * 3 * 4);\n"),
+    ("  float* rows_sm = reinterpret_cast<float*>(smem);",
+     "  float* rows_sm = reinterpret_cast<float*>(smem + L.rows);"),
+    ("  const uint64_t policy = evict_first_policy();\n  auto copy_tile = [&](int t) {\n"
+     "    copy_x2d(xs + (t % kStages<T, H>) * xs_elems, x2d_b, i0, t * kTJ, Lq, Lk, Cp, S, tid,\n"
+     "             policy);\n    cp_async_commit();\n  };\n", ""),
+    ("  const float* bias_b = bias + (size_t)b * Lk;\n",
+     "  const float* bias_b = bias + (size_t)b * Lk;\n"
+     "  const uint64_t policy = evict_first_policy();\n"
+     "  auto copy_tile = [&](int t) {\n"
+     "    copy_x2d(xs + (t % kStages<T, H>) * xs_elems, x2d_b, i0, t * kTJ, Lq, Lk, Cp, S, tid,\n"
+     "             policy);\n"
+     "    cp_async_commit();\n"
+     "  };\n"
+     "  if constexpr (kEarlyCopy<H>) copy_tile(0);\n"),
+    ("  copy_tile(0);\n  float acc1", "  if constexpr (!kEarlyCopy<H>) copy_tile(0);\n  float acc1"),
+    ("  load_qp_rows();  // the stages are read\n",
+     "  if constexpr (!kEarlyCopy<H>) load_qp_rows();\n"),
+]
+# staged_keys: its patches, 380 lines, kept beside this script.
+STAGED_KEYS = [tuple(x) for x in json.loads(
+    (Path(__file__).with_name("k1_bwd_variants_staged_keys.json")).read_text())["patches"]]
 
 VARIANTS = {  # name: (patches, dtypes it applies to, cuts work)
-    "clock": (CLOCK, ("bfloat16", "float32"), False),
-    "one_stage": ([("constexpr int kStages = std::is_same<T, bf16>::value ? 2 : 1;",
-                    "constexpr int kStages = 1;")], ("bfloat16",), False),
+    "clock": (CLOCK, BOTH, False),
+    "one_stage": ([(STAGES, "constexpr int kStages = 1;")], ("bfloat16",), False),
+    "f32_two_stages": ([(STAGES, "constexpr int kStages = 2;")], ("float32",), False),
+    "lb3": ([("template <typename T, int H>\n__global__ void __launch_bounds__(kThreads, 2)\nbwd_rows(",
+              "template <typename T, int H>\n__global__ void __launch_bounds__(kThreads, 3)\n"
+              "bwd_rows(")], BOTH, False),
+    "sweep1_unroll4": ([("#pragma unroll 2\n    for (int t = 0; t < ntiles; ++t) {\n"
+                         "      const int j = t * kTJ + jl, jc = min(j, Lk - 1);\n      KeyCol kc;\n"
+                         "      load_key(kc, ks_bh, kp_b, plane, h, Lk, jc);\n      const float bj",
+                         "#pragma unroll 4\n    for (int t = 0; t < ntiles; ++t) {\n"
+                         "      const int j = t * kTJ + jl, jc = min(j, Lk - 1);\n      KeyCol kc;\n"
+                         "      float bj, pav")],
+                       BOTH, False),
     "unroll3": ([("      for (int d = 0; d < 12; ++d) dqp[r][d] = 0.f;\n    }\n"
                   "    for (int t = 0; t < ntiles; ++t) {",
                   "      for (int d = 0; d < 12; ++d) dqp[r][d] = 0.f;\n    }\n#pragma unroll 2\n"
-                  "    for (int t = 0; t < ntiles; ++t) {")], ("bfloat16", "float32"), False),
-    "g_unroll8": ([("#pragma unroll 4\n    for (int c = tid & 7; c < Cp; c += 8) {",
-                    "#pragma unroll 8\n    for (int c = tid & 7; c < Cp; c += 8) {")],
-                  ("bfloat16", "float32"), False),
+                  "    for (int t = 0; t < ntiles; ++t) {")], BOTH, False),
+    "g_unroll8": ([("#pragma unroll 4\n    for (int c = tid & (kGT - 1); c < Cp; c += kGT) {",
+                    "#pragma unroll 8\n    for (int c = tid & (kGT - 1); c < Cp; c += kGT) {")],
+                  BOTH, False),
     "c2_two_pass": ([(C2_F32, C2_F32_TWO_PASS)], ("float32",), False),
     "c1_m_outer": ([(C1_F32, C1_F32_M_OUTER)], ("float32",), False),
     "late_fetch": ([(FETCH + "    cp_async_wait_all();", "    cp_async_wait_all();"),
-                    (DPHAT, FETCH + DPHAT)], ("bfloat16", "float32"), False),
-    "dv_rows32": ([("constexpr int kDvRows = 16; ", "constexpr int kDvRows = 32; ")],
-                  ("bfloat16", "float32"), False),
-    "dv_rows64": ([("constexpr int kDvRows = 16; ", "constexpr int kDvRows = 64; ")],
-                  ("bfloat16", "float32"), False),
+                    (DPHAT, FETCH + DPHAT)], BOTH, False),
+    "dv_rows32": ([("constexpr int kDvRows = 16; ", "constexpr int kDvRows = 32; ")], BOTH, False),
+    "dv_rows64": ([("constexpr int kDvRows = 16; ", "constexpr int kDvRows = 64; ")], BOTH, False),
     "cols_chunk8": ([("constexpr int kColChunk = 4; ", "constexpr int kColChunk = 8; ")],
-                    ("bfloat16", "float32"), False),
+                    BOTH, False),
     "cols_chunk16": ([("constexpr int kColChunk = 4; ", "constexpr int kColChunk = 16;")],
-                     ("bfloat16", "float32"), False),
+                     BOTH, False),
     "cols_unroll2": ([("    stage(0);\n    for (int rr = 0; rr < nrows; ++rr) {",
                        "    stage(0);\n#pragma unroll 2\n"
-                       "    for (int rr = 0; rr < nrows; ++rr) {")],
-                     ("bfloat16", "float32"), False),
+                       "    for (int rr = 0; rr < nrows; ++rr) {")], BOTH, False),
+    "early_copy": (EARLY_COPY, BOTH, False),
+    "staged_keys": (STAGED_KEYS, BOTH, False),
+    "no_copy": ([("  for (int e = tid; e < kTI * kTJ * per_row; e += kThreads) {",
+                  "  for (int e = tid; e < 0; e += kThreads) {")], BOTH, True),
+    "no_fetch": ([("      lg[hp] = logits[row + jc];\n      dv[hp] = dvals[row + jc];",
+                   "      lg[hp] = 1e-3f * jc;\n      dv[hp] = 1e-3f * (jc + row);")], BOTH, True),
+    "no_sweep1": ([("  for (int hp2 = 0; hp2 < kHeadsAWarp / 2; ++hp2) {\n"
+                    "    const int h = head(2 * hp2 + hh);\n"
+                    "    const T* ks_bh = k_s + ((size_t)b * H + h) * Lk * kDK;\n"
+                    "    size_t row[kTI];\n    float m_run",
+                    "  for (int hp2 = 0; hp2 < 0; ++hp2) {\n"
+                    "    const int h = head(2 * hp2 + hh);\n"
+                    "    const T* ks_bh = k_s + ((size_t)b * H + h) * Lk * kDK;\n"
+                    "    size_t row[kTI];\n    float m_run")], BOTH, True),
+    "no_setup": ([("    for (int c = tid & (kGT - 1); c < Cp; c += kGT) {",
+                   "    for (int c = tid & (kGT - 1); c < 0; c += kGT) {")], BOTH, True),
+    "no_sweep3": ([(SWEEP3, SWEEP3.replace("hp2 < kHeadsAWarp / 2", "hp2 < 0"))], BOTH, True),
+    "no_c2": ([(C2_OPEN, "    if (false)\n" + C2_OPEN)], BOTH, True),
+    "no_c3": ([(C3_LOOP, C3_LOOP + "        if (npairs > 0) break;\n")], BOTH, True),
 }
 
 
-def patched(patches) -> tuple[str, str]:
-    """The source and the shared header with each patch applied: a (text,
-    replacement) pair whose text occurs once in the source, or else in the
-    header."""
-    texts = [SOURCE.read_text(), HEADER.read_text()]
+def patched(source: Path, patches) -> list[str]:
+    """The design's source, the row design's header and the shared header
+    with each patch applied: a (text, replacement) pair whose text occurs
+    once in one of them and nowhere else."""
+    texts = [source.read_text(), *(h.read_text() for h in HEADERS)]
     for old, new in patches:
         counts = [x.count(old) for x in texts]
-        if sorted(counts) != [0, 1]:
+        if sorted(counts) != [0, 0, 1]:
             raise SystemExit(f"a patch's text occurs {counts} times: {old[:80]!r}")
         k = counts.index(1)
         texts[k] = texts[k].replace(old, new)
-    return texts[0], texts[1]
+    return texts
 
 
-def build(name: str, texts: tuple[str, str], nvcc: str, flags) -> tuple[str, Path | None, str]:
-    """Builds the patched source beside its patched header, in a directory of
-    its own."""
+def build(name: str, source: Path, texts: list[str], nvcc: str,
+          flags) -> tuple[str, Path | None, str]:
+    """Builds the patched source beside its patched headers, in a directory
+    of its own."""
     (OUT / name).mkdir(parents=True, exist_ok=True)
-    src, lib = OUT / name / SOURCE.name, OUT / f"{name}.so"
-    src.write_text(texts[0])
-    (OUT / name / HEADER.name).write_text(texts[1])
+    src, lib = OUT / name / source.name, OUT / f"{name}.so"
+    for path, text in zip((source, *HEADERS), texts):
+        (OUT / name / path.name).write_text(text)
     res = subprocess.run([nvcc, *flags, "-shared", "-o", str(lib), str(src)],
                          capture_output=True, text=True)
     lines = (res.stdout + res.stderr).splitlines()
     report = "; ".join(x.split(":", 1)[-1].strip() for i, x in enumerate(lines)
                        if ("registers" in x or "spill" in x)
-                       and any("bwd32_rows" in y or "bwd_cols" in y
+                       and any("bwd_rows" in y or "bwd_cols" in y
                                for y in lines[max(0, i - 3):i]))
     return name, lib if res.returncode == 0 else None, report or res.stderr[-1500:]
 
@@ -280,9 +384,13 @@ def build(name: str, texts: tuple[str, str], nvcc: str, flags) -> tuple[str, Pat
 def main(argv: list[str]) -> int:
     import torch
 
+    heads = 32
+    if argv[:1] == ["--heads"]:
+        heads, argv = int(argv[1]), argv[2:]
     names = argv or list(VARIANTS)
-    if any(n not in VARIANTS for n in names):
-        print(f"k1_bwd_variants: variants are {sorted(VARIANTS)}, got {names}", file=sys.stderr)
+    if heads not in SOURCES or any(n not in VARIANTS for n in names):
+        print(f"k1_bwd_variants: [--heads {'|'.join(map(str, SOURCES))}] and variants "
+              f"{sorted(VARIANTS)}, got --heads {heads} {names}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("k1_bwd_variants: CUDA is not available", file=sys.stderr)
@@ -292,22 +400,25 @@ def main(argv: list[str]) -> int:
     from se3diff_torch.ops import ipa_attention as k1
 
     OUT.mkdir(parents=True, exist_ok=True)
-    texts = {"committed": patched([])}
-    texts.update({n: patched(VARIANTS[n][0]) for n in names})
+    source = SOURCES[heads]
+    texts = {"committed": patched(source, [])}
+    texts.update({n: patched(source, VARIANTS[n][0]) for n in names})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(texts)) as pool:
         built = {name: (lib, report) for name, lib, report in pool.map(
-            lambda item: build(*item, k1._nvcc(), k1.NVCC_FLAGS), texts.items())}
+            lambda item: build(item[0], source, item[1], k1._nvcc(), k1.NVCC_FLAGS),
+            texts.items())}
     print(f"[bwd-variants] {len(built)} sources built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    route = {32: "bwd_tc", 16: "bwd_tc16"}[heads]
     libs = {}
     for name, (path, report) in built.items():
         if path is None:
             print(f"[bwd-variants] {name}: build failed: {report}")
             return 1
         lib = ctypes.CDLL(str(path))
-        for sym in ("ipa_attention_bwd_tc", "ipa_attention_bwd_tc_f32"):
+        for sym in (f"ipa_attention_{route}", f"ipa_attention_{route}_f32"):
             fn = getattr(lib, sym)
             fn.argtypes, fn.restype = [vp] * 26 + [ci] * 6 + [cf, cf, vp], ci
         libs[name] = lib
@@ -330,12 +441,12 @@ def main(argv: list[str]) -> int:
                    for a, b in zip(got, want) if a is not None)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, L, dname in SHAPES:
+    for B, L, dname, masked in SHAPES[heads]:
         dtype = getattr(torch, dname)
-        args = cs.k1_inputs(B, L, dtype, gen)
-        cts = (torch.randn(B, 32, L, 16, generator=gen, device="cuda").to(dtype),
-               torch.randn(B, 32, L, 24, generator=gen, device="cuda"),
-               torch.randn(B, 32, L, 16, generator=gen, device="cuda").to(dtype))
+        args = cs.k1_inputs(B, L, dtype, gen, masked_cols=masked, H=heads)
+        cts = (torch.randn(B, heads, L, 16, generator=gen, device="cuda").to(dtype),
+               torch.randn(B, heads, L, 24, generator=gen, device="cuda"),
+               torch.randn(B, heads, L, 16, generator=gen, device="cuda").to(dtype))
         base = caller("committed", args, cts)
         want = base()
         for name in names:
@@ -346,7 +457,8 @@ def main(argv: list[str]) -> int:
             err = largest_rel(var(), want)
             t = [cs.cuda_time_ms(f, reps=20) for f in (base, var, var, base)]
             ok = cuts or err == 0.0
-            print(f"[bwd-variants] {name:10s} B={B} L={L} {dname}: committed "
+            print(f"[bwd-variants] {name:10s} H={heads} B={B} L={L} masked={masked} "
+                  f"{dname}: committed "
                   f"{(t[0] + t[3]) / 2:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), variant "
                   f"{(t[1] + t[2]) / 2:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
                   f"{100 * ((t[1] + t[2]) / (t[0] + t[3]) - 1):+.1f}%; largest gradient error "
@@ -365,8 +477,8 @@ def main(argv: list[str]) -> int:
                 blocks = ((L + 1) // 2) * B
                 cyc = [host[k] / blocks for k in range(len(PHASES))]
                 total = sum(cyc)
-                print(f"[bwd-variants] clock B={B} L={L} {dname}: {total:.0f} SM cycles a block of "
-                      f"bwd32_rows ({blocks} blocks): "
+                print(f"[bwd-variants] clock H={heads} B={B} L={L} {dname}: {total:.0f} SM cycles "
+                      f"a block of bwd_rows ({blocks} blocks): "
                       + ", ".join(f"{p} {c:.0f} ({100 * c / total:.1f}%)"
                                   for p, c in zip(PHASES, cyc)), flush=True)
             if not ok:

@@ -381,8 +381,8 @@ def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route,rows", [("bwd_tc", "bwd32_rows"), ("bwd_tc16", "bwd16_rows"),
-                                        ("bwd_tc8", "bwd8_rows")])
+@pytest.mark.parametrize("route,rows", [("bwd_tc", "bwd_rows<T, 32>"),
+                                        ("bwd_tc16", "bwd_rows<T, 16>"), ("bwd_tc8", "bwd8_rows")])
 def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device, route, rows):
     """The library's row kernel's and the shared column kernel's shared
     memory at Cp=256 are what the source's header states; every design's
@@ -401,6 +401,41 @@ def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device, r
     assert lib.ipa_attention_bwd_cols_smem_bytes() == col
     assert getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256) == 2
     assert getattr(lib, f"ipa_attention_{route}_f32_blocks_per_sm")(256) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bwd_tc16"),
+                                         (torch.float32, "bwd_tc16_f32")])
+def test_16_head_backward_forms_g_in_its_row_kernel(cuda_device, dtype, route):
+    """The 16-head backward forms g = ct_pr @ w_pv^T in its row kernel: a
+    call at the model=2 step's B=16 L=100 runs one ``bmm`` (d_w_pv's) and
+    allocates no f32 [16, B Lq, Cp] tensor for g, its peak beyond the
+    operands within the gradients, the kernel's scratch (wx2d; logits, dv
+    and ds; the row statistics), d_w_pv's partials and half of g's 26.2 MB
+    (the cotangents' f32 and head-first copies take a few MB)."""
+    B, L, H, CP = 16, 100, 16, 256
+    args = _args(cuda_device, B, L, L, dtype, 0, H=H, CP=CP)[:10]
+    cts = _cotangents(args)
+    assert k1.backward_route(dtype, H, DK, CP, True) == route
+
+    def call():
+        return k1._launch_backward(args, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        call()
+        torch.cuda.synchronize()
+    assert sum(e.count for e in prof.key_averages() if e.key == "aten::bmm") == 1
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    g_bytes = H * B * L * CP * 4
+    scratch = g_bytes + 3 * B * H * L * L * 4 + B * H * L * 2 * 4 + H * B * CP * DK * 4
+    out = sum(g.numel() * g.element_size() for g in grads if g is not None)
+    assert peak < out + scratch + g_bytes // 2, (peak, out, scratch)
 
 
 @pytest.mark.cuda

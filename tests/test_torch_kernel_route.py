@@ -141,9 +141,9 @@ def test_backward_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp
 def test_each_backward_symbol_has_exactly_one_extern_c_definition():
     """Every backward route's C symbol is defined once across ``csrc/*.cu``,
     inside an ``extern "C"`` block of its design's source, with the 34
-    arguments the binding declares (35 for the 32-head design, which takes
-    ct_pr and w_pv in place of g_wx2d); the counts hold one entry a backward
-    route and "torch"."""
+    arguments the binding declares (35 for the 32- and 16-head designs,
+    which take ct_pr and w_pv in place of g_wx2d); the counts hold one entry
+    a backward route and "torch"."""
     sources = {"bwd_tc": "ipa_attention_bwd_tc.cu", "bwd_tc_f32": "ipa_attention_bwd_tc.cu",
                "bwd_tc16": "ipa_attention_bwd_tc16.cu",
                "bwd_tc16_f32": "ipa_attention_bwd_tc16.cu",
@@ -156,8 +156,9 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
             for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', text, re.S):
                 for m in re.finditer(rf"\bint {symbol}\(", block):
                     signature = block[m.start():]
-                    # The 32-head design takes ct_pr and w_pv in place of g_wx2d.
-                    commas = 34 if route in k1._BWD_TC32 else 33
+                    # The 32- and 16-head designs take ct_pr and w_pv in place
+                    # of g_wx2d.
+                    commas = 34 if route in k1._BWD_FORMS_G else 33
                     assert signature[:signature.index(")")].count(",") == commas, symbol
                     found.append(path.name)
         assert found == [sources[route]], (symbol, found)
@@ -169,20 +170,29 @@ def test_backward_kernel_source_states_widths_and_shared_memory():
     """Each streamed backward source takes the widths its routes name (32
     heads in ``ipa_attention_bwd_tc.cu``, 16 in ``ipa_attention_bwd_tc16.cu``,
     8 in ``ipa_attention_bwd_tc8.cu``; the head width and largest Cp in the
-    header all include), and the
+    header all include; the 32- and 16-head sources instantiate the row
+    design of ``ipa_attention_bwd_rows.cuh`` at their head count), and the
     shared memory its row kernel states fits two blocks an SM on Hopper; the
     shared column kernel's grid follows the heads."""
     common = (CSRC / "ipa_attention_bwd_common.cuh").read_text()
     assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in common
     assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in common
-    for name, heads, rows in (("ipa_attention_bwd_tc.cu", 32, "bwd32_rows"),
-                              ("ipa_attention_bwd_tc16.cu", 16, "bwd16_rows"),
+    rows_design = (CSRC / "ipa_attention_bwd_rows.cuh").read_text()
+    assert '#include "ipa_attention_bwd_common.cuh"' in rows_design
+    for name, heads, rows in (("ipa_attention_bwd_tc.cu", 32, "bwd_rows<T, 32>"),
+                              ("ipa_attention_bwd_tc16.cu", 16, "bwd_rows<T, 16>"),
                               ("ipa_attention_bwd_tc8.cu", 8, "bwd8_rows")):
         text = (CSRC / name).read_text()
-        assert '#include "ipa_attention_bwd_common.cuh"' in text, name
         assert f"constexpr int kH = {heads};" in text, name
-        assert "const dim3 cgrid((Lk + 31) / 32, kH / kColHeads, B);" in text, name
-        assert "bwd_cols<T, kH><<<cgrid" in text, name
+        if heads == 8:
+            assert '#include "ipa_attention_bwd_common.cuh"' in text, name
+            assert "const dim3 cgrid((Lk + 31) / 32, kH / kColHeads, B);" in text, name
+            assert "bwd_cols<T, kH><<<cgrid" in text, name
+        else:
+            assert '#include "ipa_attention_bwd_rows.cuh"' in text, name
+            assert "launch_backward<bf16, kH>(" in text and "launch_backward<float, kH>(" in text
+            assert "const dim3 cgrid((Lk + 31) / 32, H / kColHeads, B);" in rows_design
+            assert "bwd_cols<T, H><<<cgrid" in rows_design
         stated = re.search(rf"Shared memory of {rows} at Cp = 256: ([\d,]+) bytes \(bf16\), "
                            r"([\d,]+) \(f32\)", text)
         assert stated is not None, name
@@ -336,12 +346,17 @@ def test_16_head_designs_state_a_layout_two_blocks_an_sm_can_hold(route, dtype):
     bytes less 1,024 a block), exports that layout and its resident blocks
     an SM, and its design takes every Cp % 32 == 0 up to 256 at 16 heads
     with the streamed pair bias and nothing else; the card tests hold the
-    library's ``*_smem_bytes(256)`` to the stated number."""
+    library's ``*_smem_bytes(256)`` to the stated number. The backward's
+    row design (``ipa_attention_bwd_rows.cuh``, which the source includes)
+    holds its block size and launch bounds."""
     backward = route.startswith("bwd_")
     src = (CSRC / f"ipa_attention_{'bwd_tc16' if backward else route}.cu").read_text()
     if backward:
-        stated = re.search(r"Shared memory of bwd16_rows at Cp = 256: ([\d,]+) bytes \(bf16\), "
-                           r"([\d,]+) \(f32\)\s*// \(two 256-thread blocks an SM\)", src)
+        assert '#include "ipa_attention_bwd_rows.cuh"' in src
+        src += (CSRC / "ipa_attention_bwd_rows.cuh").read_text()
+        stated = re.search(r"Shared memory of bwd_rows<T, 16> at Cp = 256: ([\d,]+) bytes "
+                           r"\(bf16\), ([\d,]+) \(f32\)\s*// \(two 256-thread blocks an SM\)",
+                           src)
         stated = stated and stated.group(1 if dtype == BF16 else 2)
     else:
         stated = re.search(r"Shared memory at Cp = 256: ([\d,]+) bytes \(two 256-thread blocks an "
