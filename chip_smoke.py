@@ -11,10 +11,10 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    source (time, ptxas report: registers, spills and shared memory of the
    "tc", "tc_f32", "h4", "tc16", "tc16_f32", "tc8" and "tc8_f32" kernels,
    the 16- and 8-head designs' resident blocks an SM, the backward kernels'
-   row and column
+   value-term, row and column
    kernels, "bwd_tc" and "bwd_tc_f32", "bwd_tc16" and "bwd_tc16_f32",
    "bwd_tc8" and "bwd_tc8_f32" (with the row kernel's resident blocks an
-   SM), and "bwd_h4"'s two row
+   SM, at 8 heads the column kernel's too), and "bwd_h4"'s two row
    instantiations, its kernel of the logits' CUDA-core terms, column kernel
    and weight-gradient reduction, with its row kernel's shared memory and
    resident blocks and warps an SM);
@@ -599,9 +599,11 @@ def phase_build():
                    f"shared memory {lib.ipa_attention_h4_smem_bytes(32)} bytes at Cp=32 | Cp <= 64: "
                    f"{ptxas_summary(report, 'ipa_attention_h4_kernelILi64E')}"}
     cols = lib.ipa_attention_bwd_cols_smem_bytes()
-    # The 32-, 16- and 8-head backward: the row kernel's resident blocks an SM beside.
-    # The 32- and 16-head routes run the row design bwd_rows<T, H> with the
-    # value terms' kernel bwd_dv<T> before it.
+    # The 32-, 16- and 8-head backward: the row kernel's resident blocks an
+    # SM beside (at 8 heads the column kernel's too, its rows split over
+    # warps). The 32- and 16-head routes run the row design bwd_rows<T, H>,
+    # the 8-head ones bwd8_rows, each with the value terms' kernel bwd_dv<T>
+    # before it.
     for route, rows, heads, t in (("bwd_tc", "bwd_rowsI13__nv_bfloat16Li32E", 32, "13__nv_bfloat16"),
                                   ("bwd_tc_f32", "bwd_rowsIfLi32E", 32, "f"),
                                   ("bwd_tc16", "bwd_rowsI13__nv_bfloat16Li16E", 16,
@@ -615,8 +617,10 @@ def phase_build():
                         f"memory {smem} bytes at Cp=256, {blocks} blocks an SM resident | cols: "
                         f"{ptxas_summary(report, f'bwd_colsI{t}Li{heads}E')}; dynamic shared "
                         f"memory {cols} bytes")
-        if heads != 8:  # the value terms' kernel
-            ptxas[route] += f" | dv: {ptxas_summary(report, f'bwd_dvI{t}E')}"
+        if heads == 8:
+            ptxas[route] += (f", {getattr(lib, f'ipa_attention_{route}_cols_blocks_per_sm')()} "
+                             "blocks an SM resident")
+        ptxas[route] += f" | dv: {ptxas_summary(report, f'bwd_dvI{t}E')}"
     # bwd_h4: two row instantiations (Cp <= 32, every path; Cp <= 64) with
     # their resident blocks (8 warps each) an SM, the kernel of the logits'
     # CUDA-core terms, the column kernel and the reduction of d_w_pv's and

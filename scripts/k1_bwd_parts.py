@@ -19,8 +19,8 @@ tensor-parallel rank's 16 heads (routes "bwd_tc16", "bwd_tc16_f32":
 ``bwd_dv``, ``bwd_rows<T, 16>``, ``bwd_cols``; no ``bmm`` for g) at the
 ``--mesh model=2`` f32 step's B=16 L=100, the train CLI's B=16 L=64 bf16,
 and B=40 L=77 with 9 masked columns in both dtypes. ``tc8``: the same at a rank's 8 heads at
-``--mesh model=4`` (routes "bwd_tc8", "bwd_tc8_f32": ``bwd8_rows``,
-``bwd_cols``) at the same four shapes. ``h4``: 4
+``--mesh model=4`` (routes "bwd_tc8", "bwd_tc8_f32": ``bwd_dv``,
+``bwd8_rows``, ``bwd_cols``; no ``bmm`` for g) at the same four shapes. ``h4``: 4
 heads of 16, f32, the pair bias from ``w_pb`` (route "bwd_h4": ``bwd_h4_pre``,
 ``bwd_h4_rows``, ``bwd_h4_cols``, ``bwd_h4_wsum``) at the PPFT step's B=256
 L=56 Cp=32, L=57 with 5 masked columns, Cp=64, B=64 L=100 and B=64 L=56;

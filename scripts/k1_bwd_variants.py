@@ -3,21 +3,25 @@
 (``csrc/ipa_attention_bwd_tc.cu``, routes "bwd_tc" and "bwd_tc_f32") or at
 a tensor-parallel rank's 16 (``csrc/ipa_attention_bwd_tc16.cu``, routes
 "bwd_tc16" and "bwd_tc16_f32"), both ``csrc/ipa_attention_bwd_rows.cuh``'s
-``bwd_rows<T, H>``, timed in turns with the source as committed, and where
-the row kernel spends its time, on one H100.
+``bwd_rows<T, H>``, or of the 8-head design (``csrc/ipa_attention_bwd_tc8.cu``,
+routes "bwd_tc8" and "bwd_tc8_f32": ``bwd8_rows``, and the column kernel's
+row split at 8 heads), timed in turns with the source as committed, and
+where the row kernel spends its time, on one H100.
 
-    python3 scripts/k1_bwd_variants.py [--heads 32|16] [variant ...]
+    python3 scripts/k1_bwd_variants.py [--heads 32|16|8] [variant ...]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
 CUDA build of PyTorch. A variant is the sources with text patches applied,
-each patch's text found once in the design's source, the row design's
-header or the shared header; every variant named (all by default) and the
+each patch's text found once in the design's source and the headers it
+includes (the row design's header and the shared header; at 8 heads the
+shared header); every variant named (all of the head count's by default) and the
 committed sources are built with nvcc, one process a source, all started
 together, into libraries of their own under ``.work/k1_bwd_variants/``
 (listed in .gitignore). At 32 heads (the default) at the train step's B=16
 L=100 (bf16 and f32) and the learning run's B=32 L=56 (bf16); at 16 heads
 at the ``--mesh model=2`` f32 step's B=16 L=100, the train CLI's B=16 L=64
-bf16 and B=40 L=77 with 9 masked columns (both dtypes); Cp=256. Each
+bf16 and B=40 L=77 with 9 masked columns (both dtypes), and at 8 heads at
+the same shapes (the ``--mesh model=4`` step's and the CLI's); Cp=256. Each
 variant's call (``ops.ipa_attention._launch_backward`` with the variant's
 library: the value-term, row and column kernels and the ``bmm``) is timed by
 ``chip_smoke.cuda_time_ms`` in turns with the committed source's on the
@@ -27,7 +31,7 @@ timed, and its error printed, not checked). Prints a line a variant and
 shape with ptxas's register and spill report, then the card's name and
 power limit.
 
-The variants:
+The variants at 32 and 16 heads:
 
 - ``clock`` (no change to the arithmetic): thread 0 of each block of
   ``bwd_rows`` adds ``clock64()`` differences at the phase boundaries to
@@ -77,6 +81,32 @@ The variants:
   kernel without its third sweep: no ds, d_pa, d_q_s, d_q_p), ``no_c2``
   (without G's products), ``no_c3`` (without d_x2d's products and
   stores).
+
+The variants at 8 heads (``bwd8_rows``; its 4-row blocks in the clock's
+count of blocks):
+
+- ``clock``: the same phases of ``bwd8_rows``;
+- ``one_stage`` (bf16 only): one x2d stage, as in f32;
+- ``div_copy``: the x2d copy addressed a 16-byte chunk a thread, by
+  division by the runtime row width (the first design's and the row
+  design's), not a warp a row;
+- ``c3_narrow``: C3's d_x2d stores two of 4 (bf16) or 8 (f32) bytes a lane
+  and column, without the lanes' trade (the first design's);
+- ``x2d_wb``: d_x2d by plain (write-back) stores, not streaming ones;
+- ``c3_last``: C3 after C1 and C2 in the products (the first design's
+  order), its stores then draining at the barrier after them;
+- ``cols_parts1``, ``cols_parts2``, ``cols_parts8`` (their sums in another
+  order: timed, their error printed, not checked): the column kernel's
+  query rows of a head on 1 warp (the first design's grid of 64 blocks at
+  B=16 L=100), 2 or 8 warps, not 4;
+- ``unroll3``: sweep 3's tile loop unrolled twice;
+- ``g_unroll4``: the set-up's loop over w_pv rows unrolled four times (two
+  committed);
+- ``late_fetch``: the next tile's logits and dv fetched after the products;
+- timed, their error printed, not checked: ``f32_round`` (f32 only: the
+  3xTF32 split rounded to nearest, ``split_tf32``, as the first design
+  split it) and the cuts ``no_copy``, ``no_fetch``, ``no_sweep1``,
+  ``no_setup``, ``no_sweep3``, ``no_c2``, ``no_c3``, as at 32 and 16 heads.
 """
 
 from __future__ import annotations
@@ -91,8 +121,12 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "se3diff_torch" / "csrc"
-SOURCES = {32: CSRC / "ipa_attention_bwd_tc.cu", 16: CSRC / "ipa_attention_bwd_tc16.cu"}
-HEADERS = (CSRC / "ipa_attention_bwd_rows.cuh", CSRC / "ipa_attention_bwd_common.cuh")
+SOURCES = {32: CSRC / "ipa_attention_bwd_tc.cu", 16: CSRC / "ipa_attention_bwd_tc16.cu",
+           8: CSRC / "ipa_attention_bwd_tc8.cu"}
+ROW_HEADERS = (CSRC / "ipa_attention_bwd_rows.cuh", CSRC / "ipa_attention_bwd_common.cuh")
+HEADERS = {32: ROW_HEADERS, 16: ROW_HEADERS, 8: (CSRC / "ipa_attention_bwd_common.cuh",)}
+ROWS_A_BLOCK = {32: 2, 16: 2, 8: 4}
+ROUTES = {32: "bwd_tc", 16: "bwd_tc16", 8: "bwd_tc8"}
 OUT = REPO / ".work" / "k1_bwd_variants"
 PHASES = ("set-up (g, cotangents)", "sweep 1", "sweep 2: weights, fetch", "sweep 2: wait, barrier",
           "sweep 2: C1-C3", "sweep 2: barrier, dphat", "epilogue, D", "sweep 3")
@@ -100,6 +134,7 @@ PHASES = ("set-up (g, cotangents)", "sweep 1", "sweep 2: weights, fetch", "sweep
 SHAPES = {32: [(16, 100, "bfloat16", 0), (16, 100, "float32", 0), (32, 56, "bfloat16", 0)],
           16: [(16, 100, "float32", 0), (16, 64, "bfloat16", 0), (40, 77, "bfloat16", 9),
                (40, 77, "float32", 9)]}
+SHAPES[8] = SHAPES[16]
 
 
 def _mark(k: int) -> str:
@@ -349,34 +384,160 @@ VARIANTS = {  # name: (patches, dtypes it applies to, cuts work)
 }
 
 
-def patched(source: Path, patches) -> list[str]:
-    """The design's source, the row design's header and the shared header
-    with each patch applied: a (text, replacement) pair whose text occurs
-    once in one of them and nowhere else."""
-    texts = [source.read_text(), *(h.read_text() for h in HEADERS)]
+# The 8-head design's clock: bwd8_rows' phases, as CLOCK marks bwd_rows'.
+CLOCK8 = [
+    ("namespace {\n\nconstexpr int kH = 8; ",
+     "namespace {\n\n__device__ unsigned long long g_clk[16];\n\nconstexpr int kH = 8; "),
+    ("  const float* bias_b = bias + (size_t)b * Lk;\n\n  // ---- the rows' operands into shared "
+     "memory, [H][TI]",
+     "  const float* bias_b = bias + (size_t)b * Lk;\n  long long clk = clock64();\n\n"
+     "  // ---- the rows' operands into shared memory, [H][TI]"),
+    ("  __syncthreads();  // the rows' operands\n",
+     "  __syncthreads();  // the rows' operands\n" + _mark(0)),
+    ("  // The kept logits (-inf past Lk) and dv of this thread's rows at column jl\n",
+     _mark(1) + "  // The kept logits (-inf past Lk) and dv of this thread's rows at column jl\n"),
+    ("    cp_async_wait_all();\n    __syncthreads();\n"
+     "    if (kStages<T> == 2 && t + 1 < ntiles) copy_tile(t + 1);\n",
+     "  " + _mark(2) + "    cp_async_wait_all();\n    __syncthreads();\n"
+     "    if (kStages<T> == 2 && t + 1 < ntiles) copy_tile(t + 1);\n  " + _mark(3)),
+    ("    __syncthreads();  // G; the stage read\n",
+     "  " + _mark(4) + "    __syncthreads();  // G; the stage read\n"),
+    ("      dvk[u] = dv_n[u];\n    }\n", "      dvk[u] = dv_n[u];\n    }\n  " + _mark(5)),
+    ("    row_d[u] = dv_run[u] + (dxr[0] + dxr[kH]);\n  }\n",
+     "    row_d[u] = dv_run[u] + (dxr[0] + dxr[kH]);\n  }\n" + _mark(6)),
+    ("                dqp[u][px];\n      }\n    }\n  }\n}\n",
+     "                dqp[u][px];\n      }\n    }\n  }\n" + _mark(7) + "}\n"),
+    CLOCK[-1],
+]
+SWEEP1_8 = ("    for (int t = 0; t < ntiles; ++t) {\n"
+            "      const int j = t * kTJ + jl, jc = min(j, Lk - 1);\n      KeyCol kc;\n"
+            "      load_key(kc, ks_bh, kp_b, plane, ah, Lk, jc);\n      const float bj")
+SWEEP3_8 = SWEEP1_8.replace("      const float bj", "      float lgv[2]")
+FETCH8 = "    float lg_n[2], dv_n[2];\n    fetch(min(t + 1, ntiles - 1), lg_n, dv_n);\n"
+DPHAT8 = "    // dphat = dv + G, the two warps' partial G added in a fixed order.\n"
+COLS = "constexpr int kColParts = H == 8 ? 4 : 1;"
+C3_STORE8_NARROW = """\
+      auto store = [&](int p, const float (&acc3)[2][4]) {
+        if (i >= Lq) return;
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int j = j0 + g + 8 * hf, c = (2 * p + x) * 8 + 2 * q;
+            if (j < Lk) {
+              T* dst = d_x2d + (((size_t)b * Lq + i) * Lk + j) * Cp + c;
+              const float v0 = acc3[x][2 * hf], v1 = acc3[x][2 * hf + 1];
+              if constexpr (kBf) {
+                const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+                __stcs(reinterpret_cast<unsigned int*>(dst),
+                       *reinterpret_cast<const unsigned int*>(&v));
+              } else {
+                __stcs(reinterpret_cast<float2*>(dst), make_float2(v0, v1));
+              }
+            }
+          }
+      };
+"""
+# C3's block of the committed 8-head source (c3_last moves it after C2) and
+# its d_x2d store (c3_narrow replaces it).
+_TC8 = SOURCES[8].read_text()
+C3_BLOCK8 = _TC8[_TC8.index("    // C3: d_x2d[pr][j][c]"):_TC8.index("    // C1: wx2d^T[c][h]")]
+_STORE8 = C3_BLOCK8.index("      // A channel pair of n-tiles")
+C3_STORE8 = C3_BLOCK8[_STORE8:C3_BLOCK8.index("      };\n", _STORE8) + len("      };\n")]
+COPY8 = """\
+#pragma unroll 1
+  for (int rj = warp; rj < kTI * kTJ; rj += kWarps) {
+    const int r = rj / kTJ, jj = rj % kTJ;
+    const bool ok = i0 + r < Lq && j0 + jj < Lk;
+    const T* src = ok ? x2d_b + ((size_t)(i0 + r) * Lk + j0 + jj) * Cp : x2d_b;
+    T* dst = xs + rj * stride;
+    for (int c = lane; c < per_row; c += 32)
+      cp_async16_hint(dst + c * kC, ok ? src + c * kC : x2d_b, ok ? 16 : 0, policy);
+  }"""
+COPY8_DIV = """\
+  const int tid = warp * 32 + lane;
+#pragma unroll 1
+  for (int e = tid; e < kTI * kTJ * per_row; e += kThreads) {
+    const int c = e % per_row, rj = e / per_row, r = rj / kTJ, jj = rj % kTJ;
+    const bool ok = i0 + r < Lq && j0 + jj < Lk;
+    const T* src = ok ? x2d_b + ((size_t)(i0 + r) * Lk + j0 + jj) * Cp + c * kC : x2d_b;
+    cp_async16_hint(xs + rj * stride + c * kC, src, ok ? 16 : 0, policy);
+  }"""
+VARIANTS8 = {  # name: (patches, dtypes it applies to, cuts work or changes the roundings)
+    "clock": (CLOCK8, BOTH, False),
+    "one_stage": ([(STAGES, "constexpr int kStages = 1;")], ("bfloat16",), False),
+    "div_copy": ([(COPY8, COPY8_DIV)], BOTH, False),
+    "c3_narrow": ([(C3_STORE8, C3_STORE8_NARROW)], BOTH, False),
+    "x2d_wb": ([("            if (j < Lk) __stcs(reinterpret_cast<uint2*>(dst), odd ? make_uint2(rw, kw)\n"
+                 "                                                                  : make_uint2(kw, rw));",
+                 "            if (j < Lk) *reinterpret_cast<uint2*>(dst) = odd ? make_uint2(rw, kw)\n"
+                 "                                                             : make_uint2(kw, rw);"),
+                ("              __stcs(reinterpret_cast<float4*>(dst),\n"
+                 "                     odd ? make_float4(r0, r1, keep[0], keep[1])\n"
+                 "                         : make_float4(keep[0], keep[1], r0, r1));",
+                 "              *reinterpret_cast<float4*>(dst) =\n"
+                 "                  odd ? make_float4(r0, r1, keep[0], keep[1])\n"
+                 "                      : make_float4(keep[0], keep[1], r0, r1);")], BOTH, False),
+    "c3_last": ([(C3_BLOCK8 + "    // C1: wx2d", "    // C1: wx2d"),
+                 ("    }\n    __syncthreads();  // G; the stage read\n",
+                  "    }\n\n" + C3_BLOCK8.rstrip("\n")
+                  + "\n    __syncthreads();  // G; the stage read\n")],
+                BOTH, False),
+    "cols_parts1": ([(COLS, COLS.replace("? 4", "? 1"))], BOTH, True),
+    "cols_parts2": ([(COLS, COLS.replace("? 4", "? 2"))], BOTH, True),
+    "cols_parts8": ([(COLS, COLS.replace("? 4", "? 8"))], BOTH, True),
+    "unroll3": ([(SWEEP3_8, "#pragma unroll 2\n" + SWEEP3_8)], BOTH, False),
+    "g_unroll4": ([("#pragma unroll 2\n    for (int c = lane; c < Cp; c += 32) {",
+                    "#pragma unroll 4\n    for (int c = lane; c < Cp; c += 32) {")], BOTH, False),
+    "late_fetch": ([(FETCH8 + "    cp_async_wait_all();", "    cp_async_wait_all();"),
+                    (DPHAT8, FETCH8 + DPHAT8)], BOTH, False),
+    "f32_round": ([('#include "ipa_attention_bwd_common.cuh"\n\nnamespace {\n\nconstexpr int kH = 8;',
+                    '#include "ipa_attention_bwd_common.cuh"\n\n#define split_tf32_trunc split_tf32\n\n'
+                    "namespace {\n\nconstexpr int kH = 8;")], ("float32",), True),
+    "no_copy": ([("    for (int c = lane; c < per_row; c += 32)\n",
+                  "    for (int c = lane; c < 0; c += 32)\n")], BOTH, True),
+    "no_fetch": ([("      lg[u] = logits[row[u] + jc];\n      dv[u] = dvals[row[u] + jc];",
+                   "      lg[u] = 1e-3f * jc;\n      dv[u] = 1e-3f * (jc + u);")], BOTH, True),
+    "no_sweep1": ([(SWEEP1_8, SWEEP1_8.replace("t < ntiles", "t < 0"))], BOTH, True),
+    "no_setup": ([("    for (int c = lane; c < Cp; c += 32) {",
+                   "    for (int c = lane; c < 0; c += 32) {")], BOTH, True),
+    "no_sweep3": ([(SWEEP3_8, SWEEP3_8.replace("t < ntiles", "t < 0"))], BOTH, True),
+    "no_c2": ([("    // C2: G[j][h] = sum_c x2d[pr][j][c] g[pr][h][c], the warp's k-steps.\n",
+                "    if (false)\n    // C2: G[j][h] = sum_c x2d[pr][j][c] g[pr][h][c], the warp's "
+                "k-steps.\n")], BOTH, True),
+    "no_c3": ([("    // C3: d_x2d[pr][j][c] = sum_h a[pr][h][j] g[pr][h][c], the warp's\n",
+                "    if (false)\n    // C3: d_x2d[pr][j][c] = sum_h a[pr][h][j] g[pr][h][c], the "
+                "warp's\n")], BOTH, True),
+}
+
+def patched(source: Path, headers, patches) -> list[str]:
+    """The design's source and the headers it includes with each patch
+    applied: a (text, replacement) pair whose text occurs once in one of
+    them and nowhere else."""
+    texts = [source.read_text(), *(h.read_text() for h in headers)]
     for old, new in patches:
         counts = [x.count(old) for x in texts]
-        if sorted(counts) != [0, 0, 1]:
+        if sorted(counts) != [0] * len(headers) + [1]:
             raise SystemExit(f"a patch's text occurs {counts} times: {old[:80]!r}")
         k = counts.index(1)
         texts[k] = texts[k].replace(old, new)
     return texts
 
 
-def build(name: str, source: Path, texts: list[str], nvcc: str,
+def build(name: str, source: Path, headers, texts: list[str], nvcc: str,
           flags) -> tuple[str, Path | None, str]:
     """Builds the patched source beside its patched headers, in a directory
     of its own."""
     (OUT / name).mkdir(parents=True, exist_ok=True)
     src, lib = OUT / name / source.name, OUT / f"{name}.so"
-    for path, text in zip((source, *HEADERS), texts):
+    for path, text in zip((source, *headers), texts):
         (OUT / name / path.name).write_text(text)
     res = subprocess.run([nvcc, *flags, "-shared", "-o", str(lib), str(src)],
                          capture_output=True, text=True)
     lines = (res.stdout + res.stderr).splitlines()
     report = "; ".join(x.split(":", 1)[-1].strip() for i, x in enumerate(lines)
                        if ("registers" in x or "spill" in x)
-                       and any("bwd_rows" in y or "bwd_cols" in y
+                       and any("bwd_rows" in y or "bwd8_rows" in y or "bwd_cols" in y
                                for y in lines[max(0, i - 3):i]))
     return name, lib if res.returncode == 0 else None, report or res.stderr[-1500:]
 
@@ -387,10 +548,11 @@ def main(argv: list[str]) -> int:
     heads = 32
     if argv[:1] == ["--heads"]:
         heads, argv = int(argv[1]), argv[2:]
-    names = argv or list(VARIANTS)
-    if heads not in SOURCES or any(n not in VARIANTS for n in names):
+    variants = VARIANTS8 if heads == 8 else VARIANTS
+    names = argv or list(variants)
+    if heads not in SOURCES or any(n not in variants for n in names):
         print(f"k1_bwd_variants: [--heads {'|'.join(map(str, SOURCES))}] and variants "
-              f"{sorted(VARIANTS)}, got --heads {heads} {names}", file=sys.stderr)
+              f"{sorted(variants)}, got --heads {heads} {names}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("k1_bwd_variants: CUDA is not available", file=sys.stderr)
@@ -400,18 +562,18 @@ def main(argv: list[str]) -> int:
     from se3diff_torch.ops import ipa_attention as k1
 
     OUT.mkdir(parents=True, exist_ok=True)
-    source = SOURCES[heads]
-    texts = {"committed": patched(source, [])}
-    texts.update({n: patched(source, VARIANTS[n][0]) for n in names})
+    source, headers = SOURCES[heads], HEADERS[heads]
+    texts = {"committed": patched(source, headers, [])}
+    texts.update({n: patched(source, headers, variants[n][0]) for n in names})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(texts)) as pool:
         built = {name: (lib, report) for name, lib, report in pool.map(
-            lambda item: build(item[0], source, item[1], k1._nvcc(), k1.NVCC_FLAGS),
+            lambda item: build(item[0], source, headers, item[1], k1._nvcc(), k1.NVCC_FLAGS),
             texts.items())}
     print(f"[bwd-variants] {len(built)} sources built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    route = {32: "bwd_tc", 16: "bwd_tc16"}[heads]
+    route = ROUTES[heads]
     libs = {}
     for name, (path, report) in built.items():
         if path is None:
@@ -450,7 +612,7 @@ def main(argv: list[str]) -> int:
         base = caller("committed", args, cts)
         want = base()
         for name in names:
-            patches, dtypes, cuts = VARIANTS[name]
+            patches, dtypes, cuts = variants[name]
             if dname not in dtypes:
                 continue
             var = caller(name, args, cts)
@@ -474,11 +636,13 @@ def main(argv: list[str]) -> int:
                 torch.cuda.synchronize()
                 if take(host):
                     raise RuntimeError("bwd_clk_take failed")
-                blocks = ((L + 1) // 2) * B
+                rows = ROWS_A_BLOCK[heads]
+                blocks = ((L + rows - 1) // rows) * B
                 cyc = [host[k] / blocks for k in range(len(PHASES))]
                 total = sum(cyc)
+                kernel = "bwd8_rows" if heads == 8 else "bwd_rows"
                 print(f"[bwd-variants] clock H={heads} B={B} L={L} {dname}: {total:.0f} SM cycles "
-                      f"a block of bwd_rows ({blocks} blocks): "
+                      f"a block of {kernel} ({blocks} blocks): "
                       + ", ".join(f"{p} {c:.0f} ({100 * c / total:.1f}%)"
                                   for p, c in zip(PHASES, cyc)), flush=True)
             if not ok:

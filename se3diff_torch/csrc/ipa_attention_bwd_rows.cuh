@@ -6,8 +6,8 @@
 //
 // Three kernels and a bmm a call, all deterministic (no atomics, every sum
 // in a fixed order): bwd_dv (the value terms), bwd_rows (the row sweeps),
-// bwd_cols (the column sums, ipa_attention_bwd_common.cuh, shared with the
-// 8-head design), and after them the torch.bmm for d_w_pv.
+// bwd_cols (the column sums; it and bwd_dv are ipa_attention_bwd_common.cuh's,
+// shared with the 8-head design), and after them the torch.bmm for d_w_pv.
 // * bwd_dv: dv = ct_s . v_s + ct_p . v_p for every (row, head, column), f32
 //   on CUDA cores, a thread a key column with its 40 values in registers, 16
 //   query rows a block. Inside the row kernel's first sweep these loads (128
@@ -96,8 +96,6 @@ static_assert(kTI * kTJ == 32, "outside the products a lane a (row, column) of a
 // query points (p * 3 + x) at kQp.
 constexpr int kQp = kDK, kRowF = kQp + 12;
 static_assert(kQp % 4 == 0 && kRowF % 4 == 0, "float4 rows");
-constexpr int kDvRows = 16;    // bwd_dv: query rows a block
-constexpr int kDvThreads = 128;  // bwd_dv: key columns a block
 
 // What the head count decides: the m16 tiles a row's heads fill, the heads
 // a warp takes outside the products, the warps that share one C2 tile (each
@@ -162,46 +160,6 @@ __device__ __forceinline__ void copy_x2d(T* xs, const T* x2d_b, int i0, int j0, 
     const bool ok = i0 + r < Lq && j0 + jj < Lk;
     const T* src = ok ? x2d_b + ((size_t)(i0 + r) * Lk + j0 + jj) * Cp + c * kC : x2d_b;
     cp_async16_hint(xs + rj * stride + c * kC, src, ok ? 16 : 0, policy);
-  }
-}
-
-// The value terms of dphat, dv[b, h, i, j] = ct_s[b, h, i] . v_s[b, h, j] +
-// ct_p[b, h, i] . v_p[b, h, j], f32, for bwd_rows' scratch: a thread a key
-// column with its 40 values in registers, a block kDvRows query rows (their
-// cotangents in shared memory, read by every thread at once) of one (batch
-// element, head). Each sum in order, d then c, as the row kernels take it.
-template <typename T>
-__global__ void __launch_bounds__(kDvThreads)
-bwd_dv(const T* __restrict__ v_s, const float* __restrict__ v_p, const T* __restrict__ ct_s,
-       const float* __restrict__ ct_p, float* __restrict__ dvals, int Lq, int Lk) {
-  __shared__ float ct[kDvRows][kDK + kVp];
-  const size_t bh = blockIdx.z;
-  const int i0 = blockIdx.y * kDvRows, j = blockIdx.x * kDvThreads + threadIdx.x;
-  for (int e = threadIdx.x; e < kDvRows * (kDK + kVp); e += kDvThreads) {
-    const int r = e / (kDK + kVp), c = e % (kDK + kVp), i = min(i0 + r, Lq - 1);
-    ct[r][c] = c < kDK ? to_f(ct_s[(bh * Lq + i) * kDK + c]) : ct_p[(bh * Lq + i) * kVp + c - kDK];
-  }
-  __syncthreads();
-  if (j >= Lk) return;
-  float vs[kDK], vp[kVp];
-  load16(v_s + (bh * Lk + j) * kDK, vs);
-  const float4* vp4 = reinterpret_cast<const float4*>(v_p + (bh * Lk + j) * kVp);
-#pragma unroll
-  for (int c = 0; c < kVp / 4; ++c) {
-    const float4 v = vp4[c];
-    vp[4 * c] = v.x;
-    vp[4 * c + 1] = v.y;
-    vp[4 * c + 2] = v.z;
-    vp[4 * c + 3] = v.w;
-  }
-  const int nr = min(kDvRows, Lq - i0);
-  for (int r = 0; r < nr; ++r) {
-    float dv = 0.f;
-#pragma unroll
-    for (int d = 0; d < kDK; ++d) dv = fmaf(ct[r][d], vs[d], dv);
-#pragma unroll
-    for (int c = 0; c < kVp; ++c) dv = fmaf(ct[r][kDK + c], vp[c], dv);
-    dvals[(bh * Lq + i0 + r) * Lk + j] = dv;
   }
 }
 

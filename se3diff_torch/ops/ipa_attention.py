@@ -155,9 +155,9 @@ _BWD_ROUTE_SYMBOLS = {"bwd_tc": "ipa_attention_bwd_tc", "bwd_tc_f32": "ipa_atten
                       "bwd_tc8_f32": "ipa_attention_bwd_tc8_f32",
                       "bwd_h4": "ipa_attention_bwd_h4"}
 # The backward routes whose kernel forms g_wx2d = ct_pr @ w_pv^T itself,
-# taking ct_pr and w_pv (the row design of csrc/ipa_attention_bwd_rows.cuh,
-# at 32 and 16 heads).
-_BWD_FORMS_G = ("bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32")
+# taking ct_pr and w_pv: every streamed design (the row design of
+# csrc/ipa_attention_bwd_rows.cuh at 32 and 16 heads, bwd8_rows at 8).
+_BWD_FORMS_G = ("bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32", "bwd_tc8", "bwd_tc8_f32")
 # The tensor-core backward designs of the streamed pair bias, by head count
 # and dtype (Cp % 32 == 0).
 _BWD_TC_ROUTES = {(32, torch.bfloat16): "bwd_tc", (32, torch.float32): "bwd_tc_f32",
@@ -316,11 +316,10 @@ def _library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * 14 + [ci] * 8 + [cf, cf, vp]
                 fn.restype = ci
-            # Backward: bwd_tc8's 12 operands (g_wx2d last), 13 outputs and
-            # scratch; bwd_tc's and bwd_tc16's 13 (ct_pr and w_pv in place
-            # of g_wx2d); or bwd_h4's 13 operands (w_pb in, no pa), 9
-            # outputs (d_w_pv and d_w_pb, no d_pa) and 3 scratch; 6 sizes, 2
-            # weights, the stream.
+            # Backward: the streamed designs' 13 operands (ct_pr and w_pv
+            # last), 13 outputs and scratch; or bwd_h4's 13 operands (w_pb
+            # in, no pa), 9 outputs (d_w_pv and d_w_pb, no d_pa) and 3
+            # scratch; 6 sizes, 2 weights, the stream.
             for route, name in _BWD_ROUTE_SYMBOLS.items():
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * (26 if route in _BWD_FORMS_G else 25) + [ci] * 6 + [cf, cf, vp]
@@ -353,6 +352,10 @@ def _library() -> ctypes.CDLL:
                          "ipa_attention_bwd_tc8_f32_blocks_per_sm",
                          "ipa_attention_tc16_f32_blocks_per_sm"):
                 getattr(lib, name).argtypes = [ci]
+                getattr(lib, name).restype = ci
+            for name in ("ipa_attention_bwd_tc8_cols_blocks_per_sm",
+                         "ipa_attention_bwd_tc8_f32_cols_blocks_per_sm"):
+                getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = ci
             _lib = lib
         return _lib
@@ -665,10 +668,10 @@ def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, co
     """:func:`_launch_backward` with the streamed pair bias: the kernel
     ``csrc/ipa_attention_bwd_tc.cu`` at 32 heads,
     ``csrc/ipa_attention_bwd_tc16.cu`` at 16,
-    ``csrc/ipa_attention_bwd_tc8.cu`` at 8. The plain products around it go
-    to ``torch.bmm``, as JAX leaves them to XLA: ``d_w_pv = wx2d^T ct_pr``
-    after it, and at 8 heads ``g_wx2d = ct_pr @ w_pv^T`` before it (the
-    32- and 16-head kernels form g themselves). Returns ten gradients."""
+    ``csrc/ipa_attention_bwd_tc8.cu`` at 8, each forming ``g_wx2d = ct_pr
+    @ w_pv^T`` itself. The plain product after it, ``d_w_pv = wx2d^T
+    ct_pr``, goes to ``torch.bmm``, as JAX leaves it to XLA. Returns ten
+    gradients."""
     q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs
     _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, None)
     B, H, Lq, dk = q_s.shape
@@ -681,13 +684,9 @@ def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, co
     if any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, pa, ct_s, ct_p)):
         raise ValueError("the backward kernel needs 16-byte aligned q_s, v_s, v_p, pa and cotangents")
     ct_pr_h = ct_pr.transpose(0, 1).reshape(H, B * Lq, dk)      # heads first
-    if route in _BWD_FORMS_G:  # ct_pr and w_pv, for g formed in the kernel
-        w_pv_in = w_pv.contiguous()
-        if w_pv_in.data_ptr() % 16:
-            raise ValueError(f"the {H}-head backward kernel needs a 16-byte aligned w_pv")
-        g_in = (ct_pr, w_pv_in)
-    else:
-        g_in = (torch.bmm(ct_pr_h, w_pv.to(f32).transpose(1, 2)),)   # g_wx2d [H, B*Lq, Cp]
+    w_pv_in = w_pv.contiguous()  # with ct_pr, for g formed in the kernel
+    if w_pv_in.data_ptr() % 16:
+        raise ValueError(f"the {H}-head backward kernel needs a 16-byte aligned w_pv")
     d_qs, d_ks, d_vs = torch.empty_like(q_s), torch.empty_like(k_s), torch.empty_like(v_s)
     d_qp, d_kp, d_vp = torch.empty_like(q_p), torch.empty_like(k_p), torch.empty_like(v_p)
     d_x2d, d_pa = torch.empty_like(x2d), torch.empty_like(pa)
@@ -698,8 +697,8 @@ def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, co
     with torch.cuda.device(dev):
         err = getattr(lib, _BWD_ROUTE_SYMBOLS[route])(
             *(t.data_ptr() for t in (q_s, k_s, v_s, q_p, k_p, v_p, x2d, bias, pa, ct_s, ct_p,
-                                     *g_in, d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_pa,
-                                     wx2d, ds, logits, dvals, stats)),
+                                     ct_pr, w_pv_in, d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d,
+                                     d_pa, wx2d, ds, logits, dvals, stats)),
             B, H, Lq, Lk, dk, Cp, float(scalar_w), float(pair_w),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -792,8 +791,8 @@ def _tf32(x, trunc=False):
 def _terms(x, model_dtype, trunc=False):
     """The two terms the backward kernel feeds its tensor cores for an f32
     operand ``x``: bf16 ``hi + lo`` for a bf16 model, TF32 ``big + small``
-    for an f32 one (``trunc``: both terms truncated, the split of the row
-    design at 32 and 16 heads and of bwd_h4)."""
+    for an f32 one (``trunc``: both terms truncated, the split of the
+    streamed designs at 32, 16 and 8 heads and of bwd_h4)."""
     if model_dtype == torch.bfloat16:
         hi = x.to(torch.bfloat16).float()
         return hi, (x - hi).to(torch.bfloat16).float()
@@ -829,8 +828,8 @@ def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_
     from the saved statistics) and ``ds``; point distances are explicit
     differences; and the three x2d contractions take their operands as the
     tensor cores do (:func:`_tc_einsum`: bf16 x2d exact, f32 operands as
-    two bf16 terms; in f32, 3xTF32, its terms truncated at 32 and 16 heads
-    and rounded to nearest at 8). Same arguments and result as
+    two bf16 terms; in f32, 3xTF32, its terms truncated at 32, 16 and 8
+    heads). Same arguments and result as
     :func:`ipa_attention_backward`, ``pa`` given."""
     q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa = inputs[:10]
     ct_s, ct_p, ct_pr = grad_outputs
@@ -857,7 +856,7 @@ def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_
 
     # Sweep 2: wx2d and D from row aggregates.
     g = torch.einsum("bhid,hpd->bhip", ct_pr.float(), w_pv.float())
-    trunc = H in (32, 16)  # the row design (bwd_rows) splits f32 operands by truncation
+    trunc = H in (32, 16, 8)  # the streamed designs split f32 operands by truncation
     wx2d = _tc_einsum("bhij,bijp->bhip", a, x, dt, b_exact=bf, trunc=trunc)
     dv = (torch.einsum("bhid,bhjd->bhij", ct_s.float(), v_s.float())
           + torch.einsum("bhic,bhjc->bhij", ct_p.float(), v_p.float()))

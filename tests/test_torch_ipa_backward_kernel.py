@@ -7,7 +7,7 @@ JAX ``_fused_backward_chunked`` and against ``ipa_attention_backward``.
 statistics sweep over key tiles of 16, D from the row aggregate wx2d, the
 column sums from the saved statistics and ds, explicit point differences,
 and the tensor cores' operand roundings (bf16: f32 operands as two bf16
-terms, x2d exact; f32: 3xTF32, split by truncation at 32 and 16 heads). The kernel runs on the card only; this
+terms, x2d exact; f32: 3xTF32, split by truncation at 32, 16 and 8 heads). The kernel runs on the card only; this
 holds its arithmetic here on the same numpy inputs, in the kernel layout,
 with the streamed pair bias.
 
@@ -83,9 +83,10 @@ def _assert_close(name, got, want, dtype):
 # slab), key tiles ragged at 16 (Lk = 20, 37, 24), masked columns, and the
 # kernels' own widths (Cp = 64 at 32 heads of 16, ipa_attention_bwd_tc.cu,
 # and at a tensor-parallel rank's 16, ipa_attention_bwd_tc16.cu, and 8,
-# ipa_attention_bwd_tc8.cu). At 32 and 16 heads also an odd row count (the
-# last row block of two half empty) with Lk = 33 and 42, ragged at a lane's
-# four columns of a tile, at the smallest and a middle Cp.
+# ipa_attention_bwd_tc8.cu). At 32, 16 and 8 heads also an odd row count
+# (the last row block, of two rows at 32 and 16 heads and of four at 8, one
+# row full) with Lk = 33 and 42, ragged at a lane's four columns of a tile,
+# at the smallest and a middle Cp.
 CASES = [
     ("float32", 2, 16, 16, 0, 4, 8, 32),
     ("float32", 1, 12, 37, 5, 4, 8, 32),
@@ -101,6 +102,8 @@ CASES = [
     ("bfloat16", 1, 7, 19, 2, 8, 16, 64),
     ("float32", 2, 5, 33, 1, 16, 16, 32),
     ("bfloat16", 1, 3, 42, 6, 16, 16, 96),
+    ("float32", 2, 5, 33, 1, 8, 16, 32),
+    ("bfloat16", 1, 3, 42, 6, 8, 16, 96),
 ]
 
 

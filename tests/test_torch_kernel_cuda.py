@@ -11,7 +11,7 @@ CUDA-core design on the same inputs; and the backward kernel (streamed
 heads "bwd_tc16" and "bwd_tc16_f32"; at 8 heads "bwd_tc8" and
 "bwd_tc8_f32") against
 the PyTorch backward ``ipa_attention_backward`` and against itself, bit for
-bit, on a second call; and the backward kernel at the PPFT control net's
+bit, on a second call (the 8-head column kernel's row split too); and the backward kernel at the PPFT control net's
 widths (route "bwd_h4": f32, 4 heads, ``w_pb``) against autograd of the
 plain version and against itself.
 
@@ -386,7 +386,8 @@ def test_backward_kernel_is_deterministic(cuda_device, B, Lq, Lk, masked, dtype,
 def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device, route, rows):
     """The library's row kernel's and the shared column kernel's shared
     memory at Cp=256 are what the source's header states; every design's
-    row kernel keeps two blocks resident an SM in both dtypes."""
+    row kernel keeps two blocks resident an SM in both dtypes, and so does
+    the 8-head column kernel, whose rows are split over warps."""
     import re
     from pathlib import Path
 
@@ -401,19 +402,25 @@ def test_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device, r
     assert lib.ipa_attention_bwd_cols_smem_bytes() == col
     assert getattr(lib, f"ipa_attention_{route}_blocks_per_sm")(256) == 2
     assert getattr(lib, f"ipa_attention_{route}_f32_blocks_per_sm")(256) == 2
+    if route == "bwd_tc8":
+        assert lib.ipa_attention_bwd_tc8_cols_blocks_per_sm() == 2
+        assert lib.ipa_attention_bwd_tc8_f32_cols_blocks_per_sm() == 2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bwd_tc16"),
-                                         (torch.float32, "bwd_tc16_f32")])
-def test_16_head_backward_forms_g_in_its_row_kernel(cuda_device, dtype, route):
-    """The 16-head backward forms g = ct_pr @ w_pv^T in its row kernel: a
-    call at the model=2 step's B=16 L=100 runs one ``bmm`` (d_w_pv's) and
-    allocates no f32 [16, B Lq, Cp] tensor for g, its peak beyond the
-    operands within the gradients, the kernel's scratch (wx2d; logits, dv
-    and ds; the row statistics), d_w_pv's partials and half of g's 26.2 MB
-    (the cotangents' f32 and head-first copies take a few MB)."""
-    B, L, H, CP = 16, 100, 16, 256
+@pytest.mark.parametrize("dtype,route,H", [(torch.bfloat16, "bwd_tc16", 16),
+                                           (torch.float32, "bwd_tc16_f32", 16),
+                                           (torch.bfloat16, "bwd_tc8", 8),
+                                           (torch.float32, "bwd_tc8_f32", 8)])
+def test_16_and_8_head_backward_form_g_in_their_row_kernels(cuda_device, dtype, route, H):
+    """The 16- and 8-head backward form g = ct_pr @ w_pv^T in their row
+    kernels: a call at the model=2 and model=4 steps' B=16 L=100 runs one
+    ``bmm`` (d_w_pv's) and allocates no f32 [H, B Lq, Cp] tensor for g, its
+    peak beyond the operands within the gradients, the kernel's scratch
+    (wx2d; logits, dv and ds; the row statistics), d_w_pv's partials and
+    half of g's 26.2 MB at 16 heads, 13.1 MB at 8 (the cotangents' f32 and
+    head-first copies take a few MB)."""
+    B, L, CP = 16, 100, 256
     args = _args(cuda_device, B, L, L, dtype, 0, H=H, CP=CP)[:10]
     cts = _cotangents(args)
     assert k1.backward_route(dtype, H, DK, CP, True) == route
@@ -436,6 +443,30 @@ def test_16_head_backward_forms_g_in_its_row_kernel(cuda_device, dtype, route):
     scratch = g_bytes + 3 * B * H * L * L * 4 + B * H * L * 2 * 4 + H * B * CP * DK * 4
     out = sum(g.numel() * g.element_size() for g in grads if g is not None)
     assert peak < out + scratch + g_bytes // 2, (peak, out, scratch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bwd_tc8"),
+                                         (torch.float32, "bwd_tc8_f32")])
+def test_8_head_column_kernel_is_deterministic(cuda_device, dtype, route):
+    """The 8-head column kernel splits each head's query rows over four
+    warps and adds their parts in a fixed order: at B=40 L=77 with 9 masked
+    columns (every part ragged at its end) two calls give the column sums
+    (d_k_s, d_v_s, d_k_p, d_v_p) bit for bit, and they agree with the
+    PyTorch backward's within the route's tolerance."""
+    args = _args(cuda_device, 40, 77, 77, dtype, 9, H=8, CP=256)[:10]
+    cts = _cotangents(args)
+    assert k1.backward_route(dtype, 8, DK, 256, True) == route
+    first = k1._launch_backward(args, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    second = k1._launch_backward(args, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    want = k1.ipa_attention_backward(args, cts, **KW)
+    torch.cuda.synchronize()
+    tol = {r: t for _, r, _, t in BWD_ROUTES}[route]
+    for name in ("k_s", "v_s", "k_p", "v_p"):
+        i = NAMES.index(name)
+        assert torch.equal(first[i], second[i]), name
+        err = (first[i].float() - want[i].float()).abs().max().item()
+        assert err <= tol * max(want[i].float().abs().max().item(), 1e-2), name
 
 
 @pytest.mark.cuda

@@ -140,10 +140,10 @@ def test_backward_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp
 
 def test_each_backward_symbol_has_exactly_one_extern_c_definition():
     """Every backward route's C symbol is defined once across ``csrc/*.cu``,
-    inside an ``extern "C"`` block of its design's source, with the 34
-    arguments the binding declares (35 for the 32- and 16-head designs,
-    which take ct_pr and w_pv in place of g_wx2d); the counts hold one entry
-    a backward route and "torch"."""
+    inside an ``extern "C"`` block of its design's source, with the
+    arguments the binding declares (35 for the streamed designs at 32, 16
+    and 8 heads, which take ct_pr and w_pv; 34 for bwd_h4); the counts hold
+    one entry a backward route and "torch"."""
     sources = {"bwd_tc": "ipa_attention_bwd_tc.cu", "bwd_tc_f32": "ipa_attention_bwd_tc.cu",
                "bwd_tc16": "ipa_attention_bwd_tc16.cu",
                "bwd_tc16_f32": "ipa_attention_bwd_tc16.cu",
@@ -156,8 +156,6 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
             for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', text, re.S):
                 for m in re.finditer(rf"\bint {symbol}\(", block):
                     signature = block[m.start():]
-                    # The 32- and 16-head designs take ct_pr and w_pv in place
-                    # of g_wx2d.
                     commas = 34 if route in k1._BWD_FORMS_G else 33
                     assert signature[:signature.index(")")].count(",") == commas, symbol
                     found.append(path.name)
@@ -173,7 +171,8 @@ def test_backward_kernel_source_states_widths_and_shared_memory():
     header all include; the 32- and 16-head sources instantiate the row
     design of ``ipa_attention_bwd_rows.cuh`` at their head count), and the
     shared memory its row kernel states fits two blocks an SM on Hopper; the
-    shared column kernel's grid follows the heads."""
+    shared column kernel's grid follows the heads (at 8 heads, the heads by
+    the row parts each head's sums are split over)."""
     common = (CSRC / "ipa_attention_bwd_common.cuh").read_text()
     assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in common
     assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in common
@@ -186,7 +185,9 @@ def test_backward_kernel_source_states_widths_and_shared_memory():
         assert f"constexpr int kH = {heads};" in text, name
         if heads == 8:
             assert '#include "ipa_attention_bwd_common.cuh"' in text, name
-            assert "const dim3 cgrid((Lk + 31) / 32, kH / kColHeads, B);" in text, name
+            assert "constexpr int kColParts = H == 8 ? 4 : 1;" in common
+            assert ("const dim3 cgrid((Lk + 31) / 32, kH * kColParts<kH> / kColHeads, B);"
+                    in text), name
             assert "bwd_cols<T, kH><<<cgrid" in text, name
         else:
             assert '#include "ipa_attention_bwd_rows.cuh"' in text, name
