@@ -9,7 +9,7 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 1. device and build: the card's name and power limit; build the IPA
    attention kernels from ``se3diff_torch/csrc`` with nvcc, one process a
    source (time, ptxas report: registers, spills and shared memory of the
-   "tc", "tc_f32", "h4", "tc16", "tc16_f32", "tc8" and "tc8_f32" kernels,
+   "tc", "tc_f32", "tc_pb", "tc_pb_f32", "h4", "tc16", "tc16_f32", "tc8" and "tc8_f32" kernels,
    the 16- and 8-head designs' resident blocks an SM, the backward kernels'
    value-term, row and column
    kernels, "bwd_tc" and "bwd_tc_f32", "bwd_tc16" and "bwd_tc16_f32",
@@ -88,8 +88,15 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    the same seed. The f32 score and DP launches all take "tc_f32". Two ranks on one card show correctness and per-rank
    memory, not multi-GPU speed;
 11. ``[k1-inkernel]``: K1 with the pair bias computed in the kernel
-   (``w_pb``, has_pa=False) against the plain version at full width (B=40,
-   L=100, 32 heads, Cp=256, bf16 and f32), at the PPFT control net's width
+   (``w_pb``, has_pa=False) at 32 heads on the "tc_pb" (bf16) and
+   "tc_pb_f32" (f32) designs, their counts zeroed before and each case one
+   counted launch: B=40 L=100 Cp=256, L=57 with 5 masked columns, Cp=96,
+   and the SP path's B=4 L=300 as 2 row slabs, each against the plain
+   version and the CUDA-core design (``TOL``), timed in turns with the
+   CUDA-core design and the two-step (pa by ``torch.matmul``, then the
+   streamed design), beside its bytes bound and its operations on the
+   design's units and all in f32, with the card's name and power limit;
+   then against the plain version at the PPFT control net's width
    (B=256, L=56, 4 heads, Cp=32, f32) and ragged and masked at L=57; the
    streamed variant at 4 heads, and at 8 and 16 heads (bf16 and f32);
    in-kernel row slabs at 4 heads; every 4-head in-kernel f32 case and
@@ -322,17 +329,26 @@ DP_DENOISER = {"_target_": "dpm_solver_pp2m", "num_steps": 30, "max_t": 0.5, "mi
 DP_TOL = 2e-4
 # K1 with the pair bias computed in the kernel (has_pa=False), and K1 at the
 # control net's 4 heads: (B, L, heads, Cp, dtype, masked columns, in-kernel).
-# (a) full width, (b) the control net's width at the PPFT path's batch, (c)
-# ragged and masked, (d) at the PPFT CLI run's path batch of 64 and at the
-# "h4" design's largest Cp; then the streamed variant at 4 heads.
-INKERNEL_CASES = [(40, 100, 32, 256, "bfloat16", 0, True), (40, 100, 32, 256, "float32", 0, True),
-                  (256, 56, 4, 32, "float32", 0, True), (40, 57, 32, 256, "bfloat16", 5, True),
+# (a) the control net's width at the PPFT path's batch, (b) ragged and
+# masked, (c) at the PPFT CLI run's path batch of 64 and at the "h4"
+# design's largest Cp, (d) the in-kernel pair bias at 16 and 8 heads (still
+# "simt"); then the streamed variant at 4 heads.
+INKERNEL_CASES = [(256, 56, 4, 32, "float32", 0, True),
                   (256, 57, 4, 32, "float32", 5, True), (64, 56, 4, 32, "float32", 0, True),
+                  *[(40, 100, H, 256, dt, 0, True) for H in (16, 8) for dt in ("bfloat16", "float32")],
                   (256, 56, 4, 64, "float32", 0, True), (256, 56, 4, 32, "float32", 0, False),
                   (256, 57, 4, 32, "float32", 5, False),
                   (40, 100, 8, 256, "bfloat16", 0, False), (40, 100, 8, 256, "float32", 0, False),
                   (40, 77, 8, 256, "bfloat16", 9, False), (40, 77, 8, 256, "float32", 9, False),
                   (40, 77, 16, 256, "bfloat16", 9, False), (40, 77, 16, 256, "float32", 9, False)]
+# The in-kernel pair bias at 32 heads (routes "tc_pb" bf16, "tc_pb_f32"
+# f32): (B, L, Cp, dtype, masked columns) at full width, L=57 masked (a
+# ragged last key tile and row block) and Cp=96; then (B, L, slabs): the SP
+# path's shape as row slabs in both dtypes.
+PB32_ROUTES = {"bfloat16": "tc_pb", "float32": "tc_pb_f32"}
+PB32_CASES = [(40, 100, 256, dt, 0) for dt in PB32_ROUTES] + [
+    (40, 57, 256, dt, 5) for dt in PB32_ROUTES] + [(40, 100, 96, dt, 0) for dt in PB32_ROUTES]
+PB32_SLAB = (4, 300, 2)
 # K1's gradient with the in-kernel pair bias: (B, L, heads, Cp, dtype, masked
 # columns, query rows). At 4 heads in f32 the backward takes the kernel
 # "bwd_h4": the PPFT step's batch (the first, the kernels line's shape), the
@@ -547,6 +563,27 @@ def k1_bound(args, outs, dtype_name):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def k1_pb32_ops_ms(args, dtype_name):
+    """The in-kernel 32-head designs' operations as times (ms): on the units
+    the design runs them on, and all in f32 on CUDA cores. The design runs
+    the x2d aggregate and the pair bias (2 Cp operations each a head, row
+    and column) on tensor cores, bf16 operands once ("tc_pb") or three TF32
+    terms ("tc_pb_f32"); the finalize's projection (2 Cp dk a head and row)
+    in two bf16 terms on tensor cores in bf16, on CUDA cores in f32; the
+    rest (``k1_bound``'s per-pair terms) in f32 on CUDA cores."""
+    q_s, k_s, x2d = args[0], args[1], args[6]
+    B, H, Lq, dk = q_s.shape
+    Lk, cp = k_s.shape[2], x2d.shape[-1]
+    pairs = B * H * Lq * Lk
+    rest, contractions, projection = pairs * (4 * dk + 44 + 8 + 48), pairs * 4 * cp, B * H * Lq * 2 * cp * dk
+    f32 = H100_OPS_PER_S["float32"]
+    if dtype_name == "bfloat16":
+        design = (contractions + 2 * projection) / H100_OPS_PER_S["bfloat16"] + rest / f32
+    else:
+        design = 3 * contractions / H100_TF32_OPS_PER_S + (projection + rest) / f32
+    return design * 1e3, (contractions + projection + rest) / f32 * 1e3
+
+
 def only_routes(k1, **counts):
     """K1's launches by route as ``counts`` on the routes named and none on
     any other."""
@@ -587,9 +624,16 @@ def phase_build():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"[build] ptxas: {line.strip()}")
     lib = k1._library()
-    ptxas = {"tc": ptxas_summary(report, "ipa_attention_tc_kernel"),
-             "tc_f32": ptxas_summary(report, "ipa_attention_tc_f32_kernel")
+    # The 32-head sources' template instances: the streamed pair bias
+    # (ILb0E) and the in-kernel one (ILb1E, routes "tc_pb", "tc_pb_f32").
+    ptxas = {"tc": ptxas_summary(report, "ipa_attention_tc_kernelILb0E"),
+             "tc_f32": ptxas_summary(report, "ipa_attention_tc_f32_kernelILb0E")
              + f"; dynamic shared memory {lib.ipa_attention_tc_f32_smem_bytes(256)} bytes at Cp=256",
+             "tc_pb": ptxas_summary(report, "ipa_attention_tc_kernelILb1E")
+             + f"; dynamic shared memory {lib.ipa_attention_tc_pb_smem_bytes(256)} bytes at Cp=256",
+             "tc_pb_f32": ptxas_summary(report, "ipa_attention_tc_f32_kernelILb1E")
+             + f"; dynamic shared memory {lib.ipa_attention_tc_pb_f32_smem_bytes(256)} bytes at "
+             "Cp=256",
              **{r: ptxas_summary(report, f"ipa_attention_{r}_kernel") + "; dynamic shared memory "
                 f"{getattr(lib, f'ipa_attention_{r}_smem_bytes')(256)} bytes at Cp=256, "
                 f"{getattr(lib, f'ipa_attention_{r}_blocks_per_sm')(256)} blocks an SM resident"
@@ -633,8 +677,9 @@ def phase_build():
     ptxas["bwd_h4"] = (
         f"{h4_rows} | pre: {ptxas_summary(report, 'bwd_h4_pre')} | cols: "
         f"{ptxas_summary(report, 'bwd_h4_cols')} | wsum: {ptxas_summary(report, 'bwd_h4_wsum')}")
-    for route in ("tc_f32", "h4", "tc16", "tc16_f32", "tc8", "tc8_f32", "bwd_tc", "bwd_tc_f32",
-                  "bwd_tc16", "bwd_tc16_f32", "bwd_tc8", "bwd_tc8_f32", "bwd_h4"):
+    for route in ("tc", "tc_f32", "tc_pb", "tc_pb_f32", "h4", "tc16", "tc16_f32", "tc8", "tc8_f32",
+                  "bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32", "bwd_tc8", "bwd_tc8_f32",
+                  "bwd_h4"):
         log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
 
@@ -1104,7 +1149,10 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
                       + ("bit for bit equal to the first" if identical else "DIFFERS from the first"))
     plain_bwd_ms = cuda_time_ms(
         lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
-    fwd_bound, fwd_by, _, _ = k1_bound(plain_args, outs, dname)
+    fwd_bound, fwd_by, _, _ = (
+        k1_pb32_bound(plain_args, outs, dname)[:4]
+        if k1.kernel_route(getattr(torch, dname), H, 16, cp, not in_kernel) in PB32_ROUTES.values()
+        else k1_bound(plain_args, outs, dname))
     bwd_bound, bwd_by, nbytes, ops, design_ms = k1_bwd_bound(plain_args, cts, grads, route)
     bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_OPS_PER_S["float32"] * 1e3
     del plain_outs, outs, got
@@ -1686,14 +1734,157 @@ def phase_parallel(k1, card):
     return [run["launches"] for run in sp_runs]
 
 
-def phase_inkernel(k1, ptxas):
+def _pb32_timed(k1, args, route, dname):
+    """An in-kernel 32-head launch of ``route`` timed in turns (route, simt,
+    two-step, twice) with the CUDA-core design and with the two-step a
+    caller could run without the variant (pa = x2d @ w_pb by one
+    ``torch.matmul`` in the model dtype, then the streamed tensor-core
+    design), all uncounted on the same inputs. Returns the times and each
+    yardstick's error against the route's outputs, and those outputs."""
+    import torch
+
+    kw = K1_KW
+    B, H, Lq, _ = args[0].shape
+    Lk, cp = args[1].shape[2], args[6].shape[-1]
+    w_pb_t = args[10].t().to(args[6].dtype)                  # [H, Cp], rounded to x2d's dtype
+    x2d_t = args[6].view(B, Lq * Lk, cp).transpose(1, 2)     # [B, Cp, Lq*Lk]
+    streamed = "tc" if dname == "bfloat16" else "tc_f32"
+
+    def new():
+        return k1._launch_design(route, *args, **kw)
+
+    def prev():
+        return k1._launch_design("simt", *args, **kw)
+
+    def two_step():
+        pa = torch.matmul(w_pb_t, x2d_t).view(B, H, Lq, Lk)
+        return k1._launch_design(streamed, *args[:9], pa, **kw)
+
+    ref = new()
+    prev_err, two_err = max_err(ref, prev())[0], max_err(ref, two_step())[0]
+    times = [cuda_time_ms(fn, reps=20) for fn in (new, prev, two_step) * 2]
+    return dict(ms=(times[0] + times[3]) / 2, prev_ms=(times[1] + times[4]) / 2,
+                twostep_ms=(times[2] + times[5]) / 2, err_vs_prev=prev_err,
+                err_vs_twostep=two_err, times=times, design=route), ref
+
+
+def k1_pb32_bound(args, outs, dname):
+    """The in-kernel 32-head designs' bound: the larger of the bytes bound
+    and the operations on the units the design runs them on (``bound_ms``,
+    ``bound_by``), with the bytes and operations it is made of, the bytes
+    time, the design's operations time and every operation priced in f32 on
+    CUDA cores."""
+    _, _, nbytes, ops = k1_bound(args, outs, dname)
+    design_ms, f32_ms = k1_pb32_ops_ms(args, dname)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    bound_by = "bytes" if bytes_ms >= design_ms else "operations"
+    return max(bytes_ms, design_ms), bound_by, nbytes, ops, bytes_ms, design_ms, f32_ms
+
+
+def _pb32_log(tag, res, args, outs, dname, card):
+    """The readings of an in-kernel 32-head case: times in turns, bounds
+    (``k1_pb32_bound``; ``ops_bound_ms`` is the all-f32 price, kept beside
+    it)."""
+    bound_ms, bound_by, nbytes, ops, bytes_ms, design_ms, f32_ms = k1_pb32_bound(args, outs, dname)
+    t = res["times"]
+    log(f"[k1-inkernel] {tag}: route {res['design']} ms={res['ms']:.4f} ({t[0]:.4f}, {t[3]:.4f}) "
+        f"prev_ms={res['prev_ms']:.4f} ({t[1]:.4f}, {t[4]:.4f}; simt, {res['prev_ms'] / res['ms']:.2f}x) "
+        f"twostep_ms={res['twostep_ms']:.4f} ({t[2]:.4f}, {t[5]:.4f}; pa by torch.matmul then "
+        f"{'tc' if dname == 'bfloat16' else 'tc_f32'}, {res['twostep_ms'] / res['ms']:.2f}x) "
+        f"max_abs_err vs simt {res['err_vs_prev']:.3e}, vs the two-step {res['err_vs_twostep']:.3e}; "
+        f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; "
+        f"{res['ms'] / bound_ms:.1f}x the bound) bytes_bound_ms={bytes_ms:.4f} "
+        f"design_ops_ms={design_ms:.4f} ops_bound_ms={f32_ms:.4f} (all f32) library_ms=null (no "
+        f"single PyTorch call computes this function); {card}")
+    res.update(bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=bytes_ms,
+               design_ops_ms=design_ms, ops_bound_ms=f32_ms)
+
+
+def _pb32_case(k1, gen, B, L, cp, dname, masked, card):
+    """One in-kernel 32-head case: one counted launch of the route's design
+    against the plain version and the CUDA-core design (each fatal beyond
+    ``TOL``), then its time in turns with the CUDA-core design and the
+    two-step, beside the plain version's and the bounds."""
+    import torch
+
+    dtype, route = getattr(torch, dname), PB32_ROUTES[dname]
+    args = k1_inputs(B, L, dtype, gen, masked, cp=cp, in_kernel=True)
+    if k1.kernel_route(dtype, 32, 16, cp, False) != route:
+        raise AssertionError(f"in-kernel K1 at 32 heads, Cp={cp}, {dname} takes route "
+                             f"{k1.kernel_route(dtype, 32, 16, cp, False)!r}, not {route!r}")
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **K1_KW)
+    torch.cuda.synchronize()
+    if k1.launches_by_route != {**before, route: before[route] + 1}:
+        raise AssertionError(f"in-kernel ipa_attention at 32 heads did not launch {route!r} once")
+    want = k1.ipa_attention_plain(*args, **K1_KW)
+    err, scale = max_err(got, want)
+    tol = TOL[dname] * scale
+    res, _ = _pb32_timed(k1, args, route, dname)
+    res.update(max_abs_err=err, plain_ms=cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **K1_KW),
+                                                      reps=5))
+    _pb32_log(f"has_pa=False B={B} L={L} H=32 Cp={cp} {dname} masked_cols={masked}: "
+              f"max_abs_err={err:.3e} (tol {tol:.3e}) plain_ms={res['plain_ms']:.4f}", res, args,
+              got, dname, card)
+    if not (err <= tol and res["err_vs_prev"] <= tol):
+        raise AssertionError(f"{route} disagrees with the plain version ({err:.3e}) or the "
+                             f"CUDA-core design ({res['err_vs_prev']:.3e}) beyond {tol:.3e}")
+    if (B, L, cp) == PB32_CASES[0][:3] and not res["ms"] < res["prev_ms"]:
+        raise AssertionError(f"{route} ({res['ms']:.4f} ms) is not faster than simt "
+                             f"({res['prev_ms']:.4f} ms) on the same inputs")
+    return res
+
+
+def _pb32_slabs(k1, gen, dname, card):
+    """The SP path's shape as row slabs with the in-kernel pair bias at 32
+    heads (``sp_ipa_attention`` with ``pa=None``): each slab one counted
+    launch of the route's design, the slabs together against the plain
+    version on all rows (fatal beyond ``TOL``), the first slab timed in
+    turns with the CUDA-core design and the two-step."""
+    import torch
+
+    from se3diff_torch.parallel.mesh import row_slabs
+
+    dtype, route = getattr(torch, dname), PB32_ROUTES[dname]
+    B, L, n = PB32_SLAB
+    args = k1_inputs(B, L, dtype, gen, 0, in_kernel=True)
+    want = k1.ipa_attention_plain(*args, **K1_KW)
+    got, res = [], None
+    for r0, r1 in row_slabs(L, n):
+        slab = list(args)
+        slab[0], slab[3], slab[6] = (args[0][:, :, r0:r1].contiguous(),
+                                     args[3][..., r0:r1].contiguous(), args[6][:, r0:r1].contiguous())
+        before = dict(k1.launches_by_route)
+        got.append(k1.sp_ipa_attention((r0, r1), *slab, **K1_KW))
+        torch.cuda.synchronize()
+        if k1.launches_by_route != {**before, route: before[route] + 1}:
+            raise AssertionError(f"an in-kernel 32-head slab did not launch {route!r} once")
+        if res is None:
+            res, _ = _pb32_timed(k1, slab, route, dname)
+            res.update(plain_ms=cuda_time_ms(lambda: k1.ipa_attention_plain(*slab, **K1_KW), reps=5))
+            _pb32_log(f"sp_ipa_attention has_pa=False B={B} L={L} H=32 {dname}, slab rows {r0}:{r1} "
+                      f"plain_ms={res['plain_ms']:.4f}", res, slab, got[-1], dname, card)
+    got = [torch.cat([o[i] for o in got], dim=2) for i in range(3)]
+    err, scale = max_err(got, want)
+    log(f"[k1-inkernel] sp_ipa_attention has_pa=False B={B} L={L} H=32 {dname}, {n} slabs: "
+        f"max_abs_err={err:.3e} (tol {TOL[dname] * scale:.3e})")
+    if not (err <= TOL[dname] * scale and res["err_vs_prev"] <= TOL[dname] * scale):
+        raise AssertionError(f"in-kernel 32-head slab launches disagree with the plain version "
+                             f"({err:.3e}) or simt ({res['err_vs_prev']:.3e})")
+    res.update(max_abs_err=err)
+    return res
+
+
+def phase_inkernel(k1, ptxas, card):
     """K1 with the pair bias computed in the kernel (has_pa=False) and K1 at
     the control net's 4 heads, against the plain version; row slabs of the
     in-kernel variant at 4 heads; the "h4" route timed in turns with the
-    CUDA-core design; the Function's gradients with ``w_pb`` against
-    autograd of the plain version (``_grad_case``: at 4 heads in f32 the
-    backward kernel "bwd_h4", against the PyTorch backward and itself,
-    timed in turns with the former). Returns per-case results."""
+    CUDA-core design; at 32 heads the "tc_pb" / "tc_pb_f32" designs (their
+    launch counts zeroed before and read after), timed in turns with the
+    CUDA-core design and the two-step; the Function's gradients with
+    ``w_pb`` against autograd of the plain version (``_grad_case``: at 4
+    heads in f32 the backward kernel "bwd_h4", against the PyTorch backward
+    and itself, timed in turns with the former). Returns per-case results."""
     import torch
 
     from se3diff_torch.parallel.mesh import row_slabs
@@ -1701,6 +1892,20 @@ def phase_inkernel(k1, ptxas):
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
     results = {}
+    # The in-kernel pair bias at 32 heads: every case and slab one counted
+    # launch of its dtype's route, and nothing else counted.
+    _reset_k1(k1)
+    for B, L, cp, dname, masked in PB32_CASES:
+        results[("pb32", B, L, cp, dname)] = _pb32_case(k1, gen, B, L, cp, dname, masked, card)
+    for dname in PB32_ROUTES:
+        results[("pb32_slab", dname)] = _pb32_slabs(k1, gen, dname, card)
+    per_route = {r: sum(1 for c in PB32_CASES if PB32_ROUTES[c[3]] == r) + PB32_SLAB[2]
+                 for r in PB32_ROUTES.values()}
+    if k1.launches_by_route != only_routes(k1, **per_route):
+        raise AssertionError(f"the 32-head in-kernel cases launched {k1.launches_by_route}, not "
+                             f"{per_route} on their routes alone")
+    results["pb32_launches"] = per_route
+    log(f"[k1-inkernel] 32 heads in-kernel: launches by route {per_route}, none on simt")
     for B, L, H, cp, dname, masked, in_kernel in INKERNEL_CASES:
         dtype = getattr(torch, dname)
         args = k1_inputs(B, L, dtype, gen, masked, H=H, cp=cp, in_kernel=in_kernel)
@@ -3246,11 +3451,27 @@ def _finite_or_nan(values):
     return all(isinstance(v, float) and (math.isfinite(v) or math.isnan(v)) for v in values)
 
 
+def _host_call_ms(fn, calls=200):
+    """The host's wall a call of ``fn()`` over ``calls`` calls enqueued back
+    to back (the device keeps up with short kernels), ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
 def _simt4_case(k1, gen):
     """K1 at the training example's shape on the card (B=8, L=8, 4 heads of
     16, Cp=16, f32, streamed pair bias: the "simt" design) against its plain
     version (fatal beyond ``TOL``), with its time, the plain version's and
-    the bound."""
+    the bound; beside it the launch floor: an empty kernel's device time
+    back to back (``torch.cuda._sleep(0)``), and the host's wall a call of
+    the wrapper and of the empty kernel."""
     import torch
 
     B, L, H, cp = BENCH_SIMT4_SHAPE
@@ -3269,15 +3490,21 @@ def _simt4_case(k1, gen):
     ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **K1_KW), reps=20)
     plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **K1_KW), reps=5)
     bound_ms, bound_by, nbytes, ops = k1_bound(args, got, "float32")
+    empty_ms = cuda_time_ms(lambda: torch.cuda._sleep(0), reps=20)
+    host_ms = _host_call_ms(lambda: k1._launch_design("simt", *args, **K1_KW))
+    empty_host_ms = _host_call_ms(lambda: torch.cuda._sleep(0))
     log(f"[bench-k1] 4 heads B={B} L={L} Cp={cp} f32 streamed (the training example's shape): "
         f"max_abs_err={err:.3e} (tol {tol:.3e}) route {route} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.5f} ({bound_by}; {nbytes / 1e3:.1f} kB, {ops / 1e6:.2f} MFLOP; "
         f"{ms / bound_ms:.0f}x the bound) library_ms=null (no single PyTorch call computes this "
-        f"function)")
+        f"function); an empty kernel back to back {empty_ms:.4f} ms on the device; the host's wall "
+        f"a call, enqueued back to back: the wrapper {host_ms:.4f} ms, the empty kernel "
+        f"{empty_host_ms:.4f} ms")
     if not err <= tol:
         raise AssertionError(f"the simt design disagrees with its plain version: {err} > {tol}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                design=route)
+                design=route, empty_kernel_ms=empty_ms, host_call_ms=host_ms,
+                empty_kernel_host_ms=empty_host_ms)
 
 
 def phase_bench(k1, ptxas, card):
@@ -3508,6 +3735,29 @@ def _h8_entry(case, path_name, path, l77):
     }
 
 
+def _pb32_entry(inkernel, dname):
+    """The kernels line's readings of an in-kernel 32-head design: its
+    launches in phase 11, its case at B=40 L=100 Cp=256 beside the CUDA-core
+    design (prev) and the two-step, with both operation bounds, and its
+    cases at L=57 masked, Cp=96 and the first of the SP path's row slabs."""
+    main = inkernel[("pb32", 40, 100, 256, dname)]
+    keys = ("ms", "prev_ms", "twostep_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    return {
+        "launches": inkernel["pb32_launches"][PB32_ROUTES[dname]],
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "verdict": "pass", "design": main["design"],
+        "prev_source": "se3diff_torch/csrc/ipa_attention.cu", "prev_ms": main["prev_ms"],
+        "max_abs_err_vs_prev": main["err_vs_prev"], "twostep_ms": main["twostep_ms"],
+        "max_abs_err_vs_twostep": main["err_vs_twostep"],
+        "bytes_bound_ms": main["bytes_bound_ms"], "design_ops_ms": main["design_ops_ms"],
+        "ops_bound_ms": main["ops_bound_ms"],
+        **{f"B40_L57_masked_{k}": inkernel[("pb32", 40, 57, 256, dname)][k] for k in keys},
+        **{f"Cp96_{k}": inkernel[("pb32", 40, 100, 96, dname)][k] for k in keys},
+        **{f"B4_L300_slab150_{k}": inkernel[("pb32_slab", dname)][k] for k in keys},
+    }
+
+
 def _bwd_keys(prefix, case):
     """A backward case's readings for the kernels line, under ``prefix``."""
     return {f"{prefix}_{k}": case[k] for k in ("ms", "torch_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3569,7 +3819,7 @@ def main() -> int:
     phase_train_throughput(k1, card)
     slab_results = phase_sp_kernel(k1)
     sp_rank_launches = phase_parallel(k1, card)
-    inkernel = phase_inkernel(k1, ptxas)
+    inkernel = phase_inkernel(k1, ptxas, card)
     files = phase_ppft_files()
     ppft_launches, ppft_backwards = phase_ppft_cli(k1, files, card)
     step = phase_ppft_step(k1, files, card)
@@ -3600,7 +3850,6 @@ def main() -> int:
     h4_case = inkernel[(PPFT_BATCH, 56, 4, 32, "float32", False)]
     ft_case = inkernel[(PPFT_BATCH, 56, 4, 32, "float32", True)]
     ft57_case = inkernel[(PPFT_BATCH, 57, 4, 32, "float32", True)]
-    ft32_case = inkernel[(40, 100, 32, 256, "bfloat16", True)]
     ft_bwd = inkernel[("grad",) + INKERNEL_GRAD_CASES[0][:5] + INKERNEL_GRAD_CASES[0][6:]]
     ft_bwd_cases = {c[:5] + c[6:]: inkernel[("grad",) + c[:5] + c[6:]] for c in INKERNEL_GRAD_CASES}
     h16_l77 = {dname: inkernel[(40, 77, 16, 256, dname, False)] for dname in H16_ROUTES}
@@ -3820,11 +4069,6 @@ def main() -> int:
         "L57_masked_max_abs_err": ft57_case["max_abs_err"],
         # The control net's K1 device time in the PPFT step's 10-step profile.
         "ppft_profile_ms": step["control_net_k1_ms"],
-        # Full width (simt): B=40, L=100, 32 heads, Cp=256, bf16.
-        "h32_max_abs_err": ft32_case["max_abs_err"],
-        "h32_ms": ft32_case["ms"],
-        "h32_plain_ms": ft32_case["plain_ms"],
-        "h32_bound_ms": ft32_case["bound_ms"],
         # The backward is the kernel "bwd_h4" (its own entry below).
         "backward_route": ft_bwd["route"],
         "backward_source": "se3diff_torch/csrc/ipa_attention_bwd_h4.cu",
@@ -3839,6 +4083,25 @@ def main() -> int:
         "backward_plain_ms": ft_bwd["plain_ms"],
         "backward_bound_ms": ft_bwd["bound_ms"],
         "backward_bound_by": ft_bwd["bound_by"],
+    }, {
+        # The in-kernel pair bias at 32 heads in bf16 (route tc_pb): phase
+        # 11's counted launches (the entry points ipa_attention and
+        # sp_ipa_attention with w_pb; no CLI path launches it), at B=40
+        # L=100 Cp=256; prev_ms is the CUDA-core design (prev_source) and
+        # twostep_ms pa by torch.matmul then the streamed design, both on the
+        # same inputs, timed in turns.
+        "name": "ipa_attention_in_kernel_pair_bias_32_heads",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_tc.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:399",
+        **_pb32_entry(inkernel, "bfloat16"),
+    }, {
+        # The same in f32 (route tc_pb_f32).
+        "name": "ipa_attention_in_kernel_pair_bias_32_heads_f32",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_tc_f32.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:399",
+        **_pb32_entry(inkernel, "float32"),
     }, {
         # K1 at a TP rank's 16 heads in bf16 (route tc16): the train CLI's 10
         # mesh steps at model=2 (phase 19 (b)), summed over its 2 ranks, at
@@ -3909,6 +4172,11 @@ def main() -> int:
         "library_ms": None,
         "verdict": "pass",
         "design": bench["simt4"]["design"],
+        # The launch floor in the same run: an empty kernel's device time back
+        # to back, and the host's wall a call (the wrapper, the empty kernel).
+        "empty_kernel_ms": bench["simt4"]["empty_kernel_ms"],
+        "host_call_ms": bench["simt4"]["host_call_ms"],
+        "empty_kernel_host_ms": bench["simt4"]["empty_kernel_host_ms"],
         "backward_route": "torch",
         "backward_source": "se3diff_torch/ops/ipa_attention.py",
         "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",

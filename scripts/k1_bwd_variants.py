@@ -532,7 +532,8 @@ def build(name: str, source: Path, headers, texts: list[str], nvcc: str,
     src, lib = OUT / name / source.name, OUT / f"{name}.so"
     for path, text in zip((source, *headers), texts):
         (OUT / name / path.name).write_text(text)
-    res = subprocess.run([nvcc, *flags, "-shared", "-o", str(lib), str(src)],
+    # Headers that no patch touches come from the checkout.
+    res = subprocess.run([nvcc, *flags, "-I", str(CSRC), "-shared", "-o", str(lib), str(src)],
                          capture_output=True, text=True)
     lines = (res.stdout + res.stderr).splitlines()
     report = "; ".join(x.split(":", 1)[-1].strip() for i, x in enumerate(lines)

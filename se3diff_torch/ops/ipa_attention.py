@@ -28,7 +28,7 @@ device of its operands alone: CPU tensors go through
 kernel or raise. The card takes the widths in :data:`CARD_WIDTHS` (4, 8,
 16 or 32 heads of width 16, ``Cp <= 256``, ``Cp % 4 == 0``);
 :func:`check_card_widths` holds a model config against them before a model
-is bound to the card. Eight kernel designs, all built with ``nvcc`` for
+is bound to the card. Ten kernel designs, all built with ``nvcc`` for
 ``sm_90a`` at first use into one library bound through ``ctypes``, and a
 static rule on the widths (:func:`kernel_route`) picks one:
 
@@ -38,6 +38,10 @@ static rule on the widths (:func:`kernel_route`) picks one:
 - ``"tc_f32"`` (``csrc/ipa_attention_tc_f32.cu``): the same widths in f32,
   the score model's launches at every CLI's default dtype: f32 tiles staged
   by ``cp.async``, the x2d aggregate on 3xTF32 ``mma.sync`` (f32 accuracy);
+- ``"tc_pb"`` and ``"tc_pb_f32"`` (the in-kernel variants of the same two
+  sources): the in-kernel pair bias at 32 heads and ``Cp % 32 == 0``, bf16
+  and f32: ``pa = x2d @ w_pb`` formed on ``mma.sync`` from the staged x2d
+  tile (bf16 operands, or 3xTF32), never read from device memory;
 - ``"tc16"`` (``csrc/ipa_attention_tc16.cu``) and ``"tc16_f32"``
   (``csrc/ipa_attention_tc16_f32.cu``): the same widths at 16 heads, bf16
   and f32, the launches of every tensor-parallel rank at ``--mesh
@@ -54,8 +58,8 @@ static rule on the widths (:func:`kernel_route`) picks one:
   warp a query row with its 4 heads, x2d tiles staged once by ``cp.async``
   and read twice from shared memory, on CUDA-core FMAs;
 - ``"simt"`` (``csrc/ipa_attention.cu``): every other card width (bf16 at 4
-  heads, the streamed variant at 4 heads, the in-kernel pair bias at 8, 16
-  and 32 heads, ``Cp % 32 != 0``), on CUDA-core FMAs.
+  heads, the streamed variant at 4 heads, the in-kernel pair bias at 8 and
+  16 heads, ``Cp % 32 != 0``), on CUDA-core FMAs.
 
 Nothing falls back at run time. The backward (the JAX package's is XLA
 code, ``_fused_backward_chunked``, not a Pallas kernel) dispatches by device
@@ -138,6 +142,7 @@ CARD_WIDTHS = {"heads": (4, 8, 16, 32), "head_dim": 16, "max_cp": 256, "cp_multi
 H4_MAX_CP = 64
 # The kernel design each route launches, by C symbol.
 _ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "tc_f32": "ipa_attention_tc_f32_fwd",
+                  "tc_pb": "ipa_attention_tc_pb_fwd", "tc_pb_f32": "ipa_attention_tc_pb_f32_fwd",
                   "tc16": "ipa_attention_tc16_fwd", "tc16_f32": "ipa_attention_tc16_f32_fwd",
                   "tc8": "ipa_attention_tc8_fwd", "tc8_f32": "ipa_attention_tc8_f32_fwd",
                   "h4": "ipa_attention_h4_fwd", "simt": "ipa_attention_fwd"}
@@ -145,6 +150,8 @@ _ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "tc_f32": "ipa_attention_tc_f32_
 _TC_ROUTES = {(32, torch.bfloat16): "tc", (32, torch.float32): "tc_f32",
               (16, torch.bfloat16): "tc16", (16, torch.float32): "tc16_f32",
               (8, torch.bfloat16): "tc8", (8, torch.float32): "tc8_f32"}
+# The tensor-core designs of the in-kernel pair bias, by head count and dtype.
+_PB_ROUTES = {(32, torch.bfloat16): "tc_pb", (32, torch.float32): "tc_pb_f32"}
 
 # The backward design each backward route launches, by C symbol; "torch"
 # (ipa_attention_backward) launches none.
@@ -213,15 +220,17 @@ def kernel_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -> 
     heads, the streamed pair bias and ``Cp % 32 == 0``, ``"tc"`` in bf16 and
     ``"tc_f32"`` in f32, at 16 heads ``"tc16"`` and ``"tc16_f32"`` (a
     tensor-parallel rank at ``--mesh model=2``), and at 8 heads ``"tc8"``
-    and ``"tc8_f32"`` (a rank at ``--mesh model=4``); ``"h4"`` for f32 at 4
-    heads with the in-kernel pair bias and ``Cp <= H4_MAX_CP``; ``"simt"``
-    for every other width in :data:`CARD_WIDTHS`.
-    Raises ``ValueError`` for widths none takes."""
+    and ``"tc8_f32"`` (a rank at ``--mesh model=4``); for 32 heads, the
+    in-kernel pair bias and ``Cp % 32 == 0``, ``"tc_pb"`` in bf16 and
+    ``"tc_pb_f32"`` in f32; ``"h4"`` for f32 at 4 heads with the in-kernel
+    pair bias and ``Cp <= H4_MAX_CP``; ``"simt"`` for every other width in
+    :data:`CARD_WIDTHS`. Raises ``ValueError`` for widths none takes."""
     err = _widths_error(H, dk, cp)
     if err is not None:
         raise ValueError(err)
-    if has_pa and cp % 32 == 0 and (H, dtype) in _TC_ROUTES:
-        return _TC_ROUTES[H, dtype]
+    routes = _TC_ROUTES if has_pa else _PB_ROUTES
+    if cp % 32 == 0 and (H, dtype) in routes:
+        return routes[H, dtype]
     if H == 4 and not has_pa and dtype == torch.float32 and cp <= H4_MAX_CP:
         return "h4"
     return "simt"
@@ -333,7 +342,8 @@ def _library() -> ctypes.CDLL:
             lib.ipa_attention_takes_heads.argtypes = [ci]
             lib.ipa_attention_takes_heads.restype = ci
             lib.ipa_attention_head_dim.restype = ci
-            for name in ("ipa_attention_tc_f32_smem_bytes", "ipa_attention_h4_smem_bytes",
+            for name in ("ipa_attention_tc_f32_smem_bytes", "ipa_attention_tc_pb_smem_bytes",
+                         "ipa_attention_tc_pb_f32_smem_bytes", "ipa_attention_h4_smem_bytes",
                          "ipa_attention_tc16_smem_bytes", "ipa_attention_tc16_f32_smem_bytes",
                          "ipa_attention_tc16_blocks_per_sm",
                          "ipa_attention_tc8_smem_bytes", "ipa_attention_tc8_f32_smem_bytes",
@@ -455,7 +465,7 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scal
     counted, design = design is None, design or route
     if design in _TC_ROUTES.values() and pa.data_ptr() % 16:
         raise ValueError("the tensor-core designs need a 16-byte aligned pa")
-    if design in ("tc_f32", "tc16_f32", "tc8", "tc8_f32") and w_pv.data_ptr() % 16:
+    if design in ("tc_f32", "tc_pb_f32", "tc16_f32", "tc8", "tc8_f32") and w_pv.data_ptr() % 16:
         raise ValueError(f"the {design!r} design needs a 16-byte aligned w_pv")
     if design == "h4" and any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv, w_pb)):
         raise ValueError("the h4 design needs 16-byte aligned q_s, v_s, v_p, w_pv and w_pb")

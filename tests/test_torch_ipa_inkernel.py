@@ -3,8 +3,10 @@
 
 1. ``ipa_attention`` with ``w_pb`` in place of ``pa`` (its plain version on
    CPU tensors) against the JAX Pallas kernel without ``pa`` in interpret
-   mode and against ``_fused_semantics_jnp(pa=None)``, at 2 and 4 heads, f32
-   and bf16, masked and ragged. Tolerances as tests/test_torch_ipa_attention.py:
+   mode and against ``_fused_semantics_jnp(pa=None)``, at 2 and 4 heads of
+   width 8 (Cp=32), f32 and bf16, masked and ragged, and at 32 heads of
+   width 16 with Cp=64 (the widths of the card's "tc_pb" and "tc_pb_f32"
+   designs) on the ragged, masked case. Tolerances as tests/test_torch_ipa_attention.py:
    f32 2e-5, bf16 3e-2 (outputs of unit scale rounded to bf16, and the
    kernel rounds unnormalised softmax weights). The jnp twin runs in f32
    only: XLA's CPU backend has no bf16 x bf16 -> f32 dot for its
@@ -48,16 +50,16 @@ MODEL_DTYPE = ("q_s", "k_s", "v_s", "x2d", "w_pv")
 JAX_ORDER = ("q_s", "k_s", "v_s", "q_p", "k_p", "v_p", "x2d", "w_pb", "w_pv", "bias")
 
 
-def _inputs(rng, B, Lq, Lk, H, masked_cols=0):
+def _inputs(rng, B, Lq, Lk, H, masked_cols=0, dk=DK, cp=CP):
     g = lambda *shape, scale=1.0: (rng.standard_normal(shape) * scale).astype(np.float32)
     bias = np.zeros((B, Lk), np.float32)
     if masked_cols:
         bias[:, -masked_cols:] = NEG_INF
     return dict(
-        q_s=g(B, H, Lq, DK), k_s=g(B, H, Lk, DK), v_s=g(B, H, Lk, DK),
+        q_s=g(B, H, Lq, dk), k_s=g(B, H, Lk, dk), v_s=g(B, H, Lk, dk),
         q_p=g(B, 3, H * 4, Lq, scale=0.6), k_p=g(B, 3, H * 4, Lk, scale=0.6),
-        v_p=g(B, H, Lk, 24), x2d=g(B, Lq, Lk, CP, scale=0.5),
-        w_pb=g(CP, H, scale=0.3), w_pv=g(H, CP, DK, scale=0.3), bias=bias,
+        v_p=g(B, H, Lk, 24), x2d=g(B, Lq, Lk, cp, scale=0.5),
+        w_pb=g(cp, H, scale=0.3 * (CP / cp) ** 0.5), w_pv=g(H, cp, dk, scale=0.3), bias=bias,
     )
 
 
@@ -99,6 +101,16 @@ def _check(got, want, dtype, rows):
         )
 
 
+def _against_pallas(a, dtype, Lq, pad_to):
+    got = k1.ipa_attention(*_torch(a, dtype), **KW)
+    args = _jax(_pad(a, pad_to, pad_to), dtype)
+    kernel = fused_ipa_attention(*args, None, ti=8, tj=8, interpret=True, **KW)
+    _check(got, kernel, dtype, Lq)
+    if dtype == "bfloat16":
+        return  # XLA's CPU backend has no bf16 x bf16 -> f32 dot for the twin's x2d @ w_pb
+    _check(got, _fused_semantics_jnp(*args, None, **KW), dtype, Lq)
+
+
 @pytest.mark.parametrize("H", [2, 4])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Lq,Lk,pad_to,masked", [
@@ -107,14 +119,15 @@ def _check(got, want, dtype, rows):
     (1, 10, 13, 16, 3),   # ragged rows and columns, padded for the JAX kernel
 ])
 def test_in_kernel_pair_bias_matches_pallas(rng, H, dtype, B, Lq, Lk, pad_to, masked):
-    a = _inputs(rng, B, Lq, Lk, H, masked)
-    got = k1.ipa_attention(*_torch(a, dtype), **KW)
-    args = _jax(_pad(a, pad_to, pad_to), dtype)
-    kernel = fused_ipa_attention(*args, None, ti=8, tj=8, interpret=True, **KW)
-    _check(got, kernel, dtype, Lq)
-    if dtype == "bfloat16":
-        return  # XLA's CPU backend has no bf16 x bf16 -> f32 dot for the twin's x2d @ w_pb
-    _check(got, _fused_semantics_jnp(*args, None, **KW), dtype, Lq)
+    _against_pallas(_inputs(rng, B, Lq, Lk, H, masked), dtype, Lq, pad_to)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_in_kernel_pair_bias_matches_pallas_at_32_heads(rng, dtype):
+    """32 heads at the card's tc_pb widths (head width 16, Cp a multiple of
+    32), ragged rows and columns with 3 masked, padded for the JAX kernel."""
+    a = _inputs(rng, 1, 10, 13, 32, 3, dk=16, cp=64)
+    _against_pallas(a, dtype, 10, 16)
 
 
 def test_in_kernel_equals_streamed_pair_bias(rng):

@@ -4,7 +4,8 @@ and 16 heads, with the pair bias streamed (``pa``) or computed in the kernel
 (``w_pb``); and the tensor-core designs (streamed ``pa``: at 32 heads route
 "tc" in bf16 and "tc_f32" in f32, at 16 heads, a tensor-parallel rank's at
 ``--mesh model=2``, "tc16" and "tc16_f32", at 8 heads, a rank's at
-``--mesh model=4``, "tc8" and "tc8_f32") and the 4-head in-kernel design (route "h4": f32,
+``--mesh model=4``, "tc8" and "tc8_f32"), the 32-head in-kernel designs
+(``w_pb``: "tc_pb" in bf16, "tc_pb_f32" in f32) and the 4-head in-kernel design (route "h4": f32,
 ``w_pb``, the PPFT control net) against the plain version and against the
 CUDA-core design on the same inputs; and the backward kernel (streamed
 ``pa`` at 32 heads: route "bwd_tc" in bf16, "bwd_tc_f32" in f32; at 16
@@ -152,6 +153,79 @@ def test_tensor_core_route_matches_plain_and_the_cuda_core_design(cuda_device, B
         scale = max(1.0, w.float().abs().max().item())
         assert (g.float() - w.float()).abs().max().item() <= tol * scale
         assert (g.float() - p.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route,tol", [(torch.bfloat16, "tc_pb", 3e-2),
+                                             (torch.float32, "tc_pb_f32", 2e-4)])
+@pytest.mark.parametrize("CP", [256, 96, 32])
+@pytest.mark.parametrize("B,Lq,Lk,masked", TC_CASES)
+def test_in_kernel_32_head_route_matches_plain_and_the_cuda_core_design(cuda_device, B, Lq, Lk,
+                                                                        masked, CP, dtype, route,
+                                                                        tol):
+    """32 heads, in-kernel pair bias (``w_pb``): ipa_attention launches the
+    in-kernel tensor-core design of the dtype once ("tc_pb" bf16,
+    "tc_pb_f32" f32); within ``tol`` x max|plain| of the plain version and
+    of the CUDA-core design (``_launch_design("simt")``) on the same inputs,
+    masked, ragged and with rows != columns."""
+    args = _args(cuda_device, B, Lq, Lk, dtype, masked, CP=CP, variant="w_pb")
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **KW)
+    prev = k1._launch_design("simt", *args, **KW)
+    torch.cuda.synchronize()
+    assert k1.launches_by_route == {**before, route: before[route] + 1}
+    want = k1.ipa_attention_plain(*args, **KW)
+    for g, p, w in zip(got, prev, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+        scale = max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+        assert (g.float() - p.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route,tol", [(torch.bfloat16, "tc_pb", 3e-2),
+                                             (torch.float32, "tc_pb_f32", 2e-4)])
+def test_in_kernel_32_head_slab_matches_plain_and_the_cuda_core_design(cuda_device, dtype, route,
+                                                                       tol):
+    """A 5-row slab of 70 columns at 32 heads, Cp=256, with the in-kernel
+    pair bias (``sp_ipa_attention`` with ``pa=None``): one launch of the
+    route's design, within ``tol`` x max|plain| of the plain version on the
+    slab and of the CUDA-core design on the same operands."""
+    from se3diff_torch.ops.ipa_attention import sp_ipa_attention
+
+    full = _args(cuda_device, 2, 70, 70, dtype, 3, variant="w_pb")
+    r0, r1 = 30, 35
+    slab = list(full)
+    for i, dim in ((0, 2), (3, 3), (6, 1)):
+        slab[i] = full[i].narrow(dim, r0, r1 - r0).contiguous()
+    before = dict(k1.launches_by_route)
+    got = sp_ipa_attention((r0, r1), *slab, **KW)
+    prev = k1._launch_design("simt", *slab, **KW)
+    torch.cuda.synchronize()
+    assert k1.launches_by_route == {**before, route: before[route] + 1}
+    want = [o.narrow(2, r0, r1 - r0) for o in k1.ipa_attention_plain(*full, **KW)]
+    for g, p, w in zip(got, prev, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        scale = max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+        assert (g.float() - p.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,source", [("tc_pb", "ipa_attention_tc.cu"),
+                                          ("tc_pb_f32", "ipa_attention_tc_f32.cu")])
+def test_in_kernel_32_head_designs_use_the_shared_memory_their_sources_state(cuda_device, route,
+                                                                             source):
+    """The library's in-kernel 32-head layouts at Cp=256 are the totals the
+    sources state for the variant (held within Hopper's 232,448 bytes by
+    the route tests)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(k1.__file__).resolve().parents[1] / "csrc" / source).read_text()
+    stated = re.search(r"Shared memory of the variant at Cp = 256: ([\d,]+) bytes", src).group(1)
+    assert getattr(k1._library(), f"ipa_attention_{route}_smem_bytes")(256) == int(
+        stated.replace(",", ""))
 
 
 @pytest.mark.cuda

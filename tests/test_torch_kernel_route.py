@@ -37,8 +37,12 @@ REFUSED = [dict(dim_model=32, dim_pair=32, num_heads=4), dict(dim_model=192, dim
     (F32, 32, 16, 96, True, "tc_f32"),
     (F32, 32, 16, 32, True, "tc_f32"),
     (F32, 32, 16, 36, True, "simt"),     # Cp not a multiple of 32
-    (F32, 32, 16, 256, False, "simt"),   # the in-kernel pair bias
-    (BF16, 32, 16, 256, False, "simt"),  # the in-kernel pair bias
+    (F32, 32, 16, 256, False, "tc_pb_f32"),  # the in-kernel pair bias at 32 heads, f32
+    (BF16, 32, 16, 256, False, "tc_pb"),     # the same in bf16
+    (F32, 32, 16, 96, False, "tc_pb_f32"),
+    (BF16, 32, 16, 32, False, "tc_pb"),
+    (F32, 32, 16, 100, False, "simt"),   # in-kernel, Cp not a multiple of 32
+    (BF16, 32, 16, 36, False, "simt"),
     (F32, 4, 16, 32, False, "h4"),       # the PPFT control net
     (F32, 4, 16, 4, False, "h4"),
     (F32, 4, 16, 36, False, "h4"),
@@ -95,8 +99,10 @@ def test_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa)
     (F32, 32, 16, 32, True, "bwd_tc_f32"),
     (BF16, 32, 16, 36, True, "torch"),         # Cp not a multiple of 32
     (F32, 32, 16, 36, True, "torch"),
-    (F32, 32, 16, 256, False, "torch"),        # the in-kernel pair bias
+    (F32, 32, 16, 256, False, "torch"),        # the in-kernel pair bias (forward tc_pb*)
     (BF16, 32, 16, 256, False, "torch"),
+    (BF16, 32, 16, 96, False, "torch"),
+    (F32, 32, 16, 32, False, "torch"),
     (F32, 4, 16, 32, False, "bwd_h4"),         # the PPFT control net
     (F32, 4, 16, 4, False, "bwd_h4"),
     (F32, 4, 16, 36, False, "bwd_h4"),
@@ -300,8 +306,10 @@ def test_every_route_names_an_entry_the_cuda_sources_define():
         signature = text[text.index(f"int {symbol}("):]
         assert signature[:signature.index(")")].count(",") == 24
     assert set(k1.launches_by_route) == set(k1._ROUTE_SYMBOLS) == {
-        "tc", "tc_f32", "tc16", "tc16_f32", "tc8", "tc8_f32", "h4", "simt"}
+        "tc", "tc_f32", "tc_pb", "tc_pb_f32", "tc16", "tc16_f32", "tc8", "tc8_f32", "h4", "simt"}
     assert k1._ROUTE_SYMBOLS["tc_f32"] == "ipa_attention_tc_f32_fwd"
+    assert k1._ROUTE_SYMBOLS["tc_pb"] == "ipa_attention_tc_pb_fwd"
+    assert k1._ROUTE_SYMBOLS["tc_pb_f32"] == "ipa_attention_tc_pb_f32_fwd"
     assert k1._ROUTE_SYMBOLS["tc16"] == "ipa_attention_tc16_fwd"
     assert k1._ROUTE_SYMBOLS["tc16_f32"] == "ipa_attention_tc16_f32_fwd"
     assert k1._ROUTE_SYMBOLS["tc8"] == "ipa_attention_tc8_fwd"
@@ -336,6 +344,64 @@ def test_h4_cp_limit_is_the_sources_constant():
     for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
         want = "h4" if cp <= k1.H4_MAX_CP else "simt"
         assert k1.kernel_route(F32, 4, 16, cp, False) == want, cp
+
+
+@pytest.mark.parametrize("route,dtype,source", [("tc_pb", BF16, "ipa_attention_tc.cu"),
+                                                ("tc_pb_f32", F32, "ipa_attention_tc_f32.cu")])
+def test_in_kernel_32_head_designs_state_a_layout_one_block_can_hold(route, dtype, source):
+    """The in-kernel pair bias at 32 heads: each design is a variant of the
+    streamed design's source, whose one ``extern "C"`` entry it is; the
+    source states the variant's shared memory at Cp=256 within what one
+    block may opt into on Hopper (232,448 bytes) and exports that layout
+    (the card tests hold ``*_smem_bytes(256)`` to the stated number). The
+    route takes every Cp % 32 == 0 up to 256 at 32 heads with the
+    in-kernel pair bias and nothing else: the 16- and 8-head in-kernel
+    widths keep "simt", the streamed ones their own designs, and the
+    backward stays "torch"."""
+    src = (CSRC / source).read_text()
+    blocks = "".join(re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', src, re.S))
+    assert len(re.findall(rf"\bint {k1._ROUTE_SYMBOLS[route]}\(", blocks)) == 1
+    assert re.search(rf"\bint ipa_attention_{route}_smem_bytes\(int Cp\)", blocks)
+    stated = re.search(r"Shared memory of the variant at Cp = 256: ([\d,]+) bytes", src)
+    assert stated is not None
+    assert int(stated.group(1).replace(",", "")) <= 232_448
+    assert "template <bool kPb>" in src and "__launch_bounds__(kThreads, 1)" in src
+    streamed = "tc" if dtype == BF16 else "tc_f32"
+    for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
+        assert k1.kernel_route(dtype, 32, 16, cp, False) == (route if cp % 32 == 0 else "simt"), cp
+        assert k1.kernel_route(dtype, 32, 16, cp, True) == (streamed if cp % 32 == 0 else "simt"), cp
+        assert k1.backward_route(dtype, 32, 16, cp, False) == "torch", cp
+        for heads in (16, 8):
+            assert k1.kernel_route(dtype, heads, 16, cp, False) == "simt", (heads, cp)
+    assert k1.kernel_route(dtype, 4, 16, 32, False) == ("simt" if dtype == BF16 else "h4")
+
+
+@pytest.mark.parametrize("design,dtype", [("tc_pb", BF16), ("tc_pb_f32", F32)])
+def test_in_kernel_32_head_designs_refuse_what_they_do_not_take(design, dtype):
+    """Before any build: the in-kernel designs refuse the streamed variant
+    and the streamed designs refuse ``w_pb`` at 32 heads; ``"tc_pb_f32"``
+    needs a 16-byte aligned w_pv as ``"tc_f32"`` does (a view 4 bytes into
+    its storage is refused with a ValueError, never taken by another
+    design)."""
+    B, H, L, dk, cp = 1, 32, 3, 16, 32
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt)
+    args = [z(B, H, L, dk, dt=dtype), z(B, H, L, dk, dt=dtype), z(B, H, L, dk, dt=dtype),
+            z(B, 3, H * 4, L), z(B, 3, H * 4, L), z(B, H, L, 24), z(B, L, L, cp, dt=dtype),
+            z(H, cp, dk, dt=dtype), z(B, L), None, z(cp, H)]
+    streamed = args[:9] + [z(B, H, L, L, dt=dtype)]
+    kw = dict(scalar_w=1.0, pair_w=1.0)
+    assert k1.kernel_route(dtype, H, dk, cp, False) == design
+    with pytest.raises(ValueError, match=f"{design!r} design does not take these widths"):
+        k1._launch_design(design, *streamed, **kw)
+    other = "tc" if dtype == BF16 else "tc_f32"
+    with pytest.raises(ValueError, match=f"{other!r} design does not take these widths"):
+        k1._launch_design(other, *args, **kw)
+    if design == "tc_pb_f32":
+        bad = list(args)
+        bad[7] = torch.zeros(args[7].numel() + 1)[1:].view(args[7].shape)
+        assert bad[7].is_contiguous() and bad[7].data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte aligned w_pv"):
+            k1._launch_design(design, *bad, **kw)
 
 
 @pytest.mark.parametrize("route,dtype", [("tc16", BF16), ("tc16_f32", F32),
