@@ -9,15 +9,17 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
 1. device and build: the card's name and power limit; build the IPA
    attention kernels from ``se3diff_torch/csrc`` with nvcc, one process a
    source (time, ptxas report: registers, spills and shared memory of the
-   "tc", "tc_f32", "tc_pb", "tc_pb_f32", "h4", "tc16", "tc16_f32", "tc8" and "tc8_f32" kernels,
-   the 16- and 8-head designs' resident blocks an SM, the backward kernels'
+   "tc", "tc_f32", "tc_pb", "tc_pb_f32", "tc16", "tc16_f32", "tc8" and "tc8_f32" kernels,
+   "h4"'s and "h4s"'s four instances each (Cp <= 32 and <= 64, heads of 16
+   and 8) with their shared memory, "simt" at the training example's
+   widths, the 16- and 8-head designs' resident blocks an SM, the backward kernels'
    value-term, row and column
    kernels, "bwd_tc" and "bwd_tc_f32", "bwd_tc16" and "bwd_tc16_f32",
    "bwd_tc8" and "bwd_tc8_f32" (with the row kernel's resident blocks an
-   SM, at 8 heads the column kernel's too), and "bwd_h4"'s two row
-   instantiations, its kernel of the logits' CUDA-core terms, column kernel
-   and weight-gradient reduction, with its row kernel's shared memory and
-   resident blocks and warps an SM);
+   SM, at 8 heads the column kernel's too), and "bwd_h4"'s and "bwd_h4s"'s
+   four row instances each, their kernels of the logits' CUDA-core terms,
+   column kernels and weight-gradient reduction, with the row kernels'
+   shared memory and resident blocks an SM);
 2. the kernel against its plain PyTorch version on the card, at the main
    path's shape (B=40, L=100, 32 heads of 16, Cp=256, streamed pair bias) in
    bf16 and f32, at a ragged L=77 with masked columns, and at the PPFT score
@@ -109,6 +111,16 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    timed in turns with it beside its bound and plain autograd's time, and
    peak memory; at B=256 L=56 the kernel's no more than the PyTorch
    backward's);
+   the training example's widths (4 heads of 8, Cp=16, f32, streamed) on
+   "h4s" at (a) its batch B=8 L=8, (b) B=8 L=64 with 4 masked columns (its
+   --trajectory run's bucket), (c) B=64 L=100, and (d) B=64 L=100 at 4
+   heads of 16, Cp=32: each against the plain version, the CUDA-core design
+   on the same inputs against it too, the two timed in turns, beside the
+   plain version's time and the bound (at (a) also an empty kernel's device
+   time and the host's wall a call of each design's forward and backward);
+   their gradients on "bwd_h4s" (``_grad_case``: against f64, a second call
+   bit for bit, timed in turns with the PyTorch backward, kernels a call
+   and peak memory); "h4" and "bwd_h4" (w_pb) at (a)'s widths the same way;
    the streamed 16-head cases (B=40 L=77 masked, Cp=96, and B=2 with 5 rows
    of 70 columns, a partial last key tile) take "tc16" in bf16 and
    "tc16_f32" in f32, the streamed 8-head ones (B=40 L=100, B=40 L=77
@@ -242,9 +254,9 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    closed-form model's 8 sweeps against 8 sequential steps on the card,
    held at the CPU test's tolerances (5e-4 nm, 5e-3 rad);
 22. ``[bench]``: the benchmarks of ``se3diff_torch.benchmarks``. First K1 at
-   the sample CLI's shapes (B=10, L=60 and L=77, f32, "tc_f32") and at the
-   training example's (B=8 L=8, 4 heads, "simt"), each held against its
-   plain version at ``TOL`` and timed while the host runs nothing else.
+   the sample CLI's shapes (B=10, L=60 and L=77, f32, "tc_f32"), each held
+   against its plain version at ``TOL`` and timed while the host runs
+   nothing else.
    (b) The sample CLI at bioemu-v1.0 widths (seed 0, f32, dpm_2m-30, dummy
    embeddings) writes 10 samples of md_emulation's cath1_1bl0A02 (L=60) and
    of multiconf_ood60's P50405 (L=77), 240 "tc_f32" launches a run; both
@@ -252,9 +264,14 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    (``--skip_filtering``): finite or NaN metrics. (c) One score evaluation
    at B=40 L=100 bf16 under ``utils.profiling``: the table of its kernels
    with their launch sites, K1's "tc" kernel a row of 8. (d)
-   ``examples/torch_train_from_scratch.py --steps 500`` on the card (its
-   narrowest card width, d64, 4 heads: K1 on "simt"): the samples' mean
-   pairwise Ca distance at most halfway from the prior's to the data's.
+   ``examples/torch_train_from_scratch.py --steps 500`` on the card: the
+   JAX example's model (d32, 4 heads of 8), its 1,200 K1 launches all on
+   "h4s" and its 1,000 backward passes all on "bwd_h4s", the samples' mean
+   pairwise Ca distance printed; then the known answer on the same
+   example's training at d64 (``scripts/train_example_spread.py``, again
+   all on "h4s" and "bwd_h4s"): that distance at most halfway from the
+   prior's to the data's (at d32 the JAX example's own model sits above
+   halfway on average);
    (a) Then ``python -m se3diff_torch.benchmarks eval`` on each of the
    seven benchmarks' directories of the reference's fixture
    (``tests/test_data/samples_example``; it holds no multiconf_oodval
@@ -272,6 +289,7 @@ Outputs go to ``.work/chip_smoke/`` inside the checkout (listed in .gitignore).
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
 import shutil
@@ -332,7 +350,7 @@ DP_TOL = 2e-4
 # (a) the control net's width at the PPFT path's batch, (b) ragged and
 # masked, (c) at the PPFT CLI run's path batch of 64 and at the "h4"
 # design's largest Cp, (d) the in-kernel pair bias at 16 and 8 heads (still
-# "simt"); then the streamed variant at 4 heads.
+# "simt"); then the streamed variant at 4 heads of 16 ("h4s").
 INKERNEL_CASES = [(256, 56, 4, 32, "float32", 0, True),
                   (256, 57, 4, 32, "float32", 5, True), (64, 56, 4, 32, "float32", 0, True),
                   *[(40, 100, H, 256, dt, 0, True) for H in (16, 8) for dt in ("bfloat16", "float32")],
@@ -358,6 +376,15 @@ INKERNEL_GRAD_CASES = [(256, 56, 4, 32, "float32", 0, 56), (64, 56, 4, 32, "floa
                        (256, 57, 4, 32, "float32", 5, 57), (256, 56, 4, 64, "float32", 0, 56),
                        (64, 100, 4, 32, "float32", 0, 100), (256, 56, 4, 32, "float32", 0, 28),
                        (16, 100, 32, 256, "bfloat16", 0, 100), (16, 77, 32, 256, "float32", 9, 77)]
+# K1 at the training example's widths (examples/train_from_scratch.py: 4
+# heads of 8, Cp=16, f32, the streamed pair bias) on "h4s" and "bwd_h4s":
+# (a) its batch, B=8 L=8; (b) its --trajectory run on the two test
+# ensembles, one L=64 bucket at batch 8 (cath1_1bl0A02's 60 residues: 4
+# masked columns); (c) scale, B=64 L=100; (d) B=64 L=100 at 4 heads of 16,
+# Cp=32, to read beside "h4" and "bwd_h4". (tag, B, L, head width, Cp,
+# masked columns). Then "h4" and "bwd_h4" (w_pb) at (a)'s widths.
+H4S_CASES = [("a", 8, 8, 8, 16, 0), ("b", 8, 64, 8, 16, 4), ("c", 64, 100, 8, 16, 0),
+             ("d", 64, 100, 16, 32, 0)]
 # K1 at a tensor-parallel rank's 16 heads with the streamed pair bias: the
 # route of each dtype, and (B, Lq, Lk, Cp, dtype, masked columns) of phase
 # 11's further cases: Cp=96 (three n-tile pairs a warp), and a partial last
@@ -481,7 +508,10 @@ BENCH_FILES = {"folding_free_energies": ["results_systems.csv", "results_metrics
                "multiconf": ["summary.json", "multiconf_results.npz"]}
 BENCH_CASES = {"md_emulation": "cath1_1bl0A02", "multiconf_ood60": "P50405"}
 BENCH_SAMPLES, BENCH_STEPS, BENCH_PROFILE = 10, 30, (40, 100)
-BENCH_TRAIN_STEPS, BENCH_SIMT4_SHAPE = 500, (8, 8, 4, 16)  # (B, L, heads, Cp)
+BENCH_TRAIN_STEPS = 500
+# The width at which phase 22 (d) holds the training example's known answer
+# (its statistic at most halfway from the prior's to the data's).
+BENCH_KNOWN_ANSWER_DIM = 64
 # K1 at the sample CLI's shapes in (b): one batch of 10, L=60 and L=77, f32.
 BENCH_K1_CASES = [(BENCH_SAMPLES, 60, "float32"), (BENCH_SAMPLES, 77, "float32")]
 BENCH_EVAL_TIMEOUT_S = 600.0
@@ -521,14 +551,14 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_inputs(B, L, dtype, gen, masked_cols=0, H=32, cp=256, in_kernel=False, Lq=None):
+def k1_inputs(B, L, dtype, gen, masked_cols=0, H=32, cp=256, in_kernel=False, Lq=None, dk=16):
     """Kernel-layout operands at the model's scales (q/k/v ~ 1, planes ~ nm)
-    for ``L`` key columns and ``Lq`` query rows (``L`` unless given): the
-    ten of the streamed pair bias, or with ``in_kernel`` eleven, ``pa`` None
-    and ``w_pb [cp, H]`` f32 last."""
+    for ``L`` key columns and ``Lq`` query rows (``L`` unless given), heads
+    of width ``dk``: the ten of the streamed pair bias, or with
+    ``in_kernel`` eleven, ``pa`` None and ``w_pb [cp, H]`` f32 last."""
     import torch
 
-    dk, dev = 16, DEVICE
+    dev = DEVICE
     Lq = L if Lq is None else Lq
     g = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale
     bias = torch.zeros(B, L, device=dev)
@@ -638,10 +668,17 @@ def phase_build():
                 f"{getattr(lib, f'ipa_attention_{r}_smem_bytes')(256)} bytes at Cp=256, "
                 f"{getattr(lib, f'ipa_attention_{r}_blocks_per_sm')(256)} blocks an SM resident"
                 for r in ("tc16", "tc16_f32", "tc8", "tc8_f32")},
-             # Two instantiations: Cp <= 32 (every path) and Cp <= 64.
-             "h4": f"Cp <= 32: {ptxas_summary(report, 'ipa_attention_h4_kernelILi32E')}; dynamic "
-                   f"shared memory {lib.ipa_attention_h4_smem_bytes(32)} bytes at Cp=32 | Cp <= 64: "
-                   f"{ptxas_summary(report, 'ipa_attention_h4_kernelILi64E')}"}
+             # Four instances of each variant: Cp <= 32 (every path) and Cp
+             # <= 64, heads of width 16 (the control net; "h4s" at (d)) and 8
+             # (the training example).
+             **{r: " | ".join(
+                 f"Cp <= {c} width {d}: "
+                 f"{ptxas_summary(report, f'ipa_attention_h4_kernelILi{c}ELi{d}ELb{int(r == 'h4')}EE')}"
+                 f"; dynamic shared memory {lib.ipa_attention_h4_variant_smem_bytes(c, d, int(r == 'h4'))} "
+                 f"bytes at Cp={c}" for d in (16, 8) for c in (32, 64)) for r in ("h4", "h4s")},
+             # The CUDA-core design at the training example's widths (f32, 4
+             # heads of 8, streamed), the yardstick of "h4s".
+             "simt": ptxas_summary(report, "ipa_attention_kernelIfLi4ELi8ELb1EE")}
     cols = lib.ipa_attention_bwd_cols_smem_bytes()
     # The 32-, 16- and 8-head backward: the row kernel's resident blocks an
     # SM beside (at 8 heads the column kernel's too, its rows split over
@@ -665,21 +702,24 @@ def phase_build():
             ptxas[route] += (f", {getattr(lib, f'ipa_attention_{route}_cols_blocks_per_sm')()} "
                              "blocks an SM resident")
         ptxas[route] += f" | dv: {ptxas_summary(report, f'bwd_dvI{t}E')}"
-    # bwd_h4: two row instantiations (Cp <= 32, every path; Cp <= 64) with
-    # their resident blocks (8 warps each) an SM, the kernel of the logits'
-    # CUDA-core terms, the column kernel and the reduction of d_w_pv's and
-    # d_w_pb's partials.
-    h4_rows = " | ".join(
-        f"rows Cp <= {cp}: {ptxas_summary(report, f'bwd_h4_rowsILi{cp}E')}; dynamic shared memory "
-        f"{lib.ipa_attention_bwd_h4_smem_bytes(cp)} bytes at Cp={cp} (8 rows), "
-        f"{lib.ipa_attention_bwd_h4_blocks_per_sm(cp)} blocks an SM resident "
-        f"({8 * lib.ipa_attention_bwd_h4_blocks_per_sm(cp)} warps)" for cp in (32, 64))
-    ptxas["bwd_h4"] = (
-        f"{h4_rows} | pre: {ptxas_summary(report, 'bwd_h4_pre')} | cols: "
-        f"{ptxas_summary(report, 'bwd_h4_cols')} | wsum: {ptxas_summary(report, 'bwd_h4_wsum')}")
-    for route in ("tc", "tc_f32", "tc_pb", "tc_pb_f32", "h4", "tc16", "tc16_f32", "tc8", "tc8_f32",
-                  "bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32", "bwd_tc8", "bwd_tc8_f32",
-                  "bwd_h4"):
+    # bwd_h4 and bwd_h4s: four row instances each (Cp <= 32, every path; Cp
+    # <= 64; heads of width 16 and 8) with their resident blocks (8 warps
+    # each) an SM, the kernel of the logits' CUDA-core terms, the column
+    # kernel (one a width) and the reduction of the row blocks' partials.
+    for route, pre in (("bwd_h4", "bwd_h4_pre"), ("bwd_h4s", "bwd_h4s_pre")):
+        in_kernel = int(route == "bwd_h4")
+        ptxas[route] = " | ".join(
+            f"width {d}: rows Cp <= {c}: "
+            f"{ptxas_summary(report, f'bwd_h4_rowsILi{c}ELi{d}ELb{in_kernel}EE')}; dynamic "
+            f"shared memory {lib.ipa_attention_bwd_h4_width_smem_bytes(c, d)} bytes at Cp={c} (8 "
+            f"rows), {lib.ipa_attention_bwd_h4_variant_blocks_per_sm(c, d, in_kernel)} blocks an SM "
+            f"resident" for d in (16, 8) for c in (32, 64)) + "".join(
+            f" | width {d}: pre: {ptxas_summary(report, f'{pre}ILi{d}EE')} | cols: "
+            f"{ptxas_summary(report, f'bwd_h4_colsILi{d}EE')}" for d in (16, 8)) + (
+            f" | wsum: {ptxas_summary(report, 'bwd_h4_wsum')}")
+    for route in ("tc", "tc_f32", "tc_pb", "tc_pb_f32", "h4", "h4s", "simt", "tc16", "tc16_f32",
+                  "tc8", "tc8_f32", "bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32", "bwd_tc8",
+                  "bwd_tc8_f32", "bwd_h4", "bwd_h4s"):
         log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
 
@@ -972,9 +1012,9 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     routes run the x2d contractions (2 Cp operations each per head, row and
     column) on tensor cores, each product as many times as it has terms
     ("bwd_tc", "bwd_tc16", "bwd_tc8": a x2d and g x2d two bf16 terms, a g
-    three; "bwd_tc_f32", "bwd_tc16_f32", "bwd_tc8_f32": 3xTF32, three TF32
-    terms each; "bwd_h4": the three and the in-kernel pair bias's three,
-    its recompute, d_w_pb and its d_x2d term, all 3xTF32), and the
+    three; "bwd_tc_f32", "bwd_tc16_f32", "bwd_tc8_f32" and "bwd_h4s": 3xTF32,
+    three TF32 terms each; "bwd_h4": the three and the in-kernel pair
+    bias's three, its recompute, d_w_pb and its d_x2d term, all 3xTF32), and the
     rest in f32 on CUDA cores; the
     two units' times are added. Returns the bound, what bounds it, the
     bytes, the all-f32 operation count and the design's operations time
@@ -995,7 +1035,7 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     if route == "torch":
         ops_ms = f32_ms(ops)
     else:
-        terms, rate = ((3 + 3 + 3, H100_TF32_OPS_PER_S) if route.endswith("_f32")
+        terms, rate = ((3 + 3 + 3, H100_TF32_OPS_PER_S) if route.endswith("_f32") or route == "bwd_h4s"
                        else (2 + 2 + 3, H100_OPS_PER_S["bfloat16"]))
         products = 3
         if route == "bwd_h4":
@@ -1020,16 +1060,16 @@ def peak_mb(fn):
 
 
 def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=False,
-               tag="k1-grad"):
-    """One case of K1's gradient on the card (``H`` heads, pair width
-    ``cp``, the pair bias streamed or, with ``in_kernel``, from ``w_pb``;
+               tag="k1-grad", dk=16):
+    """One case of K1's gradient on the card (``H`` heads of width ``dk``,
+    pair width ``cp``, the pair bias streamed or, with ``in_kernel``, from ``w_pb``;
     ``Lq`` query rows of ``L`` columns: a row slab when fewer): the autograd
     Function against autograd through the plain version (fatal beyond
     ``GRAD_TOL``; in f64 on a kernel route, whose errors against the plain
     version in f32 are printed beside, in f32 on "torch"), its backward on
     ``backward_route``'s route (fatal otherwise). On a kernel route
     ("bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32", "bwd_tc8",
-    "bwd_tc8_f32", "bwd_h4") the
+    "bwd_tc8_f32", "bwd_h4", "bwd_h4s") the
     kernel's gradients against ``ipa_attention_backward``'s on the same
     values in f64 (fatal beyond twice ``GRAD_TOL``: each is within it of the
     reference; against its f32 gradients printed), its second
@@ -1049,16 +1089,16 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
              *(("w_pb",) if in_kernel else ()))
     dtype = getattr(torch, dname)
     Lq = L if Lq is None else Lq
-    route = k1.backward_route(dtype, H, 16, cp, not in_kernel)
-    args = k1_inputs(B, L, dtype, gen, masked, H=H, cp=cp, in_kernel=in_kernel, Lq=Lq)
+    route = k1.backward_route(dtype, H, dk, cp, not in_kernel)
+    args = k1_inputs(B, L, dtype, gen, masked, H=H, cp=cp, in_kernel=in_kernel, Lq=Lq, dk=dk)
     leaves = [None if t is None else t.clone().requires_grad_(n != "bias")
               for n, t in zip(names, args)]
     grad_names = [n for n, t in zip(names, leaves) if t is not None and n != "bias"]
     diff = [leaves[names.index(n)] for n in grad_names]
     cts = tuple(
         torch.randn(shape, generator=gen, device=DEVICE).to(dt)
-        for shape, dt in (((B, H, Lq, 16), dtype), ((B, H, Lq, 24), torch.float32),
-                          ((B, H, Lq, 16), dtype))
+        for shape, dt in (((B, H, Lq, dk), dtype), ((B, H, Lq, 24), torch.float32),
+                          ((B, H, Lq, dk), dtype))
     )
     before, bwd_before = k1.launches, dict(k1.backward_calls_by_route)
     outs = k1.ipa_attention(*leaves, **kw)
@@ -1151,7 +1191,7 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
         lambda: torch.autograd.grad(plain_outs, diff, cts, retain_graph=True), reps=5)
     fwd_bound, fwd_by, _, _ = (
         k1_pb32_bound(plain_args, outs, dname)[:4]
-        if k1.kernel_route(getattr(torch, dname), H, 16, cp, not in_kernel) in PB32_ROUTES.values()
+        if k1.kernel_route(getattr(torch, dname), H, dk, cp, not in_kernel) in PB32_ROUTES.values()
         else k1_bound(plain_args, outs, dname))
     bwd_bound, bwd_by, nbytes, ops, design_ms = k1_bwd_bound(plain_args, cts, grads, route)
     bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_OPS_PER_S["float32"] * 1e3
@@ -1166,7 +1206,7 @@ def _grad_case(k1, gen, B, L, dname, masked, H=32, Lq=None, cp=256, in_kernel=Fa
 
     torch_mem = None if route == "torch" else peak_mb(torch_fwd_bwd)
     log(
-        f"[{tag}] H={H} Cp={cp} {'w_pb' if in_kernel else 'pa'} B={B} Lq={Lq} L={L} {dname} "
+        f"[{tag}] H={H}x{dk} Cp={cp} {'w_pb' if in_kernel else 'pa'} B={B} Lq={Lq} L={L} {dname} "
         f"masked_cols={masked} backward route {route}: gradient errors x max|"
         f"{ref_name} reference| "
         + ", ".join(f"d_{n} {v:.2e}" for n, v in rel.items())
@@ -1875,6 +1915,70 @@ def _pb32_slabs(k1, gen, dname, card):
     return res
 
 
+def _h4s_case(k1, ptxas, gen, tag, B, L, dk, cp, masked, in_kernel=False):
+    """K1 at 4 heads of width ``dk`` in f32 on its 4-head design ("h4s"
+    streamed, "h4" with ``in_kernel``): one counted launch against the plain
+    version and the CUDA-core design ("simt") on the same inputs against it
+    too (each fatal beyond ``TOL``), the two timed in turns (route, simt,
+    route, simt), beside the plain version's time and the bound. At the
+    training example's batch (tag "a", streamed) also an empty kernel's
+    device time back to back, and the host's wall a call of both designs'
+    wrappers (uncounted) and of the empty kernel; then the backward of both
+    routes ("bwd_h4s" through ``_launch_backward`` uncounted, and "torch",
+    ``ipa_attention_backward``), the host's wall a call each."""
+    import torch
+
+    args = k1_inputs(B, L, torch.float32, gen, masked, H=4, cp=cp, in_kernel=in_kernel, dk=dk)
+    route = k1.kernel_route(torch.float32, 4, dk, cp, not in_kernel)
+    if route != ("h4" if in_kernel else "h4s"):
+        raise AssertionError(f"K1 at 4 heads of {dk} f32 takes route {route!r}")
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **K1_KW)
+    torch.cuda.synchronize()
+    if k1.launches_by_route != {**before, route: before[route] + 1}:
+        raise AssertionError(f"ipa_attention at 4 heads of {dk} did not launch {route!r} once")
+    want = k1.ipa_attention_plain(*args, **K1_KW)
+    err, scale = max_err(got, want)
+    prev_err = max_err(k1._launch_design("simt", *args, **K1_KW), want)[0]
+    tol = TOL["float32"] * scale
+    res, detail = _timed_with_simt(k1, lambda: k1.ipa_attention(*args, **K1_KW), args, K1_KW,
+                                   route, ptxas)
+    plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **K1_KW), reps=5)
+    bound_ms, bound_by, nbytes, ops = k1_bound(args, got, "float32")
+    res.update(max_abs_err=err, prev_max_abs_err=prev_err, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    extra = ""
+    if tag == "a" and not in_kernel:
+        sw, pw = K1_KW["scalar_w"], K1_KW["pair_w"]
+        cts = (torch.randn(B, 4, L, dk, generator=gen, device=DEVICE),
+               torch.randn(B, 4, L, 24, generator=gen, device=DEVICE),
+               torch.randn(B, 4, L, dk, generator=gen, device=DEVICE))
+        res.update(
+            empty_kernel_ms=cuda_time_ms(lambda: torch.cuda._sleep(0), reps=20),
+            host_call_ms=_host_call_ms(lambda: k1._launch_design(route, *args, **K1_KW)),
+            prev_host_call_ms=_host_call_ms(lambda: k1._launch_design("simt", *args, **K1_KW)),
+            empty_kernel_host_ms=_host_call_ms(lambda: torch.cuda._sleep(0)),
+            backward_host_call_ms=_host_call_ms(
+                lambda: k1._launch_backward(list(args), cts, sw, pw, counted=False)),
+            backward_torch_host_call_ms=_host_call_ms(
+                lambda: k1.ipa_attention_backward(list(args), cts, **K1_KW), calls=50))
+        extra = (f"; an empty kernel back to back {res['empty_kernel_ms']:.4f} ms on the device; "
+                 f"the host's wall a call, enqueued back to back: {route} {res['host_call_ms']:.4f} "
+                 f"ms, simt {res['prev_host_call_ms']:.4f} ms, the empty kernel "
+                 f"{res['empty_kernel_host_ms']:.4f} ms, the backward on bwd_h4s "
+                 f"{res['backward_host_call_ms']:.4f} ms and on torch "
+                 f"{res['backward_torch_host_call_ms']:.4f} ms")
+    log(f"[k1-h4s] ({tag}) {'has_pa=False' if in_kernel else 'has_pa=True'} B={B} L={L} 4 heads "
+        f"of {dk} Cp={cp} f32 masked_cols={masked}: max_abs_err={err:.3e}, simt's {prev_err:.3e} "
+        f"(tol {tol:.3e}) {detail} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}; "
+        f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP; {res['ms'] / bound_ms:.1f}x the bound) "
+        f"library_ms=null (no single PyTorch call computes this function){extra}")
+    if not (err <= tol and prev_err <= tol):
+        raise AssertionError(f"{route} or simt disagrees with the plain version: {err}, {prev_err} "
+                             f"> {tol}")
+    return res
+
+
 def phase_inkernel(k1, ptxas, card):
     """K1 with the pair bias computed in the kernel (has_pa=False) and K1 at
     the control net's 4 heads, against the plain version; row slabs of the
@@ -1983,6 +2087,22 @@ def phase_inkernel(k1, ptxas, card):
     if not main["peak_mb"] <= main["torch_peak_mb"]:
         raise AssertionError(f"bwd_h4's forward + backward peaks at {main['peak_mb']:.1f} MB, above "
                              f"the forward with the PyTorch backward's {main['torch_peak_mb']:.1f} MB")
+
+    # The training example's widths: the forward on "h4s" and the backward on
+    # "bwd_h4s" at (a)-(d), then "h4" and "bwd_h4" at (a)'s widths.
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    for tag, B, L, dk, cp, masked in H4S_CASES:
+        results[("h4s", tag)] = _h4s_case(k1, ptxas, gen, tag, B, L, dk, cp, masked)
+        results[("bwd_h4s", tag)] = res = _grad_case(k1, gen, B, L, "float32", masked, H=4, cp=cp,
+                                                     dk=dk, tag=f"k1-h4s ({tag})")
+        if res["route"] != "bwd_h4s":
+            raise AssertionError(f"the streamed 4-head backward took route {res['route']!r}")
+    tag, B, L, dk, cp, masked = H4S_CASES[0]
+    results[("h4", tag)] = _h4s_case(k1, ptxas, gen, tag, B, L, dk, cp, masked, in_kernel=True)
+    results[("bwd_h4", tag)] = res = _grad_case(k1, gen, B, L, "float32", masked, H=4, cp=cp, dk=dk,
+                                                in_kernel=True, tag=f"k1-h4s ({tag})")
+    if res["route"] != "bwd_h4":
+        raise AssertionError(f"the in-kernel 4-head backward at width {dk} took {res['route']!r}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     for H, cases in ((16, K1_H16_CASES), (8, K1_H8_CASES)):
@@ -3465,57 +3585,18 @@ def _host_call_ms(fn, calls=200):
     return (time.perf_counter() - t0) / calls * 1e3
 
 
-def _simt4_case(k1, gen):
-    """K1 at the training example's shape on the card (B=8, L=8, 4 heads of
-    16, Cp=16, f32, streamed pair bias: the "simt" design) against its plain
-    version (fatal beyond ``TOL``), with its time, the plain version's and
-    the bound; beside it the launch floor: an empty kernel's device time
-    back to back (``torch.cuda._sleep(0)``), and the host's wall a call of
-    the wrapper and of the empty kernel."""
-    import torch
-
-    B, L, H, cp = BENCH_SIMT4_SHAPE
-    args = k1_inputs(B, L, torch.float32, gen, H=H, cp=cp)
-    route = k1.kernel_route(torch.float32, H, 16, cp, True)
-    if route != "simt":
-        raise AssertionError(f"K1 at the training example's shape takes route {route!r}, not 'simt'")
-    before = dict(k1.launches_by_route)
-    got = k1.ipa_attention(*args, **K1_KW)
-    torch.cuda.synchronize()
-    if k1.launches_by_route != {**before, route: before[route] + 1}:
-        raise AssertionError("ipa_attention at 4 heads did not launch the 'simt' design once")
-    want = k1.ipa_attention_plain(*args, **K1_KW)
-    err, scale = max_err(got, want)
-    tol = TOL["float32"] * scale
-    ms = cuda_time_ms(lambda: k1.ipa_attention(*args, **K1_KW), reps=20)
-    plain_ms = cuda_time_ms(lambda: k1.ipa_attention_plain(*args, **K1_KW), reps=5)
-    bound_ms, bound_by, nbytes, ops = k1_bound(args, got, "float32")
-    empty_ms = cuda_time_ms(lambda: torch.cuda._sleep(0), reps=20)
-    host_ms = _host_call_ms(lambda: k1._launch_design("simt", *args, **K1_KW))
-    empty_host_ms = _host_call_ms(lambda: torch.cuda._sleep(0))
-    log(f"[bench-k1] 4 heads B={B} L={L} Cp={cp} f32 streamed (the training example's shape): "
-        f"max_abs_err={err:.3e} (tol {tol:.3e}) route {route} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by}; {nbytes / 1e3:.1f} kB, {ops / 1e6:.2f} MFLOP; "
-        f"{ms / bound_ms:.0f}x the bound) library_ms=null (no single PyTorch call computes this "
-        f"function); an empty kernel back to back {empty_ms:.4f} ms on the device; the host's wall "
-        f"a call, enqueued back to back: the wrapper {host_ms:.4f} ms, the empty kernel "
-        f"{empty_host_ms:.4f} ms")
-    if not err <= tol:
-        raise AssertionError(f"the simt design disagrees with its plain version: {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                design=route, empty_kernel_ms=empty_ms, host_call_ms=host_ms,
-                empty_kernel_host_ms=empty_host_ms)
-
-
 def phase_bench(k1, ptxas, card):
-    """Phase 22: the benchmarks. First K1 at the shapes (b) and (d) give it,
-    each against its plain version. (b) The sample CLI at bioemu-v1.0 widths
-    (seed 0, f32, dpm_2m-30) for two benchmark test cases, 10 samples each
-    (240 "tc_f32" launches a run), scored by the benchmark CLI. (c) A profile
-    of one score evaluation at B=40 L=100 bf16 through ``utils.profiling``:
-    K1's "tc" kernel 8 times. (d) ``examples/torch_train_from_scratch.py``
-    at 500 steps on the card: the samples' mean pairwise distance at most
-    halfway from the prior's to the data's. (a) Then, with the host idle,
+    """Phase 22: the benchmarks. First K1 at the shapes (b) gives it, each
+    against its plain version (phase 11 holds K1 at (d)'s). (b) The sample
+    CLI at bioemu-v1.0 widths (seed 0, f32, dpm_2m-30) for two benchmark
+    test cases, 10 samples each (240 "tc_f32" launches a run), scored by the
+    benchmark CLI. (c) A profile of one score evaluation at B=40 L=100 bf16
+    through ``utils.profiling``: K1's "tc" kernel 8 times. (d)
+    ``examples/torch_train_from_scratch.py`` at 500 steps on the card: the
+    JAX example's model, every K1 launch on "h4s" and every backward pass on
+    "bwd_h4s"; the known answer on its training at d64: the samples' mean
+    pairwise distance at most halfway from the prior's to the data's. (a)
+    Then, with the host idle,
     the benchmark CLI on the reference's fixture, one child process a
     benchmark, all at once: exit 0, every benchmark in its
     ``benchmark_metrics.json`` with its output files, and the reference's
@@ -3544,10 +3625,9 @@ def phase_bench(k1, ptxas, card):
     if not native:
         raise AssertionError("native/libtmscore.so did not load: the benchmarks would run on numpy")
 
-    # K1 at (b)'s and (d)'s shapes, timed while the host runs nothing else.
+    # K1 at (b)'s shapes, timed while the host runs nothing else.
     gen = torch.Generator(device=DEVICE).manual_seed(22)
     sample_cases = {case: _forward_case(k1, ptxas, gen, *case, 0) for case in BENCH_K1_CASES}
-    simt4 = _simt4_case(k1, gen)
 
     # (b) The sample CLI for two test cases, then the benchmark CLI on them.
     samples_root = root / "samples"
@@ -3626,6 +3706,7 @@ def phase_bench(k1, ptxas, card):
                         "--ckpt_dir", str(root / "train_example")])
     train_wall = time.perf_counter() - t0
     launches, routes, backwards = k1.launches, dict(k1.launches_by_route), k1.backward_calls
+    bwd_routes = dict(k1.backward_calls_by_route)
     layers = res["model"]["num_layers"]
     expect = layers * (BENCH_TRAIN_STEPS + example.SAMPLE_STEPS)
     halfway = (res["d_prior"] + res["d_data"]) / 2
@@ -3635,11 +3716,42 @@ def phase_bench(k1, ptxas, card):
         f"wall {train_wall:.2f} s; mean pairwise distance: prior {res['d_prior']:.4f}, samples "
         f"{res['d_model']:.4f}, data {res['d_data']:.4f} (halfway {halfway:.4f}); K1 launches "
         f"{launches} (expected {expect}), by route {routes}, backward passes {backwards} "
-        f"(expected {layers * BENCH_TRAIN_STEPS})")
-    if launches != expect or routes != only_routes(k1, simt=expect) or backwards != layers * BENCH_TRAIN_STEPS:
-        raise AssertionError("the training example's K1 launches or backward passes are not the expected counts")
-    if not res["d_model"] <= halfway:
-        raise AssertionError(f"the samples' mean pairwise distance {res['d_model']:.4f} is not at most "
+        f"(expected {layers * BENCH_TRAIN_STEPS}), by route {bwd_routes}")
+    if res["model"] != example.JAX_MODEL:
+        raise AssertionError(f"the training example built {res['model']}, not the JAX example's "
+                             f"{example.JAX_MODEL}")
+    if (launches != expect or routes != only_routes(k1, h4s=expect)
+            or backwards != layers * BENCH_TRAIN_STEPS
+            or bwd_routes != only_bwd_routes(k1, bwd_h4s=backwards)):
+        raise AssertionError("the training example's K1 launches or backward passes are not the "
+                             "expected counts, all on 'h4s' and 'bwd_h4s'")
+    # The known answer. At the JAX example's width (d32) one draw's statistic
+    # scatters across the halfway mark in both packages, and the JAX
+    # example's own seed-0 model sits above it on average (PERF.md's
+    # findings; scripts/train_example_spread.py --package cross): printed above, not
+    # held. It is held on the same example's training at d64 (4 heads of 16,
+    # seed 0, sampling seed 42: scripts/train_example_spread.py), where it
+    # holds with margin in both packages, on "h4s" and "bwd_h4s" too.
+    spread = _load_script("train_example_spread")
+    _reset_k1(k1)
+    t0 = time.perf_counter()
+    draw = next(spread._torch_seeds(argparse.Namespace(
+        dim_model=BENCH_KNOWN_ANSWER_DIM, device=DEVICE, seeds=1, steps=BENCH_TRAIN_STEPS)))
+    d_known = draw(0)
+    known_wall = time.perf_counter() - t0
+    known_routes, known_bwd = dict(k1.launches_by_route), dict(k1.backward_calls_by_route)
+    log(f"[bench] (d) the known answer: the example's training at dim_model "
+        f"{BENCH_KNOWN_ANSWER_DIM} (4 heads of {BENCH_KNOWN_ANSWER_DIM // 4}), {BENCH_TRAIN_STEPS} "
+        f"steps, seed 0: samples' mean pairwise distance {d_known:.4f} against halfway "
+        f"{halfway:.4f} (prior {res['d_prior']:.4f}, data {res['d_data']:.4f}); wall "
+        f"{known_wall:.2f} s; K1 launches by route {known_routes}, backward passes by route "
+        f"{known_bwd}")
+    if (known_routes != only_routes(k1, h4s=expect)
+            or known_bwd != only_bwd_routes(k1, bwd_h4s=layers * BENCH_TRAIN_STEPS)):
+        raise AssertionError("the known-answer training's K1 launches or backward passes are not "
+                             "the expected counts, all on 'h4s' and 'bwd_h4s'")
+    if not d_known <= halfway:
+        raise AssertionError(f"the samples' mean pairwise distance {d_known:.4f} is not at most "
                              f"halfway ({halfway:.4f}) from the prior's to the data's")
 
     # (a) Every benchmark by the CLI on its fixture directory, with filtering.
@@ -3687,7 +3799,8 @@ def phase_bench(k1, ptxas, card):
     wall = time.perf_counter() - t_phase
     log(f"[bench] phase 22 wall {wall:.1f} s; {card}")
     return dict(sample_launches=sample_launches, profile_launches=profile_launches,
-                train_launches=launches, train_backwards=backwards, simt4=simt4,
+                train_launches=launches, train_backwards=backwards, d_model=res["d_model"],
+                d_known=d_known, halfway=halfway,
                 sample_cases=sample_cases, wall=wall)
 
 
@@ -3855,6 +3968,8 @@ def main() -> int:
     h16_l77 = {dname: inkernel[(40, 77, 16, 256, dname, False)] for dname in H16_ROUTES}
     h8_main = {dname: inkernel[(40, 100, 8, 256, dname, False)] for dname in H8_ROUTES}
     h8_l77 = {dname: inkernel[(40, 77, 8, 256, dname, False)] for dname in H8_ROUTES}
+    h4s = {c[0]: inkernel[("h4s", c[0])] for c in H4S_CASES}
+    bwd_h4s = {c[0]: inkernel[("bwd_h4s", c[0])] for c in H4S_CASES}
     mesh4 = mesh["mesh4"]
     log(f"[k1] launches: sampling path {sample_launches}, training path {train_launches}, PPFT "
         f"CLI {ppft_launches}, PPFT step {step['launches']}, sample CLI heun "
@@ -3881,8 +3996,8 @@ def main() -> int:
         + ", ".join(f"{s} sweeps {n}" for s, n in picard["launches"].items())
         + f" on tc, f32 30 sweeps {picard['f32_launches']} on tc_f32; benchmarks: sample CLI "
         f"{bench['sample_launches']} on tc_f32, the profiled evaluation {bench['profile_launches']} "
-        f"on tc, the training example {bench['train_launches']} on simt and "
-        f"{bench['train_backwards']} backward passes")
+        f"on tc, the training example {bench['train_launches']} on h4s and "
+        f"{bench['train_backwards']} backward passes on bwd_h4s")
     kernels = {"kernels": [{
         "name": "ipa_attention",
         "route": "cuda",
@@ -4155,32 +4270,69 @@ def main() -> int:
         "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
         "backward_calls": mesh4["backwards"],
     }, {
-        # K1 at 4 heads of 16 with the streamed pair bias, f32 (route simt,
-        # the CUDA-core design): the training example on the card (phase 22
-        # (d), 500 DSM steps and 100 EM steps of a 2-layer d64 model), at its
-        # shape, B=8 L=8, Cp=16.
+        # K1 at 4 heads of 8 with the streamed pair bias, f32 (route h4s): the
+        # training example on the card (phase 22 (d), 500 DSM steps and 100
+        # EM steps of the JAX example's 2-layer d32 model), at its shape
+        # (a), B=8 L=8, Cp=16, with phase 11's (b)-(d) beside; prev_ms is the
+        # CUDA-core design (prev_source) on the same inputs, timed in turns.
         "name": "ipa_attention_4_heads_streamed",
         "route": "cuda",
-        "source": "se3diff_torch/csrc/ipa_attention.cu",
+        "source": "se3diff_torch/csrc/ipa_attention_h4.cu",
         "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
         "launches": bench["train_launches"],
-        "max_abs_err": bench["simt4"]["max_abs_err"],
-        "ms": bench["simt4"]["ms"],
-        "plain_ms": bench["simt4"]["plain_ms"],
-        "bound_ms": bench["simt4"]["bound_ms"],
-        "bound_by": bench["simt4"]["bound_by"],
+        "max_abs_err": h4s["a"]["max_abs_err"],
+        "ms": h4s["a"]["ms"],
+        "plain_ms": h4s["a"]["plain_ms"],
+        "bound_ms": h4s["a"]["bound_ms"],
+        "bound_by": h4s["a"]["bound_by"],
         "library_ms": None,
         "verdict": "pass",
-        "design": bench["simt4"]["design"],
+        "design": h4s["a"]["design"],
+        "prev_source": "se3diff_torch/csrc/ipa_attention.cu",
+        "prev_ms": h4s["a"]["prev_ms"],
+        "prev_max_abs_err": h4s["a"]["prev_max_abs_err"],
+        "max_abs_err_vs_prev": h4s["a"]["err_vs_prev"],
         # The launch floor in the same run: an empty kernel's device time back
-        # to back, and the host's wall a call (the wrapper, the empty kernel).
-        "empty_kernel_ms": bench["simt4"]["empty_kernel_ms"],
-        "host_call_ms": bench["simt4"]["host_call_ms"],
-        "empty_kernel_host_ms": bench["simt4"]["empty_kernel_host_ms"],
-        "backward_route": "torch",
-        "backward_source": "se3diff_torch/ops/ipa_attention.py",
+        # to back, and the host's wall a call (the two designs' wrappers, the
+        # empty kernel).
+        "empty_kernel_ms": h4s["a"]["empty_kernel_ms"],
+        "host_call_ms": h4s["a"]["host_call_ms"],
+        "prev_host_call_ms": h4s["a"]["prev_host_call_ms"],
+        "empty_kernel_host_ms": h4s["a"]["empty_kernel_host_ms"],
+        # The example's samples' mean pairwise distance (d32, printed) and
+        # the known answer's (d64, held at most halfway).
+        "example_d_model": bench["d_model"], "known_answer_d_model": bench["d_known"],
+        "halfway": bench["halfway"],
+        **{k: v for tag, name in (("b", "B8_L64_masked"), ("c", "B64_L100"), ("d", "B64_L100_w16_Cp32"))
+           for k, v in {**_case_keys(name, h4s[tag]),
+                        f"{name}_prev_max_abs_err": h4s[tag]["prev_max_abs_err"]}.items()},
+        "backward_route": bwd_h4s["a"]["route"],
+        "backward_source": "se3diff_torch/csrc/ipa_attention_bwd_h4.cu",
         "backward_replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
         "backward_calls": bench["train_backwards"],
+    }, {
+        # K1's backward at 4 heads of 8 with the streamed pair bias, f32
+        # (route bwd_h4s): autograd's backward passes in the training
+        # example's 500 steps (phase 22 (d)), and at its shape (a) the
+        # gradients against autograd of the plain version in f64, timed in
+        # turns with the PyTorch backward (torch_ms), with the host's wall a
+        # call of each; phase 11's (b)-(d) beside. No Pallas kernel:
+        # "replaces" is the XLA backward behind fused_ipa_attention_diff's
+        # custom VJP.
+        "name": "ipa_attention_backward_h4s",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_bwd_h4.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "launches": bench["train_backwards"],
+        **_bwd_entry(bwd_h4s["a"]),
+        "torch_peak_mb": bwd_h4s["a"]["torch_peak_mb"],
+        "host_call_ms": h4s["a"]["backward_host_call_ms"],
+        "torch_host_call_ms": h4s["a"]["backward_torch_host_call_ms"],
+        **_bwd_keys("B8_L64_masked", bwd_h4s["b"]),
+        **_bwd_keys("B64_L100", bwd_h4s["c"]),
+        **_bwd_keys("B64_L100_w16_Cp32", bwd_h4s["d"]),
+        # bwd_h4 (w_pb) at the same widths (a).
+        **_bwd_keys("w_pb", inkernel[("bwd_h4", "a")]),
     }, {
         # K1's backward at 32 heads with the streamed pair bias in bf16 (route
         # bwd_tc): autograd's backward passes in the train CLI's run (phase 8),

@@ -2,7 +2,7 @@
 """Where the time of K1's hand-written designs goes, by ablation, on one H100.
 
     python3 scripts/k1_ablation.py [tc] [tc_f32] [tc_pb] [tc_pb_f32] [tc16] [tc16_f32] [tc8]
-                                   [tc8_f32] [h4]
+                                   [tc8_f32] [h4] [h4_cp64]
     python3 scripts/k1_ablation.py --against OTHER_CSRC [design ...]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
@@ -23,10 +23,12 @@ score model's shapes, the in-kernel variants at the same shapes, where
 ``no_pair_bias_mma`` is the share of the pa contraction; the 16-head ones: Cp=256, a tensor-parallel rank's
 shapes in the mesh trainer, B=16 at L=100 and L=64; the 8-head ones:
 Cp=256, B=40 L=100 and a rank's shape at ``--mesh model=4``, B=16 L=64 in
-bf16 and L=100 in f32; "h4": 4 heads, Cp=32,
-the PPFT control net's B=256 L=56 and a batch of 64). A variant's outputs are wrong by construction: only its time is
+bf16 and L=100 in f32; "h4": 4 heads of 16, Cp=32,
+the PPFT control net's B=256 L=56 and a batch of 64; "h4_cp64": the same
+design's Cp <= 64 instance at B=256 L=56). A variant's outputs are wrong by construction: only its time is
 read, as the share of the full kernel's time that the part it cuts costs.
-Prints one line a variant with ptxas's register and spill report, then the
+Prints one line a variant with ptxas's register and spill report (each
+line after its entry function's mangled name), then the
 card's name and power limit. Outputs go to ``.work/k1_ablation/`` (listed
 in .gitignore).
 
@@ -179,10 +181,10 @@ CUTS = {
         "projection": [("for (int c = 0; c < Cp; ++c) {\n      const float x = xh[c];",
                         "for (int c = 0; c < 0; ++c) {\n      const float x = xh[c];")],
         "x2d_copy": [("  for (int k = 0; k < kMaxC / 8; ++k) {", "  for (int k = 0; k < 0; ++k) {")],
-        "key_copy": [("for (int e = tid; e < kH * kKC * 4; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
-                     ("for (int e = tid; e < kH * kKC * 6; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
-                     ("for (int e = tid; e < 3 * kH * kNpts * kKC; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
-                     ("for (int j = tid; j < kKC; j += nthr) {", "for (int j = tid; j < 0; j += nthr) {")],
+        "key_copy": [("for (int e = tid; e < kH * nc * kQ; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
+                     ("for (int e = tid; e < kH * nc * 6; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
+                     ("for (int e = tid; e < 3 * kH * kNpts * nc; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
+                     ("for (int j = tid; j < nc; j += nthr) {", "for (int j = tid; j < 0; j += nthr) {")],
     },
 }
 DESIGNS = {  # source, C symbol, dtype name, heads, Cp, has_pa, shapes (B, L)
@@ -204,12 +206,16 @@ DESIGNS = {  # source, C symbol, dtype name, heads, Cp, has_pa, shapes (B, L)
                 [(40, 100), (16, 100)]),
     "h4": ("ipa_attention_h4.cu", "ipa_attention_h4_fwd", "float32", 4, 32, False,
            [(256, 56), (64, 56)]),
+    # The same design at its largest pair width (its Cp <= 64 instance).
+    "h4_cp64": ("ipa_attention_h4.cu", "ipa_attention_h4_fwd", "float32", 4, 64, False,
+                [(256, 56)]),
 }
+CUTS["h4_cp64"] = CUTS["h4"]
 
 
 def variants(design: str) -> dict[str, list[tuple[str, str]]]:
     cuts = CUTS[design]
-    if design == "h4":
+    if design.startswith("h4"):
         return {"full": [], **{f"no_{k}": v for k, v in cuts.items()}}
     proj = "finalize_mma" if design in ("tc", "tc_pb", "tc16", "tc8") else "projection"
     return {"full": [], **{f"no_{k}": v for k, v in cuts.items()},
@@ -232,9 +238,20 @@ def build(design: str, name: str, nvcc: str, flags, csrc: Path = CSRC,
     src.write_text(text)
     res = subprocess.run([nvcc, *flags, "-I", str(csrc), "-shared", "-o", str(lib), str(src)],
                          capture_output=True, text=True)
-    report = "; ".join(x.split(":", 1)[-1].strip() for x in (res.stdout + res.stderr).splitlines()
-                       if "registers" in x or "spill" in x)
-    return design, name, lib if res.returncode == 0 else None, report or res.stderr[-1500:]
+    return design, name, lib if res.returncode == 0 else None, (
+        ptxas_report(res.stdout + res.stderr) or res.stderr[-1500:])
+
+
+def ptxas_report(log: str) -> str:
+    """ptxas's register, shared-memory and spill lines, each after the
+    mangled name of the entry function they describe."""
+    out, entry = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif "registers" in line or "spill" in line:
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+    return " | ".join(out)
 
 
 def inputs(design: str, B: int, L: int, gen) -> list:

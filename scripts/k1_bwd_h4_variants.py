@@ -3,6 +3,7 @@
 design variants of it, timed in turns with the committed source on one H100.
 
     python3 scripts/k1_bwd_h4_variants.py [variant ...]
+    python3 scripts/k1_bwd_h4_variants.py --against OTHER_CSRC
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
 CUDA build of PyTorch. A variant is ``se3diff_torch/csrc/ipa_attention_bwd_h4.cu``
@@ -19,6 +20,13 @@ computes the same function and is held against the committed source's
 gradients at ``chip_smoke.GRAD_TOL`` f32. Prints a line a variant and shape
 with ptxas's register and spill report, then the card's name and power
 limit. Outputs go to ``.work/k1_bwd_h4_variants/`` (listed in .gitignore).
+ptxas's lines are each given after their entry function's mangled name.
+
+With ``--against OTHER_CSRC`` (another tree's ``se3diff_torch/csrc``, say the
+parent commit's unpacked by ``git archive`` into a directory that .gitignore
+lists) the one variant is that tree's ``ipa_attention_bwd_h4.cu`` as it is,
+timed in turns with the committed source at the same shapes, with the
+largest difference of any gradient (0 when the two are bit for bit equal).
 
 Cuts:
 - ``no_prologue``: the row block's logits' CUDA-core terms and value terms
@@ -72,7 +80,7 @@ VARIANTS = {
     "no_uv": [(_UV, _UV.replace("16 * mt < C16", "false"))],
     "no_sweep2": [(_SWEEP2, _SWEEP2.replace("tt < ntiles", "tt < 0"))],
     "no_dq": [("        if (k ? okb : oka) {", "        if (false) {")],
-    "no_cols": [("  bwd_h4_cols<<<", "  if (false) bwd_h4_cols<<<")],
+    "no_cols": [("  bwd_h4_cols<kDK><<<", "  if (false) bwd_h4_cols<kDK><<<")],
     "no_copy": [("    cp_async16(dst + 4 * part, ok ? src + 4 * part : x_row, ok ? 16 : 0, policy);",
                  "    if (false) cp_async16(dst + 4 * part, ok ? src + 4 * part : x_row, ok ? 16 : 0, policy);")],
     "no_pag": [("          mma_tf32(c, a.big, wb[ks].big[0], wb[ks].big[1]);",
@@ -127,8 +135,20 @@ CLOCK_PHASES = ("loads and barrier", "set-up of W and barrier", "prologue (s0, d
                 "d_q sums and stores", "block barrier and partials")
 
 
-def build(name: str, nvcc: str, flags) -> tuple[str, Path | None, str]:
-    text = SOURCE.read_text()
+def ptxas_report(log: str) -> str:
+    """ptxas's register, shared-memory and spill lines, each after the
+    mangled name of the entry function they describe."""
+    out, entry = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif "registers" in line or "spill" in line:
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+    return " | ".join(out)
+
+
+def build(name: str, nvcc: str, flags, source: Path = SOURCE) -> tuple[str, Path | None, str]:
+    text = source.read_text()
     for old, new in VARIANTS.get(name, []):
         if text.count(old) != 1:
             raise SystemExit(f"{name}: the patch's text occurs {text.count(old)} times in {SOURCE.name}")
@@ -137,16 +157,22 @@ def build(name: str, nvcc: str, flags) -> tuple[str, Path | None, str]:
     src.write_text(text)
     res = subprocess.run([nvcc, *flags, "-shared", "-o", str(lib), str(src)], capture_output=True,
                          text=True)
-    report = "; ".join(x.split(":", 1)[-1].strip() for x in (res.stdout + res.stderr).splitlines()
-                       if "registers" in x or "spill" in x)
-    return name, lib if res.returncode == 0 else None, report or res.stderr[-1500:]
+    return name, lib if res.returncode == 0 else None, (
+        ptxas_report(res.stdout + res.stderr) or res.stderr[-1500:])
 
 
 def main(argv: list[str]) -> int:
     import torch
 
+    other = None
+    if argv[:1] == ["--against"]:
+        if len(argv) != 2 or not (Path(argv[1]) / SOURCE.name).is_file():
+            print("k1_bwd_h4_variants: --against takes another tree's se3diff_torch/csrc",
+                  file=sys.stderr)
+            return 2
+        other, argv = Path(argv[1]).resolve() / SOURCE.name, ["against"]
     names = argv or list(VARIANTS)
-    if any(n not in VARIANTS for n in names):
+    if other is None and any(n not in VARIANTS for n in names):
         print(f"k1_bwd_h4_variants: variants are {sorted(VARIANTS)}, got {names}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -161,7 +187,8 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + 1) as pool:
         built = dict((n, (lib, rep)) for n, lib, rep in pool.map(
-            lambda n: build(n, k1._nvcc(), k1.NVCC_FLAGS), ["committed", *names]))
+            lambda n: build(n, k1._nvcc(), k1.NVCC_FLAGS, other if n == "against" else SOURCE),
+            ["committed", *names]))
     print(f"[bwd-h4-variants] {len(built)} sources built in {time.perf_counter() - t0:.1f} s", flush=True)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fns = {}
@@ -226,6 +253,9 @@ def main(argv: list[str]) -> int:
             held = "" if n.startswith("no_") else (
                 f"; gradients against the committed source {worst:.2e} x max "
                 + ("(within GRAD_TOL)" if worst <= chip_smoke.GRAD_TOL["float32"] else "(BEYOND GRAD_TOL)"))
+            if n == "against":
+                held += ("; bit for bit equal" if all(torch.equal(o, w) for o, w in zip(outs, want))
+                         else "; NOT bit for bit equal")
             print(f"[bwd-h4-variants] B={B} L={L} masked={masked} {n:12s} {var:.4f} ms against the "
                   f"committed {ms:.4f} ({100 * (ms - var) / ms:+.1f}%; "
                   + ", ".join(f"{t:.4f}" for t in times) + f"){held} | {built[n][1]}", flush=True)

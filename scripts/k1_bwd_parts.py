@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of K1's backward kernel goes, by kernel, on one H100.
 
-    python3 scripts/k1_bwd_parts.py [tc] [tc16] [tc8] [h4]
+    python3 scripts/k1_bwd_parts.py [tc] [tc16] [tc8] [h4] [h4s]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
-CUDA build of PyTorch (no argument: all four). Builds the IPA attention library,
+CUDA build of PyTorch (no argument: all five). Builds the IPA attention library,
 then for each shape the paths give a backward kernel calls
 ``ops.ipa_attention._launch_backward`` once to warm up and once under
 ``torch.profiler``, and prints the device time of every kernel of the call
@@ -25,7 +25,12 @@ heads of 16, f32, the pair bias from ``w_pb`` (route "bwd_h4": ``bwd_h4_pre``,
 ``bwd_h4_rows``, ``bwd_h4_cols``, ``bwd_h4_wsum``) at the PPFT step's B=256
 L=56 Cp=32, L=57 with 5 masked columns, Cp=64, B=64 L=100 and B=64 L=56;
 before its shapes, ptxas's registers and spills of the bwd_h4 kernels and
-the row kernel's resident blocks an SM.
+the row kernel's resident blocks an SM. ``h4s``: the same source's streamed
+variant (route "bwd_h4s": ``bwd_h4_rows`` and ``bwd_h4_cols``, the
+``bwd_h4_wsum`` of d_w_pv alone, ``bwd_h4s_pre`` above 64 key columns) at
+the training example's widths, 4 heads of 8, Cp=16: its batch B=8 L=8, B=8
+L=64 with 4 masked columns, B=64 L=100; and at 4 heads of 16, Cp=32, B=64
+L=100.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-# (B, query rows, key columns, dtype, heads, Cp, masked columns), by design.
+# (B, query rows, key columns, dtype, heads, Cp, masked columns[, head width]), by design.
 SHAPES = {
     "tc": [(16, 100, 100, "bfloat16", 32, 256, 0), (16, 100, 100, "float32", 32, 256, 0),
            (32, 56, 56, "bfloat16", 32, 256, 0), (4, 150, 300, "float32", 32, 256, 0)],
@@ -47,14 +52,16 @@ SHAPES = {
     "h4": [(256, 56, 56, "float32", 4, 32, 0), (256, 57, 57, "float32", 4, 32, 5),
            (256, 56, 56, "float32", 4, 64, 0), (64, 100, 100, "float32", 4, 32, 0),
            (64, 56, 56, "float32", 4, 32, 0)],
+    "h4s": [(8, 8, 8, "float32", 4, 16, 0, 8), (8, 64, 64, "float32", 4, 16, 4, 8),
+            (64, 100, 100, "float32", 4, 16, 0, 8), (64, 100, 100, "float32", 4, 32, 0, 16)],
 }
 
 
-def _inputs(B, Lq, Lk, dtype, H, cp, masked, gen, in_kernel):
-    """The streamed pair bias, or with ``in_kernel`` ``w_pb`` in its place."""
+def _inputs(B, Lq, Lk, dtype, H, cp, masked, gen, in_kernel, dk=16):
+    """The streamed pair bias, or with ``in_kernel`` ``w_pb`` in its place,
+    at heads of width ``dk``."""
     import torch
 
-    dk = 16
     r = lambda *s, scale=1.0: torch.randn(s, generator=gen, device="cuda") * scale  # noqa: E731
     bias = torch.zeros(B, Lk, device="cuda")
     if masked:
@@ -82,10 +89,10 @@ def main() -> int:
         print(f"k1_bwd_parts: designs are {sorted(SHAPES)}, got {designs}", file=sys.stderr)
         return 2
     _, report = k1.build_library()
-    if "h4" in designs:
+    if "h4" in designs or "h4s" in designs:
         lines = report.splitlines()
         for n, line in enumerate(lines):
-            if "Compiling entry function" in line and "bwd_h4_" in line:
+            if "Compiling entry function" in line and ("bwd_h4_" in line or "bwd_h4s_" in line):
                 name = line.split("'")[1] if "'" in line else line
                 usage = "; ".join(x.split(":", 1)[-1].strip() for x in lines[n + 1:n + 4]
                                   if "registers" in x or "spill" in x)
@@ -98,8 +105,11 @@ def main() -> int:
                   "resident")
     kw = dict(scalar_w=1.0 / 48**0.5, pair_w=1.0 / 3**0.5)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for design, (B, Lq, Lk, dname, H, cp, masked) in ((d, s) for d in designs for s in SHAPES[d]):
-        args, cts = _inputs(B, Lq, Lk, getattr(torch, dname), H, cp, masked, gen, design == "h4")
+    for design, (B, Lq, Lk, dname, H, cp, masked, *width) in ((d, s) for d in designs
+                                                              for s in SHAPES[d]):
+        dk = width[0] if width else 16
+        args, cts = _inputs(B, Lq, Lk, getattr(torch, dname), H, cp, masked, gen, design == "h4",
+                            dk)
 
         def call():
             return k1._launch_backward(args, cts, kw["scalar_w"], kw["pair_w"], counted=False)
@@ -115,8 +125,8 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         prof = profile_device(call)
-        route = k1.backward_route(args[0].dtype, H, 16, cp, design != "h4")
-        print(f"[k1-bwd-parts] H={H} Cp={cp} B={B} Lq={Lq} Lk={Lk} masked={masked} {dname} "
+        route = k1.backward_route(args[0].dtype, H, dk, cp, design != "h4")
+        print(f"[k1-bwd-parts] H={H}x{dk} Cp={cp} B={B} Lq={Lq} Lk={Lk} masked={masked} {dname} "
               f"route {route}: call "
               f"{statistics.median(times):.4f} ms "
               f"by events (median of 20); device kernel time {prof.total_ms:.4f} ms in "

@@ -7,13 +7,16 @@ Trains the example's score net (``examples/train_from_scratch.py`` with
 seeds (the initial weights' key or generator and the training noise's seed)
 and samples it with Euler–Maruyama from ``--samples`` sampling seeds; prints
 the samples' mean pairwise Ca distance for each, the mean of each seed and
-the mean over all. Only the asked-for package is imported.
+the mean over all. Only the asked-for package is imported, but for
+``--package cross``: JAX's model of each seed sampled by both packages'
+Euler–Maruyama (the port's on JAX's weights, carried across by
+``models.convert.state_dict_from_jax``, on the CPU), one line a sampler.
 
     python scripts/train_example_spread.py --package jax [--seeds 4] [--samples 8] [--dim_model 32]
     python scripts/train_example_spread.py --package torch [--device cuda|cpu] [--dim_model 64]
+    python scripts/train_example_spread.py --package cross [--seeds 1] [--samples 48]
 
-``--dim_model 32`` is the JAX example's width, which the card refuses;
-the card takes 64.
+``--dim_model 32`` is the JAX example's width (4 heads of 8).
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def _jax_seeds(args):
+def _jax_seeds(args, cross=False):
     """For each seed: the trained model's ``draw(k)``, the mean pairwise
-    distance of the samples from sampling key 42 + k (JAX package)."""
+    distance of the samples from sampling key 42 + k (JAX package); with
+    ``cross`` also the port's ``draw(k)`` of the same weights (generator
+    42 + k), yielded after it."""
     import runpy
 
     import jax
@@ -56,6 +61,39 @@ def _jax_seeds(args):
             k, sdes, lambda pos, rot, t: model.apply(params, pos, rot, t, b["single"], b["pair"]),
             batch=8, length=8, num_steps=100, min_t=0.05)[0])
         yield lambda k: ex["mean_pairwise_dist"](np.asarray(sample(jax.random.key(42 + k))))
+        if cross:
+            yield _port_sampler(params, b, args.dim_model)
+
+
+def _port_sampler(params, b, dim_model):
+    """The port's ``draw(k)`` of JAX's trained weights ``params`` on the CPU:
+    the samples' mean pairwise distance from generator 42 + k."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    import torch_train_from_scratch as ex
+    from se3diff_torch.diffusion import denoise
+    from se3diff_torch.models.convert import state_dict_from_jax
+    from se3diff_torch.models.dig import DiGConditionalScoreModel
+    from se3diff_torch.sde.so3_sde import DiGSO3SDE
+    from se3diff_torch.sde.vpsde import CosineVPSDE
+
+    model = DiGConditionalScoreModel(**dict(ex.JAX_MODEL, dim_model=dim_model))
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    model.eval()
+    sdes = denoise.SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**ex.SO3, device="cpu"))
+    single, pair = (torch.from_numpy(np.array(b[k])) for k in ("single", "pair"))
+
+    def draw(k):
+        with torch.no_grad():
+            pos, _ = denoise.euler_maruyama(
+                torch.Generator().manual_seed(42 + k), sdes,
+                lambda x, r, t: model(x, r, t, single, pair), batch=8, length=8,
+                num_steps=ex.SAMPLE_STEPS, min_t=ex.MIN_T)
+        return ex.mean_pairwise_dist(pos.numpy())
+
+    return draw
 
 
 def _torch_seeds(args):
@@ -104,7 +142,7 @@ def _config(TrainConfig, args, seed, min_t):
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--package", required=True, choices=["jax", "torch"])
+    p.add_argument("--package", required=True, choices=["jax", "torch", "cross"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help="--package torch only")
     p.add_argument("--seeds", type=int, default=4)
     p.add_argument("--samples", type=int, default=8)
@@ -114,15 +152,20 @@ def main(argv=None) -> None:
 
     import numpy as np
 
-    seeds = _jax_seeds(args) if args.package == "jax" else _torch_seeds(args)
-    means = []
-    for seed, draw in enumerate(seeds):
+    cross = args.package == "cross"
+    seeds = (_jax_seeds(args, cross) if args.package != "torch" else _torch_seeds(args))
+    means = {}
+    for n, draw in enumerate(seeds):
+        seed, sampler = (n // 2, ("jax", "port")[n % 2]) if cross else (n, args.package)
         d = [draw(k) for k in range(args.samples)]
-        means.append(float(np.mean(d)))
-        print(f"seed {seed}: " + " ".join(f"{x:.3f}" for x in d) + f"; mean {means[-1]:.4f}", flush=True)
-    where = "cpu" if args.package == "jax" else args.device
-    print(f"{args.package} dim_model {args.dim_model} on {where}: mean over {args.seeds} seeds x "
-          f"{args.samples} samples {np.mean(means):.4f}")
+        means.setdefault(sampler, []).append(float(np.mean(d)))
+        print(f"seed {seed}{f' ({sampler} sampler)' if cross else ''}: "
+              + " ".join(f"{x:.3f}" for x in d) + f"; mean {means[sampler][-1]:.4f}", flush=True)
+    where = "cpu" if args.package != "torch" else args.device
+    for sampler, m in means.items():
+        print(f"{args.package} dim_model {args.dim_model} on {where}"
+              + (f", {sampler} sampler" if cross else "")
+              + f": mean over {args.seeds} seeds x {args.samples} samples {np.mean(m):.4f}")
 
 
 if __name__ == "__main__":

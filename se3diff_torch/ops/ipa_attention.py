@@ -26,11 +26,13 @@ never rounded itself (``pallas_ipa.py:399-406``).
 device of its operands alone: CPU tensors go through
 :func:`ipa_attention_plain`, which takes any width; CUDA tensors launch a
 kernel or raise. The card takes the widths in :data:`CARD_WIDTHS` (4, 8,
-16 or 32 heads of width 16, ``Cp <= 256``, ``Cp % 4 == 0``);
-:func:`check_card_widths` holds a model config against them before a model
-is bound to the card. Ten kernel designs, all built with ``nvcc`` for
-``sm_90a`` at first use into one library bound through ``ctypes``, and a
-static rule on the widths (:func:`kernel_route`) picks one:
+16 or 32 heads of width 8 or 16, ``Cp <= 256``, ``Cp % 4 == 0``), every
+dtype and variant at each of them; :func:`check_card_widths` holds a model
+config against them before a model is bound to the card. Eleven kernel
+designs, all built with ``nvcc`` for ``sm_90a`` at first use into one
+library bound through ``ctypes``, and a static rule on the widths
+(:func:`kernel_route`) picks one (the tensor-core designs take heads of
+width 16 only):
 
 - ``"tc"`` (``csrc/ipa_attention_tc.cu``): bf16, 32 heads, the streamed
   pair bias and ``Cp % 32 == 0``, the score model's bf16 launches: x2d and
@@ -53,13 +55,17 @@ static rule on the widths (:func:`kernel_route`) picks one:
   model=4``: the x2d product transposed (channels as M, the 8 heads as
   N), a warp a query row of a block's 8, one x2d stage, two 256-thread
   blocks an SM;
-- ``"h4"`` (``csrc/ipa_attention_h4.cu``): f32, 4 heads, the in-kernel pair
-  bias and ``Cp <= H4_MAX_CP``, every attention of the PPFT control net: a
-  warp a query row with its 4 heads, x2d tiles staged once by ``cp.async``
-  and read twice from shared memory, on CUDA-core FMAs;
+- ``"h4"`` (``csrc/ipa_attention_h4.cu``): f32, 4 heads of width 16 or 8,
+  the in-kernel pair bias and ``Cp <= H4_MAX_CP``, every attention of the
+  PPFT control net: a warp a query row with its 4 heads, x2d tiles staged
+  once by ``cp.async`` and read twice from shared memory, on CUDA-core FMAs;
+- ``"h4s"`` (the streamed variant of the same source): f32, 4 heads of width
+  16 or 8, the streamed pair bias and ``Cp <= H4_MAX_CP``, every attention
+  of the training example (``examples/torch_train_from_scratch.py``, 4 heads
+  of 8): pa tiles staged with the x2d tiles, no pair-bias FMAs;
 - ``"simt"`` (``csrc/ipa_attention.cu``): every other card width (bf16 at 4
-  heads, the streamed variant at 4 heads, the in-kernel pair bias at 8 and
-  16 heads, ``Cp % 32 != 0``), on CUDA-core FMAs.
+  heads, the in-kernel pair bias at 8 and 16 heads, width 8 at 8 to 32
+  heads, ``Cp % 32 != 0``), on CUDA-core FMAs; no path launches it.
 
 Nothing falls back at run time. The backward (the JAX package's is XLA
 code, ``_fused_backward_chunked``, not a Pallas kernel) dispatches by device
@@ -82,11 +88,15 @@ launch a kernel or raise:
   the same algebra with the x2d contractions shaped to the 8 heads (N of
   the aggregate and of G, K of d_x2d), one pass over x2d, two 256-thread
   blocks an SM;
-- ``"bwd_h4"`` (``csrc/ipa_attention_bwd_h4.cu``): f32, 4 heads, the
-  in-kernel pair bias and ``Cp <= H4_MAX_CP``: the PPFT control net's
-  backward. Its algebra (one sweep over x2d carrying the statistics, D and
-  the x2d aggregates online; d_w_pb from them; a second sweep without x2d)
-  is :func:`ipa_attention_backward_h4_tiled`.
+- ``"bwd_h4"`` (``csrc/ipa_attention_bwd_h4.cu``): f32, 4 heads of width 16
+  or 8, the in-kernel pair bias and ``Cp <= H4_MAX_CP``: the PPFT control
+  net's backward. Its algebra (one sweep over x2d carrying the statistics, D
+  and the x2d aggregates online; d_w_pb from them; a second sweep without
+  x2d) is :func:`ipa_attention_backward_h4_tiled`;
+- ``"bwd_h4s"`` (the streamed variant of the same source): the same widths
+  with the streamed pair bias, the training example's backward: d_pa =
+  pair_w ds written by the row kernel, no pair bias formed from x2d, no
+  d_w_pb (``ipa_attention_backward_h4_tiled`` with ``pa`` given).
 
 No path calls the two ``*_tiled`` functions.
 
@@ -117,6 +127,7 @@ __all__ = [
     "build_library",
     "library_path",
     "CARD_WIDTHS",
+    "TC_HEAD_DIM",
     "H4_MAX_CP",
     "check_card_widths",
     "kernel_route",
@@ -136,16 +147,21 @@ NVCC_FLAGS = (
 
 # Attention widths the card's kernels take; the plain version (any CPU
 # tensor) takes every width, as the JAX package does.
-CARD_WIDTHS = {"heads": (4, 8, 16, 32), "head_dim": 16, "max_cp": 256, "cp_multiple": 4}
-# The largest pair width of the "h4" design (its shared memory's limit:
-# ``kMaxCp`` of csrc/ipa_attention_h4.cu); wider 4-head f32 shapes take "simt".
+CARD_WIDTHS = {"heads": (4, 8, 16, 32), "head_dims": (8, 16), "max_cp": 256, "cp_multiple": 4}
+# The head width of the tensor-core designs; the others take every width in
+# CARD_WIDTHS["head_dims"].
+TC_HEAD_DIM = 16
+# The largest pair width of the "h4" and "h4s" designs (their shared
+# memory's limit: ``kMaxCp`` of csrc/ipa_attention_h4.cu); wider 4-head f32
+# shapes take "simt".
 H4_MAX_CP = 64
 # The kernel design each route launches, by C symbol.
 _ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "tc_f32": "ipa_attention_tc_f32_fwd",
                   "tc_pb": "ipa_attention_tc_pb_fwd", "tc_pb_f32": "ipa_attention_tc_pb_f32_fwd",
                   "tc16": "ipa_attention_tc16_fwd", "tc16_f32": "ipa_attention_tc16_f32_fwd",
                   "tc8": "ipa_attention_tc8_fwd", "tc8_f32": "ipa_attention_tc8_f32_fwd",
-                  "h4": "ipa_attention_h4_fwd", "simt": "ipa_attention_fwd"}
+                  "h4": "ipa_attention_h4_fwd", "h4s": "ipa_attention_h4s_fwd",
+                  "simt": "ipa_attention_fwd"}
 # The tensor-core designs of the streamed pair bias, by head count and dtype.
 _TC_ROUTES = {(32, torch.bfloat16): "tc", (32, torch.float32): "tc_f32",
               (16, torch.bfloat16): "tc16", (16, torch.float32): "tc16_f32",
@@ -160,7 +176,7 @@ _BWD_ROUTE_SYMBOLS = {"bwd_tc": "ipa_attention_bwd_tc", "bwd_tc_f32": "ipa_atten
                       "bwd_tc16_f32": "ipa_attention_bwd_tc16_f32",
                       "bwd_tc8": "ipa_attention_bwd_tc8",
                       "bwd_tc8_f32": "ipa_attention_bwd_tc8_f32",
-                      "bwd_h4": "ipa_attention_bwd_h4"}
+                      "bwd_h4": "ipa_attention_bwd_h4", "bwd_h4s": "ipa_attention_bwd_h4s"}
 # The backward routes whose kernel forms g_wx2d = ct_pr @ w_pv^T itself,
 # taking ct_pr and w_pv: every streamed design (the row design of
 # csrc/ipa_attention_bwd_rows.cuh at 32 and 16 heads, bwd8_rows at 8).
@@ -190,12 +206,13 @@ _lib_lock = threading.Lock()
 
 def _widths_error(H: int, dk: int, cp: int) -> str | None:
     w = CARD_WIDTHS
-    if H in w["heads"] and dk == w["head_dim"] and 0 < cp <= w["max_cp"] and cp % w["cp_multiple"] == 0:
+    if (H in w["heads"] and dk in w["head_dims"] and 0 < cp <= w["max_cp"]
+            and cp % w["cp_multiple"] == 0):
         return None
     return (f"the card's IPA attention kernels take {', '.join(map(str, w['heads']))} heads of "
-            f"width {w['head_dim']} and a pair width Cp <= {w['max_cp']} with Cp % "
-            f"{w['cp_multiple']} == 0; got {H} heads of width {dk}, Cp={cp} (the CPU takes any "
-            "width)")
+            f"width {' or '.join(map(str, w['head_dims']))} and a pair width Cp <= "
+            f"{w['max_cp']} with Cp % {w['cp_multiple']} == 0; got {H} heads of width {dk}, "
+            f"Cp={cp} (the CPU takes any width)")
 
 
 def check_card_widths(model_cfg, device) -> None:
@@ -216,23 +233,24 @@ def check_card_widths(model_cfg, device) -> None:
 
 
 def kernel_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -> str:
-    """The kernel design that CUDA operands of these widths launch: for 32
-    heads, the streamed pair bias and ``Cp % 32 == 0``, ``"tc"`` in bf16 and
-    ``"tc_f32"`` in f32, at 16 heads ``"tc16"`` and ``"tc16_f32"`` (a
-    tensor-parallel rank at ``--mesh model=2``), and at 8 heads ``"tc8"``
-    and ``"tc8_f32"`` (a rank at ``--mesh model=4``); for 32 heads, the
-    in-kernel pair bias and ``Cp % 32 == 0``, ``"tc_pb"`` in bf16 and
-    ``"tc_pb_f32"`` in f32; ``"h4"`` for f32 at 4 heads with the in-kernel
-    pair bias and ``Cp <= H4_MAX_CP``; ``"simt"`` for every other width in
+    """The kernel design that CUDA operands of these widths launch: at head
+    width 16, for 32 heads, the streamed pair bias and ``Cp % 32 == 0``,
+    ``"tc"`` in bf16 and ``"tc_f32"`` in f32, at 16 heads ``"tc16"`` and
+    ``"tc16_f32"`` (a tensor-parallel rank at ``--mesh model=2``), and at 8
+    heads ``"tc8"`` and ``"tc8_f32"`` (a rank at ``--mesh model=4``); for 32
+    heads, the in-kernel pair bias and ``Cp % 32 == 0``, ``"tc_pb"`` in bf16
+    and ``"tc_pb_f32"`` in f32; for f32 at 4 heads (width 16 or 8) and ``Cp
+    <= H4_MAX_CP``, ``"h4"`` with the in-kernel pair bias and ``"h4s"`` with
+    the streamed one; ``"simt"`` for every other width in
     :data:`CARD_WIDTHS`. Raises ``ValueError`` for widths none takes."""
     err = _widths_error(H, dk, cp)
     if err is not None:
         raise ValueError(err)
     routes = _TC_ROUTES if has_pa else _PB_ROUTES
-    if cp % 32 == 0 and (H, dtype) in routes:
+    if dk == TC_HEAD_DIM and cp % 32 == 0 and (H, dtype) in routes:
         return routes[H, dtype]
-    if H == 4 and not has_pa and dtype == torch.float32 and cp <= H4_MAX_CP:
-        return "h4"
+    if H == 4 and dtype == torch.float32 and cp <= H4_MAX_CP:
+        return "h4s" if has_pa else "h4"
     return "simt"
 
 
@@ -244,19 +262,20 @@ def backward_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -
     at ``--mesh model=2``), the kernel ``csrc/ipa_attention_bwd_tc16.cu``,
     ``"bwd_tc16"`` and ``"bwd_tc16_f32"``, and at 8 heads (a rank at
     ``--mesh model=4``), the kernel ``csrc/ipa_attention_bwd_tc8.cu``,
-    ``"bwd_tc8"`` and ``"bwd_tc8_f32"``; for f32 at 4 heads with the
-    in-kernel pair bias and ``Cp <= H4_MAX_CP`` (the PPFT control net), the
-    kernel ``csrc/ipa_attention_bwd_h4.cu``, ``"bwd_h4"``; ``"torch"``
-    (:func:`ipa_attention_backward`) for every other width in
-    :data:`CARD_WIDTHS`. CPU operands always run ``"torch"``. Raises
-    ``ValueError`` for widths the card refuses."""
+    ``"bwd_tc8"`` and ``"bwd_tc8_f32"`` (all at head width 16); for f32 at
+    4 heads (width 16 or 8) and ``Cp <= H4_MAX_CP``, the kernel
+    ``csrc/ipa_attention_bwd_h4.cu``, ``"bwd_h4"`` with the in-kernel pair
+    bias (the PPFT control net) and ``"bwd_h4s"`` with the streamed one (the
+    training example); ``"torch"`` (:func:`ipa_attention_backward`) for
+    every other width in :data:`CARD_WIDTHS`. CPU operands always run
+    ``"torch"``. Raises ``ValueError`` for widths the card refuses."""
     err = _widths_error(H, dk, cp)
     if err is not None:
         raise ValueError(err)
-    if has_pa and cp % 32 == 0 and (H, dtype) in _BWD_TC_ROUTES:
+    if has_pa and dk == TC_HEAD_DIM and cp % 32 == 0 and (H, dtype) in _BWD_TC_ROUTES:
         return _BWD_TC_ROUTES[H, dtype]
-    if not has_pa and H == 4 and dtype == torch.float32 and cp <= H4_MAX_CP:
-        return "bwd_h4"
+    if H == 4 and dtype == torch.float32 and cp <= H4_MAX_CP:
+        return "bwd_h4s" if has_pa else "bwd_h4"
     return "torch"
 
 
@@ -327,8 +346,9 @@ def _library() -> ctypes.CDLL:
                 fn.restype = ci
             # Backward: the streamed designs' 13 operands (ct_pr and w_pv
             # last), 13 outputs and scratch; or bwd_h4's 13 operands (w_pb
-            # in, no pa), 9 outputs (d_w_pv and d_w_pb, no d_pa) and 3
-            # scratch; 6 sizes, 2 weights, the stream.
+            # in, no pa; bwd_h4s pa), 9 outputs (d_w_pv and d_w_pb, no d_pa;
+            # bwd_h4s d_pa for d_w_pb) and 3 scratch; 6 sizes, 2 weights, the
+            # stream.
             for route, name in _BWD_ROUTE_SYMBOLS.items():
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * (26 if route in _BWD_FORMS_G else 25) + [ci] * 6 + [cf, cf, vp]
@@ -339,9 +359,15 @@ def _library() -> ctypes.CDLL:
             lib.ipa_attention_bwd_cols_smem_bytes.restype = ci
             lib.ipa_attention_error_string.argtypes = [ci]
             lib.ipa_attention_error_string.restype = ctypes.c_char_p
-            lib.ipa_attention_takes_heads.argtypes = [ci]
-            lib.ipa_attention_takes_heads.restype = ci
-            lib.ipa_attention_head_dim.restype = ci
+            for name in ("ipa_attention_takes_heads", "ipa_attention_takes_head_dim"):
+                getattr(lib, name).argtypes = [ci]
+                getattr(lib, name).restype = ci
+            for name in ("ipa_attention_h4_variant_smem_bytes",
+                         "ipa_attention_bwd_h4_variant_blocks_per_sm"):
+                getattr(lib, name).argtypes = [ci, ci, ci]
+                getattr(lib, name).restype = ci
+            lib.ipa_attention_bwd_h4_width_smem_bytes.argtypes = [ci, ci]
+            lib.ipa_attention_bwd_h4_width_smem_bytes.restype = ci
             for name in ("ipa_attention_tc_f32_smem_bytes", "ipa_attention_tc_pb_smem_bytes",
                          "ipa_attention_tc_pb_f32_smem_bytes", "ipa_attention_h4_smem_bytes",
                          "ipa_attention_tc16_smem_bytes", "ipa_attention_tc16_f32_smem_bytes",
@@ -469,8 +495,10 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scal
         raise ValueError(f"the {design!r} design needs a 16-byte aligned w_pv")
     if design == "h4" and any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv, w_pb)):
         raise ValueError("the h4 design needs 16-byte aligned q_s, v_s, v_p, w_pv and w_pb")
+    if design == "h4s" and any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv)):
+        raise ValueError("the h4s design needs 16-byte aligned q_s, v_s, v_p and w_pv")
     lib = _library()
-    if not lib.ipa_attention_takes_heads(H) or dk != lib.ipa_attention_head_dim():
+    if not lib.ipa_attention_takes_heads(H) or not lib.ipa_attention_takes_head_dim(dk):
         raise ValueError(_widths_error(H, dk, Cp) or f"the library does not take H={H}, dk={dk}")
     out_s = torch.empty_like(q_s)
     out_p = torch.empty((B, H, Lq, 24), dtype=torch.float32, device=q_s.device)
@@ -644,17 +672,23 @@ def _launch_backward(inputs, grad_outputs, scalar_w: float, pair_w: float, count
     """Input gradients of :func:`ipa_attention` from :func:`backward_route`'s
     kernel on the current stream; raises if it cannot run. ``inputs`` are the
     operands on the card up to ``pa`` (ten), or with ``w_pb`` after it
-    (eleven), ``grad_outputs`` ``(d_out_s, d_out_p, d_out_pair)``. With
-    ``pa`` given, :func:`_launch_backward_tc`; with ``pa``
-    None and ``w_pb`` given, :func:`_launch_backward_h4`. Counts the call in
+    (eleven), ``grad_outputs`` ``(d_out_s, d_out_p, d_out_pair)``. On the
+    routes ``"bwd_h4"`` (``w_pb`` given) and ``"bwd_h4s"`` (``pa`` given),
+    :func:`_launch_backward_h4`; with ``pa`` given at the other kernel
+    routes, :func:`_launch_backward_tc`. Counts the call in
     :data:`backward_calls_by_route` when ``counted`` (autograd's calls);
     ``chip_smoke.py`` and the card tests call it uncounted to compare.
     Returns :func:`ipa_attention_backward`'s gradients, one per input."""
-    pa, w_pb = inputs[9], (inputs[10] if len(inputs) > 10 else None)
-    if pa is None:
-        if w_pb is None:
-            raise ValueError("the backward kernels take the streamed pair bias (pa) or w_pb")
+    q_s, x2d, pa = inputs[0], inputs[6], inputs[9]
+    w_pb = inputs[10] if len(inputs) > 10 else None
+    if (pa is None) == (w_pb is None):
+        raise ValueError("the backward kernels take one of the streamed pair bias (pa) and w_pb")
+    route = backward_route(q_s.dtype, q_s.shape[1], q_s.shape[3], x2d.shape[-1], pa is not None)
+    if route in ("bwd_h4", "bwd_h4s"):
         return _launch_backward_h4(inputs, grad_outputs, scalar_w, pair_w, counted)
+    if pa is None:
+        raise ValueError(f"no backward kernel takes {q_s.shape[1]} heads, Cp={x2d.shape[-1]} in "
+                         f"{q_s.dtype} with w_pb")
     grads = _launch_backward_tc(inputs[:10], grad_outputs, scalar_w, pair_w, counted)
     return grads + ((None,) if len(inputs) > 10 else ())
 
@@ -726,42 +760,50 @@ def _launch_backward_tc(inputs, grad_outputs, scalar_w: float, pair_w: float, co
 
 
 def _launch_backward_h4(inputs, grad_outputs, scalar_w: float, pair_w: float, counted: bool):
-    """:func:`_launch_backward` with the pair bias computed in the kernel
-    (``pa`` None, ``w_pb [Cp, 4]`` f32 last): the kernel
-    ``csrc/ipa_attention_bwd_h4.cu`` (route ``"bwd_h4"``: f32, 4 heads,
-    ``Cp <= H4_MAX_CP``), which computes every gradient itself, ``d_w_pv``
-    and ``d_w_pb`` from its row blocks' partials added in a fixed order.
-    Returns eleven gradients, ``d_w_pb`` last, shaped as ``w_pb``; None for
-    the bias and ``pa``."""
-    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb = inputs
+    """:func:`_launch_backward` at 4 heads in f32 (width 16 or 8, ``Cp <=
+    H4_MAX_CP``): the kernel ``csrc/ipa_attention_bwd_h4.cu``, with the pair
+    bias computed in the kernel (``pa`` None, ``w_pb [Cp, 4]`` f32 last;
+    route ``"bwd_h4"``) or streamed (``pa`` given; route ``"bwd_h4s"``). It
+    computes every gradient itself, ``d_w_pv`` (and ``d_w_pb``) from its row
+    blocks' partials added in a fixed order. Returns one gradient per input
+    (ten, or eleven with ``w_pb`` last): None for the bias and for
+    whichever of ``pa`` / ``w_pb`` is None."""
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *rest = inputs
+    w_pb = rest[0] if rest else None
     _check(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb)
     B, H, Lq, dk = q_s.shape
     Lk, Cp = k_s.shape[2], x2d.shape[-1]
-    route = backward_route(q_s.dtype, H, dk, Cp, False)
-    if route != "bwd_h4":
-        raise ValueError(f"no backward kernel takes {H} heads, Cp={Cp} in {q_s.dtype} with w_pb")
+    streamed = pa is not None
+    route = backward_route(q_s.dtype, H, dk, Cp, streamed)
+    if route != ("bwd_h4s" if streamed else "bwd_h4"):
+        raise ValueError(f"no backward kernel takes {H} heads, Cp={Cp} in {q_s.dtype} with "
+                         f"{'pa' if streamed else 'w_pb'} (route {route!r})")
     f32, dev = torch.float32, q_s.device
     ct_s, ct_p, ct_pr = _cotangents(q_s, grad_outputs, f32)
-    if any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv, w_pb, ct_s, ct_p, ct_pr)):
-        raise ValueError("the bwd_h4 kernel needs 16-byte aligned q_s, v_s, v_p, w_pv, w_pb and "
-                         "cotangents")
+    if any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv, ct_s, ct_p, ct_pr)) or (
+            not streamed and w_pb.data_ptr() % 16):
+        raise ValueError(f"the {route} kernel needs 16-byte aligned q_s, v_s, v_p, w_pv"
+                         + ("" if streamed else ", w_pb") + " and cotangents")
     d_qs, d_ks, d_vs = torch.empty_like(q_s), torch.empty_like(k_s), torch.empty_like(v_s)
     d_qp, d_kp, d_vp = torch.empty_like(q_p), torch.empty_like(k_p), torch.empty_like(v_p)
-    d_x2d, d_wpv, d_wpb = torch.empty_like(x2d), torch.empty_like(w_pv), torch.empty_like(w_pb)
+    d_x2d, d_wpv = torch.empty_like(x2d), torch.empty_like(w_pv)
+    d_pb = torch.empty_like(pa if streamed else w_pb)  # d_pa, or d_w_pb
     lib = _library()
     with torch.cuda.device(dev):
         blocks = lib.ipa_attention_bwd_h4_row_blocks(B, Lq, Cp)
         if blocks < 1:
             raise RuntimeError("the bwd_h4 kernel could not read the device")
         # Scratch: s and dphat, then a and ds, at a row stride of Lk rounded
-        # up to 4; a row block's partials of d_w_pv and d_w_pb.
+        # up to 4; a row block's partials of d_w_pv (and d_w_pb).
         a_buf, ds_buf = (torch.empty((B, H, Lq, -(-Lk // 4) * 4), dtype=f32, device=dev)
                          for _ in range(2))
-        w_part = torch.empty((blocks, H * Cp * (dk + 1)), dtype=f32, device=dev)
-        err = lib.ipa_attention_bwd_h4(
-            *(t.data_ptr() for t in (q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, w_pb, ct_s,
-                                     ct_p, ct_pr, d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_wpv,
-                                     d_wpb, a_buf, ds_buf, w_part)),
+        w_part = torch.empty((blocks, H * Cp * (dk + (0 if streamed else 1))), dtype=f32,
+                             device=dev)
+        err = getattr(lib, _BWD_ROUTE_SYMBOLS[route])(
+            *(t.data_ptr() for t in (q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias,
+                                     pa if streamed else w_pb, ct_s, ct_p, ct_pr, d_qs, d_ks,
+                                     d_vs, d_qp, d_kp, d_vp, d_x2d, d_wpv, d_pb, a_buf, ds_buf,
+                                     w_part)),
             B, H, Lq, Lk, dk, Cp, float(scalar_w), float(pair_w),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -770,7 +812,8 @@ def _launch_backward_h4(inputs, grad_outputs, scalar_w: float, pair_w: float, co
                            + lib.ipa_attention_error_string(err).decode())
     if counted:
         backward_calls_by_route[route] += 1
-    return d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_wpv, None, None, d_wpb
+    grads = (d_qs, d_ks, d_vs, d_qp, d_kp, d_vp, d_x2d, d_wpv, None, d_pb if streamed else None)
+    return grads + ((None if streamed else d_pb,) if rest else ())
 
 
 def _backward(saved, grad_outputs, scalar_w: float, pair_w: float):
@@ -897,10 +940,11 @@ def ipa_attention_backward_tiled(inputs, grad_outputs, *, scalar_w: float, pair_
 
 def ipa_attention_backward_h4_tiled(inputs, grad_outputs, *, scalar_w: float, pair_w: float,
                                     tile: int = 16, rows: int = 8, tf32: bool = True):
-    """Input gradients of :func:`ipa_attention` with the pair bias computed
-    in the kernel (``pa`` None, ``w_pb`` last), computed the way the backward
-    kernel ``csrc/ipa_attention_bwd_h4.cu`` computes them; no path calls it
-    (the CPU tests hold it against JAX's ``_fused_backward_chunked`` and
+    """Input gradients of :func:`ipa_attention` at 4 heads with the pair bias
+    computed in the kernel (``pa`` None, ``w_pb`` last) or streamed (``pa``
+    given), computed the way the backward kernel
+    ``csrc/ipa_attention_bwd_h4.cu`` computes them; no path calls it (the
+    CPU tests hold it against JAX's ``_fused_backward_chunked`` and
     :func:`ipa_attention_backward`).
 
     Where its algebra differs from :func:`ipa_attention_backward`: the
@@ -914,18 +958,21 @@ def ipa_attention_backward_h4_tiled(inputs, grad_outputs, *, scalar_w: float, pa
     rows adds its rows' terms in row order, and the blocks' partials are
     added in order. The pair bias takes ``w_pb`` times ``pair_w``, as the
     kernel holds it; point distances are explicit differences; ``d_x2d = a g
-    + ds (pair_w w_pb)`` with ``g = ct_pr @ w_pv^T``. With ``tf32`` the x2d
-    products (the pair bias, ``g . x2d``, ``U``, ``V`` and ``d_x2d``) take
-    their operands as the kernel's tensor cores do (:func:`_tc_einsum`:
-    3xTF32, both terms truncated); without it they are f32. Same arguments
-    and result as :func:`ipa_attention_backward` with ``w_pb`` given (eleven
-    gradients)."""
-    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, _, w_pb = inputs
+    + ds (pair_w w_pb)`` with ``g = ct_pr @ w_pv^T``. Streamed, the logits
+    take ``pair_w pa`` beside the terms outside x2d, the kernel's ``w_pb``
+    is zero (so ``d_x2d = a g``, and no ``d_w_pb``) and ``d_pa = pair_w
+    ds``. With ``tf32`` the x2d products (the pair bias, ``g . x2d``, ``U``,
+    ``V`` and ``d_x2d``) take their operands as the kernel's tensor cores do
+    (:func:`_tc_einsum`: 3xTF32, both terms truncated); without it they are
+    f32. Same arguments and result as :func:`ipa_attention_backward` (ten
+    gradients, or eleven with ``w_pb`` last)."""
+    q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, *rest = inputs
+    w_pb = rest[0] if rest else None
     ct_s, ct_p, ct_pr = (c.float() for c in grad_outputs)
     B, H, Lq, _ = q_s.shape
     Lk, Cp = k_s.shape[2], x2d.shape[-1]
     qs, ks, x = q_s.float() * scalar_w, k_s.float(), x2d.float()
-    wpb = w_pb.float() * pair_w
+    wpb = torch.zeros(Cp, H) if pa is not None else w_pb.float() * pair_w
     if tf32:
         def mm(eq, a, b):
             return _tc_einsum(eq, a, b, torch.float32, b_exact=False, trunc=True)
@@ -937,7 +984,8 @@ def ipa_attention_backward_h4_tiled(inputs, grad_outputs, *, scalar_w: float, pa
     g = torch.einsum("bhid,hcd->bhic", ct_pr, w_pv.float())
     # The terms outside x2d, then the x2d products added to them.
     s = (torch.einsum("bhid,bhjd->bhij", qs, ks) - dist.reshape(B, H, 4, Lq, Lk).sum(2)
-         + bias.float()[:, None, None, :]) + mm("bijc,ch->bhij", x, wpb)
+         + bias.float()[:, None, None, :])
+    s = s + (pair_w * pa.float() if pa is not None else mm("bijc,ch->bhij", x, wpb))
     dphat = (torch.einsum("bhid,bhjd->bhij", ct_s, v_s.float())
              + torch.einsum("bhic,bhjc->bhij", ct_p, v_p.float())) + mm("bijc,bhic->bhij", x, g)
 
@@ -990,9 +1038,8 @@ def ipa_attention_backward_h4_tiled(inputs, grad_outputs, *, scalar_w: float, pa
         d_x2d,
         torch.einsum("bhic,bhid->hcd", wx2d, ct_pr),
         None,
-        None,
-        d_wpb.t().contiguous(),
-    )
+        None if pa is None else pair_w * ds,
+    ) + ((None if pa is not None else d_wpb.t().contiguous(),) if rest else ())
 
 
 class _IPAAttention(torch.autograd.Function):

@@ -125,6 +125,22 @@ def test_train_from_scratch_matches_jax_step_for_step(jax_example, torch_example
         assert np.isfinite(out[k]), k
 
 
+def test_train_from_scratch_builds_the_jax_model_for_the_card(torch_example):
+    """On the card the example trains the JAX example's model (4 heads of
+    width 8, Cp=16), whose attention takes the 4-head designs: "h4s"
+    forward, "bwd_h4s" backward. ``check_card_widths`` reads no device
+    state, so this runs without a card."""
+    from se3diff_torch.ops import ipa_attention as k1
+
+    cfg = torch_example.model_config("cuda")
+    assert cfg == torch_example.JAX_MODEL == dict(
+        num_layers=2, dim_model=32, dim_pair=16, num_heads=4, dim_hidden=64, dropout=0.0)
+    assert not hasattr(torch_example, "CARD_MODEL")
+    H, dk, cp = cfg["num_heads"], cfg["dim_model"] // cfg["num_heads"], cfg["dim_pair"]
+    assert k1.kernel_route(torch.float32, H, dk, cp, True) == "h4s"
+    assert k1.backward_route(torch.float32, H, dk, cp, True) == "bwd_h4s"
+
+
 def _rows(path):
     with open(path, newline="") as f:
         return list(csv.reader(f))

@@ -14,7 +14,13 @@ heads "bwd_tc16" and "bwd_tc16_f32"; at 8 heads "bwd_tc8" and
 the PyTorch backward ``ipa_attention_backward`` and against itself, bit for
 bit, on a second call (the 8-head column kernel's row split too); and the backward kernel at the PPFT control net's
 widths (route "bwd_h4": f32, 4 heads, ``w_pb``) against autograd of the
-plain version and against itself.
+plain version and against itself; and at the training example's widths
+(4 heads of 8, the JAX example's) the streamed 4-head design (route "h4s")
+against the plain version and the CUDA-core design, every head count,
+dtype and variant at head width 8 against the plain version, and the
+4-head backward kernels of both variants ("bwd_h4s", "bwd_h4") at widths 8
+and 16 against autograd of the plain version in f64, bit for bit on a
+second call.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip. They
 import neither JAX nor the JAX package, so a machine with only PyTorch runs
@@ -58,8 +64,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _args(device, B, Lq, Lk, dtype, masked_cols, seed=0, H=32, CP=256, variant="pa"):
-    """The eleven operands of ``ipa_attention``: ``pa`` or ``w_pb`` is None."""
+def _args(device, B, Lq, Lk, dtype, masked_cols, seed=0, H=32, CP=256, variant="pa", dk=DK):
+    """The eleven operands of ``ipa_attention`` at heads of width ``dk``:
+    ``pa`` or ``w_pb`` is None."""
     rng = np.random.default_rng(seed)
 
     def g(*s, scale=1.0):
@@ -69,9 +76,9 @@ def _args(device, B, Lq, Lk, dtype, masked_cols, seed=0, H=32, CP=256, variant="
     if masked_cols:
         bias[:, -masked_cols:] = k1.NEG_INF
     return (
-        g(B, H, Lq, DK).to(dtype), g(B, H, Lk, DK).to(dtype), g(B, H, Lk, DK).to(dtype),
+        g(B, H, Lq, dk).to(dtype), g(B, H, Lk, dk).to(dtype), g(B, H, Lk, dk).to(dtype),
         g(B, 3, H * 4, Lq, scale=0.3), g(B, 3, H * 4, Lk, scale=0.3), g(B, H, Lk, 24),
-        g(B, Lq, Lk, CP, scale=0.5).to(dtype), g(H, CP, DK, scale=0.06).to(dtype), bias,
+        g(B, Lq, Lk, CP, scale=0.5).to(dtype), g(H, CP, dk, scale=0.06).to(dtype), bias,
         g(B, H, Lq, Lk).to(dtype) if variant == "pa" else None,
         g(CP, H, scale=0.1) if variant == "w_pb" else None,
     )
@@ -387,10 +394,10 @@ BWD_ROUTES = [(torch.bfloat16, "bwd_tc", 32, 2.0**-7 + 1e-4),
 def _cotangents(args, seed=1):
     q_s = args[0]
     gen = torch.Generator(device=q_s.device).manual_seed(seed)
-    B, H, Lq, _ = q_s.shape
-    return (torch.randn(B, H, Lq, DK, generator=gen, device=q_s.device).to(q_s.dtype),
+    B, H, Lq, dk = q_s.shape
+    return (torch.randn(B, H, Lq, dk, generator=gen, device=q_s.device).to(q_s.dtype),
             torch.randn(B, H, Lq, 24, generator=gen, device=q_s.device),
-            torch.randn(B, H, Lq, DK, generator=gen, device=q_s.device).to(q_s.dtype))
+            torch.randn(B, H, Lq, dk, generator=gen, device=q_s.device).to(q_s.dtype))
 
 
 @pytest.mark.cuda
@@ -645,3 +652,136 @@ def test_h4_backward_kernel_uses_the_shared_memory_its_source_states(cuda_device
     # Two 8-warp row blocks an SM at either instantiation, as the source says.
     assert lib.ipa_attention_bwd_h4_blocks_per_sm(32) >= 2
     assert lib.ipa_attention_bwd_h4_blocks_per_sm(64) >= 2
+
+
+# Shapes of the "h4s" route (the streamed 4-head design): the training
+# example's batch (B=8, L=8), its --trajectory ensembles' bucket (B=8, L=64,
+# masked columns), and the "h4" route's shapes.
+H4S_CASES = [(8, 8, 8, 0), (8, 64, 64, 7)] + H4_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dk", [8, 16])
+@pytest.mark.parametrize("CP", [16, 4, 64])
+@pytest.mark.parametrize("B,Lq,Lk,masked", H4S_CASES)
+def test_h4s_route_matches_plain_and_the_cuda_core_design(cuda_device, B, Lq, Lk, masked, CP, dk):
+    """f32, 4 heads of width 8 or 16, the streamed pair bias: ipa_attention
+    launches the "h4s" design; within 2e-4 x max|plain| of the plain version
+    and of the CUDA-core design on the same inputs."""
+    tol = 2e-4
+    args = _args(cuda_device, B, Lq, Lk, torch.float32, masked, H=4, CP=CP, variant="pa", dk=dk)
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **KW)
+    prev = k1._launch_design("simt", *args, **KW)
+    torch.cuda.synchronize()
+    assert k1.launches_by_route == {**before, "h4s": before["h4s"] + 1}
+    want = k1.ipa_attention_plain(*args, **KW)
+    for g, p, w in zip(got, prev, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+        scale = max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+        assert (g.float() - p.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [4, 8, 16, 32])
+@pytest.mark.parametrize("variant", ["pa", "w_pb"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,Lq,Lk,masked", [(3, 37, 37, 5), (2, 5, 70, 0), (8, 8, 8, 0)])
+def test_width_8_matches_plain_on_the_card(cuda_device, B, Lq, Lk, masked, dtype, tol, variant, H):
+    """Heads of width 8 at every head count, dtype and variant the card
+    takes: the route's design ("h4" or "h4s" for f32 at 4 heads, "simt"
+    else) and the CUDA-core design within ``tol`` x max|plain| of the plain
+    version."""
+    CP = 16 if H == 4 else 64
+    args = _args(cuda_device, B, Lq, Lk, dtype, masked, H=H, CP=CP, variant=variant, dk=8)
+    route = k1.kernel_route(dtype, H, 8, CP, variant == "pa")
+    assert route == ("simt" if H != 4 or dtype != torch.float32
+                     else "h4s" if variant == "pa" else "h4")
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **KW)
+    prev = k1._launch_design("simt", *args, **KW)
+    torch.cuda.synchronize()
+    assert k1.launches_by_route == {**before, route: before[route] + 1}
+    want = k1.ipa_attention_plain(*args, **KW)
+    for g, p, w in zip(got, prev, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+        scale = max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+        assert (p.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,route", [("pa", "bwd_h4s"), ("w_pb", "bwd_h4")])
+@pytest.mark.parametrize("dk", [8, 16])
+@pytest.mark.parametrize("CP", [16, 64])
+@pytest.mark.parametrize("B,Lq,Lk,masked", [(8, 8, 8, 0), (8, 64, 64, 7)] + H4_BWD_CASES)
+def test_4_head_backward_kernels_match_f64_autograd(cuda_device, B, Lq, Lk, masked, CP, dk,
+                                                    variant, route):
+    """f32, 4 heads of width 8 or 16, the pair bias streamed ("bwd_h4s") or
+    from ``w_pb`` ("bwd_h4"): autograd through ``ipa_attention`` runs the
+    route's kernel, each gradient within ``H4_GRAD_TOL`` of the largest
+    entry of autograd's through the plain version on the same values in f64
+    (as ``chip_smoke.py``'s ``_grad_case`` holds the kernel routes: the
+    kernel takes explicit point differences), and a second, uncounted call
+    equals the first bit for bit. With one key column the gradients made
+    from ds alone (zero but for rounding) are held at 1e-5 absolute."""
+    args = _args(cuda_device, B, Lq, Lk, torch.float32, masked, H=4, CP=CP, variant=variant, dk=dk)
+    cts = _cotangents(args)
+    assert k1.backward_route(torch.float32, 4, dk, CP, variant == "pa") == route
+    names = [n for n, t in zip(NAMES, args) if t is not None and n != "bias"]
+    leaves = [None if t is None else t.clone().requires_grad_(n != "bias") for n, t in zip(NAMES, args)]
+    diff = [leaves[NAMES.index(n)] for n in names]
+    before = dict(k1.backward_calls_by_route)
+    got = torch.autograd.grad(k1.ipa_attention(*leaves, **KW), diff, cts)
+    assert k1.backward_calls_by_route == {**before, route: before[route] + 1}
+    ref = [None if t is None else t.detach().double().requires_grad_(n != "bias")
+           for n, t in zip(NAMES, args)]
+    want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **KW),
+                               [ref[NAMES.index(n)] for n in names], [c.double() for c in cts])
+    plain = [None if t is None else t.detach() for t in args]
+    first = k1._launch_backward(plain, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    second = k1._launch_backward(plain, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    torch.cuda.synchronize()
+    assert k1.backward_calls_by_route == {**before, route: before[route] + 1}
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(first, second))
+    from_ds = ("q_s", "k_s", "q_p", "k_p", "w_pb", "pa")
+    for name, g, w, p in zip(names, got, want, diff):
+        assert g.dtype == p.dtype and g.shape == p.shape and torch.isfinite(g).all(), name
+        err = (g.double() - w).abs().max().item()
+        if Lk == 1 and name in from_ds:
+            assert err <= 1e-5, name
+        else:
+            assert err <= H4_GRAD_TOL * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_h4_variants_use_the_shared_memory_their_sources_state(cuda_device):
+    """The library's 4-head layouts at both head widths, in-kernel and
+    streamed, are what the sources' headers state; the backward's row
+    kernel keeps two 8-warp blocks an SM in every instantiation."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(k1.__file__).resolve().parents[1] / "csrc"
+    fwd = (csrc / "ipa_attention_h4.cu").read_text()
+    bwd = (csrc / "ipa_attention_bwd_h4.cu").read_text()
+    num = lambda x: int(x.replace(",", ""))
+    lib = k1._library()
+    w8 = re.search(r"at width 8 ([\d,]+) and ([\d,]+) bytes\.\)", fwd).groups()
+    m = re.search(r"Shared memory of the streamed variant at Cp = 64: ([\d,]+) bytes for 56 rows "
+                  r"\(width 16\),\n// ([\d,]+) \(width 8\); at Cp = 32 ([\d,]+) and ([\d,]+)\.", fwd)
+    stated = {(32, 8, 1): w8[0], (64, 8, 1): w8[1], (64, 16, 0): m.group(1), (64, 8, 0): m.group(2),
+              (32, 16, 0): m.group(3), (32, 8, 0): m.group(4)}
+    for (cp, dk, in_kernel), text in stated.items():
+        assert lib.ipa_attention_h4_variant_smem_bytes(cp, dk, in_kernel) == num(text)
+    for cp in (32, 64):
+        assert lib.ipa_attention_h4_variant_smem_bytes(cp, 16, 1) == lib.ipa_attention_h4_smem_bytes(cp)
+    b = re.search(r"\(At width 16; at width 8 ([\d,]+) and ([\d,]+) bytes", bwd).groups()
+    assert lib.ipa_attention_bwd_h4_width_smem_bytes(32, 8) == num(b[0])
+    assert lib.ipa_attention_bwd_h4_width_smem_bytes(64, 8) == num(b[1])
+    for cp in (32, 64):
+        assert lib.ipa_attention_bwd_h4_width_smem_bytes(cp, 16) == lib.ipa_attention_bwd_h4_smem_bytes(cp)
+        for dk in (8, 16):
+            for in_kernel in (0, 1):
+                assert lib.ipa_attention_bwd_h4_variant_blocks_per_sm(cp, dk, in_kernel) >= 2

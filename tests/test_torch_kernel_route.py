@@ -21,9 +21,9 @@ from se3diff_torch.sampling.bundle import BIOEMU_V1_MODEL, load_bundle, random_b
 
 CSRC = Path(k1.__file__).resolve().parents[1] / "csrc"
 BF16, F32 = torch.bfloat16, torch.float32
-WIDTHS_MSG = "take 4, 8, 16, 32 heads of width 16"
-# Widths the card refuses: head width 8, and 12 heads of width 16.
-REFUSED = [dict(dim_model=32, dim_pair=32, num_heads=4), dict(dim_model=192, dim_pair=64, num_heads=12)]
+WIDTHS_MSG = "take 4, 8, 16, 32 heads of width 8 or 16"
+# Widths the card refuses: head width 4, and 12 heads of width 16.
+REFUSED = [dict(dim_model=16, dim_pair=32, num_heads=4), dict(dim_model=192, dim_pair=64, num_heads=12)]
 
 
 @pytest.mark.parametrize("dtype,H,dk,cp,has_pa,route", [
@@ -50,7 +50,7 @@ REFUSED = [dict(dim_model=32, dim_pair=32, num_heads=4), dict(dim_model=192, dim
     (F32, 4, 16, 68, False, "simt"),     # Cp above the h4 design's shared memory
     (F32, 4, 16, 256, False, "simt"),
     (BF16, 4, 16, 32, False, "simt"),    # bf16 at 4 heads
-    (F32, 4, 16, 32, True, "simt"),      # the streamed variant at 4 heads
+    (F32, 4, 16, 32, True, "h4s"),       # the streamed variant at 4 heads
     (F32, 8, 16, 32, False, "simt"),     # 8 heads, the in-kernel pair bias
     (BF16, 4, 16, 32, True, "simt"),
     (BF16, 8, 16, 64, True, "tc8"),
@@ -73,6 +73,20 @@ REFUSED = [dict(dim_model=32, dim_pair=32, num_heads=4), dict(dim_model=192, dim
     (F32, 16, 16, 36, True, "simt"),     # Cp not a multiple of 32
     (BF16, 16, 16, 36, True, "simt"),
     (BF16, 16, 16, 128, False, "simt"),  # the in-kernel pair bias at 16 heads
+    (F32, 4, 8, 16, True, "h4s"),        # the training example: 4 heads of 8, Cp=16
+    (F32, 4, 8, 16, False, "h4"),        # the same widths, in-kernel
+    (F32, 4, 8, 64, True, "h4s"),        # the h4 designs' largest Cp at width 8
+    (F32, 4, 8, 68, True, "simt"),       # above it
+    (F32, 4, 16, 64, True, "h4s"),
+    (F32, 4, 16, 4, True, "h4s"),
+    (F32, 4, 16, 68, True, "simt"),
+    (BF16, 4, 8, 16, True, "simt"),      # bf16 at 4 heads of 8
+    (BF16, 4, 8, 16, False, "simt"),
+    (F32, 32, 8, 256, True, "simt"),     # width 8 at 32 heads: no tensor-core design
+    (BF16, 32, 8, 256, True, "simt"),
+    (F32, 32, 8, 256, False, "simt"),
+    (BF16, 16, 8, 128, True, "simt"),
+    (F32, 8, 8, 64, True, "simt"),
 ])
 def test_route_rule(dtype, H, dk, cp, has_pa, route):
     assert k1.kernel_route(dtype, H, dk, cp, has_pa) == route
@@ -81,7 +95,8 @@ def test_route_rule(dtype, H, dk, cp, has_pa, route):
 @pytest.mark.parametrize("dtype,H,dk,cp,has_pa", [
     (BF16, 12, 16, 256, True),   # heads
     (F32, 2, 16, 32, True),
-    (F32, 32, 8, 256, True),     # head width
+    (F32, 32, 4, 256, True),     # head width
+    (F32, 4, 12, 16, True),
     (BF16, 32, 16, 260, True),   # Cp > 256
     (F32, 4, 16, 30, False),     # Cp % 4
 ])
@@ -110,7 +125,7 @@ def test_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa)
     (F32, 4, 16, 68, False, "torch"),          # Cp above it
     (F32, 4, 16, 96, False, "torch"),
     (BF16, 4, 16, 32, False, "torch"),         # bf16 at 4 heads
-    (F32, 4, 16, 32, True, "torch"),           # the streamed variant at 4 heads
+    (F32, 4, 16, 32, True, "bwd_h4s"),         # the streamed variant at 4 heads
     (F32, 8, 16, 64, False, "torch"),          # 8 heads in-kernel
     (BF16, 16, 16, 256, True, "bwd_tc16"),     # a tensor-parallel rank at --mesh model=2
     (F32, 16, 16, 256, True, "bwd_tc16_f32"),
@@ -131,13 +146,22 @@ def test_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa)
     (BF16, 8, 16, 36, True, "torch"),          # 8 heads, Cp not a multiple of 32
     (F32, 8, 16, 36, True, "torch"),
     (BF16, 8, 16, 64, False, "torch"),         # 8 heads, the in-kernel pair bias
+    (F32, 4, 8, 16, True, "bwd_h4s"),          # the training example: 4 heads of 8, Cp=16
+    (F32, 4, 8, 16, False, "bwd_h4"),
+    (F32, 4, 8, 64, True, "bwd_h4s"),
+    (F32, 4, 8, 68, True, "torch"),            # Cp above the h4 designs'
+    (F32, 4, 16, 68, True, "torch"),
+    (BF16, 4, 8, 16, True, "torch"),           # bf16 at 4 heads
+    (F32, 32, 8, 256, True, "torch"),          # width 8 at 32, 16 and 8 heads
+    (BF16, 16, 8, 256, True, "torch"),
+    (F32, 8, 8, 64, True, "torch"),
 ])
 def test_backward_route_rule(dtype, H, dk, cp, has_pa, route):
     assert k1.backward_route(dtype, H, dk, cp, has_pa) == route
 
 
 @pytest.mark.parametrize("dtype,H,dk,cp,has_pa", [
-    (BF16, 12, 16, 256, True), (F32, 32, 8, 256, True), (BF16, 32, 16, 260, True),
+    (BF16, 12, 16, 256, True), (F32, 32, 4, 256, True), (BF16, 32, 16, 260, True),
 ])
 def test_backward_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa):
     with pytest.raises(ValueError, match=WIDTHS_MSG):
@@ -148,13 +172,13 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
     """Every backward route's C symbol is defined once across ``csrc/*.cu``,
     inside an ``extern "C"`` block of its design's source, with the
     arguments the binding declares (35 for the streamed designs at 32, 16
-    and 8 heads, which take ct_pr and w_pv; 34 for bwd_h4); the counts hold
-    one entry a backward route and "torch"."""
+    and 8 heads, which take ct_pr and w_pv; 34 for bwd_h4 and bwd_h4s); the
+    counts hold one entry a backward route and "torch"."""
     sources = {"bwd_tc": "ipa_attention_bwd_tc.cu", "bwd_tc_f32": "ipa_attention_bwd_tc.cu",
                "bwd_tc16": "ipa_attention_bwd_tc16.cu",
                "bwd_tc16_f32": "ipa_attention_bwd_tc16.cu",
                "bwd_tc8": "ipa_attention_bwd_tc8.cu", "bwd_tc8_f32": "ipa_attention_bwd_tc8.cu",
-               "bwd_h4": "ipa_attention_bwd_h4.cu"}
+               "bwd_h4": "ipa_attention_bwd_h4.cu", "bwd_h4s": "ipa_attention_bwd_h4.cu"}
     for route, symbol in k1._BWD_ROUTE_SYMBOLS.items():
         found = []
         for path in CSRC.glob("*.cu"):
@@ -167,7 +191,8 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
                     found.append(path.name)
         assert found == [sources[route]], (symbol, found)
     assert set(k1.backward_calls_by_route) == {"bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32",
-                                               "bwd_tc8", "bwd_tc8_f32", "bwd_h4", "torch"}
+                                               "bwd_tc8", "bwd_tc8_f32", "bwd_h4", "bwd_h4s",
+                                               "torch"}
 
 
 def test_backward_kernel_source_states_widths_and_shared_memory():
@@ -180,7 +205,7 @@ def test_backward_kernel_source_states_widths_and_shared_memory():
     shared column kernel's grid follows the heads (at 8 heads, the heads by
     the row parts each head's sums are split over)."""
     common = (CSRC / "ipa_attention_bwd_common.cuh").read_text()
-    assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in common
+    assert f"constexpr int kDK = {k1.TC_HEAD_DIM};" in common
     assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in common
     rows_design = (CSRC / "ipa_attention_bwd_rows.cuh").read_text()
     assert '#include "ipa_attention_bwd_common.cuh"' in rows_design
@@ -225,25 +250,31 @@ def test_cpu_backward_counts_the_torch_route():
 
 
 def test_h4_backward_source_states_widths_and_shared_memory():
-    """The bwd_h4 source takes the widths its route names (4 heads of 16, Cp
-    up to ``H4_MAX_CP``), states its row kernel's shared memory within what
-    a block may opt into on Hopper, exports it, and the route takes every
-    Cp % 4 == 0 up to ``H4_MAX_CP`` in f32 with ``w_pb`` and nothing else
-    at 4 heads."""
+    """The bwd_h4 source takes the widths its routes name (4 heads of 16 or
+    8, Cp up to ``H4_MAX_CP``, the pair bias from ``w_pb`` or streamed),
+    states its row kernel's shared memory at both widths within what a
+    block may opt into on Hopper, exports it, and the routes take every Cp
+    % 4 == 0 up to ``H4_MAX_CP`` in f32 at 4 heads ("bwd_h4" with ``w_pb``,
+    "bwd_h4s" streamed) and nothing else at 4 heads."""
     text = (CSRC / "ipa_attention_bwd_h4.cu").read_text()
     assert "constexpr int kH = 4;" in text
-    assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in text
+    assert "template <int kMaxC, int kDK, bool kPb>" in text
+    assert "(DK != 8 && DK != 16)" in text and k1.CARD_WIDTHS["head_dims"] == (8, 16)
     assert f"constexpr int kMaxCp = {k1.H4_MAX_CP};" in text
     stated = re.search(r"Shared memory of bwd_h4_rows: ([\d,]+) bytes at Cp = 32 \(8 rows\), "
-                       r"([\d,]+) at Cp = 64 \(8 rows\)", text)
+                       r"([\d,]+) at Cp = 64 \(8 rows\)\.\n// \(At width 16; at width 8 "
+                       r"([\d,]+) and ([\d,]+) bytes", text)
     assert stated is not None
     assert all(int(x.replace(",", "")) <= 232_448 for x in stated.groups())
     assert re.search(r"\bint ipa_attention_bwd_h4_smem_bytes\(int Cp\)", text)
-    for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
-        assert k1.backward_route(F32, 4, 16, cp, False) == ("bwd_h4" if cp <= k1.H4_MAX_CP
-                                                           else "torch"), cp
-        assert k1.backward_route(BF16, 4, 16, cp, False) == "torch", cp
-        assert k1.backward_route(F32, 4, 16, cp, True) == "torch", cp
+    assert re.search(r"\bint ipa_attention_bwd_h4_width_smem_bytes\(int Cp, int DK\)", text)
+    for dk in k1.CARD_WIDTHS["head_dims"]:
+        for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
+            fits = cp <= k1.H4_MAX_CP
+            assert k1.backward_route(F32, 4, dk, cp, False) == ("bwd_h4" if fits else "torch"), cp
+            assert k1.backward_route(BF16, 4, dk, cp, False) == "torch", cp
+            assert k1.backward_route(F32, 4, dk, cp, True) == ("bwd_h4s" if fits else "torch"), cp
+            assert k1.backward_route(BF16, 4, dk, cp, True) == "torch", cp
 
 
 def test_cpu_in_kernel_backward_counts_the_torch_route():
@@ -267,21 +298,38 @@ def test_cpu_in_kernel_backward_counts_the_torch_route():
 
 
 def test_card_widths_name_what_the_cuda_sources_instantiate():
-    src = (CSRC / "ipa_attention.cu").read_text()
-    switch = src[src.index("switch (H) {"):]
+    """The CUDA-core design (its template in ``ipa_attention_simt.cuh``)
+    instantiates every head count in ``CARD_WIDTHS`` (the header's switch
+    over H) at every head width (``ipa_attention.cu`` width 16 and the C
+    entry, ``ipa_attention_w8.cu`` width 8, two translation units nvcc
+    builds in parallel) and says so in its exported checks; the tensor-core
+    sources hold ``TC_HEAD_DIM``."""
+    header = (CSRC / "ipa_attention_simt.cuh").read_text()
+    entry = (CSRC / "ipa_attention.cu").read_text()
+    w8 = (CSRC / "ipa_attention_w8.cu").read_text()
+    assert '#include "ipa_attention_simt.cuh"' in entry and '#include "ipa_attention_simt.cuh"' in w8
+    switch = header[header.index("switch (H) {"):]
     switch = switch[:switch.index("}")]
-    cases = {int(a) for a, b in re.findall(r"case (\d+): return \(int\)launch_heads<(\d+)>", switch)
-             if a == b}
-    takes = src[src.index("int ipa_attention_takes_heads(int H)"):]
+    cases = {int(a) for a, b in re.findall(r"case (\d+): return \(int\)launch_dtype<(\d+), kDK>",
+                                           switch) if a == b}
+    takes = entry[entry.index("int ipa_attention_takes_heads(int H)"):]
     takes = {int(h) for h in re.findall(r"H == (\d+)", takes[:takes.index("}")])}
     assert cases == takes == set(k1.CARD_WIDTHS["heads"])
+    widths = {int(d) for text in (entry, w8) for d in re.findall(r"dispatch_heads<(\d+)>\(", text)}
+    assert widths == set(k1.CARD_WIDTHS["head_dims"])
+    takes_dk = entry[entry.index("int ipa_attention_takes_head_dim(int DK)"):]
+    takes_dk = {int(d) for d in re.findall(r"DK == (\d+)", takes_dk[:takes_dk.index("}")])}
+    assert takes_dk == set(k1.CARD_WIDTHS["head_dims"])
+    assert "template <typename T, int kH, int kDK, bool kHasPa>" in header
+    src = header
     tc = (CSRC / "ipa_attention_tc.cu").read_text()
     tc_f32 = (CSRC / "ipa_attention_tc_f32.cu").read_text()
     tc16 = [(CSRC / f"ipa_attention_{r}.cu").read_text() for r in ("tc16", "tc16_f32")]
     tc8 = [(CSRC / f"ipa_attention_{r}.cu").read_text() for r in ("tc8", "tc8_f32")]
     for text in (src, tc, tc_f32, *tc16, *tc8):
-        assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in text
         assert f"constexpr int kMaxCp = {k1.CARD_WIDTHS['max_cp']};" in text
+    for text in (tc, tc_f32, *tc16, *tc8):
+        assert f"constexpr int kDK = {k1.TC_HEAD_DIM};" in text
     for text in (tc, tc_f32):
         assert "constexpr int kH = 32;" in text
     for text in tc16:
@@ -306,7 +354,8 @@ def test_every_route_names_an_entry_the_cuda_sources_define():
         signature = text[text.index(f"int {symbol}("):]
         assert signature[:signature.index(")")].count(",") == 24
     assert set(k1.launches_by_route) == set(k1._ROUTE_SYMBOLS) == {
-        "tc", "tc_f32", "tc_pb", "tc_pb_f32", "tc16", "tc16_f32", "tc8", "tc8_f32", "h4", "simt"}
+        "tc", "tc_f32", "tc_pb", "tc_pb_f32", "tc16", "tc16_f32", "tc8", "tc8_f32", "h4", "h4s",
+        "simt"}
     assert k1._ROUTE_SYMBOLS["tc_f32"] == "ipa_attention_tc_f32_fwd"
     assert k1._ROUTE_SYMBOLS["tc_pb"] == "ipa_attention_tc_pb_fwd"
     assert k1._ROUTE_SYMBOLS["tc_pb_f32"] == "ipa_attention_tc_pb_f32_fwd"
@@ -315,6 +364,7 @@ def test_every_route_names_an_entry_the_cuda_sources_define():
     assert k1._ROUTE_SYMBOLS["tc8"] == "ipa_attention_tc8_fwd"
     assert k1._ROUTE_SYMBOLS["tc8_f32"] == "ipa_attention_tc8_f32_fwd"
     assert k1._ROUTE_SYMBOLS["h4"] == "ipa_attention_h4_fwd"
+    assert k1._ROUTE_SYMBOLS["h4s"] == "ipa_attention_h4s_fwd"
 
 
 def test_each_route_symbol_has_exactly_one_extern_c_definition():
@@ -331,19 +381,31 @@ def test_each_route_symbol_has_exactly_one_extern_c_definition():
 
 def test_h4_cp_limit_is_the_sources_constant():
     """``H4_MAX_CP`` is the h4 source's ``kMaxCp``; the source's stated
-    shared memory at that width fits what a block may opt into on Hopper,
-    and the route takes every Cp % 4 == 0 up to it and none above."""
+    shared memory at that width (the in-kernel variant at width 16, and the
+    streamed one at widths 16 and 8) fits what a block may opt into on
+    Hopper, it instantiates both widths and both variants, and the routes
+    take every Cp % 4 == 0 up to it and none above ("h4" in-kernel, "h4s"
+    streamed, at widths 16 and 8)."""
     src = (CSRC / "ipa_attention_h4.cu").read_text()
     assert f"constexpr int kMaxCp = {k1.H4_MAX_CP};" in src
     assert "constexpr int kH = 4;" in src
-    assert f"constexpr int kDK = {k1.CARD_WIDTHS['head_dim']};" in src
+    assert "template <int kMaxC, int kDK, bool kPb>" in src
+    assert "(DK != 8 && DK != 16)" in src and k1.CARD_WIDTHS["head_dims"] == (8, 16)
+    assert "return dispatch<true>(" in src and "return dispatch<false>(" in src
     stated = re.search(rf"Shared memory at Cp = {k1.H4_MAX_CP}: ([\d,]+) bytes", src)
     assert stated is not None
     assert int(stated.group(1).replace(",", "")) <= 232_448
+    streamed = re.search(rf"Shared memory of the streamed variant at Cp = {k1.H4_MAX_CP}: "
+                         r"([\d,]+) bytes for 56 rows \(width 16\),\n// ([\d,]+) \(width 8\)", src)
+    assert streamed is not None
+    assert all(int(x.replace(",", "")) <= 232_448 for x in streamed.groups())
     assert k1.H4_MAX_CP >= 64
-    for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
-        want = "h4" if cp <= k1.H4_MAX_CP else "simt"
-        assert k1.kernel_route(F32, 4, 16, cp, False) == want, cp
+    for dk in k1.CARD_WIDTHS["head_dims"]:
+        for cp in range(4, k1.CARD_WIDTHS["max_cp"] + 1, 4):
+            fits = cp <= k1.H4_MAX_CP
+            assert k1.kernel_route(F32, 4, dk, cp, False) == ("h4" if fits else "simt"), cp
+            assert k1.kernel_route(F32, 4, dk, cp, True) == ("h4s" if fits else "simt"), cp
+            assert k1.kernel_route(BF16, 4, dk, cp, True) == "simt", (dk, cp)
 
 
 @pytest.mark.parametrize("route,dtype,source", [("tc_pb", BF16, "ipa_attention_tc.cu"),
@@ -526,7 +588,8 @@ def test_8_head_designs_refuse_misaligned_operands(design, dtype):
 
 def test_check_card_widths():
     for cfg in (BIOEMU_V1_MODEL, dict(dim_model=64, dim_pair=32, num_heads=4),
-                dict(dim_model=128, dim_pair=64, num_heads=8), dict(dim_model=256, num_heads=16)):
+                dict(dim_model=128, dim_pair=64, num_heads=8), dict(dim_model=256, num_heads=16),
+                dict(dim_model=32, dim_pair=16, num_heads=4), dict(dim_model=256, num_heads=32)):
         k1.check_card_widths(cfg, "cuda")
     for cfg in REFUSED + [dict(dim_pair=300), dict(dim_pair=30, dim_model=64, num_heads=4)]:
         with pytest.raises(ValueError, match=WIDTHS_MSG):
@@ -625,6 +688,22 @@ def test_launch_design_refuses_what_it_does_not_take():
         bad[i] = shifted(args[i])
         with pytest.raises(ValueError, match="h4 design needs 16-byte aligned q_s, v_s, v_p"):
             k1._launch_design("h4", *bad, **kw)
+    # The streamed variant "h4s" at the training example's 4 heads of 8: the
+    # same alignment but w_pb's (pa may sit at any 4 bytes); it and "h4"
+    # refuse each other's variant.
+    dk, cp = 8, 16
+    args = [z(B, H, L, dk), z(B, H, L, dk), z(B, H, L, dk), z(B, 3, H * 4, L), z(B, 3, H * 4, L),
+            z(B, H, L, 24), z(B, L, L, cp), z(H, cp, dk), z(B, L), z(B, H, L, L)]
+    assert k1.kernel_route(torch.float32, H, dk, cp, True) == "h4s"
+    for i in (0, 2, 5, 7):
+        bad = list(args)
+        bad[i] = shifted(args[i])
+        with pytest.raises(ValueError, match="h4s design needs 16-byte aligned q_s, v_s, v_p"):
+            k1._launch_design("h4s", *bad, **kw)
+    with pytest.raises(ValueError, match="'h4' design does not take these widths"):
+        k1._launch_design("h4", *args, **kw)
+    with pytest.raises(ValueError, match="'h4s' design does not take these widths"):
+        k1._launch_design("h4s", *args[:9], None, z(cp, H), **kw)
 
 
 def test_library_name_follows_every_source_and_header(tmp_path, monkeypatch):
