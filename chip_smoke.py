@@ -11,13 +11,15 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    source (time, ptxas report: registers, spills and shared memory of the
    "tc", "tc_f32", "tc_pb", "tc_pb_f32", "tc16", "tc16_f32", "tc8" and "tc8_f32" kernels,
    "h4"'s and "h4s"'s four instances each (Cp <= 32 and <= 64, heads of 16
-   and 8) with their shared memory, "simt" at the training example's
+   and 8) with their shared memory, the streamed instances at 2 and 1
+   heads ("h2s", "h1s") with theirs, "simt" at the training example's
    widths, the 16- and 8-head designs' resident blocks an SM, the backward kernels'
    value-term, row and column
    kernels, "bwd_tc" and "bwd_tc_f32", "bwd_tc16" and "bwd_tc16_f32",
    "bwd_tc8" and "bwd_tc8_f32" (with the row kernel's resident blocks an
-   SM, at 8 heads the column kernel's too), and "bwd_h4"'s and "bwd_h4s"'s
-   four row instances each, their kernels of the logits' CUDA-core terms,
+   SM, at 8 heads the column kernel's too), and "bwd_h4"'s, "bwd_h4s"'s,
+   "bwd_h2s"'s and "bwd_h1s"'s four row instances each, their kernels of
+   the logits' CUDA-core terms,
    column kernels and weight-gradient reduction, with the row kernels'
    shared memory and resident blocks an SM);
 2. the kernel against its plain PyTorch version on the card, at the main
@@ -281,6 +283,22 @@ sm_90a), nvcc and a CUDA build of PyTorch. Phases, each fatal on error:
    h5py imports), walls; the reference's recorded ood60 values (RMSD
    coverage at the last threshold 0.8157894736842105 within 1e-12,
    E1C7U0's 1-recall within 1% of 6.0333076);
+23. ``[example-mesh]``: the training example's ``--mesh``
+   (``examples/torch_train_from_scratch.py``: data=2 x model=4, one head of 8
+   a tensor-parallel rank). First K1 at 1 and 2 heads, f32, streamed, on the
+   streamed 4-head source's instances "h1s" and "h2s" at (a) a rank's batch
+   B=4 L=8 (heads of 8, Cp=16), (b) B=8 L=64 with 4 masked columns, (c) B=64
+   L=56 (heads of 16, Cp=64): each against the plain version at ``TOL``,
+   timed in turns with it beside its bytes bound and the card; their
+   gradients on "bwd_h1s" / "bwd_h2s" (``_grad_case``: against f64, a second
+   call bit for bit, timed in turns with the PyTorch backward). Then one
+   spawn of 8 gloo ranks sharing the card runs the example's rank function
+   (``parallel/programs.py::example_rank``) at data=2 x model=4 and at
+   data=4 x model=2, 5 steps each: each mesh's losses within
+   ``MESH_LOSS_TOL`` relative of the one-process example on the card at 5
+   steps (its trained weights' largest gap printed), and on every rank 10
+   K1 forwards on "h1s" ("h2s" at model=2) and 10 backward passes on
+   "bwd_h1s" ("bwd_h2s"), none on any other route;
 then the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -514,6 +532,18 @@ BENCH_TRAIN_STEPS = 500
 BENCH_KNOWN_ANSWER_DIM = 64
 # K1 at the sample CLI's shapes in (b): one batch of 10, L=60 and L=77, f32.
 BENCH_K1_CASES = [(BENCH_SAMPLES, 60, "float32"), (BENCH_SAMPLES, 77, "float32")]
+# Phase 23: the training example's --mesh (examples/torch_train_from_scratch.py:
+# data=2 x model=4, one head of 8 a rank) as gloo ranks sharing the card,
+# cut to EXAMPLE_MESH_STEPS steps, and data=4 x model=2 (two heads a rank)
+# in the same spawn, each against the one-process example on the card at
+# the same steps (losses within MESH_LOSS_TOL relative). First K1 at 1 and 2
+# heads, f32, streamed ("h1s" / "h2s", "bwd_h1s" / "bwd_h2s"): (tag, B, L,
+# head width, Cp, masked columns), (a) a rank's batch of the example, (b)
+# masked columns (the example's --trajectory bucket of 64), (c) larger, at
+# the designs' largest Cp.
+EXAMPLE_MESH_STEPS = 5
+EXAMPLE_MESHES = ((2, 4), (4, 2))
+NARROW_CASES = [("a", 4, 8, 8, 16, 0), ("b", 8, 64, 8, 16, 4), ("c", 64, 56, 16, 64, 0)]
 BENCH_EVAL_TIMEOUT_S = 600.0
 ENSEMBLES = [
     ("tests/test_data/samples_example/md_emulation/cath1_1bl0A02.xtc",
@@ -673,9 +703,17 @@ def phase_build():
              # (the training example).
              **{r: " | ".join(
                  f"Cp <= {c} width {d}: "
-                 f"{ptxas_summary(report, f'ipa_attention_h4_kernelILi{c}ELi{d}ELb{int(r == 'h4')}EE')}"
+                 f"{ptxas_summary(report, f'ipa_attention_h4_kernelILi4ELi{c}ELi{d}ELb{int(r == 'h4')}EE')}"
                  f"; dynamic shared memory {lib.ipa_attention_h4_variant_smem_bytes(c, d, int(r == 'h4'))} "
                  f"bytes at Cp={c}" for d in (16, 8) for c in (32, 64)) for r in ("h4", "h4s")},
+             # The streamed instances at 2 and 1 heads (a tensor-parallel rank
+             # of the training example), their largest blocks at Cp=64.
+             **{f"h{h}s": " | ".join(
+                 f"Cp <= {c} width {d}: "
+                 f"{ptxas_summary(report, f'ipa_attention_h4_kernelILi{h}ELi{c}ELi{d}ELb0EE')}"
+                 for d in (16, 8) for c in (32, 64)) + "; dynamic shared memory at Cp=64 "
+                 + ", ".join(f"width {d} {lib.ipa_attention_h12s_smem_bytes(h, 64, d)} bytes"
+                             for d in (16, 8)) for h in (2, 1)},
              # The CUDA-core design at the training example's widths (f32, 4
              # heads of 8, streamed), the yardstick of "h4s".
              "simt": ptxas_summary(report, "ipa_attention_kernelIfLi4ELi8ELb1EE")}
@@ -710,16 +748,26 @@ def phase_build():
         in_kernel = int(route == "bwd_h4")
         ptxas[route] = " | ".join(
             f"width {d}: rows Cp <= {c}: "
-            f"{ptxas_summary(report, f'bwd_h4_rowsILi{c}ELi{d}ELb{in_kernel}EE')}; dynamic "
+            f"{ptxas_summary(report, f'bwd_h4_rowsILi4ELi{c}ELi{d}ELb{in_kernel}EE')}; dynamic "
             f"shared memory {lib.ipa_attention_bwd_h4_width_smem_bytes(c, d)} bytes at Cp={c} (8 "
             f"rows), {lib.ipa_attention_bwd_h4_variant_blocks_per_sm(c, d, in_kernel)} blocks an SM "
             f"resident" for d in (16, 8) for c in (32, 64)) + "".join(
-            f" | width {d}: pre: {ptxas_summary(report, f'{pre}ILi{d}EE')} | cols: "
-            f"{ptxas_summary(report, f'bwd_h4_colsILi{d}EE')}" for d in (16, 8)) + (
+            f" | width {d}: pre: {ptxas_summary(report, f'{pre}ILi4ELi{d}EE')} | cols: "
+            f"{ptxas_summary(report, f'bwd_h4_colsILi4ELi{d}EE')}" for d in (16, 8)) + (
             f" | wsum: {ptxas_summary(report, 'bwd_h4_wsum')}")
-    for route in ("tc", "tc_f32", "tc_pb", "tc_pb_f32", "h4", "h4s", "simt", "tc16", "tc16_f32",
-                  "tc8", "tc8_f32", "bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32", "bwd_tc8",
-                  "bwd_tc8_f32", "bwd_h4", "bwd_h4s"):
+    # Their streamed instances at 2 and 1 heads (the 4-head tiles padded).
+    for h in (2, 1):
+        ptxas[f"bwd_h{h}s"] = " | ".join(
+            f"width {d}: rows Cp <= {c}: "
+            f"{ptxas_summary(report, f'bwd_h4_rowsILi{h}ELi{c}ELi{d}ELb0EE')}; dynamic shared "
+            f"memory {lib.ipa_attention_bwd_h12s_smem_bytes(h, c, d)} bytes at Cp={c} (8 rows), "
+            f"{lib.ipa_attention_bwd_h12s_blocks_per_sm(h, c, d)} blocks an SM resident"
+            for d in (16, 8) for c in (32, 64)) + "".join(
+            f" | width {d}: pre: {ptxas_summary(report, f'bwd_h4s_preILi{h}ELi{d}EE')} | cols: "
+            f"{ptxas_summary(report, f'bwd_h4_colsILi{h}ELi{d}EE')}" for d in (16, 8))
+    for route in ("tc", "tc_f32", "tc_pb", "tc_pb_f32", "h4", "h4s", "h2s", "h1s", "simt", "tc16",
+                  "tc16_f32", "tc8", "tc8_f32", "bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32",
+                  "bwd_tc8", "bwd_tc8_f32", "bwd_h4", "bwd_h4s", "bwd_h2s", "bwd_h1s"):
         log(f"[build] ptxas ({route}): {ptxas[route]}")
     return k1, ptxas
 
@@ -1013,7 +1061,8 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     column) on tensor cores, each product as many times as it has terms
     ("bwd_tc", "bwd_tc16", "bwd_tc8": a x2d and g x2d two bf16 terms, a g
     three; "bwd_tc_f32", "bwd_tc16_f32", "bwd_tc8_f32" and "bwd_h4s": 3xTF32,
-    three TF32 terms each; "bwd_h4": the three and the in-kernel pair
+    three TF32 terms each, and "bwd_h2s" and "bwd_h1s", whose 4-head tiles'
+    padding is not the function's work; "bwd_h4": the three and the in-kernel pair
     bias's three, its recompute, d_w_pb and its d_x2d term, all 3xTF32), and the
     rest in f32 on CUDA cores; the
     two units' times are added. Returns the bound, what bounds it, the
@@ -1035,7 +1084,8 @@ def k1_bwd_bound(args, cts, grads, route="torch"):
     if route == "torch":
         ops_ms = f32_ms(ops)
     else:
-        terms, rate = ((3 + 3 + 3, H100_TF32_OPS_PER_S) if route.endswith("_f32") or route == "bwd_h4s"
+        streamed_h4 = route in ("bwd_h4s", "bwd_h2s", "bwd_h1s")
+        terms, rate = ((3 + 3 + 3, H100_TF32_OPS_PER_S) if route.endswith("_f32") or streamed_h4
                        else (2 + 2 + 3, H100_OPS_PER_S["bfloat16"]))
         products = 3
         if route == "bwd_h4":
@@ -3804,6 +3854,136 @@ def phase_bench(k1, ptxas, card):
                 sample_cases=sample_cases, wall=wall)
 
 
+def _narrow_case(k1, ptxas, gen, H, tag, B, L, dk, cp, masked, card):
+    """K1 at ``H`` (1 or 2) heads of width ``dk`` in f32, streamed, on its
+    instance of the streamed 4-head source ("h1s" / "h2s"; the CUDA-core
+    design takes no such width): one counted launch against the plain
+    version (fatal beyond ``TOL``), the two timed in turns (route, plain,
+    route, plain) beside the bytes bound and the card."""
+    import torch
+
+    args = k1_inputs(B, L, torch.float32, gen, masked, H=H, cp=cp, dk=dk)
+    route = k1.kernel_route(torch.float32, H, dk, cp, True)
+    if route != f"h{H}s":
+        raise AssertionError(f"K1 at {H} heads of {dk} f32 takes route {route!r}")
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **K1_KW)
+    torch.cuda.synchronize()
+    if k1.launches_by_route != {**before, route: before[route] + 1}:
+        raise AssertionError(f"ipa_attention at {H} heads of {dk} did not launch {route!r} once")
+    want = k1.ipa_attention_plain(*args, **K1_KW)
+    err, scale = max_err(got, want)
+    tol = TOL["float32"] * scale
+    launch = lambda: k1._launch_design(route, *args, **K1_KW)
+    times = [cuda_time_ms(fn, reps=20) for fn in
+             (launch, lambda: k1.ipa_attention_plain(*args, **K1_KW)) * 2]
+    ms, plain_ms = (times[0] + times[2]) / 2, (times[1] + times[3]) / 2
+    bound_ms, bound_by, nbytes, ops = k1_bound(args, got, "float32")
+    log(f"[example-mesh-k1] ({tag}) {H} head{'s' if H > 1 else ''} of {dk} Cp={cp} B={B} L={L} "
+        f"f32 streamed masked_cols={masked}: route {route} max_abs_err={err:.3e} (tol {tol:.3e}) "
+        f"ms={ms:.4f} ({times[0]:.4f}, {times[2]:.4f}) plain_ms={plain_ms:.4f} ({times[1]:.4f}, "
+        f"{times[3]:.4f}; in turns) bound_ms={bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.3f} MB, "
+        f"{ops / 1e9:.4f} GFLOP; {ms / bound_ms:.1f}x the bound) library_ms=null (no single "
+        f"PyTorch call computes this function); ptxas ({route}): {ptxas[route]}; {card}")
+    if not err <= tol:
+        raise AssertionError(f"{route} disagrees with the plain version: {err} > {tol}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                design=route)
+
+
+def phase_example_mesh(k1, ptxas, card):
+    """Phase 23: K1 at 1 and 2 heads (``NARROW_CASES``) on "h1s" / "h2s",
+    and its gradients on "bwd_h1s" / "bwd_h2s" (``_grad_case``: against
+    f64, a second call bit for bit, timed in turns with the PyTorch
+    backward); then the training example's ``--mesh`` rank function
+    (``parallel/programs.py::example_rank``) as 8 gloo ranks sharing the
+    card at data=2 x model=4 and data=4 x model=2, EXAMPLE_MESH_STEPS steps
+    each, against the one-process example on the card at the same steps:
+    losses within MESH_LOSS_TOL relative, every rank's K1 forwards on the
+    1-head (2-head) instance and every backward on its backward, none on
+    any other route."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from se3diff_torch.parallel import programs, run_ranks
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    fwd, bwd = {}, {}
+    for H in (1, 2):
+        for tag, B, L, dk, cp, masked in NARROW_CASES:
+            fwd[H, tag] = _narrow_case(k1, ptxas, gen, H, tag, B, L, dk, cp, masked, card)
+            g = bwd[H, tag] = _grad_case(k1, gen, B, L, "float32", masked, H=H, cp=cp, dk=dk,
+                                         tag="example-mesh-grad")
+            log(f"[example-mesh-grad] ({tag}) {H} head{'s' if H > 1 else ''} of {dk} Cp={cp} B={B} "
+                f"L={L}: backward route {g['route']} ms={g['ms']:.4f}, the PyTorch backward in "
+                f"turns {g['torch_ms']:.4f}, bound_ms={g['bound_ms']:.5f} ({g['bound_by']}), "
+                f"gradients within {g['max_rel_err']:.2e} of the largest against f64; {card}")
+            if g["route"] != f"bwd_h{H}s":
+                raise AssertionError(f"K1's backward at {H} heads took {g['route']!r}")
+
+    root = OUT / "example_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    world = EXAMPLE_MESHES[0][0] * EXAMPLE_MESHES[0][1]
+    steps = [(programs.example_rank, (EXAMPLE_MESH_STEPS, str(root / f"data{d}_model{m}"), d, m))
+             for d, m in EXAMPLE_MESHES]
+    _reset_k1(k1)
+    t0 = time.perf_counter()
+    ranks = run_ranks(programs.in_turn, world, [DEVICE + ":0"] * world, args=(steps,),
+                      timeout=900.0, group_timeout=timedelta(seconds=300))
+    spawn_s = time.perf_counter() - t0
+    example = _load_example("torch_train_from_scratch")
+    _reset_k1(k1)
+    one = example.main(["--steps", str(EXAMPLE_MESH_STEPS), "--device", DEVICE,
+                        "--ckpt_dir", str(root / "one")])
+    one_routes = dict(k1.launches_by_route)
+    layers = one["model"]["num_layers"]
+    n = layers * EXAMPLE_MESH_STEPS
+    log(f"[example-mesh] {world} gloo ranks spawned on {DEVICE}:0 ran the example's rank function "
+        f"at " + " and ".join(f"data={d} x model={m}" for d, m in EXAMPLE_MESHES)
+        + f", {EXAMPLE_MESH_STEPS} steps each, in {spawn_s:.1f} s with start-up; the one-process "
+        f"example on the card at {EXAMPLE_MESH_STEPS} steps: losses {one['history']}, K1 launches "
+        f"by route {one_routes} (training and its {example.SAMPLE_STEPS}-step sampling)")
+    readings = {}
+    for k, (d, m) in enumerate(EXAMPLE_MESHES):
+        outs = [r[k] for r in ranks]
+        heads = one["model"]["num_heads"] // m
+        route = f"h{heads}s"
+        hist = outs[0]["history"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(hist, one["history"]))
+        w = outs[0]["weights"]
+        w_gap = max(float(np.abs(w[key] - v.numpy()).max() / max(np.abs(v.numpy()).max(), 1e-30))
+                    for key, v in one["weights"].items() if v.numel())
+        for x in outs:
+            log(f"[example-mesh] data={d} x model={m} ({heads} head{'s' if heads > 1 else ''} of 8 "
+                f"a rank) rank {x['rank']}: {x['wall_s']:.1f} s with set-up; losses {x['history']}; "
+                f"K1 launches by route {x['launches_by_route']}, backward passes "
+                f"{x['backward_calls']} by route {x['backward_calls_by_route']} (expected {n} "
+                f"each, on {route} and bwd_{route})")
+            if not (x["launches_by_route"] == only_routes(k1, **{route: n})
+                    and x["backward_calls"] == n
+                    and x["backward_calls_by_route"] == only_bwd_routes(k1, **{f"bwd_{route}": n})):
+                raise AssertionError(f"the example's rank at model={m} launched K1 "
+                                     f"{x['launches_by_route']} with backward passes "
+                                     f"{x['backward_calls_by_route']}")
+            if x["history"] != hist:
+                raise AssertionError(f"the ranks' losses differ: {x['history']} and {hist}")
+        log(f"[example-mesh] data={d} x model={m} against the one-process example: losses {hist} vs "
+            f"{one['history']}, largest rel_err={rel:.2e} (tol {MESH_LOSS_TOL:.0e}); trained "
+            f"weights' largest gap {w_gap:.2e} of a tensor's largest entry (printed); {card}")
+        if len(hist) != EXAMPLE_MESH_STEPS or not rel <= MESH_LOSS_TOL:
+            raise AssertionError(f"the example's mesh at model={m} disagrees with one process: "
+                                 f"{hist} vs {one['history']}")
+        readings[m] = dict(launches=sum(x["launches_by_route"][route] for x in outs),
+                           backwards=sum(x["backward_calls_by_route"][f"bwd_{route}"] for x in outs),
+                           rel=rel, w_gap=w_gap)
+    wall = time.perf_counter() - t_phase
+    log(f"[example-mesh] phase 23 wall {wall:.1f} s; {card}")
+    return dict(fwd=fwd, bwd=bwd, readings=readings, spawn_s=spawn_s, wall=wall)
+
+
 def _case_keys(prefix, case):
     """A forward case's readings for the kernels line, under ``prefix``."""
     return {f"{prefix}_{k}": case[k] for k in ("ms", "prev_ms", "plain_ms", "bound_ms",
@@ -3953,6 +4133,7 @@ def main() -> int:
     picard = phase_picard(k1, card)
     log(f"[done] phases 20-21 (SP and PP training, Picard) in {time.perf_counter() - t_new:.1f} s")
     bench = phase_bench(k1, ptxas, card)
+    example_mesh = phase_example_mesh(k1, ptxas, card)
 
     main_case = k1_results[K1_CASES[0][:3]]
     ppft_case = k1_results[(256, 56, "bfloat16")]
@@ -4449,7 +4630,40 @@ def main() -> int:
         **_bwd_keys("B256_L56_Cp64", ft_bwd_cases[(256, 56, 4, 64, "float32", 56)]),
         **_bwd_keys("B64_L100", ft_bwd_cases[(64, 100, 4, 32, "float32", 100)]),
         **_bwd_keys("B256_L56_rows28", ft_bwd_cases[(256, 56, 4, 32, "float32", 28)]),
-    }]}
+    }, *({
+        # K1 at a tensor-parallel rank of the training example: f32, streamed,
+        # 1 head (the example's --mesh, data=2 x model=4) and 2 heads
+        # (data=4 x model=2), instances of the streamed 4-head source; launches
+        # summed over the 8 ranks of phase 23's run, readings at (a) a rank's
+        # batch (B=4 L=8, heads of 8, Cp=16), (b) and (c) beside.
+        "name": f"ipa_attention_{h}_head{'s' if h > 1 else ''}_streamed",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_h4.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:322",
+        "launches": example_mesh["readings"][4 // h]["launches"],
+        "design": f"h{h}s",
+        "max_abs_err": example_mesh["fwd"][h, "a"]["max_abs_err"],
+        "ms": example_mesh["fwd"][h, "a"]["ms"],
+        "plain_ms": example_mesh["fwd"][h, "a"]["plain_ms"],
+        "bound_ms": example_mesh["fwd"][h, "a"]["bound_ms"],
+        "bound_by": example_mesh["fwd"][h, "a"]["bound_by"],
+        "library_ms": None,
+        "verdict": "pass",
+        **{f"{tag}_{k}": example_mesh["fwd"][h, tag][k] for tag in ("b", "c")
+           for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+    } for h in (1, 2)), *({
+        # Their backward (no Pallas kernel: "replaces" is the XLA backward),
+        # the padded 4-head tiles of csrc/ipa_attention_bwd_h4.cu; plain_ms is
+        # autograd through the plain version, torch_ms the PyTorch backward.
+        "name": f"ipa_attention_backward_{h}_head{'s' if h > 1 else ''}_streamed",
+        "route": "cuda",
+        "source": "se3diff_torch/csrc/ipa_attention_bwd_h4.cu",
+        "replaces": "se3diff_tpu/ops/pallas_ipa.py:1036",
+        "launches": example_mesh["readings"][4 // h]["backwards"],
+        **_bwd_entry(example_mesh["bwd"][h, "a"]),
+        **{f"{tag}_{k}": example_mesh["bwd"][h, tag][k] for tag in ("b", "c")
+           for k in ("ms", "torch_ms", "bound_ms", "max_rel_err")},
+    } for h in (1, 2))]}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels))
     print(card)

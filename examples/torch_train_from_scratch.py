@@ -6,13 +6,24 @@ learns, by denoising score matching (``training/dsm.py``), the SE(3)
 marginals of a synthetic "protein" dataset (noisy copies of one backbone
 conformation), with the trainer loop's warmup+cosine schedule, checkpoints
 and exact resume (``training/loop.py``). The batches are the JAX example's
-draw for draw.
+draw for draw; the data, the model and the schedule are
+``se3diff_torch/training/example.py``.
 
-Run:  python examples/torch_train_from_scratch.py [--steps 500] [--device cuda|cpu]
+Run:  python examples/torch_train_from_scratch.py [--steps 500] [--device cuda|cpu] [--mesh]
 
 The model is the JAX example's (2 layers, ``dim_model=32``, 4 heads of 8,
 ``dim_pair=16``) on either device; on the card its attention runs K1's
 4-head designs ("h4s" forward, "bwd_h4s" backward).
+
+``--mesh`` trains DP+TP-sharded on the JAX example's mesh, data=2 x model=4
+(``make_mesh(8, model_parallel=4)``): 8 ranks, each with half of every batch
+and one head of 8 of every attention ("h1s" forward, "bwd_h1s" backward on
+the card). With ``--device cuda`` a rank takes a GPU of its own (NCCL), so 8
+must be visible (the run is refused before any rank starts otherwise); with
+``--device cpu`` the ranks are 8 gloo processes. Rank 0 writes the
+checkpoints in the one-device layout; the sampling below runs here, on the
+full weights rank 0 gathers after the last step. Its losses are the
+one-device run's to float rounding.
 
 After training, reverse-diffusion samples from the learned score are
 compared against the data: their mean pairwise Ca distance
@@ -21,9 +32,7 @@ from the prior's ~2.2 toward the dataset's 0.64. After 500 steps it is
 about 1.8-1.9 in either package, averaged over 16 sampling draws of each
 of five or six training seeds; one draw of 8 samples scatters from 0.8 to
 4 (``scripts/train_example_spread.py``; the JAX example's "~1.0" is its
-seed-0 model's first draw). ``--mesh`` of the JAX example has no
-counterpart here: the port's DP+TP training is ``python -m
-se3diff_torch.train --mesh``.
+seed-0 model's first draw).
 """
 
 from __future__ import annotations
@@ -40,73 +49,41 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from se3diff_torch.diffusion import denoise  # noqa: E402
-from se3diff_torch.models.dig import DiGConditionalScoreModel, init_weights  # noqa: E402
-from se3diff_torch.ops import so3 as so3_ops  # noqa: E402
-from se3diff_torch.ops.ipa_attention import check_card_widths  # noqa: E402
-from se3diff_torch.sde.so3_sde import DiGSO3SDE  # noqa: E402
-from se3diff_torch.sde.vpsde import CosineVPSDE  # noqa: E402
-from se3diff_torch.training.loop import TrainConfig, train_dsm  # noqa: E402
-
-L = 8
-# The JAX example's model (examples/train_from_scratch.py).
-JAX_MODEL = dict(num_layers=2, dim_model=32, dim_pair=16, num_heads=4, dim_hidden=64, dropout=0.0)
-SO3 = dict(num_sigma=32, num_omega=256, l_max=500)
-MIN_T = 0.05  # small tables: the IGSO(3) series is valid for l_max * sigma >> 3
-SAMPLE_STEPS = 100
+from se3diff_torch.models.dig import DiGConditionalScoreModel  # noqa: E402
+from se3diff_torch.training.example import (  # noqa: E402, F401 (the example's names)
+    JAX_MODEL, L, MESH, MIN_T, SAMPLE_STEPS, SO3, batch_source, build_model, make_dataset,
+    make_sdes, mean_pairwise_dist, model_config, train_config,
+)
+from se3diff_torch.training.loop import train_dsm  # noqa: E402
 
 
-def make_dataset(rng: np.random.Generator):
-    """One reference conformation; batches are small SE(3) perturbations of
-    it (the JAX example's draws)."""
-    theta = np.linspace(0, 2.5 * np.pi, L)
-    ref_pos = np.stack(
-        [np.cos(theta), np.sin(theta), np.linspace(0, 1.2, L)], axis=-1
-    ).astype(np.float32) * 0.4
-    ref_rotvec = rng.standard_normal((L, 3)).astype(np.float32) * 0.4
+def train_mesh(args, ckpt_dir: str) -> tuple[DiGConditionalScoreModel, list[float], list[dict]]:
+    """The example's training on the ``MESH`` ranks (programs.example_rank);
+    returns the full model rank 0 gathered, on ``args.device``, the global
+    losses and every rank's result."""
+    from se3diff_torch.parallel import launch, programs
+    from se3diff_torch.train import _check_mesh
 
-    # Fixed conditioning, like a real system's cached embeddings.
-    single = rng.standard_normal((L, 384)).astype(np.float32) * 0.1
-    pair = rng.standard_normal((L, L, 128)).astype(np.float32) * 0.1
-
-    def batch_fn(step: int) -> dict:
-        r = np.random.default_rng(step)
-        B = 8
-        pos = ref_pos[None] + r.standard_normal((B, L, 3)).astype(np.float32) * 0.05
-        rotvec = ref_rotvec[None] + r.standard_normal((B, L, 3)).astype(np.float32) * 0.05
-        return {
-            "pos": pos,
-            "rot": so3_ops.rotvec_to_rotmat(torch.from_numpy(rotvec)).numpy(),
-            "single": np.broadcast_to(single, (B, L, 384)),
-            "pair": np.broadcast_to(pair, (B, L, L, 128)),
-        }
-
-    return ref_pos, batch_fn
-
-
-def mean_pairwise_dist(pos: np.ndarray) -> float:
-    d = np.linalg.norm(pos[..., None, :, :] - pos[..., :, None, :], axis=-1)
-    iu = np.triu_indices(pos.shape[-2], k=1)
-    return float(d[..., iu[0], iu[1]].mean())
-
-
-def model_config(device: str) -> dict:
-    """The JAX example's widths, held against what ``device`` takes (the
-    card's check raises on widths its kernels refuse; it reads no device
-    state)."""
-    check_card_widths(JAX_MODEL, device)
-    return JAX_MODEL
-
-
-def build_model(cfg: dict, device: str) -> DiGConditionalScoreModel:
-    """The score net, initialised from seed 0 with the JAX package's
-    initialisers, on ``device``."""
-    model = DiGConditionalScoreModel(**cfg)
-    return init_weights(model, torch.Generator().manual_seed(0)).to(device)
+    data, model = MESH["data"], MESH["model"]
+    if args.batch_size < data:
+        raise SystemExit(f"--batch_size {args.batch_size} cannot split over data={data}")
+    devices = _check_mesh(JAX_MODEL, data, model, args.device)
+    print(f"training on mesh {dict(MESH)}")
+    results = launch.run_ranks(
+        programs.example_rank, data * model, devices,
+        args=(args.steps, ckpt_dir, data, model, args.trajectory, args.topology, args.batch_size))
+    net = DiGConditionalScoreModel(**JAX_MODEL)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in results[0]["weights"].items()},
+                        strict=True)
+    return net.to(args.device), results[0]["history"], results
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=500)
+    ap.add_argument("--mesh", action="store_true",
+                    help="train DP+TP-sharded on an 8-rank mesh (data=2, model=4): one GPU a "
+                         "rank with --device cuda, gloo processes with --device cpu")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--ckpt_dir", default=None)
     ap.add_argument("--trajectory", action="append", default=None,
@@ -119,45 +96,23 @@ def main(argv=None) -> dict:
                          "in the same order)")
     ap.add_argument("--batch_size", type=int, default=8)
     args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if not args.mesh and args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda asked for, but CUDA is not available (use --device cpu)")
 
-    rng = np.random.default_rng(0)
-    if args.trajectory and len(args.trajectory) > 1:
-        from se3diff_torch.training.data import MultiEnsembleDataset
-
-        tops = args.topology or [None] * len(args.trajectory)
-        mds = MultiEnsembleDataset.from_trajectories(
-            list(zip(args.trajectory, tops)), embeds_backend="dummy"
-        )
-        print(f"{len(mds.datasets)} ensembles, {mds.num_frames} frames, "
-              f"buckets {mds.occupied_buckets()}")
-        batch_fn = mds.batch_fn(args.batch_size, device=args.device)
-    elif args.trajectory:
-        from se3diff_torch.training.data import EnsembleDataset
-
-        ds = EnsembleDataset.from_trajectory(
-            args.trajectory[0], args.topology[0] if args.topology else None,
-            embeds_backend="dummy",
-        )
-        print(f"ensemble: {ds.num_frames} frames x {ds.num_residues} residues "
-              f"({ds.sequence[:20]}{'...' if ds.num_residues > 20 else ''})")
-        batch_fn = ds.batch_fn(min(args.batch_size, ds.num_frames), device=args.device)
-    else:
-        _, batch_fn = make_dataset(rng)
-
-    cfg_model = model_config(args.device)
-    model = build_model(cfg_model, args.device)
-    sdes = denoise.SDEs(pos=CosineVPSDE(), node_orientations=DiGSO3SDE(**SO3, device=args.device))
-
+    cfg_model = model_config(args.device, MESH["model"] if args.mesh else 1)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="se3diff_torch_train_")
-    cfg = TrainConfig(
-        num_steps=args.steps, lr=2e-3, warmup_steps=min(20, args.steps // 4),
-        min_t=MIN_T, ckpt_every=max(args.steps // 4, 1), ckpt_dir=ckpt_dir,
-        log_every=max(args.steps // 10, 1),
-    )
     t0 = time.perf_counter()
-    model, history = train_dsm(sdes, model, batch_fn, cfg, val_batch=batch_fn(10_000))
+    ranks = None
+    if args.mesh:
+        model, history, ranks = train_mesh(args, ckpt_dir)
+    batch_fn, desc = batch_source(args.trajectory, args.topology, args.batch_size, args.device)
+    if desc:
+        print(desc)
+    sdes = make_sdes(args.device)
+    if not args.mesh:
+        model = build_model(cfg_model, args.device)
+        model, history = train_dsm(sdes, model, batch_fn, train_config(args.steps, ckpt_dir),
+                                   val_batch=batch_fn(10_000))
     train_s = time.perf_counter() - t0
     print(f"loss: {history[0]:.4f} -> {history[-1]:.4f} "
           f"({args.steps} steps in {train_s:.1f} s; checkpoints in {ckpt_dir})")
@@ -197,7 +152,9 @@ def main(argv=None) -> dict:
     print(f"mean pairwise distance: samples {d_model:.3f} vs data {d_data:.3f} "
           f"(prior {d_prior:.3f}); {SAMPLE_STEPS} EM steps in {sample_s:.1f} s")
     return dict(history=history, d_model=d_model, d_data=d_data, d_prior=d_prior,
-                model=cfg_model, train_s=train_s, sample_s=sample_s)
+                model=cfg_model, train_s=train_s, sample_s=sample_s,
+                weights={k: v.detach().cpu() for k, v in model.state_dict().items()},
+                ranks=ranks)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 """Where the time of K1's hand-written designs goes, by ablation, on one H100.
 
     python3 scripts/k1_ablation.py [tc] [tc_f32] [tc_pb] [tc_pb_f32] [tc16] [tc16_f32] [tc8]
-                                   [tc8_f32] [h4] [h4_cp64]
+                                   [tc8_f32] [h4] [h4_cp64] [h4s]
     python3 scripts/k1_ablation.py --against OTHER_CSRC [design ...]
 
 from the root of a checkout, on a machine with an NVIDIA H100, nvcc and a
@@ -25,7 +25,8 @@ shapes in the mesh trainer, B=16 at L=100 and L=64; the 8-head ones:
 Cp=256, B=40 L=100 and a rank's shape at ``--mesh model=4``, B=16 L=64 in
 bf16 and L=100 in f32; "h4": 4 heads of 16, Cp=32,
 the PPFT control net's B=256 L=56 and a batch of 64; "h4_cp64": the same
-design's Cp <= 64 instance at B=256 L=56). A variant's outputs are wrong by construction: only its time is
+design's Cp <= 64 instance at B=256 L=56; "h4s": its streamed variant at 4
+heads of 16, Cp=32, B=64 L=100 and the training example's B=8 L=8). A variant's outputs are wrong by construction: only its time is
 read, as the share of the full kernel's time that the part it cuts costs.
 Prints one line a variant with ptxas's register and spill report (each
 line after its entry function's mangled name), then the
@@ -170,17 +171,17 @@ CUTS = {
     "h4": {
         "logits": [("    for (int jj = 0; jj < kTJ; ++jj) {\n      float part[kH]",
                     "    for (int jj = 0; jj < 0; ++jj) {\n      float part[kH]")],
-        "pair_bias": [("      for (int k = 0; k < kNC; ++k) {\n        const int c4 = g + kTPR * k;\n        xv[jj][k]",
+        "pair_bias": [("      for (int k = 0; k < (kXReg ? kNC : 0); ++k) {\n        const int c4 = g + kTPR * k;\n        xv[jj][k]",
                        "      for (int k = 0; k < 0; ++k) {\n        const int c4 = g + kTPR * k;\n        xv[jj][k]")],
         "points": [("      for (int k = 0; k < 2; ++k) {\n        const float4 kp = kp4",
                     "      for (int k = 0; k < 0; ++k) {\n        const float4 kp = kp4")],
         "rescale": [("if (!__all_sync(0xffffffffu, corr == 1.f)) {", "if (false) {")],
-        "x2d_sums": [("      for (int k = 0; k < kNC; ++k) {\n        const float4 x = xv[jj][k];",
-                      "      for (int k = 0; k < 0; ++k) {\n        const float4 x = xv[jj][k];")],
+        "x2d_sums": [("      for (int k = 0; k < kNC; ++k) {\n        float4 x;\n        if constexpr (kXReg) {",
+                      "      for (int k = 0; k < 0; ++k) {\n        float4 x;\n        if constexpr (kXReg) {")],
         "value_sums": [("      for (int c = 0; c < kVQ; ++c) {\n        av[0][c]", "      for (int c = 0; c < 0; ++c) {\n        av[0][c]")],
         "projection": [("for (int c = 0; c < Cp; ++c) {\n      const float x = xh[c];",
                         "for (int c = 0; c < 0; ++c) {\n      const float x = xh[c];")],
-        "x2d_copy": [("  for (int k = 0; k < kMaxC / 8; ++k) {", "  for (int k = 0; k < 0; ++k) {")],
+        "x2d_copy": [("  for (int k = 0; k < kMaxC / kTPR; ++k) {", "  for (int k = 0; k < 0; ++k) {")],
         "key_copy": [("for (int e = tid; e < kH * nc * kQ; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
                      ("for (int e = tid; e < kH * nc * 6; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
                      ("for (int e = tid; e < 3 * kH * kNpts * nc; e += nthr) {", "for (int e = tid; e < 0; e += nthr) {"),
@@ -209,8 +210,13 @@ DESIGNS = {  # source, C symbol, dtype name, heads, Cp, has_pa, shapes (B, L)
     # The same design at its largest pair width (its Cp <= 64 instance).
     "h4_cp64": ("ipa_attention_h4.cu", "ipa_attention_h4_fwd", "float32", 4, 64, False,
                 [(256, 56)]),
+    # Its streamed variant (the training example's design) at 4 heads of 16,
+    # Cp=32: B=64 L=100 and the example's batch B=8 L=8.
+    "h4s": ("ipa_attention_h4.cu", "ipa_attention_h4s_fwd", "float32", 4, 32, True,
+            [(64, 100), (8, 8)]),
 }
 CUTS["h4_cp64"] = CUTS["h4"]
+CUTS["h4s"] = {k: v for k, v in CUTS["h4"].items() if k != "pair_bias"}
 
 
 def variants(design: str) -> dict[str, list[tuple[str, str]]]:

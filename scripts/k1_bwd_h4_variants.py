@@ -26,7 +26,9 @@ With ``--against OTHER_CSRC`` (another tree's ``se3diff_torch/csrc``, say the
 parent commit's unpacked by ``git archive`` into a directory that .gitignore
 lists) the one variant is that tree's ``ipa_attention_bwd_h4.cu`` as it is,
 timed in turns with the committed source at the same shapes, with the
-largest difference of any gradient (0 when the two are bit for bit equal).
+largest difference of any gradient (0 when the two are bit for bit equal);
+then the two trees' streamed variant ("bwd_h4s") at the same shapes, bit for
+bit and in turns.
 
 Cuts:
 - ``no_prologue``: the row block's logits' CUDA-core terms and value terms
@@ -65,7 +67,7 @@ OUT = REPO / ".work" / "k1_bwd_h4_variants"
 SHAPES = [(256, 56, 0), (256, 57, 5)]
 
 _SWEEP2 = ("tt < ntiles; ++tt) {\n      const int ja = tt * kTJ + gr, jb = ja + 8;\n"
-           "      const bool oka = ja < Lk, okb = jb < Lk;\n      const float sa")
+           "      const bool oka = ja < Lk, okb = jb < Lk;  // the columns")
 _UV = "        if (16 * mt < C16) {\n#pragma unroll\n          for (int ks = 0; ks < 2; ++ks) {"
 _ST = "constexpr int stages(int maxc) { return maxc > 32 ? 1 : 2; }"
 _PRO = "    for (int r = 0; r < rows; ++r) {"
@@ -79,16 +81,16 @@ VARIANTS = {
     "no_prologue": [(_PRO, _PRO.replace("r < rows", "r < 0"))],
     "no_uv": [(_UV, _UV.replace("16 * mt < C16", "false"))],
     "no_sweep2": [(_SWEEP2, _SWEEP2.replace("tt < ntiles", "tt < 0"))],
-    "no_dq": [("        if (k ? okb : oka) {", "        if (false) {")],
-    "no_cols": [("  bwd_h4_cols<kDK><<<", "  if (false) bwd_h4_cols<kDK><<<")],
+    "no_dq": [("        if (k ? hb : ha) {", "        if (false) {")],
+    "no_cols": [("  bwd_h4_cols<kH, kDK><<<", "  if (false) bwd_h4_cols<kH, kDK><<<")],
     "no_copy": [("    cp_async16(dst + 4 * part, ok ? src + 4 * part : x_row, ok ? 16 : 0, policy);",
                  "    if (false) cp_async16(dst + 4 * part, ok ? src + 4 * part : x_row, ok ? 16 : 0, policy);")],
     "no_pag": [("          mma_tf32(c, a.big, wb[ks].big[0], wb[ks].big[1]);",
                 "          if (false) mma_tf32(c, a.big, wb[ks].big[0], wb[ks].big[1]);"),
                ("          mma_tf32(c2, a.small, wb[ks].big[0], wb[ks].big[1]);\n"
                 "          mma_tf32(c2, a.big, wb[ks].small[0], wb[ks].small[1]);\n", "")],
-    "no_setup": [("      if (h >= kH) break;", "      break;")],
-    "no_keyload": [("  if (fused) {\n    const size_t kr = ((size_t)b * kH + hp) * Lk + min(jp, Lk - 1);",
+    "no_setup": [("      if (h >= kHT) break;", "      break;")],
+    "no_keyload": [("  if (pro) {\n    const size_t kr = ((size_t)b * kH + hp) * Lk + min(jp, Lk - 1);",
                     "#pragma unroll\n  for (int q = 0; q < kDK; ++q) kk[q] = vv[q] = 0.f;\n#pragma unroll\n"
                     "  for (int q = 0; q < kVp; ++q) vp[q] = 0.f;\n#pragma unroll\n"
                     "  for (int q = 0; q < 12; ++q) kp[q] = 0.f;\n"
@@ -100,8 +102,7 @@ VARIANTS = {
     # SM cycles by phase: lane 0 of each live warp adds its phases' clock64()
     # spans to a device counter, read by h4_clock_read.
     "clock": [
-        ("namespace {\n\nconstexpr int kH = 4;",
-         "namespace {\n\n__device__ unsigned long long h4_clock[8];\n\nconstexpr int kH = 4;"),
+        ("namespace {\n\n// Heads (kH", "namespace {\n\n__device__ unsigned long long h4_clock[8];\n\n// Heads (kH"),
         ("  const uint64_t policy = evict_first_policy();\n\n  // The rows' query side",
          "  const uint64_t policy = evict_first_policy();\n  long long ck[9];\n"
          "#pragma unroll\n  for (int k = 0; k < 9; ++k) ck[k] = clock64();\n\n  // The rows' query side"),
@@ -197,7 +198,8 @@ def main(argv: list[str]) -> int:
             print(f"[bwd-h4-variants] {n}: build failed: {rep}")
             return 1
         so = ctypes.CDLL(str(lib))
-        so.ipa_attention_bwd_h4.argtypes, so.ipa_attention_bwd_h4.restype = [vp] * 25 + [ci] * 6 + [cf, cf, vp], ci
+        for entry in (so.ipa_attention_bwd_h4, so.ipa_attention_bwd_h4s):
+            entry.argtypes, entry.restype = [vp] * 25 + [ci] * 6 + [cf, cf, vp], ci
         so.ipa_attention_bwd_h4_row_blocks.argtypes, so.ipa_attention_bwd_h4_row_blocks.restype = [ci] * 3, ci
         fns[n] = so
 
@@ -260,6 +262,41 @@ def main(argv: list[str]) -> int:
                   f"committed {ms:.4f} ({100 * (ms - var) / ms:+.1f}%; "
                   + ", ".join(f"{t:.4f}" for t in times) + f"){held} | {built[n][1]}", flush=True)
         del args, cts, outs, scratch, want
+    if other is not None:
+        # The streamed variant ("bwd_h4s", pa in place of w_pb, d_pa out) of
+        # both trees at the same shapes, bit for bit and in turns.
+        for B, L, masked in SHAPES:
+            args = chip_smoke.k1_inputs(B, L, torch.float32, gen, masked, H=4, cp=32)
+            cts = tuple(torch.randn(s, generator=gen, device="cuda")
+                        for s in ((B, 4, L, 16), (B, 4, L, 24), (B, 4, L, 16)))
+            outs = {n: [torch.empty_like(t) for t in args if t.dim() and t is not args[8]]
+                    for n in ("committed", "against")}
+            scratch = [torch.empty(B, 4, L, -(-L // 4) * 4, device="cuda") for _ in range(2)]
+            parts = torch.empty(fns["committed"].ipa_attention_bwd_h4_row_blocks(B, L, 32),
+                                4 * 32 * 16, device="cuda")
+
+            def streamed(n):
+                ptrs = [t.data_ptr() for t in (*args, *cts, *outs[n], *scratch, parts)]
+
+                def run():
+                    err = fns[n].ipa_attention_bwd_h4s(*ptrs, B, 4, L, L, 16, 32, kw["scalar_w"],
+                                                       kw["pair_w"],
+                                                       torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"launch failed ({err})")
+                return run
+
+            base, run = streamed("committed"), streamed("against")
+            base(), run()
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(outs["committed"], outs["against"]))
+            times = [chip_smoke.cuda_time_ms(fn, reps=20) for fn in (base, run, run, base)]
+            ms, var = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+            print(f"[bwd-h4-variants] bwd_h4s B={B} L={L} masked={masked} against {var:.4f} ms "
+                  f"against the committed {ms:.4f} ({100 * (ms - var) / ms:+.1f}%; "
+                  + ", ".join(f"{t:.4f}" for t in times)
+                  + f"); {'bit for bit equal' if equal else 'NOT bit for bit equal'}", flush=True)
+            del args, cts, outs, scratch
     print(f"[bwd-h4-variants] committed | {built['committed'][1]}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()

@@ -124,8 +124,8 @@ def main(argv=None) -> dict:
     from se3diff_torch.sde.vpsde import CosineVPSDE
 
     score_kw = TINY_SCORE if args.tiny else {}
-    for cfg in (score_kw, CONTROL):
-        check_card_widths(cfg, args.device)
+    check_card_widths(score_kw, args.device, torch.float32 if args.tiny else torch.bfloat16)
+    check_card_widths(CONTROL, args.device, torch.float32, with_pa=False)
     device = resolve_device(args.device)
 
     out = Path(args.output_dir)

@@ -170,7 +170,7 @@ def main(argv=None):
 
     model_kw = (dict(num_layers=1, dim_model=16, dim_pair=8, num_heads=2, dim_hidden=16, dropout=0.0)
                 if args.tiny else dict(dtype=torch.bfloat16))
-    check_card_widths(model_kw, args.device)
+    check_card_widths(model_kw, args.device, model_kw.get("dtype", torch.float32))
     device = resolve_device(args.device)
 
     # Reference frames from the real SH3 backbone; CA positions are the

@@ -111,7 +111,7 @@ def _torch_seeds(args):
     from se3diff_torch.training.loop import TrainConfig, train_dsm
 
     cfg_model = dict(ex.JAX_MODEL, dim_model=args.dim_model)
-    check_card_widths(cfg_model, args.device)
+    check_card_widths(cfg_model, args.device, torch.float32)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda asked for, but CUDA is not available (use --device cpu)")
     _, batch_fn = ex.make_dataset(np.random.default_rng(0))

@@ -27,12 +27,13 @@ device of its operands alone: CPU tensors go through
 :func:`ipa_attention_plain`, which takes any width; CUDA tensors launch a
 kernel or raise. The card takes the widths in :data:`CARD_WIDTHS` (4, 8,
 16 or 32 heads of width 8 or 16, ``Cp <= 256``, ``Cp % 4 == 0``), every
-dtype and variant at each of them; :func:`check_card_widths` holds a model
-config against them before a model is bound to the card. Eleven kernel
-designs, all built with ``nvcc`` for ``sm_90a`` at first use into one
-library bound through ``ctypes``, and a static rule on the widths
-(:func:`kernel_route`) picks one (the tensor-core designs take heads of
-width 16 only):
+dtype and variant at each of them, and those in :data:`NARROW_WIDTHS` (1
+or 2 heads of width 8 or 16, f32, the streamed pair bias, ``Cp <=
+H4_MAX_CP``); :func:`check_card_widths` holds a model config against them
+before a model is bound to the card. Thirteen kernel designs, all built
+with ``nvcc`` for ``sm_90a`` at first use into one library bound through
+``ctypes``, and a static rule on the widths (:func:`kernel_route`) picks
+one (the tensor-core designs take heads of width 16 only):
 
 - ``"tc"`` (``csrc/ipa_attention_tc.cu``): bf16, 32 heads, the streamed
   pair bias and ``Cp % 32 == 0``, the score model's bf16 launches: x2d and
@@ -63,6 +64,11 @@ width 16 only):
   16 or 8, the streamed pair bias and ``Cp <= H4_MAX_CP``, every attention
   of the training example (``examples/torch_train_from_scratch.py``, 4 heads
   of 8): pa tiles staged with the x2d tiles, no pair-bias FMAs;
+- ``"h2s"`` and ``"h1s"`` (the same source's streamed variant at 2 and 1
+  heads): f32, heads of width 16 or 8, the streamed pair bias and ``Cp <=
+  H4_MAX_CP``, a tensor-parallel rank of the training example (``--mesh``:
+  model=4, one head of 8 a rank; model=2, two): 2 threads a head as at 4
+  heads, so 4 or 2 threads a query row;
 - ``"simt"`` (``csrc/ipa_attention.cu``): every other card width (bf16 at 4
   heads, the in-kernel pair bias at 8 and 16 heads, width 8 at 8 to 32
   heads, ``Cp % 32 != 0``), on CUDA-core FMAs; no path launches it.
@@ -96,7 +102,10 @@ launch a kernel or raise:
 - ``"bwd_h4s"`` (the streamed variant of the same source): the same widths
   with the streamed pair bias, the training example's backward: d_pa =
   pair_w ds written by the row kernel, no pair bias formed from x2d, no
-  d_w_pb (``ipa_attention_backward_h4_tiled`` with ``pa`` given).
+  d_w_pb (``ipa_attention_backward_h4_tiled`` with ``pa`` given);
+- ``"bwd_h2s"`` and ``"bwd_h1s"`` (the streamed variant at 2 and 1 heads):
+  a tensor-parallel rank of the training example; its products keep the
+  4-head tiles, the heads past 2 or 1 padded with zeros.
 
 No path calls the two ``*_tiled`` functions.
 
@@ -127,6 +136,7 @@ __all__ = [
     "build_library",
     "library_path",
     "CARD_WIDTHS",
+    "NARROW_WIDTHS",
     "TC_HEAD_DIM",
     "H4_MAX_CP",
     "check_card_widths",
@@ -155,13 +165,22 @@ TC_HEAD_DIM = 16
 # memory's limit: ``kMaxCp`` of csrc/ipa_attention_h4.cu); wider 4-head f32
 # shapes take "simt".
 H4_MAX_CP = 64
+# 1 and 2 heads (a tensor-parallel rank of the training example's 4 heads
+# at --mesh model=4 and model=2): the card takes them only in f32 with the
+# streamed pair bias at Cp <= H4_MAX_CP, on "h1s" / "h2s" and "bwd_h1s" /
+# "bwd_h2s"; every other width or dtype at 1 or 2 heads is refused.
+NARROW_WIDTHS = {"heads": (1, 2), "head_dims": (8, 16), "max_cp": H4_MAX_CP, "cp_multiple": 4,
+                 "dtype": torch.float32}
 # The kernel design each route launches, by C symbol.
 _ROUTE_SYMBOLS = {"tc": "ipa_attention_tc_fwd", "tc_f32": "ipa_attention_tc_f32_fwd",
                   "tc_pb": "ipa_attention_tc_pb_fwd", "tc_pb_f32": "ipa_attention_tc_pb_f32_fwd",
                   "tc16": "ipa_attention_tc16_fwd", "tc16_f32": "ipa_attention_tc16_f32_fwd",
                   "tc8": "ipa_attention_tc8_fwd", "tc8_f32": "ipa_attention_tc8_f32_fwd",
                   "h4": "ipa_attention_h4_fwd", "h4s": "ipa_attention_h4s_fwd",
+                  "h2s": "ipa_attention_h2s_fwd", "h1s": "ipa_attention_h1s_fwd",
                   "simt": "ipa_attention_fwd"}
+# The streamed 4-head source's designs at 1 and 2 heads, by head count.
+_NARROW_ROUTES = {1: "h1s", 2: "h2s"}
 # The tensor-core designs of the streamed pair bias, by head count and dtype.
 _TC_ROUTES = {(32, torch.bfloat16): "tc", (32, torch.float32): "tc_f32",
               (16, torch.bfloat16): "tc16", (16, torch.float32): "tc16_f32",
@@ -176,7 +195,11 @@ _BWD_ROUTE_SYMBOLS = {"bwd_tc": "ipa_attention_bwd_tc", "bwd_tc_f32": "ipa_atten
                       "bwd_tc16_f32": "ipa_attention_bwd_tc16_f32",
                       "bwd_tc8": "ipa_attention_bwd_tc8",
                       "bwd_tc8_f32": "ipa_attention_bwd_tc8_f32",
-                      "bwd_h4": "ipa_attention_bwd_h4", "bwd_h4s": "ipa_attention_bwd_h4s"}
+                      "bwd_h4": "ipa_attention_bwd_h4", "bwd_h4s": "ipa_attention_bwd_h4s",
+                      "bwd_h2s": "ipa_attention_bwd_h2s", "bwd_h1s": "ipa_attention_bwd_h1s"}
+# The routes of csrc/ipa_attention_bwd_h4.cu, which forms every gradient
+# itself (the in-kernel "bwd_h4"; the streamed ones at 4, 2 and 1 heads).
+_BWD_H4_ROUTES = ("bwd_h4", "bwd_h4s", "bwd_h2s", "bwd_h1s")
 # The backward routes whose kernel forms g_wx2d = ct_pr @ w_pv^T itself,
 # taking ct_pr and w_pv: every streamed design (the row design of
 # csrc/ipa_attention_bwd_rows.cuh at 32 and 16 heads, bwd8_rows at 8).
@@ -204,29 +227,47 @@ _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
 
 
-def _widths_error(H: int, dk: int, cp: int) -> str | None:
-    w = CARD_WIDTHS
+def _widths_error(H: int, dk: int, cp: int, dtype: torch.dtype | None = None,
+                  has_pa: bool = True) -> str | None:
+    """Why the card refuses these widths, or None. At 1 and 2 heads the
+    answer depends on the dtype (``None``: not known, refused) and on the
+    pair bias's variant."""
+    w, n = CARD_WIDTHS, NARROW_WIDTHS
     if (H in w["heads"] and dk in w["head_dims"] and 0 < cp <= w["max_cp"]
             and cp % w["cp_multiple"] == 0):
         return None
+    if (H in n["heads"] and dk in n["head_dims"] and 0 < cp <= n["max_cp"]
+            and cp % n["cp_multiple"] == 0 and dtype == n["dtype"] and has_pa):
+        return None
+    got = (f"{H} heads of width {dk}, Cp={cp}"
+           + (f", {'the streamed pair bias' if has_pa else 'the in-kernel pair bias (w_pb)'} in "
+              f"{'an unknown dtype' if dtype is None else str(dtype).replace('torch.', '')}"
+              if H in n["heads"] else ""))
     return (f"the card's IPA attention kernels take {', '.join(map(str, w['heads']))} heads of "
             f"width {' or '.join(map(str, w['head_dims']))} and a pair width Cp <= "
-            f"{w['max_cp']} with Cp % {w['cp_multiple']} == 0; got {H} heads of width {dk}, "
-            f"Cp={cp} (the CPU takes any width)")
+            f"{w['max_cp']} with Cp % {w['cp_multiple']} == 0, and "
+            f"{' or '.join(map(str, n['heads']))} heads of width "
+            f"{' or '.join(map(str, n['head_dims']))} only in float32 with the streamed pair bias "
+            f"and Cp <= {n['max_cp']}; got {got} (the CPU takes any width)")
 
 
-def check_card_widths(model_cfg, device) -> None:
+def check_card_widths(model_cfg, device, dtype: torch.dtype | None = None,
+                      with_pa: bool = True) -> None:
     """Raise ``ValueError``, naming the supported widths, when ``device`` is
     a CUDA device and the card's kernels do not take the attention widths of
     the DiG model config ``model_cfg`` (``num_heads``, ``dim_model /
-    num_heads``, ``dim_pair``; missing keys take the model's defaults).
-    Other devices take any width. Reads no device state, so callers run it
-    before resolving the device."""
+    num_heads``, ``dim_pair``; missing keys take the model's defaults) in
+    the model dtype ``dtype`` with the pair bias streamed (``with_pa``, the
+    score model) or computed in the kernel (the PPFT control net). At 1 and
+    2 heads the card takes f32 and the streamed pair bias only, so there a
+    ``dtype`` of None is refused. Other devices take any width. Reads no
+    device state, so callers run it before resolving the device."""
     if torch.device(device).type != "cuda":
         return
     heads = int(model_cfg.get("num_heads", 32))
     dim_model, cp = int(model_cfg.get("dim_model", 512)), int(model_cfg.get("dim_pair", 256))
-    err = _widths_error(heads, dim_model // heads if dim_model % heads == 0 else -1, cp)
+    err = _widths_error(heads, dim_model // heads if dim_model % heads == 0 else -1, cp, dtype,
+                        with_pa)
     if err is not None:
         raise ValueError(f"model config (dim_model={dim_model}, num_heads={heads}, "
                          f"dim_pair={cp}): {err}")
@@ -241,11 +282,15 @@ def kernel_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -> 
     heads, the in-kernel pair bias and ``Cp % 32 == 0``, ``"tc_pb"`` in bf16
     and ``"tc_pb_f32"`` in f32; for f32 at 4 heads (width 16 or 8) and ``Cp
     <= H4_MAX_CP``, ``"h4"`` with the in-kernel pair bias and ``"h4s"`` with
-    the streamed one; ``"simt"`` for every other width in
+    the streamed one; for f32 at 2 and 1 heads (width 16 or 8), the
+    streamed pair bias and ``Cp <= H4_MAX_CP``, ``"h2s"`` and ``"h1s"`` (the
+    widths of :data:`NARROW_WIDTHS`); ``"simt"`` for every other width in
     :data:`CARD_WIDTHS`. Raises ``ValueError`` for widths none takes."""
-    err = _widths_error(H, dk, cp)
+    err = _widths_error(H, dk, cp, dtype, has_pa)
     if err is not None:
         raise ValueError(err)
+    if H in _NARROW_ROUTES:
+        return _NARROW_ROUTES[H]
     routes = _TC_ROUTES if has_pa else _PB_ROUTES
     if dk == TC_HEAD_DIM and cp % 32 == 0 and (H, dtype) in routes:
         return routes[H, dtype]
@@ -266,12 +311,16 @@ def backward_route(dtype: torch.dtype, H: int, dk: int, cp: int, has_pa: bool) -
     4 heads (width 16 or 8) and ``Cp <= H4_MAX_CP``, the kernel
     ``csrc/ipa_attention_bwd_h4.cu``, ``"bwd_h4"`` with the in-kernel pair
     bias (the PPFT control net) and ``"bwd_h4s"`` with the streamed one (the
+    training example); at 2 and 1 heads (:data:`NARROW_WIDTHS`) the same
+    source's ``"bwd_h2s"`` and ``"bwd_h1s"`` (a tensor-parallel rank of the
     training example); ``"torch"`` (:func:`ipa_attention_backward`) for
     every other width in :data:`CARD_WIDTHS`. CPU operands always run
     ``"torch"``. Raises ``ValueError`` for widths the card refuses."""
-    err = _widths_error(H, dk, cp)
+    err = _widths_error(H, dk, cp, dtype, has_pa)
     if err is not None:
         raise ValueError(err)
+    if H in _NARROW_ROUTES:
+        return f"bwd_{_NARROW_ROUTES[H]}"
     if has_pa and dk == TC_HEAD_DIM and cp % 32 == 0 and (H, dtype) in _BWD_TC_ROUTES:
         return _BWD_TC_ROUTES[H, dtype]
     if H == 4 and dtype == torch.float32 and cp <= H4_MAX_CP:
@@ -368,6 +417,10 @@ def _library() -> ctypes.CDLL:
                 getattr(lib, name).restype = ci
             lib.ipa_attention_bwd_h4_width_smem_bytes.argtypes = [ci, ci]
             lib.ipa_attention_bwd_h4_width_smem_bytes.restype = ci
+            for name in ("ipa_attention_h12s_smem_bytes", "ipa_attention_bwd_h12s_smem_bytes",
+                         "ipa_attention_bwd_h12s_blocks_per_sm"):
+                getattr(lib, name).argtypes = [ci, ci, ci]
+                getattr(lib, name).restype = ci
             for name in ("ipa_attention_tc_f32_smem_bytes", "ipa_attention_tc_pb_smem_bytes",
                          "ipa_attention_tc_pb_f32_smem_bytes", "ipa_attention_h4_smem_bytes",
                          "ipa_attention_tc16_smem_bytes", "ipa_attention_tc16_f32_smem_bytes",
@@ -495,11 +548,12 @@ def _launch_kernel(q_s, k_s, v_s, q_p, k_p, v_p, x2d, w_pv, bias, pa, w_pb, scal
         raise ValueError(f"the {design!r} design needs a 16-byte aligned w_pv")
     if design == "h4" and any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv, w_pb)):
         raise ValueError("the h4 design needs 16-byte aligned q_s, v_s, v_p, w_pv and w_pb")
-    if design == "h4s" and any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv)):
-        raise ValueError("the h4s design needs 16-byte aligned q_s, v_s, v_p and w_pv")
+    if design in ("h4s", "h2s", "h1s") and any(t.data_ptr() % 16 for t in (q_s, v_s, v_p, w_pv)):
+        raise ValueError(f"the {design} design needs 16-byte aligned q_s, v_s, v_p and w_pv")
     lib = _library()
-    if not lib.ipa_attention_takes_heads(H) or not lib.ipa_attention_takes_head_dim(dk):
-        raise ValueError(_widths_error(H, dk, Cp) or f"the library does not take H={H}, dk={dk}")
+    if design == "simt" and not (lib.ipa_attention_takes_heads(H)
+                                 and lib.ipa_attention_takes_head_dim(dk)):
+        raise ValueError(f"the simt design does not take {H} heads of width {dk}")
     out_s = torch.empty_like(q_s)
     out_p = torch.empty((B, H, Lq, 24), dtype=torch.float32, device=q_s.device)
     out_pair = torch.empty_like(q_s)
@@ -684,7 +738,7 @@ def _launch_backward(inputs, grad_outputs, scalar_w: float, pair_w: float, count
     if (pa is None) == (w_pb is None):
         raise ValueError("the backward kernels take one of the streamed pair bias (pa) and w_pb")
     route = backward_route(q_s.dtype, q_s.shape[1], q_s.shape[3], x2d.shape[-1], pa is not None)
-    if route in ("bwd_h4", "bwd_h4s"):
+    if route in _BWD_H4_ROUTES:
         return _launch_backward_h4(inputs, grad_outputs, scalar_w, pair_w, counted)
     if pa is None:
         raise ValueError(f"no backward kernel takes {q_s.shape[1]} heads, Cp={x2d.shape[-1]} in "
@@ -763,7 +817,8 @@ def _launch_backward_h4(inputs, grad_outputs, scalar_w: float, pair_w: float, co
     """:func:`_launch_backward` at 4 heads in f32 (width 16 or 8, ``Cp <=
     H4_MAX_CP``): the kernel ``csrc/ipa_attention_bwd_h4.cu``, with the pair
     bias computed in the kernel (``pa`` None, ``w_pb [Cp, 4]`` f32 last;
-    route ``"bwd_h4"``) or streamed (``pa`` given; route ``"bwd_h4s"``). It
+    route ``"bwd_h4"``) or streamed (``pa`` given; route ``"bwd_h4s"``, and
+    at 2 and 1 heads ``"bwd_h2s"`` and ``"bwd_h1s"``). It
     computes every gradient itself, ``d_w_pv`` (and ``d_w_pb``) from its row
     blocks' partials added in a fixed order. Returns one gradient per input
     (ten, or eleven with ``w_pb`` last): None for the bias and for
@@ -775,7 +830,7 @@ def _launch_backward_h4(inputs, grad_outputs, scalar_w: float, pair_w: float, co
     Lk, Cp = k_s.shape[2], x2d.shape[-1]
     streamed = pa is not None
     route = backward_route(q_s.dtype, H, dk, Cp, streamed)
-    if route != ("bwd_h4s" if streamed else "bwd_h4"):
+    if route not in (("bwd_h4s", "bwd_h2s", "bwd_h1s") if streamed else ("bwd_h4",)):
         raise ValueError(f"no backward kernel takes {H} heads, Cp={Cp} in {q_s.dtype} with "
                          f"{'pa' if streamed else 'w_pb'} (route {route!r})")
     f32, dev = torch.float32, q_s.device
@@ -942,10 +997,11 @@ def ipa_attention_backward_h4_tiled(inputs, grad_outputs, *, scalar_w: float, pa
                                     tile: int = 16, rows: int = 8, tf32: bool = True):
     """Input gradients of :func:`ipa_attention` at 4 heads with the pair bias
     computed in the kernel (``pa`` None, ``w_pb`` last) or streamed (``pa``
-    given), computed the way the backward kernel
-    ``csrc/ipa_attention_bwd_h4.cu`` computes them; no path calls it (the
-    CPU tests hold it against JAX's ``_fused_backward_chunked`` and
-    :func:`ipa_attention_backward`).
+    given; also at 2 and 1 heads, whose kernels pad their products' 4-head
+    tiles with zero heads, which add exact zeros), computed the way the
+    backward kernel ``csrc/ipa_attention_bwd_h4.cu`` computes them; no path
+    calls it (the CPU tests hold it against JAX's ``_fused_backward_chunked``
+    and :func:`ipa_attention_backward`).
 
     Where its algebra differs from :func:`ipa_attention_backward`: the
     logit's terms outside x2d (``q.k``, the point distances, the column

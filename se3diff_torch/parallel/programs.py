@@ -6,6 +6,8 @@ the rank's device and returns numpy or plain values. They drive the
 sequence-parallel (SP) score network, the SP sampling pipeline,
 data-parallel (DP) sampling, the DP+TP train step, the train CLI's ranks
 (:func:`train_rank`, which ``python -m se3diff_torch.train --mesh`` spawns),
+the training example's ranks (:func:`example_rank`, which
+``examples/torch_train_from_scratch.py --mesh`` spawns),
 the SP train step and the pipeline-parallel (PP) score and train step, and
 are what the test suite and ``chip_smoke.py`` run on each rank to hold the
 multi-rank paths against one process.
@@ -43,7 +45,7 @@ from se3diff_torch.training.dsm import (
     pp_train_step,
     sp_train_step,
 )
-from se3diff_torch.training.loop import TrainConfig, make_optimizer
+from se3diff_torch.training.loop import TrainConfig, make_optimizer, train_dsm
 
 
 def in_turn(ctx: RankContext, steps: Sequence[tuple[Callable, tuple]]) -> list[Any]:
@@ -76,7 +78,7 @@ def sp_score(
     or a seed for :func:`~se3diff_torch.models.dig.init_weights`. Returns
     the full ``pos``/``rot`` outputs, the rank's row slab, and its K1
     launches, in all and by route."""
-    k1.check_card_widths(model_cfg, ctx.device)
+    k1.check_card_widths(model_cfg, ctx.device, getattr(torch, dtype))
     model = DiGConditionalScoreModel(**model_cfg, dtype=getattr(torch, dtype), sp=ctx)
     if isinstance(weights, int):
         init_weights(model, torch.Generator().manual_seed(weights))
@@ -272,6 +274,42 @@ def train_rank(ctx: RankContext, argv: Sequence[str], data: int, model: int,
             "backward_calls_by_route": dict(k1.backward_calls_by_route)}
 
 
+def example_rank(ctx: RankContext, steps: int, ckpt_dir: str, data: int, model: int,
+                 trajectory: Sequence[str] | None = None, topology: Sequence[str] | None = None,
+                 batch_size: int = 8) -> dict[str, Any]:
+    """One rank of ``examples/torch_train_from_scratch.py --mesh``: the
+    example's training (:mod:`se3diff_torch.training.example`) on a ``data x
+    model`` mesh, what the example spawns on every rank. Every rank builds
+    the example's global batches and the full seed-0 weights, keeps its
+    shard and runs ``train_dsm`` with its mesh; rank 0 writes the
+    checkpoints in the one-device layout. Returns the logged global losses,
+    the run's wall, the rank's K1 forward launches by route and backward
+    passes (in all and by backward route), and on rank 0 the trained full
+    weights (numpy, gathered over its model group)."""
+    from se3diff_torch.training import example as ex
+
+    logging.basicConfig(level=logging.INFO)
+    mesh = init_mesh(ctx, data, model)
+    batch_fn, _ = ex.batch_source(trajectory, topology, batch_size, ctx.device)
+    full = ex.build_model(ex.JAX_MODEL, "cpu").state_dict()
+    net = DiGConditionalScoreModel(**ex.JAX_MODEL, tp=mesh.tp)
+    net.load_state_dict(shard_state_dict(full, mesh.model_rank, mesh.model), strict=True)
+    net.to(ctx.device)
+    sdes = ex.make_sdes(ctx.device)
+    _reset_k1()
+    t0 = time.perf_counter()
+    net, history = train_dsm(sdes, net, batch_fn, ex.train_config(steps, ckpt_dir),
+                             val_batch=batch_fn(10_000), mesh=mesh)
+    _synchronize(ctx)
+    out = {"history": history, "wall_s": time.perf_counter() - t0, "rank": ctx.rank,
+           "launches_by_route": dict(k1.launches_by_route), "backward_calls": k1.backward_calls,
+           "backward_calls_by_route": dict(k1.backward_calls_by_route)}
+    weights = gather_state_dict(net.state_dict(), mesh.model_group)
+    if ctx.rank == 0:
+        out["weights"] = _numpy(weights)
+    return out
+
+
 def gather_rows_probe(ctx: RankContext, w: np.ndarray, x: np.ndarray) -> dict[str, np.ndarray]:
     """Two row-split products through :func:`~se3diff_torch.parallel.mesh.
     gather_rows`: ``y = W[slab] @ x``, gathered, ``z = W[slab] @ y``,
@@ -308,7 +346,7 @@ def sp_step(
     the step's clipped gradients and updated weights (numpy), the rank's
     row slab and its K1 forward launches by route and backward passes (in
     all and by backward route)."""
-    k1.check_card_widths(model_cfg, ctx.device)
+    k1.check_card_widths(model_cfg, ctx.device, getattr(torch, dtype))
     model = DiGConditionalScoreModel(**model_cfg, dtype=getattr(torch, dtype), sp=ctx)
     sdes, opt = _dsm_setup(ctx, model, weights, so3_kwargs, lr)
     b = _tensors(batch, ctx.device)
@@ -325,7 +363,7 @@ def sp_step(
 
 def _pp_model(ctx: RankContext, data: int, pipe: int, model_cfg: dict,
               weights: dict[str, np.ndarray], dtype: str):
-    k1.check_card_widths(model_cfg, ctx.device)
+    k1.check_card_widths(model_cfg, ctx.device, getattr(torch, dtype))
     mesh = init_mesh(ctx, data, pipe)
     model = DiGConditionalScoreModel(**model_cfg, dtype=getattr(torch, dtype))
     model.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()}, strict=True)

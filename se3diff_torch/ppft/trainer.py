@@ -125,7 +125,7 @@ def load_finetune_bundle(
         raise ValueError("model config must contain 'finetune_model'")
     # load_bundle checks the score model's widths; the control net's here,
     # both before the device is resolved.
-    check_card_widths(config["finetune_model"], device)
+    check_card_widths(config["finetune_model"], device, torch.float32, with_pa=False)
     base = load_bundle(
         ckpt_path, config_path=model_config_path, so3_cache_dir=so3_cache_dir, dtype=dtype,
         device=device,

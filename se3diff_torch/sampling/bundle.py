@@ -214,7 +214,7 @@ def load_bundle(
     (``ValueError``) before the device or the checkpoint is touched.
     """
     config = read_config(checkpoint_path, config_path)
-    check_card_widths(config[model_key], device)
+    check_card_widths(config[model_key], device, dtype)
     device = resolve_device(device)
     model: DiGConditionalScoreModel = instantiate(dict(config[model_key]), dtype=dtype, sp=sp)
     model.load_state_dict(load_checkpoint(str(checkpoint_path)), strict=True)
@@ -247,7 +247,7 @@ def random_bundle(
     """
     cfg = dict(BIOEMU_V1_MODEL)
     cfg.update(model_cfg or {})
-    check_card_widths(cfg, device)
+    check_card_widths(cfg, device, dtype)
     device = resolve_device(device)
     model = DiGConditionalScoreModel(**cfg, dtype=dtype, sp=sp)
     init_weights(model, torch.Generator().manual_seed(seed))

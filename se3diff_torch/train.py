@@ -147,12 +147,14 @@ def _model_config(args) -> tuple[dict, dict | None]:
     return {k: v for k, v in cfg_yaml["score_model"].items() if k != "_target_"}, cfg_yaml
 
 
-def _check_mesh(model_cfg: dict, data: int, model: int, device: str) -> list[str]:
+def _check_mesh(model_cfg: dict, data: int, model: int, device: str,
+                dtype: str = "float32") -> list[str]:
     """The ranks' devices for a ``data x model`` mesh; raises, before any
     rank starts, when ``model`` does not divide the heads, when the card's
     kernels refuse a rank's heads (``check_card_widths`` at H/M heads of the
-    model's width) or when ``device`` is cuda and fewer GPUs are visible than
-    there are ranks."""
+    model's width in the model dtype ``dtype``: at 1 and 2 heads the card
+    takes f32 only) or when ``device`` is cuda and fewer GPUs are visible
+    than there are ranks."""
     import torch
 
     from se3diff_torch.ops.ipa_attention import check_card_widths
@@ -163,7 +165,7 @@ def _check_mesh(model_cfg: dict, data: int, model: int, device: str) -> list[str
         raise SystemExit(f"--mesh model={model} does not divide the model's {heads} heads")
     try:
         check_card_widths({**model_cfg, "num_heads": heads // model,
-                           "dim_model": dim_model // model}, device)
+                           "dim_model": dim_model // model}, device, getattr(torch, dtype))
     except ValueError as e:
         raise SystemExit(f"--mesh model={model} leaves each rank {heads // model} heads: "
                          f"{e}") from None
@@ -188,7 +190,7 @@ def main(argv: list[str] | None = None) -> None:
     data, model = parse_mesh(args.mesh)
     if args.batch_size < data:
         raise SystemExit(f"--batch_size {args.batch_size} cannot split over --mesh data={data}")
-    devices = _check_mesh(_model_config(args)[0], data, model, args.device)
+    devices = _check_mesh(_model_config(args)[0], data, model, args.device, args.dtype)
     logger.info("mesh data=%d, model=%d over %d ranks (%s)", data, model, data * model,
                 ", ".join(devices))
     launch.run_ranks(programs.train_rank, data * model, devices,
@@ -222,7 +224,8 @@ def run(args: argparse.Namespace, mesh=None) -> list[float]:
     writer = mesh is None or mesh.rank == 0
     # Widths the card's kernels refuse fail here, not at the first launch.
     if mesh is None:
-        check_card_widths(model_cfg, args.device)
+        check_card_widths(model_cfg, args.device,
+                          torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
         device = resolve_device(args.device)
     else:
         device = mesh.device

@@ -202,25 +202,26 @@ def test_streamed_h4_algebra_matches_jax_grad(rng, B, Lq, Lk, masked):
         np.testing.assert_allclose(g.numpy(), other.numpy(), atol=1e-4, rtol=1e-3, err_msg=name)
 
 
-def _h4_smem(cp, dk, in_kernel, rows=56):
-    """``Layout<kDK, kPb>(Cp, TI).total`` of ``csrc/ipa_attention_h4.cu``:
-    two x2d stages [rows][4 Cp], the key chunk (k_s and v_s [4][64 dk + 8],
-    v_p [4][64 * 24 + 8], the key points [64][64], the bias [64]), w_pv
-    [4][Cp dk + 4], and streamed, two pair-bias stages [rows][4][4]."""
+def _h4_smem(cp, dk, in_kernel, rows=56, H=4):
+    """``Layout<kH, kDK, kPb>(Cp, TI).total`` of ``csrc/ipa_attention_h4.cu``:
+    two x2d stages [rows][4 Cp], the key chunk (k_s and v_s [H][64 dk + 8],
+    v_p [H][64 * 24 + 8], the key points [64][16 H], the bias [64]), w_pv
+    [H][Cp dk + 4], and streamed, two pair-bias stages [rows][H][4]."""
     stages = 2
-    key = 2 * 4 * (64 * dk + 8) + 4 * (64 * 24 + 8) + 64 * 64 + 64
-    total = 4 * (stages * rows * 4 * cp + key + 4 * (cp * dk + 4))
-    return total + (0 if in_kernel else 4 * stages * rows * 16)
+    key = 2 * H * (64 * dk + 8) + H * (64 * 24 + 8) + 64 * 16 * H + 64
+    total = 4 * (stages * rows * 4 * cp + key + H * (cp * dk + 4))
+    return total + (0 if in_kernel else 4 * stages * rows * H * 4)
 
 
-def _bwd_h4_smem(cp, dk):
-    """``rows_smem_bytes<kDK>(Cp)`` of ``csrc/ipa_attention_bwd_h4.cu``: 8
-    warps' x2d stages (two at Cp <= 32, one above) [16][Cp16 + 8] and W
-    [Cp16][8], the rows' query side [8][4][68 or 52 + dk], s and dphat
-    [8][4][72] each, k_s [4][64 dk + 4] and the key points [4][3][4][72]."""
+def _bwd_h4_smem(cp, dk, H=4):
+    """``rows_smem_bytes<kH, kDK>(Cp)`` of ``csrc/ipa_attention_bwd_h4.cu``:
+    8 warps' x2d stages (two at Cp <= 32, one above) [16][Cp16 + 8] and W
+    [Cp16][8] (the mma tiles' 4 heads at any H), the rows' query side
+    [8][H][68 or 52 + dk], s and dphat [8][H][72] each, k_s [H][64 dk + 4]
+    and the key points [4][3][H][72]."""
     c16 = -(-cp // 16) * 16
     warp = (1 if cp > 32 else 2) * 16 * (c16 + 8) + c16 * 8
-    block = 8 * 4 * (3 * dk + 24 + 12) + 2 * 8 * 4 * 72 + 4 * (64 * dk + 4) + 4 * 3 * 4 * 72
+    block = 8 * H * (3 * dk + 24 + 12) + 2 * 8 * H * 72 + H * (64 * dk + 4) + 4 * 3 * H * 72
     return 4 * (8 * warp + block)
 
 
@@ -230,16 +231,21 @@ def test_h4_sources_state_the_example_widths_and_their_shared_memory():
     (``ipa_attention_h4s_fwd``, ``ipa_attention_bwd_h4s``: the arguments of
     their in-kernel twins), and the shared memory their headers state is
     their layouts' at both widths, within what one block may opt into on
-    Hopper (232,448 bytes; the backward's row kernel two blocks an SM). The
-    card tests hold the library's exported sizes to the same numbers."""
+    Hopper (232,448 bytes; the backward's row kernel two blocks an SM); so
+    are the streamed instances' at 2 and 1 heads (a tensor-parallel rank
+    of the example; "h2s", "h1s", "bwd_h2s", "bwd_h1s"), whose C entries
+    take the same arguments. The card tests hold the library's exported
+    sizes to the same numbers."""
     fwd = (CSRC / "ipa_attention_h4.cu").read_text()
     bwd = (CSRC / "ipa_attention_bwd_h4.cu").read_text()
-    for text, inst in ((fwd, "launch<{c}, {d}, kPb>"), (bwd, "launch<{c}, {d}, kPb>")):
+    for text, inst in ((fwd, "launch<kH, {c}, {d}, kPb>"), (bwd, "launch<kH, {c}, {d}, kPb>")):
         for d in (8, 16):
             for c in (32, 64):
                 assert inst.format(c=c, d=d) in text, (inst, c, d)
-    for text, entries in ((fwd, ("ipa_attention_h4_fwd", "ipa_attention_h4s_fwd")),
-                          (bwd, ("ipa_attention_bwd_h4", "ipa_attention_bwd_h4s"))):
+    for text, entries in ((fwd, ("ipa_attention_h4_fwd", "ipa_attention_h4s_fwd",
+                                 "ipa_attention_h2s_fwd", "ipa_attention_h1s_fwd")),
+                          (bwd, ("ipa_attention_bwd_h4", "ipa_attention_bwd_h4s",
+                                 "ipa_attention_bwd_h2s", "ipa_attention_bwd_h1s"))):
         block = "".join(re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', text, re.S))
         commas = set()
         for name in entries:
@@ -250,6 +256,9 @@ def test_h4_sources_state_the_example_widths_and_their_shared_memory():
         assert len(commas) == 1, entries
     assert k1._ROUTE_SYMBOLS["h4s"] == "ipa_attention_h4s_fwd"
     assert k1._BWD_ROUTE_SYMBOLS["bwd_h4s"] == "ipa_attention_bwd_h4s"
+    for H in (2, 1):
+        assert k1._ROUTE_SYMBOLS[f"h{H}s"] == f"ipa_attention_h{H}s_fwd"
+        assert k1._BWD_ROUTE_SYMBOLS[f"bwd_h{H}s"] == f"ipa_attention_bwd_h{H}s"
 
     stated = {
         (16, True): re.search(r"Shared memory at Cp = 32: ([\d,]+) bytes for 56 rows\.\n"
@@ -270,6 +279,22 @@ def test_h4_sources_state_the_example_widths_and_their_shared_memory():
     for (cp, dk), text in zip(((32, 16), (64, 16), (32, 8), (64, 8)), m.groups()):
         n = int(text.replace(",", ""))
         assert n == _bwd_h4_smem(cp, dk) and n <= 233_472 // 2 - 1024, (cp, dk)
+
+    # The streamed instances at 2 heads (56 rows, 7 warps a block) and at 1
+    # head (64 rows, 4 warps), Cp = 64.
+    m = re.search(r"Shared memory of the streamed variant at 2 heads, Cp = 64: ([\d,]+) bytes for 56 "
+                  r"rows \(width\n// 16\), ([\d,]+) \(width 8\); at 1 head ([\d,]+) bytes for 64 rows "
+                  r"\(width 16\), ([\d,]+) \(width 8\)\.", fwd)
+    for (H, dk, rows), text in zip(((2, 16, 56), (2, 8, 56), (1, 16, 64), (1, 8, 64)), m.groups()):
+        n = int(text.replace(",", ""))
+        assert n == _h4_smem(64, dk, False, rows, H) and n <= 232_448, (H, dk)
+    m = re.search(r"// At 2 heads ([\d,]+) and ([\d,]+) bytes \(width 16\), ([\d,]+) and ([\d,]+) "
+                  r"\(width 8\); at 1 head\n// ([\d,]+) and ([\d,]+) \(width 16\), ([\d,]+) and "
+                  r"([\d,]+) \(width 8\)\.", bwd)
+    shapes = [(H, dk, cp) for H in (2, 1) for dk in (16, 8) for cp in (32, 64)]
+    for (H, dk, cp), text in zip(shapes, m.groups()):
+        n = int(text.replace(",", ""))
+        assert n == _bwd_h4_smem(cp, dk, H) and n <= 233_472 // 2 - 1024, (H, dk, cp)
 
 
 def test_cpu_streamed_backward_at_the_example_widths_counts_the_torch_route(rng):

@@ -785,3 +785,105 @@ def test_h4_variants_use_the_shared_memory_their_sources_state(cuda_device):
         for dk in (8, 16):
             for in_kernel in (0, 1):
                 assert lib.ipa_attention_bwd_h4_variant_blocks_per_sm(cp, dk, in_kernel) >= 2
+
+
+# Shapes of the 1- and 2-head routes (a tensor-parallel rank of the training
+# example at --mesh model=4 and model=2): the example's rank batch (B=4, L=8),
+# a masked bucket, a larger batch (B=64, L=56), row slabs and partial key
+# tiles, more than one key chunk, and one column.
+NARROW_CASES = [(4, 8, 8, 0), (4, 8, 8, 2), (8, 64, 64, 7), (64, 56, 56, 0), (3, 37, 37, 5),
+                (2, 5, 70, 0), (2, 33, 100, 0), (1, 1, 1, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 2])
+@pytest.mark.parametrize("dk", [8, 16])
+@pytest.mark.parametrize("CP", [16, 36, 64])
+@pytest.mark.parametrize("B,Lq,Lk,masked", NARROW_CASES)
+def test_one_and_two_head_routes_match_plain(cuda_device, B, Lq, Lk, masked, CP, dk, H):
+    """f32, 1 or 2 heads of width 8 or 16, the streamed pair bias:
+    ipa_attention launches the "h1s" / "h2s" instance of the streamed 4-head
+    source, within 2e-4 x max|plain| of the plain version. The CUDA-core
+    design takes no such width."""
+    tol = 2e-4
+    route = f"h{H}s"
+    args = _args(cuda_device, B, Lq, Lk, torch.float32, masked, H=H, CP=CP, variant="pa", dk=dk)
+    assert k1.kernel_route(torch.float32, H, dk, CP, True) == route
+    before = dict(k1.launches_by_route)
+    got = k1.ipa_attention(*args, **KW)
+    torch.cuda.synchronize()
+    assert k1.launches_by_route == {**before, route: before[route] + 1}
+    want = k1.ipa_attention_plain(*args, **KW)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+        scale = max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+    with pytest.raises(ValueError, match="simt design does not take"):
+        k1._launch_design("simt", *args, **KW)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 2])
+@pytest.mark.parametrize("dk", [8, 16])
+@pytest.mark.parametrize("CP", [16, 64])
+@pytest.mark.parametrize("B,Lq,Lk,masked", NARROW_CASES)
+def test_one_and_two_head_backward_kernels_match_f64_autograd(cuda_device, B, Lq, Lk, masked, CP,
+                                                              dk, H):
+    """f32, 1 or 2 heads, the streamed pair bias: autograd through
+    ``ipa_attention`` runs "bwd_h1s" / "bwd_h2s" (the 4-head tiles padded
+    with zero heads), each gradient within ``H4_GRAD_TOL`` of the largest
+    entry of autograd's through the plain version in f64, and a second,
+    uncounted call equals the first bit for bit. With one key column the
+    gradients made from ds alone are held at 1e-5 absolute."""
+    route = f"bwd_h{H}s"
+    args = _args(cuda_device, B, Lq, Lk, torch.float32, masked, H=H, CP=CP, variant="pa", dk=dk)
+    cts = _cotangents(args)
+    assert k1.backward_route(torch.float32, H, dk, CP, True) == route
+    names = [n for n, t in zip(NAMES, args) if t is not None and n != "bias"]
+    leaves = [None if t is None else t.clone().requires_grad_(n != "bias") for n, t in zip(NAMES, args)]
+    diff = [leaves[NAMES.index(n)] for n in names]
+    before = dict(k1.backward_calls_by_route)
+    got = torch.autograd.grad(k1.ipa_attention(*leaves, **KW), diff, cts)
+    assert k1.backward_calls_by_route == {**before, route: before[route] + 1}
+    ref = [None if t is None else t.detach().double().requires_grad_(n != "bias")
+           for n, t in zip(NAMES, args)]
+    want = torch.autograd.grad(k1.ipa_attention_plain(*ref, **KW),
+                               [ref[NAMES.index(n)] for n in names], [c.double() for c in cts])
+    plain = [None if t is None else t.detach() for t in args]
+    first = k1._launch_backward(plain, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    second = k1._launch_backward(plain, cts, KW["scalar_w"], KW["pair_w"], counted=False)
+    torch.cuda.synchronize()
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(first, second))
+    for name, g, w, p in zip(names, got, want, diff):
+        assert g.dtype == p.dtype and g.shape == p.shape and torch.isfinite(g).all(), name
+        err = (g.double() - w).abs().max().item()
+        if Lk == 1 and name in ("q_s", "k_s", "q_p", "k_p", "pa"):
+            assert err <= 1e-5, name
+        else:
+            assert err <= H4_GRAD_TOL * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_one_and_two_head_instances_use_the_shared_memory_their_sources_state(cuda_device):
+    """The library's layouts of the 1- and 2-head instances are what the
+    sources' headers state, and the backward's row kernel keeps two 8-warp
+    blocks an SM in each."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(k1.__file__).resolve().parents[1] / "csrc"
+    fwd = (csrc / "ipa_attention_h4.cu").read_text()
+    bwd = (csrc / "ipa_attention_bwd_h4.cu").read_text()
+    num = lambda x: int(x.replace(",", ""))
+    lib = k1._library()
+    f = re.search(r"at 2 heads, Cp = 64: ([\d,]+) bytes for 56 rows \(width\n// 16\), ([\d,]+) "
+                  r"\(width 8\); at 1 head ([\d,]+) bytes for 64 rows \(width 16\), ([\d,]+)", fwd)
+    for (H, dk), text in zip(((2, 16), (2, 8), (1, 16), (1, 8)), f.groups()):
+        assert lib.ipa_attention_h12s_smem_bytes(H, 64, dk) == num(text)
+    b = re.search(r"// At 2 heads ([\d,]+) and ([\d,]+) bytes \(width 16\), ([\d,]+) and ([\d,]+) "
+                  r"\(width 8\); at 1 head\n// ([\d,]+) and ([\d,]+) \(width 16\), ([\d,]+) and "
+                  r"([\d,]+) \(width 8\)", bwd)
+    shapes = [(H, dk, cp) for H in (2, 1) for dk in (16, 8) for cp in (32, 64)]
+    for (H, dk, cp), text in zip(shapes, b.groups()):
+        assert lib.ipa_attention_bwd_h12s_smem_bytes(H, cp, dk) == num(text)
+        assert lib.ipa_attention_bwd_h12s_blocks_per_sm(H, cp, dk) >= 2

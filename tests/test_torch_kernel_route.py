@@ -87,6 +87,11 @@ REFUSED = [dict(dim_model=16, dim_pair=32, num_heads=4), dict(dim_model=192, dim
     (F32, 32, 8, 256, False, "simt"),
     (BF16, 16, 8, 128, True, "simt"),
     (F32, 8, 8, 64, True, "simt"),
+    (F32, 1, 8, 16, True, "h1s"),        # a rank of the training example at --mesh model=4
+    (F32, 2, 8, 16, True, "h2s"),        # at model=2
+    (F32, 1, 16, 64, True, "h1s"),       # the h4 designs' largest Cp
+    (F32, 2, 16, 4, True, "h2s"),
+    (F32, 2, 8, 36, True, "h2s"),
 ])
 def test_route_rule(dtype, H, dk, cp, has_pa, route):
     assert k1.kernel_route(dtype, H, dk, cp, has_pa) == route
@@ -94,7 +99,7 @@ def test_route_rule(dtype, H, dk, cp, has_pa, route):
 
 @pytest.mark.parametrize("dtype,H,dk,cp,has_pa", [
     (BF16, 12, 16, 256, True),   # heads
-    (F32, 2, 16, 32, True),
+    (BF16, 2, 16, 32, True),     # 2 heads: f32 only
     (F32, 32, 4, 256, True),     # head width
     (F32, 4, 12, 16, True),
     (BF16, 32, 16, 260, True),   # Cp > 256
@@ -155,6 +160,10 @@ def test_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp, has_pa)
     (F32, 32, 8, 256, True, "torch"),          # width 8 at 32, 16 and 8 heads
     (BF16, 16, 8, 256, True, "torch"),
     (F32, 8, 8, 64, True, "torch"),
+    (F32, 1, 8, 16, True, "bwd_h1s"),          # a rank of the training example at --mesh model=4
+    (F32, 2, 8, 16, True, "bwd_h2s"),          # at model=2
+    (F32, 1, 16, 64, True, "bwd_h1s"),
+    (F32, 2, 16, 36, True, "bwd_h2s"),
 ])
 def test_backward_route_rule(dtype, H, dk, cp, has_pa, route):
     assert k1.backward_route(dtype, H, dk, cp, has_pa) == route
@@ -168,17 +177,99 @@ def test_backward_route_rule_raises_for_widths_the_card_refuses(dtype, H, dk, cp
         k1.backward_route(dtype, H, dk, cp, has_pa)
 
 
+@pytest.mark.parametrize("dtype,H,dk,cp,has_pa,why", [
+    (BF16, 1, 8, 16, True, "bfloat16"),                 # bf16 at 1 and 2 heads
+    (BF16, 2, 16, 64, True, "bfloat16"),
+    (F32, 1, 8, 68, True, "Cp=68"),                     # Cp > 64
+    (F32, 2, 16, 256, True, "Cp=256"),
+    (F32, 1, 8, 16, False, "in-kernel pair bias"),      # the in-kernel w_pb
+    (F32, 2, 16, 32, False, "in-kernel pair bias"),
+    (None, 1, 8, 16, True, "unknown dtype"),            # the dtype not known
+    (F32, 1, 12, 16, True, "width 12"),
+])
+def test_one_and_two_heads_take_f32_streamed_only(dtype, H, dk, cp, has_pa, why):
+    """At 1 and 2 heads (a tensor-parallel rank of the training example) the
+    card takes f32, the streamed pair bias and Cp <= H4_MAX_CP only: every
+    other dtype, variant or width raises, naming what it got, in both rules
+    and in ``check_card_widths`` (which reads no device state)."""
+    for rule in (k1.kernel_route, k1.backward_route):
+        with pytest.raises(ValueError, match=WIDTHS_MSG) as err:
+            rule(dtype, H, dk, cp, has_pa)
+        assert why in str(err.value) and "1 or 2 heads of width 8 or 16 only in float32" in str(err.value)
+    cfg = dict(num_heads=H, dim_model=H * dk, dim_pair=cp)
+    with pytest.raises(ValueError, match=WIDTHS_MSG):
+        k1.check_card_widths(cfg, "cuda", dtype, with_pa=has_pa)
+    k1.check_card_widths(cfg, "cpu", dtype, with_pa=has_pa)  # the plain version takes any width
+
+
+def test_check_card_widths_takes_one_and_two_heads_in_f32_streamed():
+    """A rank's heads of the training example: 1 and 2 heads of 8 or 16,
+    Cp <= 64, in f32 with the streamed pair bias pass the check."""
+    for H in (1, 2):
+        for dk in (8, 16):
+            for cp in (4, 16, 64):
+                k1.check_card_widths(dict(num_heads=H, dim_model=H * dk, dim_pair=cp), "cuda", F32)
+
+
+@pytest.mark.parametrize("dtype,match", [("float32", "GPUs"), ("bfloat16", "heads")])
+def test_train_cli_mesh_checks_a_rank_heads_in_the_model_dtype(tmp_path, monkeypatch, dtype, match):
+    """``--mesh model=4`` of the training example's widths (4 heads of 8)
+    leaves each rank one head: in f32 the card takes it (and the run is
+    refused for want of GPUs), in bf16 it is refused for its widths; both
+    before any rank starts."""
+    from se3diff_torch.parallel import launch
+
+    def no_spawn(*a, **kw):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(launch, "run_ranks", no_spawn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = tmp_path / "config.yaml"
+    block = {"_target_": "bioemu.shortcuts.DiGConditionalScoreModel", "num_layers": 2,
+             "dim_model": 32, "dim_pair": 16, "num_heads": 4, "dim_hidden": 64, "dropout": 0.0}
+    path.write_text(yaml.safe_dump({"score_model": block}))
+    with pytest.raises(SystemExit, match=match):
+        train.main(["--trajectory", str(tmp_path / "none.pdb"), "--model_config_path", str(path),
+                    "--mesh", "model=4", "--device", "cuda", "--dtype", dtype])
+
+
+def test_example_mesh_on_the_card_is_refused_before_any_rank_starts(monkeypatch):
+    """``examples/torch_train_from_scratch.py --mesh --device cuda`` takes a
+    GPU a rank: with fewer than 8 visible it exits before any rank starts,
+    as the train CLI's ``--mesh`` does."""
+    import sys
+
+    from se3diff_torch.parallel import launch
+
+    def no_spawn(*a, **kw):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(launch, "run_ranks", no_spawn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    examples = str(CSRC.parents[1] / "examples")
+    sys.path.insert(0, examples)
+    try:
+        import torch_train_from_scratch as example
+    finally:
+        sys.path.remove(examples)
+    with pytest.raises(SystemExit, match="needs 8 GPUs"):
+        example.main(["--mesh", "--device", "cuda", "--steps", "1"])
+
+
 def test_each_backward_symbol_has_exactly_one_extern_c_definition():
     """Every backward route's C symbol is defined once across ``csrc/*.cu``,
     inside an ``extern "C"`` block of its design's source, with the
     arguments the binding declares (35 for the streamed designs at 32, 16
-    and 8 heads, which take ct_pr and w_pv; 34 for bwd_h4 and bwd_h4s); the
-    counts hold one entry a backward route and "torch"."""
+    and 8 heads, which take ct_pr and w_pv; 34 for bwd_h4, bwd_h4s and
+    its 2- and 1-head instances bwd_h2s and bwd_h1s); the counts hold one
+    entry a backward route and "torch"."""
     sources = {"bwd_tc": "ipa_attention_bwd_tc.cu", "bwd_tc_f32": "ipa_attention_bwd_tc.cu",
                "bwd_tc16": "ipa_attention_bwd_tc16.cu",
                "bwd_tc16_f32": "ipa_attention_bwd_tc16.cu",
                "bwd_tc8": "ipa_attention_bwd_tc8.cu", "bwd_tc8_f32": "ipa_attention_bwd_tc8.cu",
-               "bwd_h4": "ipa_attention_bwd_h4.cu", "bwd_h4s": "ipa_attention_bwd_h4.cu"}
+               "bwd_h4": "ipa_attention_bwd_h4.cu", "bwd_h4s": "ipa_attention_bwd_h4.cu",
+               "bwd_h2s": "ipa_attention_bwd_h4.cu", "bwd_h1s": "ipa_attention_bwd_h4.cu"}
     for route, symbol in k1._BWD_ROUTE_SYMBOLS.items():
         found = []
         for path in CSRC.glob("*.cu"):
@@ -192,7 +283,7 @@ def test_each_backward_symbol_has_exactly_one_extern_c_definition():
         assert found == [sources[route]], (symbol, found)
     assert set(k1.backward_calls_by_route) == {"bwd_tc", "bwd_tc_f32", "bwd_tc16", "bwd_tc16_f32",
                                                "bwd_tc8", "bwd_tc8_f32", "bwd_h4", "bwd_h4s",
-                                               "torch"}
+                                               "bwd_h2s", "bwd_h1s", "torch"}
 
 
 def test_backward_kernel_source_states_widths_and_shared_memory():
@@ -251,14 +342,17 @@ def test_cpu_backward_counts_the_torch_route():
 
 def test_h4_backward_source_states_widths_and_shared_memory():
     """The bwd_h4 source takes the widths its routes name (4 heads of 16 or
-    8, Cp up to ``H4_MAX_CP``, the pair bias from ``w_pb`` or streamed),
-    states its row kernel's shared memory at both widths within what a
-    block may opt into on Hopper, exports it, and the routes take every Cp
-    % 4 == 0 up to ``H4_MAX_CP`` in f32 at 4 heads ("bwd_h4" with ``w_pb``,
-    "bwd_h4s" streamed) and nothing else at 4 heads."""
+    8, Cp up to ``H4_MAX_CP``, the pair bias from ``w_pb`` or streamed; 2
+    and 1 heads streamed, on mma tiles of 4 heads), states its row kernel's
+    shared memory at both widths within what a block may opt into on
+    Hopper, exports it, and the routes take every Cp % 4 == 0 up to
+    ``H4_MAX_CP`` in f32 at 4 heads ("bwd_h4" with ``w_pb``, "bwd_h4s"
+    streamed) and nothing else at 4 heads; at 2 and 1 heads f32 streamed
+    only ("bwd_h2s", "bwd_h1s"), every other width refused."""
     text = (CSRC / "ipa_attention_bwd_h4.cu").read_text()
-    assert "constexpr int kH = 4;" in text
-    assert "template <int kMaxC, int kDK, bool kPb>" in text
+    assert "constexpr int kHT = 4;" in text
+    assert "template <int kH, int kMaxC, int kDK, bool kPb>" in text
+    assert "return dispatch<2, false>(" in text and "return dispatch<1, false>(" in text
     assert "(DK != 8 && DK != 16)" in text and k1.CARD_WIDTHS["head_dims"] == (8, 16)
     assert f"constexpr int kMaxCp = {k1.H4_MAX_CP};" in text
     stated = re.search(r"Shared memory of bwd_h4_rows: ([\d,]+) bytes at Cp = 32 \(8 rows\), "
@@ -275,6 +369,15 @@ def test_h4_backward_source_states_widths_and_shared_memory():
             assert k1.backward_route(BF16, 4, dk, cp, False) == "torch", cp
             assert k1.backward_route(F32, 4, dk, cp, True) == ("bwd_h4s" if fits else "torch"), cp
             assert k1.backward_route(BF16, 4, dk, cp, True) == "torch", cp
+            for H in (2, 1):
+                if fits:
+                    assert k1.backward_route(F32, H, dk, cp, True) == f"bwd_h{H}s", (H, cp)
+                else:
+                    with pytest.raises(ValueError, match=WIDTHS_MSG):
+                        k1.backward_route(F32, H, dk, cp, True)
+                for dtype, has_pa in ((BF16, True), (F32, False)):
+                    with pytest.raises(ValueError, match=WIDTHS_MSG):
+                        k1.backward_route(dtype, H, dk, cp, has_pa)
 
 
 def test_cpu_in_kernel_backward_counts_the_torch_route():
@@ -355,7 +458,7 @@ def test_every_route_names_an_entry_the_cuda_sources_define():
         assert signature[:signature.index(")")].count(",") == 24
     assert set(k1.launches_by_route) == set(k1._ROUTE_SYMBOLS) == {
         "tc", "tc_f32", "tc_pb", "tc_pb_f32", "tc16", "tc16_f32", "tc8", "tc8_f32", "h4", "h4s",
-        "simt"}
+        "h2s", "h1s", "simt"}
     assert k1._ROUTE_SYMBOLS["tc_f32"] == "ipa_attention_tc_f32_fwd"
     assert k1._ROUTE_SYMBOLS["tc_pb"] == "ipa_attention_tc_pb_fwd"
     assert k1._ROUTE_SYMBOLS["tc_pb_f32"] == "ipa_attention_tc_pb_f32_fwd"
@@ -365,6 +468,8 @@ def test_every_route_names_an_entry_the_cuda_sources_define():
     assert k1._ROUTE_SYMBOLS["tc8_f32"] == "ipa_attention_tc8_f32_fwd"
     assert k1._ROUTE_SYMBOLS["h4"] == "ipa_attention_h4_fwd"
     assert k1._ROUTE_SYMBOLS["h4s"] == "ipa_attention_h4s_fwd"
+    assert k1._ROUTE_SYMBOLS["h2s"] == "ipa_attention_h2s_fwd"
+    assert k1._ROUTE_SYMBOLS["h1s"] == "ipa_attention_h1s_fwd"
 
 
 def test_each_route_symbol_has_exactly_one_extern_c_definition():
@@ -385,13 +490,17 @@ def test_h4_cp_limit_is_the_sources_constant():
     streamed one at widths 16 and 8) fits what a block may opt into on
     Hopper, it instantiates both widths and both variants, and the routes
     take every Cp % 4 == 0 up to it and none above ("h4" in-kernel, "h4s"
-    streamed, at widths 16 and 8)."""
+    streamed, at widths 16 and 8; at 2 and 1 heads "h2s" and "h1s", f32
+    streamed only, ``NARROW_WIDTHS``)."""
     src = (CSRC / "ipa_attention_h4.cu").read_text()
     assert f"constexpr int kMaxCp = {k1.H4_MAX_CP};" in src
-    assert "constexpr int kH = 4;" in src
-    assert "template <int kMaxC, int kDK, bool kPb>" in src
+    assert "constexpr int kH4 = 4;" in src
+    assert "template <int kH, int kMaxC, int kDK, bool kPb>" in src
     assert "(DK != 8 && DK != 16)" in src and k1.CARD_WIDTHS["head_dims"] == (8, 16)
-    assert "return dispatch<true>(" in src and "return dispatch<false>(" in src
+    assert "return dispatch<kH4, true>(" in src and "return streamed_entry<kH4>(" in src
+    assert "return streamed_entry<2>(" in src and "return streamed_entry<1>(" in src
+    assert k1.NARROW_WIDTHS == {"heads": (1, 2), "head_dims": (8, 16), "max_cp": k1.H4_MAX_CP,
+                                "cp_multiple": 4, "dtype": F32}
     stated = re.search(rf"Shared memory at Cp = {k1.H4_MAX_CP}: ([\d,]+) bytes", src)
     assert stated is not None
     assert int(stated.group(1).replace(",", "")) <= 232_448
@@ -406,6 +515,12 @@ def test_h4_cp_limit_is_the_sources_constant():
             assert k1.kernel_route(F32, 4, dk, cp, False) == ("h4" if fits else "simt"), cp
             assert k1.kernel_route(F32, 4, dk, cp, True) == ("h4s" if fits else "simt"), cp
             assert k1.kernel_route(BF16, 4, dk, cp, True) == "simt", (dk, cp)
+            for H in (2, 1):
+                if fits:
+                    assert k1.kernel_route(F32, H, dk, cp, True) == f"h{H}s", (H, cp)
+                else:
+                    with pytest.raises(ValueError, match=WIDTHS_MSG):
+                        k1.kernel_route(F32, H, dk, cp, True)
 
 
 @pytest.mark.parametrize("route,dtype,source", [("tc_pb", BF16, "ipa_attention_tc.cu"),
